@@ -1,0 +1,21 @@
+"""qgcm_torch: the PyTorch and CUDA port of qgcm_tpu.
+
+The JAX package `qgcm_tpu` stays the reference; this package computes
+the same model with PyTorch tensors and hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a). Module names mirror `qgcm_tpu`.
+
+Precision policy, as in qgcm_tpu: model initialisation runs in float64
+NumPy on the host and is moved to the device once; the stepped fields
+take `ModelConfig.dtype`. Nothing here sets a global default dtype or
+device: every tensor is made on the device `build_model` was given.
+
+The port covers the ocean-only box so far (config, grids, modes,
+radiation, topography, the box PV inversion, the ocean substep and its
+runner). Importing this package never imports JAX.
+"""
+
+from .config import (ModelConfig, OceanConfig, AtmosConfig,  # noqa: F401
+                     MixedLayerConfig, RadiationConfig, SpongeConfig,
+                     PRESETS)
+
+__version__ = "0.1.0"

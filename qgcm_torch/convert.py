@@ -1,0 +1,43 @@
+"""Carry ocean state and forcing across between qgcm_tpu and the port.
+
+The JAX package's OceanState / OceanForcing are handed over as a
+mapping of field name to NumPy array ({k: np.asarray(v) for k, v in
+st._asdict().items()}); they become the port's tensors on a given
+device and dtype.
+`to_numpy` goes back: a dict of NumPy arrays (in the tensors' dtype)
+keyed by field name, from which the JAX NamedTuple is rebuilt with
+`Cls(**d)`.
+This module imports neither JAX nor qgcm_tpu.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from .state import OceanForcing, OceanState
+
+
+def _to_torch(cls, src: Mapping, device, dtype):
+    return cls(**{name: torch.tensor(np.asarray(src[name])).to(
+        device=device, dtype=dtype) for name in cls._fields})
+
+
+def state_to_torch(src: Mapping, device="cpu",
+                   dtype=torch.float64) -> OceanState:
+    """OceanState of tensors from {field: array}."""
+    return _to_torch(OceanState, src, device, dtype)
+
+
+def forcing_to_torch(src: Mapping, device="cpu",
+                     dtype=torch.float64) -> OceanForcing:
+    """OceanForcing of tensors from {field: array}."""
+    return _to_torch(OceanForcing, src, device, dtype)
+
+
+def to_numpy(nt: NamedTuple) -> dict:
+    """{field: np.ndarray} of a port NamedTuple, copied to the host."""
+    return {name: getattr(nt, name).detach().cpu().numpy()
+            for name in nt._fields}

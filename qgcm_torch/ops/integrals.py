@@ -1,0 +1,35 @@
+"""Area integrals with C-grid edge weights (port of
+qgcm_tpu/ops/integrals.py).
+
+xintp is the p-grid trapezoidal sum with 1/2 edge and 1/4 corner
+weights (reference src/intsubs.f); multiply by dx*dy for the physical
+area integral, as the reference's call sites do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def xintp_weights(nyp: int, nxp: int, dtype=np.float64) -> np.ndarray:
+    """Trapezoidal p-grid weights: 1 interior, 1/2 edges, 1/4 corners."""
+    w = np.ones((nyp, nxp), dtype=dtype)
+    w[0, :] *= 0.5
+    w[-1, :] *= 0.5
+    w[:, 0] *= 0.5
+    w[:, -1] *= 0.5
+    return w
+
+
+def xintp(field: torch.Tensor) -> torch.Tensor:
+    """Trapezoidal p-grid sum over the last two axes, from slices (no
+    grid-sized weight field)."""
+    inner = field[..., 1:-1, 1:-1].sum(dim=(-2, -1))
+    edges = 0.5 * (field[..., 0, 1:-1].sum(dim=-1)
+                   + field[..., -1, 1:-1].sum(dim=-1)
+                   + field[..., 1:-1, 0].sum(dim=-1)
+                   + field[..., 1:-1, -1].sum(dim=-1))
+    corners = 0.25 * (field[..., 0, 0] + field[..., 0, -1]
+                      + field[..., -1, 0] + field[..., -1, -1])
+    return inner + edges + corners

@@ -1,0 +1,118 @@
+"""Modified-Helmholtz solver for the box PV inversion (port of the
+'fft' transform of qgcm_tpu/solver/helmholtz.py::BoxHelmholtz).
+
+Solves del^2(p) - rdm2 * p = rhs (5-point FD Laplacian) with p = 0 on
+all four walls as one 2-D DST-I solve:
+
+    p = T^-1 [ T(rhs) / (lam_x + lam_y - rdm2) ]
+
+which is the same discrete solution as the reference's
+transform-plus-tridiagonal method (src/ocisubs.F:415-618). The DST-I is
+an odd extension fed to torch.fft.rfft (cuFFT on the card). The
+qgcm_tpu sine-matrix GEMM DST ('matmul') and its packed and block
+forms are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+def dst1(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Unnormalised type-I discrete sine transform along `dim`.
+
+    X_k = 2 * sum_{j=1..N} x_j sin(pi j k / (N+1)),  k = 1..N
+    (FFTPACK `dsint` convention, so dst1(dst1(x)) == 2*(N+1)*x), from the
+    real FFT of the odd extension [0, x, 0, -reverse(x)].
+    """
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    zero = x.new_zeros(x.shape[:-1] + (1,))
+    z = torch.cat([zero, x, zero, -x.flip(-1)], dim=-1)
+    X = -torch.fft.rfft(z, dim=-1).imag[..., 1:n + 1]
+    return X.movedim(-1, dim)
+
+
+def dst1_np(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    """NumPy float64 twin of `dst1` for host-side (init-time) solves."""
+    x = np.moveaxis(np.asarray(x, dtype=np.float64), axis, -1)
+    n = x.shape[-1]
+    z = np.zeros(x.shape[:-1] + (2 * (n + 1),), dtype=np.float64)
+    z[..., 1:n + 1] = x
+    z[..., n + 2:] = -x[..., ::-1]
+    X = -np.fft.rfft(z, axis=-1).imag[..., 1:n + 1]
+    return np.moveaxis(X, -1, axis)
+
+
+@dataclass(frozen=True)
+class BoxHelmholtz:
+    """Solver for the finite box (Dirichlet on all boundaries).
+
+    Grid: p-array of shape (nyp, nxp); the unknowns are the
+    (nyp-2) x (nxp-2) interior points. The O(N) vectors are tensors on
+    the solver's device in the model dtype; the spectral denominators
+    are formed from them on the fly.
+    """
+
+    nxp: int
+    nyp: int
+    lamx: torch.Tensor       # (nxp-2,) x-eigenvalues
+    lamy: torch.Tensor       # (nyp-2,)
+    rdm2: torch.Tensor       # (nm,)
+    gx: torch.Tensor         # (nxp-2,) DST of the ones vector
+    gy: torch.Tensor         # (nyp-2,)
+    norm: float              # combined inverse-transform normalisation
+
+    def _denom(self) -> torch.Tensor:
+        return (self.lamx[None, None, :] + self.lamy[None, :, None]
+                - self.rdm2[:, None, None])
+
+    def forward(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Interior 2-D DST of a p-grid field."""
+        return dst1(dst1(rhs[..., 1:-1, 1:-1], dim=-1), dim=-2)
+
+    def inverse(self, spec: torch.Tensor) -> torch.Tensor:
+        """Inverse 2-D DST, scaled by norm, with zero boundaries."""
+        sol = dst1(dst1(spec, dim=-1), dim=-2) * self.norm
+        return torch.nn.functional.pad(sol, (1, 1, 1, 1))
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """rhs: (nm, nyp, nxp); returns the solution with zero walls."""
+        return self.inverse(self.forward(rhs) / self._denom())
+
+    def solve_np(self, rhs: np.ndarray) -> np.ndarray:
+        """Host-side float64 solve (model initialisation only) of a
+        float64 solver on the CPU."""
+        if self.lamx.dtype != torch.float64 or self.lamx.device.type != "cpu":
+            raise ValueError("solve_np needs a float64 solver on the cpu")
+        rhs = np.asarray(rhs, dtype=np.float64)
+        spec = dst1_np(dst1_np(rhs[..., 1:-1, 1:-1], axis=-1), axis=-2)
+        spec = spec * (1.0 / self._denom().numpy())
+        sol = dst1_np(dst1_np(spec, axis=-1), axis=-2) * self.norm
+        return np.pad(sol, [(0, 0)] * (rhs.ndim - 2) + [(1, 1), (1, 1)])
+
+
+def make_box_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
+                       rdm2: np.ndarray, dtype=torch.float64,
+                       device="cpu") -> BoxHelmholtz:
+    """rdm2: (nm,) vector of 1/Rd^2 values (0 for barotropic). The
+    vectors are computed in float64 NumPy and moved to `device` once."""
+    nx, ny = nxp - 1, nyp - 1
+    k = np.arange(1, nx)                       # x wavenumbers (DST-I)
+    l = np.arange(1, ny)                       # y wavenumbers (DST-I)
+    lamx = 2.0 / dx**2 * (np.cos(np.pi * k / nx) - 1.0)
+    lamy = 2.0 / dy**2 * (np.cos(np.pi * l / ny) - 1.0)
+    norm = 1.0 / (2.0 * nx) / (2.0 * ny)
+    # DST-I of the ones vector: g[k] = 2 sum_j sin(pi j k/(N+1))
+    gx = dst1_np(np.ones((1, nx - 1)))[0]
+    gy = dst1_np(np.ones((1, ny - 1)))[0]
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
+            device=device, dtype=dtype)
+
+    return BoxHelmholtz(nxp=nxp, nyp=nyp, lamx=dev(lamx), lamy=dev(lamy),
+                        rdm2=dev(rdm2), gx=dev(gx), gy=dev(gy), norm=norm)

@@ -1,0 +1,41 @@
+"""Ocean state and forcing (port of qgcm_tpu/state.py).
+
+NamedTuples of tensors threaded through the functional step; leapfrog
+keeps two time levels of each prognostic field (x and xm). Fields are
+[layer, y, x] / [y, x].
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class OceanState(NamedTuple):
+    po: torch.Tensor      # (nlo, nypo, nxpo) dynamic pressure
+    pom: torch.Tensor     # lagged pressure
+    qo: torch.Tensor      # (nlo, nypo, nxpo) potential vorticity
+    qom: torch.Tensor
+    sst: torch.Tensor     # (nyto, nxto) mixed layer temperature anomaly
+    sstm: torch.Tensor
+    # mass constraint: area integrals of interface displacement
+    # (src/ochomog_data.F dpioc/dpiocp)
+    dpioc: torch.Tensor   # (nlo-1,)
+    dpiocp: torch.Tensor
+    # momentum constraints, cyclic ocean only (zeros otherwise)
+    ocncs: torch.Tensor   # (nlo,)
+    ocncn: torch.Tensor
+    ocncsp: torch.Tensor
+    ocncnp: torch.Tensor
+
+
+class OceanForcing(NamedTuple):
+    """Surface forcing of the ocean; static in ocean_only runs."""
+    tauxo: torch.Tensor   # (nypo, nxpo) dynamic stress (m^2 s^-2)
+    tauyo: torch.Tensor
+    fnetoc: torch.Tensor  # (nyto, nxto) net diabatic forcing (W m^-2)
+    wekto: torch.Tensor   # (nyto, nxto) Ekman velocity at T points
+    wekpo: torch.Tensor   # (nypo, nxpo) Ekman velocity at p points
+    txisoc: torch.Tensor  # scalar: S-boundary taux line integral (cyclic)
+    txinoc: torch.Tensor  # scalar: N-boundary taux line integral (cyclic)

@@ -1,0 +1,85 @@
+"""qgcm_torch.model.build_model against qgcm_tpu.model.build_model: the
+host-side initialisation is the same NumPy code, so every build-time
+array must agree BIT FOR BIT, after the one rounding to the model dtype
+on the port's side."""
+
+import numpy as np
+import pytest
+import torch
+
+from qgcm_tpu.model import build_model as jax_build_model
+from qgcm_tpu import generators as jax_gen
+from qgcm_torch import generators as torch_gen
+from qgcm_torch.model import build_model
+
+from test_torch_cases import cfg_pair
+
+CASES = [("golden", {}), ("golden", {"dtype": "float32"}),
+         ("pallas", {"nlo": 3}), ("pallas", {"nlo": 2}),
+         ("pallas", {"nlo": 3, "sponge": True}),
+         ("pallas", {"nlo": 2, "sponge": True, "dtype": "float32"}),
+         ("tall", {})]
+
+
+def _same(got, want, what):
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, what
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    assert np.array_equal(got, want), what
+
+
+@pytest.mark.parametrize("kind,kw", CASES,
+                         ids=[f"{k}-{v}" for k, v in CASES])
+def test_build_model_bit_for_bit(kind, kw):
+    cfg_j, cfg_t = cfg_pair(kind, **kw)
+    jm = jax_build_model(cfg_j.replace(solver_transform="fft"))
+    tm = build_model(cfg_t)
+    for name in ("amat", "cl2m", "cm2l", "rdm2", "cphs", "rdef"):
+        _same(getattr(tm.modes_oc, name), getattr(jm.modes_oc, name), name)
+    _same(tm.amat, jm.modes_oc.amat.astype(cfg_j.dtype), "amat tensor")
+    _same(tm.cl2m, jm.modes_oc.cl2m.astype(cfg_j.dtype), "cl2m tensor")
+    _same(tm.cm2l, jm.modes_oc.cm2l.astype(cfg_j.dtype), "cm2l tensor")
+
+    jh, th = jm.inv_oc.helm, tm.inv_oc.helm
+    assert jh.transform == "fft"
+    for name in ("lamx", "lamy", "gx", "gy", "rdm2"):
+        _same(getattr(th, name), getattr(jh, name), f"helm.{name}")
+    assert th.norm == jh.norm
+    _same(tm.inv_oc.cdiffo, jm.inv_oc.cdiffo, "cdiffo")
+    _same(tm.inv_oc.cdhinv, jm.inv_oc.cdhinv, "cdhinv")
+
+    _same(tm.rad.toc, jm.rad.toc, "rad.toc")
+    _same(tm.rad.sstbar, jm.rad.sstbar, "rad.sstbar")
+    assert (tm.rad.tsbdy, tm.rad.tnbdy) == (jm.rad.tsbdy, jm.rad.tnbdy)
+    _same(tm.grids.yporel, jm.grids.yporel, "grids.yporel")
+    _same(tm.yporel, np.asarray(jm.grids.yporel, cfg_j.dtype), "yporel")
+    _same(tm.gpoc, np.asarray(cfg_j.ocean.gpoc, cfg_j.dtype), "gpoc")
+    _same(tm.ddyn, jm.topo.ddynoc_or_scalar(cfg_j.dtype), "ddyn")
+    if cfg_j.sponge.enabled:
+        _same(tm.r_spl, jm.r_spl, "r_spl")
+    else:
+        assert tm.r_spl is None and jm.r_spl is None
+
+
+@pytest.mark.parametrize("kind", ["golden", "pallas", "tall"])
+def test_generators_bit_for_bit(kind):
+    cfg_j, cfg_t = cfg_pair(kind)
+    jm, tm = jax_build_model(cfg_j), build_model(cfg_t)
+    _same(torch_gen.eddy_pressure(cfg_t, ssh_amp=0.15),
+          jax_gen.eddy_pressure(cfg_j, ssh_amp=0.15), "eddy_pressure")
+    for got, want in zip(torch_gen.double_gyre_windstress(cfg_t, tm.grids),
+                         jax_gen.double_gyre_windstress(cfg_j, jm.grids)):
+        _same(got, want, "double_gyre_windstress")
+
+
+@pytest.mark.parametrize("override,err", [
+    ({"cyclic_ocean": True}, NotImplementedError),
+    ({"ocean_only": False}, NotImplementedError),
+    ({"ocean_only": False, "atmos_only": True}, NotImplementedError),
+    ({"solver_transform": "matmul"}, NotImplementedError),
+    ({"dtype": "float16"}, ValueError)])
+def test_build_model_refuses_unported(override, err):
+    _, cfg_t = cfg_pair("pallas")
+    with pytest.raises(err):
+        build_model(cfg_t.replace(**override))

@@ -1,0 +1,121 @@
+"""The fused vorticity step of qgcm_torch against qgcm_tpu in float64.
+
+On CPU tensors ops.qgstep runs its plain PyTorch version
+(qgstep_reference); it is held here to the JAX package's op chain
+(_qgostep with allow_pallas=False) and to the Pallas kernel in interpret
+mode, at the bar the Pallas kernel meets (tests/test_pallas_qg.py):
+max|dq| <= 1e-12 max|q|, with qom bit-exact. The CUDA kernel itself is
+checked on the card (chip_smoke.py)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from qgcm_tpu.models.ocean import _qgostep as jax_qgostep
+from qgcm_torch.grids import build_grids
+from qgcm_torch.model import _sponge_ramp, build_model
+from qgcm_torch.models.ocean import _qgostep, qgstep_consts
+from qgcm_torch.ops.qgstep import qgstep, qgstep_reference
+
+from test_torch_cases import cfg_pair, jax_case, rel_err, to_port
+
+TOL = 1e-12
+
+# box, cyclic, cyclic+sponge (nlo=2 makes layer 1 the bottom layer
+# too), and the multi-tile 145^2 box
+CASES = [("pallas", dict(nlo=3)), ("pallas", dict(nlo=3, cyclic=True)),
+         ("pallas", dict(nlo=3, cyclic=True, sponge=True)),
+         ("pallas", dict(nlo=2, cyclic=True, sponge=True)),
+         ("tall", dict())]
+
+
+def _port_args(cfg_t, st_t, f_t, entoc):
+    r_spl = (torch.from_numpy(_sponge_ramp(cfg_t))
+             if cfg_t.sponge.enabled else None)
+    return (st_t.pom, st_t.po, st_t.qo, st_t.qom, f_t.wekpo,
+            torch.tensor(np.asarray(entoc)), r_spl,
+            qgstep_consts(cfg_t, build_grids(cfg_t)), cfg_t.ocean.ah2oc,
+            cfg_t.ocean.ah4oc)
+
+
+@pytest.mark.parametrize("kind,kw", CASES,
+                         ids=[f"{k}-{v}" for k, v in CASES])
+def test_qgstep_matches_jax_chain(kind, kw):
+    cfg_j, cfg_t = cfg_pair(kind, **kw)
+    jm, st, f, entoc = jax_case(cfg_j)
+    q_ref, qm_ref, _ = jax.jit(lambda s, e: jax_qgostep(
+        jm, s, f, e, allow_pallas=False))(st, entoc)
+    st_t, f_t = to_port(st, f)
+    args = _port_args(cfg_t, st_t, f_t, entoc)
+
+    n0 = qgstep.launches
+    got = qgstep(*args, cyclic=cfg_t.cyclic_ocean,
+                 sponge=cfg_t.sponge.enabled)
+    assert qgstep.launches == n0, "CPU tensors must not launch the kernel"
+    assert rel_err(got, q_ref) <= TOL
+    assert torch.equal(got, qgstep_reference(
+        *args, cyclic=cfg_t.cyclic_ocean, sponge=cfg_t.sponge.enabled))
+    if not cfg_t.cyclic_ocean:
+        # through the port's step: qom_new is the old qo, bit for bit
+        q_new, qm_new = _qgostep(build_model(cfg_t), st_t, f_t, args[5])
+        assert torch.equal(q_new, got)
+        assert np.array_equal(qm_new.numpy(), np.asarray(qm_ref))
+
+
+def test_qgstep_matches_pallas_interpret():
+    cfg_j, cfg_t = cfg_pair("pallas", nlo=3)
+    jm, st, f, entoc = jax_case(cfg_j)
+    jm_p = jm.__class__(**{**jm.__dict__,
+                           "cfg": jm.cfg.replace(use_pallas=True)})
+    q_pl, qm_pl, _ = jax_qgostep(jm_p, st, f, entoc)
+    st_t, f_t = to_port(st, f)
+    q_new, qm_new = _qgostep(build_model(cfg_t), st_t, f_t,
+                             torch.tensor(np.asarray(entoc)))
+    assert rel_err(q_new, q_pl) <= TOL
+    assert np.array_equal(qm_new.numpy(), np.asarray(qm_pl))
+
+
+def _small_args(dtype=torch.float64):
+    nl, ny, nx = 2, 9, 11
+    g = torch.Generator().manual_seed(0)
+    fields = [torch.randn(nl, ny, nx, generator=g, dtype=dtype)
+              for _ in range(4)]
+    planes = [torch.randn(ny, nx, generator=g, dtype=dtype)
+              for _ in range(3)]
+    return [*fields, *planes, tuple(float(i + 1) for i in range(11)),
+            (1.0, 2.0), (3.0, 4.0)]
+
+
+@pytest.mark.parametrize("breakage", [
+    "pom_2d", "po_shape", "int_dtype", "mixed_dtype", "noncontig",
+    "no_rspl", "ah_len", "consts_len"])
+def test_qgstep_refuses_bad_arguments(breakage):
+    args = _small_args()
+    sponge = False
+    if breakage == "pom_2d":
+        args[0] = args[0][0]
+    elif breakage == "po_shape":
+        args[1] = args[1][:, :-1]
+    elif breakage == "int_dtype":
+        args = [a.to(torch.int64) if torch.is_tensor(a) else a
+                for a in args]
+    elif breakage == "mixed_dtype":
+        args[3] = args[3].float()
+    elif breakage == "noncontig":
+        args[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    elif breakage == "no_rspl":
+        args[6], sponge = None, True
+    elif breakage == "ah_len":
+        args[8] = (1.0,)
+    elif breakage == "consts_len":
+        args[7] = args[7][:-1]
+    with pytest.raises((ValueError, TypeError)):
+        qgstep(*args, cyclic=False, sponge=sponge)
+
+
+def test_qgstep_refuses_other_devices():
+    args = [a.to("meta") if torch.is_tensor(a) else a
+            for a in _small_args()]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        qgstep(*args, cyclic=False, sponge=False)
