@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from qgcm_torch/csrc with nvcc, holds it
-against its plain PyTorch version on the card, reproduces the ocean
-golden run in float64 on the card, then drives the main path -- the
-ocean-only double-gyre box, 961x961 p-points x 3 layers in float32 --
-through the public entry points, times it and profiles a few substeps
-of it. Every phase raises on a failure; nothing runs on the CPU. The last line of standard output is
-{"ok": true, "device": {...}}; the line before it lists each kernel
-with its launch count on the main path, its error against the plain
-version and both times.
+against its plain PyTorch version on the card (model states, and seeded
+random fields at the ragged edges of the kernel's strips), reproduces
+the ocean golden run in float64 on the card, then drives the main path
+-- the ocean-only double-gyre box, 961x961 p-points x 3 layers in
+float32 -- through the public entry points, times it and profiles a few
+substeps of it, and last times the kernel alone against its bound at
+3x961^2 (float32 and float64) and 3x4801^2 (NAtl 1 km, float32), with
+a hot and with a cold L2, at the wrapper's strip height and at the
+heights around it. Every phase raises on a failure; nothing runs on the
+CPU. The last line of standard output is {"ok": true, "device":
+{...}}; the line before it lists each kernel with its launch count on
+the main path, its error against the plain version, its times and its
+bound.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +54,24 @@ PROFILE_STEPS = 10
 # where the main path's profiler trace is written (the kernel's build
 # directory, listed in .gitignore)
 TRACE = "build/qgcm_torch/main_path_trace.json"
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet,
+# at the full 700 W): HBM3 bandwidth, and the non-tensor-core float
+# rates.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# Floating-point operations of the fused step, counted from the
+# arithmetic of csrc/qgstep.cu at an interior point: three 5-point
+# Laplacians (6 each), the Jacobian (31), dq/dt (5) and the update (2)
+# in every layer; the forcing of layers 0, 1 and nl-1 (7 a column in
+# all); the sponge adds 4 a point. Their time is about an eighth of the
+# bytes' time, so the bound is set by the bytes.
+FLOP_PER_POINT = 56
+FLOP_PER_COLUMN = 7
+SPONGE_FLOP_PER_POINT = 4
+# the L2 flush between cold launches: more than twice the 50 MB L2
+FLUSH_BYTES = 128 * 2**20
+# strip heights timed beside the wrapper's own in phase 5
+SWEEP_HEIGHTS = (16, 24, 32, 48, 64, 96)
 
 
 def card_line() -> str:
@@ -56,9 +81,50 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def sass_census(path) -> list[str]:
+    """Per kernel function of the built library, its machine instructions
+    as cuobjdump -sass lists them: the total, the floating-point ones
+    (FADD/FMUL/FFMA and the D forms), shared-memory loads (LDS, of which
+    ptxas adds never-executed @!PT ones beside each cp.async) and the
+    cp.async copies (LDGSTS). Empty if cuobjdump is absent."""
+    from pathlib import Path
+    from qgcm_torch.ops._cuda import _nvcc
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return []
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True).stdout
+    lines = []
+    for func in sass.split("Function : ")[1:]:
+        ops = [m.split()[-1].split(".")[0] for m in re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+((?:@!?U?P\w+\s+)?[A-Z0-9]+)", func)]
+        kind = "double" if "IdEE" in func.split()[0] else "float"
+        fp = sum(op in ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA")
+                 for op in ops)
+        lines.append(f"{kind}: {len(ops)} instructions, {fp} floating-point, "
+                     f"{ops.count('LDS')} LDS, {ops.count('LDGSTS')} LDGSTS")
+    return lines
+
+
+def kernel_bound(nl, ny, nx, dtype, sponge):
+    """(bound_ms, bound_by) of one fused step: each of pom, po, qo, qom
+    read once, wek and ent (and r_spl) read once, qnew written once, over
+    the card's memory rate; or the step's operations over its peak float
+    rate, whichever takes longer."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = item * (5 * nl * ny * nx + (3 if sponge else 2) * ny * nx)
+    flop = (nl * ny * nx * (FLOP_PER_POINT
+                            + (SPONGE_FLOP_PER_POINT if sponge else 0))
+            + FLOP_PER_COLUMN * ny * nx)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_FLOP_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn() over `reps` calls, CUDA
-    events, after two warm-up calls."""
+    events, after two warm-up calls; for the plain chain, whose host-side
+    tensor set-up cannot be captured in a graph."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -70,6 +136,40 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Milliseconds of one replay of a CUDA graph that holds `reps` calls
+    of fn() (captured after an eager warm-up call), by CUDA events around
+    the replay: the device's time, without the host's cost per launch
+    (which at 961^2 is as long as the kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def kernel_ms(fn, reps: int) -> tuple[float, float]:
+    """(hot, cold): mean milliseconds of fn(), one kernel launch, from
+    graph replays (graph_ms). Hot: back-to-back launches. Cold: each
+    launch preceded by writing a FLUSH_BYTES buffer, less the time of the
+    writes alone."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    hot = graph_ms(fn, reps) / reps
+    writes = graph_ms(lambda: flush.fill_(1.0), reps)
+    both = graph_ms(lambda: (flush.fill_(1.0), fn()), reps)
+    return hot, (both - writes) / reps
 
 
 def profile_substeps(run, st, f, step0, card):
@@ -203,6 +303,82 @@ def phase_kernel_small(device):
                 raise AssertionError(f"qom_new is not the old qo: {name}")
 
 
+def random_args(nl, ny, nx, dtype, cyclic, sponge, seed, consts=None,
+                ah=None):
+    """The fused step's arguments from seeded random fields on the card.
+    With the cyclic geometry the east column duplicates the west one.
+    `consts` and `ah` = (ah2, ah4) default to random values of order
+    one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dt)
+
+    fields = [rnd(nl, ny, nx) for _ in range(4)]
+    if cyclic:
+        for f in fields:
+            f[..., -1] = f[..., 0]
+    wek, ent, r_spl = (rnd(ny, nx) for _ in range(3))
+
+    def order_one(n):
+        u = torch.rand(n, generator=g, device="cuda", dtype=torch.float64)
+        return tuple((0.2 + 0.8 * u).tolist())
+
+    if consts is None:
+        consts = order_one(11)
+    ah2, ah4 = ah if ah is not None else (order_one(nl), order_one(nl))
+    return (*fields, wek, ent, r_spl if sponge else None, consts, ah2, ah4)
+
+
+@contextlib.contextmanager
+def strip_height(h):
+    """Launch qgstep with strips of h rows inside the block."""
+    from qgcm_torch.ops import qgstep as mod
+    picker = mod.launch_geometry
+    mod.launch_geometry = lambda nl, ny, nx, resident: mod.Geometry(
+        mod.STRIP_W, h, -(-nx // mod.STRIP_W), -(-ny // h))
+    try:
+        yield
+    finally:
+        mod.launch_geometry = picker
+
+
+def phase_kernel_ragged():
+    """The kernel against its plain chain on seeded random fields at the
+    ragged edges of its strips: strip heights MIN_STRIP_H and MAX_STRIP_H
+    forced on grids of H-1, H and H+1 rows (H+1 leaves a last strip of
+    one row), STRIP_W-1 and STRIP_W+1 columns, box and cyclic, with and
+    without the sponge, nl 2 and 3."""
+    from qgcm_torch.ops.qgstep import MAX_STRIP_H, MIN_STRIP_H, STRIP_W
+    n = 0
+    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+        for h in (MIN_STRIP_H, MAX_STRIP_H):
+            for ny in (h - 1, h, h + 1):
+                for nx in (STRIP_W - 1, STRIP_W + 1):
+                    worst = 0.0
+                    for nl in (2, 3):
+                        for cyclic in (False, True):
+                            for sponge in (False, True):
+                                n += 1
+                                args = random_args(nl, ny, nx, dtype,
+                                                   cyclic, sponge, n)
+                                with strip_height(h):
+                                    err, scale = compare(args, cyclic,
+                                                         sponge)
+                                worst = max(worst, err / scale)
+                                if not err <= tol * scale:
+                                    raise AssertionError(
+                                        f"kernel disagrees with the plain "
+                                        f"chain: {dtype} strip {h} "
+                                        f"nl={nl} {ny}x{nx} cyclic={cyclic} "
+                                        f"sponge={sponge}")
+                    print(f"  {str(dtype)[6:]} strip height {h:2d}, "
+                          f"{ny}x{nx}: worst max|dq| = {worst:.3e} max|q| "
+                          f"over nl 2-3, box/cyclic, sponge off/on "
+                          f"(bar {tol:g})")
+    print(f"  {n} ragged cases passed")
+
+
 def phase_golden(device):
     """tests/test_golden.py::test_golden_ocean_only_box on the card."""
     from qgcm_torch.config import ModelConfig, OceanConfig
@@ -314,15 +490,81 @@ def phase_main(device, card):
     if not err <= F32_TOL * scale:
         raise AssertionError("kernel disagrees with the plain chain at the "
                              "main path's shape")
-    k_ms = cuda_ms(lambda: qgstep(*args, cyclic=False, sponge=False), 100)
+    k_ms = graph_ms(lambda: qgstep(*args, cyclic=False, sponge=False),
+                    100) / 100
+    eager_ms = cuda_ms(lambda: qgstep(*args, cyclic=False, sponge=False),
+                       100)
     p_ms = cuda_ms(lambda: qgstep_reference(*args, cyclic=False,
                                             sponge=False), 20)
-    print(f"  qgstep kernel {k_ms:.4f} ms, plain chain {p_ms:.4f} ms "
-          f"[{card}]")
+    print(f"  qgstep kernel {k_ms:.4f} ms (CUDA-graph replay), "
+          f"{eager_ms:.4f} ms (events around eager wrapper calls); plain "
+          f"chain {p_ms:.4f} ms [{card}]")
+    nl, ny, nx = st.po.shape
+    bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=False)
+    print(f"  bound {bound:.4f} ms ({by}), share of bound "
+          f"{bound / k_ms:.3f} [{card}]")
     return dict(name="qgstep", route="cuda",
                 source="qgcm_torch/csrc/qgstep.cu",
                 replaces="qgcm_tpu/ops/pallas_qg.py:277",
-                launches=launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+                launches=launches, max_abs_err=err, ms=k_ms,
+                ms_method="cuda_graph_replay", eager_ms=eager_ms,
+                plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                share_of_bound=bound / k_ms)
+
+
+def phase_kernel_timing(card):
+    """The kernel alone at the main path's shape in float32 and float64
+    and at NAtl 1 km (3x4801^2, float32), on seeded random fields with
+    each configuration's constants: checked against the plain chain,
+    timed with a hot L2 (back-to-back launches) and a cold one beside its
+    bound, at the wrapper's strip height and at each of SWEEP_HEIGHTS.
+    No PyTorch call computes the same function, so there is no library
+    time."""
+    from qgcm_torch.config import double_gyre_ocean_only, natl_1km
+    from qgcm_torch.grids import build_grids
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.ops.qgstep import (launch_geometry, qgstep,
+                                       qgstep_reference, resident_blocks)
+    for seed, (cfg, dtype, reps) in enumerate((
+            (double_gyre_ocean_only(), torch.float64, 50),
+            (double_gyre_ocean_only(), torch.float32, 50),
+            (natl_1km(), torch.float32, 20))):
+        nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+        args = random_args(nl, ny, nx, dtype, False, False, 1000 + seed,
+                           consts=qgstep_consts(cfg, build_grids(cfg)),
+                           ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+        tol = F64_TOL if dtype == torch.float64 else F32_TOL
+        err, scale = compare(args, cyclic=False, sponge=False)
+        name = f"{nl}x{ny}x{nx} {str(dtype)[6:]}"
+        if not err <= tol * scale:
+            raise AssertionError(f"kernel disagrees with the plain chain at "
+                                 f"{name}")
+        resident = resident_blocks(args[0].device, dtype, False)
+        g = launch_geometry(nl, ny, nx, resident)
+
+        def run():
+            qgstep(*args, cyclic=False, sponge=False)
+
+        hot, cold = kernel_ms(run, reps)
+        plain = cuda_ms(lambda: qgstep_reference(*args, cyclic=False,
+                                                 sponge=False), 3)
+        bound, by = kernel_bound(nl, ny, nx, dtype, sponge=False)
+        print(f"  {name}: strips {g.strip_w}x{g.strip_h}, "
+              f"{g.strips_x * g.strips_y * nl} blocks, {resident} resident "
+              f"at once; max|dq| = "
+              f"{err / scale:.3e} max|q| (bar {tol:g})")
+        print(f"    kernel {hot:.4f} ms hot L2, {cold:.4f} ms cold L2; "
+              f"plain chain {plain:.4f} ms; bound {bound:.4f} ms ({by}); "
+              f"share of bound {bound / hot:.3f} hot, {bound / cold:.3f} "
+              f"cold [{card}]")
+        sweep = []
+        for h in SWEEP_HEIGHTS:
+            with strip_height(h):
+                sweep.append("{}: {:.4f}/{:.4f}".format(h, *kernel_ms(run,
+                                                                       reps)))
+        print(f"    by strip height, ms hot/cold L2: {', '.join(sweep)}")
+        del args
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -345,13 +587,18 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"      {line.strip()}")
+    for line in sass_census(lib.path):
+        print(f"      sass {line}")
 
     print("[2] kernel vs plain chain on the card (small configurations)")
     phase_kernel_small(device)
+    phase_kernel_ragged()
     print("[3] golden ocean box, float64, 50 substeps on the card")
     phase_golden(device)
     print("[4] main path: double_gyre_ocean_only, float32")
     kernel = phase_main(device, card)
+    print("[5] the kernel alone against its bound")
+    phase_kernel_timing(card)
 
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))

@@ -3,7 +3,7 @@
 The JAX package's OceanState / OceanForcing are handed over as a
 mapping of field name to NumPy array ({k: np.asarray(v) for k, v in
 st._asdict().items()}); they become the port's tensors on a given
-device and dtype.
+device (the card unless the caller asks for "cpu") and dtype.
 `to_numpy` goes back: a dict of NumPy arrays (in the tensors' dtype)
 keyed by field name, from which the JAX NamedTuple is rebuilt with
 `Cls(**d)`.
@@ -17,21 +17,23 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .state import OceanForcing, OceanState
 
 
 def _to_torch(cls, src: Mapping, device, dtype):
+    device = resolve_device(device)
     return cls(**{name: torch.tensor(np.asarray(src[name])).to(
         device=device, dtype=dtype) for name in cls._fields})
 
 
-def state_to_torch(src: Mapping, device="cpu",
+def state_to_torch(src: Mapping, device="cuda",
                    dtype=torch.float64) -> OceanState:
     """OceanState of tensors from {field: array}."""
     return _to_torch(OceanState, src, device, dtype)
 
 
-def forcing_to_torch(src: Mapping, device="cpu",
+def forcing_to_torch(src: Mapping, device="cuda",
                      dtype=torch.float64) -> OceanForcing:
     """OceanForcing of tensors from {field: array}."""
     return _to_torch(OceanForcing, src, device, dtype)

@@ -12,35 +12,102 @@
 //   qnew = qom + 2dt*dqdt [+ 2dt*c1spl*r_spl*(qom - beta*y)],
 // and the zonal rows keep the old qo.
 //
-// Bound: device-memory traffic. Per point it reads pom, po, qo, qom, wek,
-// ent (and r_spl) once and writes qnew once; the three nested
-// Laplacians and the 9-point Jacobian are ~100 flops, far below the
-// card's flop/byte balance. The design keeps every intermediate
-// (del2, del4, del6, J) out of device memory: a 2-D block stages its
-// pom tile with a 3-point halo in shared memory and shrinks it through
-// del2 and del4 there; the radius-1 po/qo reads of the Jacobian go
-// straight to global memory and are served by L1. One thread per output
-// point, blockIdx.z per layer.
+// What bounds it: device-memory traffic. Per point it reads pom, po, qo,
+// qom, wek, ent (and r_spl) once and writes qnew once, about 100 flops
+// against 6-7 loads: far below the card's flop/byte balance, and no
+// product for the tensor cores. The time to beat is bytes / 3.35 TB/s.
+// At that rate each SM must finish a grid point every ~1.5 clocks, so
+// the instructions issued per point are the next limit: the design below
+// is about latency and about those.
+//
+// What the card's usual tools cannot do here: TMA needs row pitches
+// that are multiples of 16 bytes, and 16-byte vector loads need 16-byte
+// aligned rows. The grids are 961 or 4801 points wide (3844 / 19204 B
+// in float32, 7688 / 38408 B in float64); none is a multiple of 16, and
+// padding the pitch would change every other op of the port. So rows
+// come in as element-sized cp.async copies (4 B, 8 B in float64), which
+// need only element alignment.
+//
+// The design. A block owns a strip kStripW outputs wide and strip_h rows
+// tall, for one layer (blockIdx.z), and marches down it one row per
+// iteration with one __syncthreads per row. Thread t owns the window
+// columns 2t and 2t+1 (global columns c0 - 3 + 2t and the next) for the
+// whole march, so their wall and cyclic-wrap tests are made once; the
+// row tests of the S/N walls and the zonal rows are uniform across the
+// block.
+//   * Every input streams through a ring of kRing row slots per field in
+//     shared memory. The copies for iteration s + kAhead are issued
+//     (cp.async, one commit group per row) right after the barrier of
+//     iteration s, so kAhead rows of every field are in flight while the
+//     block computes: 12-18 KB a block in float32, about 100 KB a SM at
+//     8 resident blocks, where 3.35 TB/s at ~700 ns latency needs ~20 KB.
+//   * The stencils are skewed so that each phase of an iteration reads
+//     from shared memory only rows that an earlier iteration finished:
+//     at iteration s the block forms del2 at row s-1 (from pom rows
+//     s-2..s), del4 at row s-2 (del2 rows s-3..s-1) and the output at row
+//     s-3 (del4 rows s-4..s-2, po/qo rows s-4..s-2). po/qo rows are
+//     copied 2 rows behind pom and the pointwise fields (qom, wek, ent,
+//     r_spl) 3 rows behind, so every field of iteration s lands in ring
+//     slot s. Every input row is read from device memory once per strip
+//     (halo rows of neighbouring strips mostly from L2), and each
+//     del2/del4 value is computed once.
+//   * Each thread keeps the rows of its two columns that a stencil still
+//     needs (pom, del2, del4, and po/qo with their west and east
+//     neighbours) in registers, rotated by one row per iteration; from
+//     shared memory come only a new row and the two values beyond its
+//     pair that its neighbours produced. del2 and del4 cross between
+//     threads through two-row rings.
+//   * Two columns a thread halve the per-point share of what every
+//     thread pays per row (barrier, copy addresses, row tests, loop), and
+//     the pair comes from shared memory in one 8-byte (16-byte) load.
+//   * The coefficients are converted to T once, on the host (Coef), and
+//     read from the kernel's parameter space.
+// The launch geometry (strip height, strip counts) is computed by the
+// wrapper, ops/qgstep.py::launch_geometry, from the blocks the card
+// holds at once (qgstep_resident_blocks), and checked here.
+//
+// On an H100 SXM at 700 W this reaches about two thirds of the byte bound
+// at 3x4801^2 float32 and about half at 3x961^2 (PERF.md). What is left
+// is instruction issue: most instructions are not floating-point but the
+// element-wise copies and their addresses, the row and wall tests and the
+// register rotation (chip_smoke.py prints the census).
 //
 // Ghosts outside the domain are zeros (box) or the x-wrap (cyclic: west
 // of column 0 is column nx-2, east of nx-1 is column 1); every output a
 // ghost reaches is overwritten by a wall mask, as in the Pallas kernel
-// (pallas_qg.py:14-19). Rows at or beyond ny are never read or written.
+// (pallas_qg.py:14-19). Rows at or beyond ny load zeros and are never
+// written; columns at or beyond nx are never written. Values formed in
+// the first iterations of a march, and in the window's edge columns,
+// from rows or neighbours that were never loaded, reach no output.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBX = 32;          // block width (x, contiguous)
-constexpr int kBY = 8;           // block height (y)
+constexpr int kWindow = 128;     // window columns of a strip
+constexpr int kThreads = kWindow / 2;          // two columns a thread
 constexpr int kHalo = 3;         // del6 = three nested 5-point stencils
+constexpr int kStripW = kWindow - 2 * kHalo;   // output columns per strip
+constexpr int kRing = 8;         // row slots per input field
+constexpr int kAhead = 6;        // rows of copies in flight
+constexpr int kLagPQ = 2;        // po/qo row copied at iteration i: i - 2
+constexpr int kLagOut = 3;       // output row of iteration s: s - 3
 constexpr int kMaxLayers = 8;
+// input fields, in ring order; r_spl's ring exists only with the sponge
+enum { kPom, kPo, kQo, kQom, kWek, kEnt, kRspl, kStreams };
+
+// pom row s is read at iterations s and s + 1; its slot is refilled by
+// the copies issued at iteration s + kRing - kAhead.
+static_assert((kRing & (kRing - 1)) == 0 && kRing >= kAhead + 2,
+              "a slot is rewritten only after its last read");
 
 }  // namespace
 
-// Must match QgParams in qgcm_torch/ops/qgstep.py field for field.
+// Must match _QgParams in qgcm_torch/ops/qgstep.py field for field.
 struct QgParams {
-  int nl, ny, nx, cyclic, sponge, pad;
+  int nl, ny, nx, cyclic, sponge;
+  // launch geometry: output columns and rows per strip, strip counts
+  int strip_w, strip_h, strips_x, strips_y, pad;
   // dxm2, bcfac, adfac, 1/f0, 2dt, bdrfac, c1spl, beta*y0, beta*dy,
   // f0/H0, f0/H1
   double c[11];
@@ -50,173 +117,394 @@ struct QgParams {
 
 namespace {
 
-// Global column of a window column, with the cyclic wrap; -1 marks a
-// zero ghost (box, or a row outside the domain).
-__device__ __forceinline__ int wrap_col(int gc, int nx, bool cyclic) {
-  if (gc >= 0 && gc < nx) return gc;
-  if (!cyclic) return -1;
-  return gc < 0 ? gc + nx - 1 : gc - nx + 1;
-}
-
+// The coefficients in the kernel's type, as the kernel uses them.
 template <typename T>
-__device__ __forceinline__ T load_or_zero(const T* __restrict__ f, int gr,
-                                          int gc, int ny, int nx,
-                                          bool cyclic) {
-  if (gr < 0 || gr >= ny) return T(0);
-  const int c = wrap_col(gc, nx, cyclic);
-  return c < 0 ? T(0) : __ldg(f + (size_t)gr * nx + c);
-}
+struct Coef {
+  T dxm2, bcfac, adfac, tdt, bdrfac, tdt_c1spl, beta_y0, beta_dy;
+  T fohfac0, fohfac1;
+  T ah2f[kMaxLayers], ah4f[kMaxLayers];  // ah2/f0, ah4/f0 by layer
+};
 
-// Mixed-BC Laplacian at window point (i, j) of `src` (row stride `ld`),
-// whose global position is (gr, gc): the S/N walls win over W/E, and the
-// W/E condition applies only off the zonal rows and only in the box
-// (copies lap_bc, pallas_qg.py:137-153, and del2_bc, stencils.py:92-95).
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
+// One element from global to shared memory (address `dst` in the shared
+// window), asynchronously; with ok == false the slot is filled with zero
+// and nothing is read.
 template <typename T>
-__device__ __forceinline__ T lap_bc(const T* src, int ld, int i, int j,
-                                    int gr, int gc, int ny, int nx,
-                                    bool cyclic, T dxm2, T bcfac) {
-  const T c = src[i * ld + j];
-  const T s = src[(i - 1) * ld + j];
-  const T n = src[(i + 1) * ld + j];
-  const T w = src[i * ld + j - 1];
-  const T e = src[i * ld + j + 1];
-  if (gr == 0) return bcfac * (n - c);
-  if (gr == ny - 1) return bcfac * (s - c);
-  if (!cyclic) {
-    if (gc == 0) return bcfac * (e - c);
-    if (gc == nx - 1) return bcfac * (w - c);
+__device__ __forceinline__ void cp_async(unsigned dst, const T* src, bool ok) {
+  const int n = ok ? int(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
   }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A window row around a thread's two columns: the west neighbour, the
+// pair, the east neighbour.
+template <typename T>
+struct Quad {
+  T w, a, b, e;
+};
+
+// The row at p (the thread's first column); wo/eo are the offsets of
+// the west/east neighbours, clamped to the pair at the window's edges.
+template <typename T>
+__device__ __forceinline__ Quad<T> load_quad(const T* p, int wo, int eo) {
+  using V = typename Vec2<T>::type;
+  const V v = *reinterpret_cast<const V*>(p);
+  return {p[wo], v.x, v.y, p[eo]};
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, T a, T b) {
+  using V = typename Vec2<T>::type;
+  *reinterpret_cast<V*>(p) = V{a, b};
+}
+
+// Mixed-BC Laplacian at `row` of one column from its centre, south,
+// north, west and east values: the S/N walls win over W/E, and the W/E
+// condition applies only in the box (wall_w/wall_e are false when
+// cyclic). Copies lap_bc, pallas_qg.py:137-153, and del2_bc,
+// stencils.py:92-95. `row` is uniform across the block, so the first
+// two tests do not diverge.
+template <typename T>
+__device__ __forceinline__ T lap_bc(T c, T s, T n, T w, T e, int row, int ny,
+                                    bool wall_w, bool wall_e, T dxm2,
+                                    T bcfac) {
+  if (row == 0) return bcfac * (n - c);
+  if (row == ny - 1) return bcfac * (s - c);
+  if (wall_w) return bcfac * (e - c);
+  if (wall_e) return bcfac * (w - c);
   return dxm2 * (s + n + w + e - T(4) * c);
 }
 
+// Arakawa 9-point J(q, p) of one point from its 3x3 neighbourhoods: s,
+// c, n are the rows r-1, r, r+1, and w/x/e the columns j-1, j, j+1.
 template <typename T>
-__global__ void __launch_bounds__(kBX * kBY)
+__device__ __forceinline__ T jacobian(T qsw, T qs, T qse, T qw, T qe, T qnw,
+                                      T qn, T qne, T psw, T ps, T pse, T pw,
+                                      T pe, T pnw, T pn, T pne) {
+  return (qe - qw) * (pn - ps) + (qs - qn) * (pe - pw)
+         + qe * (pne - pse) - qw * (pnw - psw)
+         - qn * (pne - pnw) + qs * (pse - psw)
+         + pn * (qne - qnw) - ps * (qse - qsw)
+         - pe * (qne - qse) + pw * (qnw - qsw);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
 qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
               const T* __restrict__ qo, const T* __restrict__ qom,
               const T* __restrict__ wek, const T* __restrict__ ent,
               const T* __restrict__ rspl, T* __restrict__ out,
-              const QgParams prm) {
-  constexpr int W0 = kBX + 2 * kHalo, H0 = kBY + 2 * kHalo;  // pom tile
-  constexpr int W1 = W0 - 2, H1 = H0 - 2;                    // del2 tile
-  constexpr int W2 = W1 - 2, H2 = H1 - 2;                    // del4 tile
-  __shared__ T s_pom[H0 * W0];
-  __shared__ T s_d2[H1 * W1];
-  __shared__ T s_d4[H2 * W2];
+              const QgParams prm, const Coef<T> cf) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* d2s = reinterpret_cast<T*>(smem_raw);         // [2][kWindow]
+  T* d4s = d2s + 2 * kWindow;                      // [2][kWindow]
+  T* ring = d4s + 2 * kWindow;                     // [field][kRing][kWindow]
+  constexpr int kField = kRing * kWindow;          // one field's ring
+  constexpr int M = kRing - 1;
 
   const int ny = prm.ny, nx = prm.nx, nl = prm.nl;
-  const bool cyclic = prm.cyclic != 0;
-  const T dxm2 = T(prm.c[0]), bcfac = T(prm.c[1]), adfac = T(prm.c[2]);
-  const T rfnot = T(prm.c[3]), tdt = T(prm.c[4]), bdrfac = T(prm.c[5]);
-  const T c1spl = T(prm.c[6]), beta_y0 = T(prm.c[7]);
-  const T beta_dy = T(prm.c[8]), fohfac0 = T(prm.c[9]);
-  const T fohfac1 = T(prm.c[10]);
+  const bool cyclic = prm.cyclic != 0, sponge = prm.sponge != 0;
+  const T dxm2 = cf.dxm2, bcfac = cf.bcfac;
 
   const int k = blockIdx.z;
-  const int r0 = blockIdx.y * kBY, c0 = blockIdx.x * kBX;
-  const int tid = threadIdx.y * kBX + threadIdx.x;
-  constexpr int nthr = kBX * kBY;
-  const size_t plane = (size_t)ny * nx;
-  const T* pom_k = pom + k * plane;
-
-  // Stage the pom tile with its 3-point halo (window origin r0-3, c0-3).
-  for (int t = tid; t < H0 * W0; t += nthr) {
-    const int i = t / W0, j = t - i * W0;
-    s_pom[t] = load_or_zero(pom_k, r0 - kHalo + i, c0 - kHalo + j, ny, nx,
-                            cyclic);
+  // the layer's viscosities, selected without indexing the parameter
+  // block (which would copy it to local memory)
+  T ah2f = cf.ah2f[0], ah4f = cf.ah4f[0];
+#pragma unroll
+  for (int j = 1; j < kMaxLayers; ++j) {
+    if (k == j) {
+      ah2f = cf.ah2f[j];
+      ah4f = cf.ah4f[j];
+    }
   }
-  __syncthreads();
+  const int r0 = blockIdx.y * prm.strip_h;
+  const int r_end = min(r0 + prm.strip_h, ny);     // rows [r0, r_end)
+  const int t = threadIdx.x;
+  const int x0 = 2 * t;                            // window column of pair
+  const int gc0 = blockIdx.x * kStripW - kHalo + x0;
 
-  // del2 on the tile shrunk by one (window origin r0-2, c0-2).
-  for (int t = tid; t < H1 * W1; t += nthr) {
-    const int i = t / W1, j = t - i * W1;
-    s_d2[t] = lap_bc(s_pom, W0, i + 1, j + 1, r0 - 2 + i, c0 - 2 + j, ny, nx,
-                     cyclic, dxm2, bcfac);
+  // Per column of the pair: where it is read from (itself, its cyclic
+  // wrap of period nx - 1 -- the east column duplicates the west one --
+  // or nowhere, a zero ghost of the box), its walls, and whether it is
+  // an output column of this strip.
+  int cin[2];
+  bool col_ok[2], wall_w[2], wall_e[2], writer[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int gc = gc0 + c;
+    int src = gc;
+    if (cyclic && (gc < 0 || gc >= nx))
+      src = (gc % (nx - 1) + nx - 1) % (nx - 1);
+    col_ok[c] = src >= 0 && src < nx;
+    cin[c] = col_ok[c] ? src : 0;
+    wall_w[c] = !cyclic && gc == 0;
+    wall_e[c] = !cyclic && gc == nx - 1;
+    writer[c] = x0 + c >= kHalo && x0 + c < kWindow - kHalo && gc < nx;
   }
-  __syncthreads();
+  const int pt0 = writer[0] ? gc0 : 0, pt1 = writer[1] ? gc0 + 1 : 0;
+  // the window's edge threads take their pair for a missing neighbour;
+  // what they compute reaches no output
+  const int wo = t > 0 ? -1 : 0, eo = t < kThreads - 1 ? 2 : 1;
 
-  // del4 on the tile shrunk by two (window origin r0-1, c0-1).
-  for (int t = tid; t < H2 * W2; t += nthr) {
-    const int i = t / W2, j = t - i * W2;
-    s_d4[t] = lap_bc(s_d2, W1, i + 1, j + 1, r0 - 1 + i, c0 - 1 + j, ny, nx,
-                     cyclic, dxm2, bcfac);
-  }
-  __syncthreads();
+  // Element offsets are 32-bit: the launch checks nl * ny * nx < 2^31.
+  const int koff = k * ny * nx;
+  const T* pom_k = pom + koff;
+  const T* po_k = po + koff;
+  const T* qo_k = qo + koff;
+  const T* qom_k = qom + koff;
+  T* out_k = out + koff;
+  const unsigned my_sh =
+      static_cast<unsigned>(__cvta_generic_to_shared(ring + x0));
+  constexpr unsigned kRowB = kWindow * sizeof(T);
+  constexpr unsigned kFieldB = kField * sizeof(T);
+  constexpr unsigned kE = sizeof(T);
 
-  const int gr = r0 + threadIdx.y, gc = c0 + threadIdx.x;
-  if (gr >= ny || gc >= nx) return;
-  const size_t idx = k * plane + (size_t)gr * nx + gc;
+  // The copies of iteration i into ring slot i: pom row i, po/qo row
+  // i - kLagPQ and the pointwise fields of output row i - kLagOut, each
+  // only while the strip needs it. Always one commit group.
+  auto issue = [&](int i) {
+    const unsigned sh = my_sh + (i & M) * kRowB;
+    if (i <= r_end + 2) {                          // pom rows r0-3..r_end+2
+      const bool in = i >= 0 && i < ny;
+      const int off = in ? i * nx : 0;
+      cp_async(sh + kPom * kFieldB, pom_k + off + cin[0], in && col_ok[0]);
+      cp_async(sh + kPom * kFieldB + kE, pom_k + off + cin[1],
+               in && col_ok[1]);
+    }
+    const int rq = i - kLagPQ;
+    if (rq >= r0 - 1 && rq <= r_end) {             // po/qo rows r0-1..r_end
+      const bool in = rq >= 0 && rq < ny;
+      const int off = in ? rq * nx : 0;
+      const bool ok0 = in && col_ok[0], ok1 = in && col_ok[1];
+      cp_async(sh + kPo * kFieldB, po_k + off + cin[0], ok0);
+      cp_async(sh + kPo * kFieldB + kE, po_k + off + cin[1], ok1);
+      cp_async(sh + kQo * kFieldB, qo_k + off + cin[0], ok0);
+      cp_async(sh + kQo * kFieldB + kE, qo_k + off + cin[1], ok1);
+    }
+    const int ro = i - kLagOut;
+    if (ro >= r0 && ro < r_end) {                  // output rows
+      const int off = ro * nx;
+      // a column that writes nothing copies nothing (ok = false)
+      cp_async(sh + kQom * kFieldB, qom_k + off + pt0, writer[0]);
+      cp_async(sh + kQom * kFieldB + kE, qom_k + off + pt1, writer[1]);
+      if (k == 0) {
+        cp_async(sh + kWek * kFieldB, wek + off + pt0, writer[0]);
+        cp_async(sh + kWek * kFieldB + kE, wek + off + pt1, writer[1]);
+      }
+      if (k <= 1) {
+        cp_async(sh + kEnt * kFieldB, ent + off + pt0, writer[0]);
+        cp_async(sh + kEnt * kFieldB + kE, ent + off + pt1, writer[1]);
+      }
+      if (sponge) {
+        cp_async(sh + kRspl * kFieldB, rspl + off + pt0, writer[0]);
+        cp_async(sh + kRspl * kFieldB + kE, rspl + off + pt1, writer[1]);
+      }
+    }
+    cp_async_commit();
+  };
 
-  const bool zonal = gr == 0 || gr == ny - 1;
-  if (zonal) {  // the boundary PV relation overwrites these rows later
-    out[idx] = qo[idx];
-    return;
-  }
-  const bool we_wall = !cyclic && (gc == 0 || gc == nx - 1);
+  // The pair's columns, rotated by one row per iteration; at the top of
+  // iteration s: pom rows s-2 (S), s-1 (C); del2 rows s-3, s-2; del4
+  // rows s-4, s-3; po/qo rows s-4, s-3 with their west and east values.
+  T pS[2] = {}, pC[2] = {};
+  T d2S[2] = {}, d2C[2] = {};
+  T d4S[2] = {}, d4C[2] = {};
+  Quad<T> qS = {}, qC = {}, oS = {}, oC = {};
 
-  // del6 at the centre from the del4 tile; zero on the edges.
-  const int i4 = threadIdx.y + 1, j4 = threadIdx.x + 1;
-  const T d4c = s_d4[i4 * W2 + j4];
-  T d6 = T(0);
-  T jac = T(0);
-  if (!we_wall) {
-    d6 = dxm2 * (s_d4[(i4 - 1) * W2 + j4] + s_d4[(i4 + 1) * W2 + j4]
-                 + s_d4[i4 * W2 + j4 - 1] + s_d4[i4 * W2 + j4 + 1]
-                 - T(4) * d4c);
-    // Arakawa 9-point J(q, p): interior rows only, so rows gr+-1 exist.
-    const T* q = qo + k * plane;
-    const T* p = po + k * plane;
-    const size_t rn = (size_t)(gr + 1) * nx, rc = (size_t)gr * nx;
-    const size_t rs = (size_t)(gr - 1) * nx;
-    const int ce = wrap_col(gc + 1, nx, cyclic);
-    const int cw = wrap_col(gc - 1, nx, cyclic);
-    const T qe = __ldg(q + rc + ce), qw = __ldg(q + rc + cw);
-    const T qn = __ldg(q + rn + gc), qs = __ldg(q + rs + gc);
-    const T qne = __ldg(q + rn + ce), qnw = __ldg(q + rn + cw);
-    const T qse = __ldg(q + rs + ce), qsw = __ldg(q + rs + cw);
-    const T pe = __ldg(p + rc + ce), pw = __ldg(p + rc + cw);
-    const T pn = __ldg(p + rn + gc), ps = __ldg(p + rs + gc);
-    const T pne = __ldg(p + rn + ce), pnw = __ldg(p + rn + cw);
-    const T pse = __ldg(p + rs + ce), psw = __ldg(p + rs + cw);
-    jac = (qe - qw) * (pn - ps) + (qs - qn) * (pe - pw)
-          + qe * (pne - pse) - qw * (pnw - psw)
-          - qn * (pne - pnw) + qs * (pse - psw)
-          + pn * (qne - qnw) - ps * (qse - qsw)
-          - pe * (qne - qse) + pw * (qnw - qsw);
-  }
+  const int s_first = r0 - kHalo;
+  const int s_last = r_end - 1 + kLagOut;
+  for (int p = 0; p < kAhead; ++p) issue(s_first + p);
 
-  T dqdt = T(0);
-  if (!we_wall) {
-    const T ah2k = T(prm.ah2[k]), ah4k = T(prm.ah4[k]);
-    dqdt = adfac * jac + (ah2k * rfnot) * d4c - (ah4k * rfnot) * d6;
-  }
-  const size_t i2 = (size_t)gr * nx + gc;
-  if (k == 0) dqdt = dqdt + fohfac0 * (wek[i2] - ent[i2]);
-  if (k == 1) dqdt = dqdt + fohfac1 * ent[i2];
-  if (k == nl - 1) {
-    const T d2c = s_d2[(threadIdx.y + 2) * W1 + threadIdx.x + 2];
-    dqdt = dqdt - bdrfac * d2c;
-  }
+  for (int s = s_first; s <= s_last; ++s) {
+    cp_async_wait<kAhead - 1>();                   // this thread's row s
+    __syncthreads();                               // everyone's row s
+    issue(s + kAhead);
+    const T* slot = ring + (s & M) * kWindow + x0;          // iteration s
+    const T* prev = ring + ((s - 1) & M) * kWindow + x0;    // iteration s-1
 
-  const T qm = qom[idx];
-  T qnew = qm + tdt * dqdt;
-  if (prm.sponge) {
-    const T betay = beta_y0 + beta_dy * T(gr);
-    qnew = qnew + (tdt * c1spl) * rspl[i2] * (qm - betay);
+    // del2 at row s-1; the row's own values are the pair's pC
+    const T* P = slot + kPom * kField;
+    const T pN[2] = {P[0], P[1]};
+    T v2[2];
+    {
+      const T* R = prev + kPom * kField;
+      const T w = R[wo], e = R[eo];
+      v2[0] = lap_bc(pC[0], pS[0], pN[0], w, pC[1], s - 1, ny, wall_w[0],
+                     wall_e[0], dxm2, bcfac);
+      v2[1] = lap_bc(pC[1], pS[1], pN[1], pC[0], e, s - 1, ny, wall_w[1],
+                     wall_e[1], dxm2, bcfac);
+    }
+    store_pair(d2s + ((s - 1) & 1) * kWindow + x0, v2[0], v2[1]);
+
+    // del4 at row s-2 (the neighbours' del2 of that row was written at
+    // iteration s-1)
+    T v4[2];
+    {
+      const T* R = d2s + ((s - 2) & 1) * kWindow + x0;
+      const T w = R[wo], e = R[eo];
+      v4[0] = lap_bc(d2C[0], d2S[0], v2[0], w, d2C[1], s - 2, ny, wall_w[0],
+                     wall_e[0], dxm2, bcfac);
+      v4[1] = lap_bc(d2C[1], d2S[1], v2[1], d2C[0], e, s - 2, ny, wall_w[1],
+                     wall_e[1], dxm2, bcfac);
+    }
+    store_pair(d4s + ((s - 2) & 1) * kWindow + x0, v4[0], v4[1]);
+
+    // po/qo row s-2 (N)
+    const Quad<T> qN = load_quad(slot + kQo * kField, wo, eo);
+    const Quad<T> oN = load_quad(slot + kPo * kField, wo, eo);
+
+    // the output at row r = s-3
+    const int r = s - kLagOut;
+    if (r >= r0) {
+      T qnew[2];
+      if (r == 0 || r == ny - 1) {  // the boundary PV relation rewrites these
+        qnew[0] = qC.a;
+        qnew[1] = qC.b;
+      } else {
+        const T* D = d4s + (r & 1) * kWindow + x0;
+        const T dw = D[wo], de = D[eo];
+        const T d6[2] = {
+            dxm2 * (d4S[0] + v4[0] + dw + d4C[1] - T(4) * d4C[0]),
+            dxm2 * (d4S[1] + v4[1] + d4C[0] + de - T(4) * d4C[1])};
+        // interior rows only, so rows r+-1 exist; north is row r+1
+        const T jac[2] = {
+            jacobian(qS.w, qS.a, qS.b, qC.w, qC.b, qN.w, qN.a, qN.b,
+                     oS.w, oS.a, oS.b, oC.w, oC.b, oN.w, oN.a, oN.b),
+            jacobian(qS.a, qS.b, qS.e, qC.a, qC.e, qN.a, qN.b, qN.e,
+                     oS.a, oS.b, oS.e, oC.a, oC.e, oN.a, oN.b, oN.e)};
+        using V = typename Vec2<T>::type;
+        const V qm = *reinterpret_cast<const V*>(slot + kQom * kField);
+        V wk = {}, en = {}, rs = {};
+        if (k == 0) wk = *reinterpret_cast<const V*>(slot + kWek * kField);
+        if (k <= 1) en = *reinterpret_cast<const V*>(slot + kEnt * kField);
+        if (sponge) rs = *reinterpret_cast<const V*>(slot + kRspl * kField);
+        const T qmv[2] = {qm.x, qm.y}, wkv[2] = {wk.x, wk.y};
+        const T env[2] = {en.x, en.y}, rsv[2] = {rs.x, rs.y};
+        const T betay = cf.beta_y0 + cf.beta_dy * T(r);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          T dqdt = T(0);
+          if (!(wall_w[c] || wall_e[c]))
+            dqdt = cf.adfac * jac[c] + ah2f * d4C[c] - ah4f * d6[c];
+          if (k == 0) dqdt = dqdt + cf.fohfac0 * (wkv[c] - env[c]);
+          if (k == 1) dqdt = dqdt + cf.fohfac1 * env[c];
+          if (k == nl - 1) dqdt = dqdt - cf.bdrfac * d2S[c];
+          qnew[c] = qmv[c] + cf.tdt * dqdt;
+          if (sponge)
+            qnew[c] = qnew[c] + cf.tdt_c1spl * rsv[c] * (qmv[c] - betay);
+        }
+      }
+      if (writer[0]) out_k[r * nx + gc0] = qnew[0];
+      if (writer[1]) out_k[r * nx + gc0 + 1] = qnew[1];
+    }
+
+    // rotate the windows by one row
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      pS[c] = pC[c]; pC[c] = pN[c];
+      d2S[c] = d2C[c]; d2C[c] = v2[c];
+      d4S[c] = d4C[c]; d4C[c] = v4[c];
+    }
+    qS = qC; qC = qN;
+    oS = oC; oC = oN;
   }
-  out[idx] = qnew;
+}
+
+template <typename T>
+int smem_bytes(int sponge) {
+  const int fields = sponge ? kStreams : kStreams - 1;
+  return (4 + fields * kRing) * kWindow * (int)sizeof(T);
+}
+
+// Lets the kernel take `smem` bytes of dynamic shared memory on the
+// current device; the limit above 48 KB is raised once per device, not
+// per launch.
+template <typename T>
+cudaError_t allow_smem(int smem) {
+  constexpr int kMaxDevices = 64;
+  static int smem_allowed[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > smem_allowed[dev])) {
+    e = cudaFuncSetAttribute(qgstep_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) smem_allowed[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+// Blocks of the kernel that the current device holds at once: its SMs
+// times the blocks one SM fits (the occupancy calculator).
+template <typename T>
+int resident_blocks(int sponge, int* blocks) {
+  const int smem = smem_bytes<T>(sponge);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = allow_smem<T>(smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, qgstep_kernel<T>, kThreads, smem);
+  *blocks = sms * per_sm;
+  return (int)e;
 }
 
 template <typename T>
 int launch(const T* pom, const T* po, const T* qo, const T* qom,
            const T* wek, const T* ent, const T* rspl, T* out,
            const QgParams* prm, void* stream) {
-  if (prm->nl < 2 || prm->nl > kMaxLayers || prm->ny < 3 || prm->nx < 3)
+  const QgParams& p = *prm;
+  if (p.nl < 2 || p.nl > kMaxLayers || p.ny < 3 || p.nx < 3
+      || (long long)p.nl * p.ny * p.nx >= (1LL << 31)
+      || p.strip_w != kStripW || p.strip_h < 1
+      || p.strips_x != (p.nx + kStripW - 1) / kStripW
+      || p.strips_y != (p.ny + p.strip_h - 1) / p.strip_h
+      || p.strips_y > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(kBX, kBY, 1);
-  const dim3 grid((prm->nx + kBX - 1) / kBX, (prm->ny + kBY - 1) / kBY,
-                  prm->nl);
-  qgstep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      pom, po, qo, qom, wek, ent, rspl, out, *prm);
+  // each product rounded in T, as the plain chain does it
+  Coef<T> cf{};
+  cf.dxm2 = T(p.c[0]);
+  cf.bcfac = T(p.c[1]);
+  cf.adfac = T(p.c[2]);
+  const T rfnot = T(p.c[3]);
+  cf.tdt = T(p.c[4]);
+  cf.bdrfac = T(p.c[5]);
+  cf.tdt_c1spl = cf.tdt * T(p.c[6]);
+  cf.beta_y0 = T(p.c[7]);
+  cf.beta_dy = T(p.c[8]);
+  cf.fohfac0 = T(p.c[9]);
+  cf.fohfac1 = T(p.c[10]);
+  for (int k = 0; k < p.nl; ++k) {
+    cf.ah2f[k] = T(p.ah2[k]) * rfnot;
+    cf.ah4f[k] = T(p.ah4[k]) * rfnot;
+  }
+  const int smem = smem_bytes<T>(p.sponge);
+  const cudaError_t e = allow_smem<T>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.strips_x, p.strips_y, p.nl);
+  qgstep_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      pom, po, qo, qom, wek, ent, rspl, out, p, cf);
   return (int)cudaGetLastError();
 }
 
@@ -236,6 +524,11 @@ int qgstep_f64(const double* pom, const double* po, const double* qo,
                const double* rspl, double* out, const QgParams* prm,
                void* stream) {
   return launch<double>(pom, po, qo, qom, wek, ent, rspl, out, prm, stream);
+}
+
+int qgstep_resident_blocks(int f64, int sponge, int* blocks) {
+  return f64 ? resident_blocks<double>(sponge, blocks)
+             : resident_blocks<float>(sponge, blocks);
 }
 
 }  // extern "C"

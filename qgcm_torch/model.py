@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .device import resolve_device
 from .grids import Grids, build_grids
 from .modes import Modes, eigenmodes
 from .radiation import Radiation, radiat
@@ -90,7 +91,8 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids, modes: Modes,
     nlo = cfg.nlo
     helm = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2,
                               dtype=dtype, device=device)
-    sub = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2[1:])
+    sub = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2[1:],
+                             device="cpu")
     sol0 = sub.solve_np(np.ones((nlo - 1, nypo, nxpo)))
     ochom = 1.0 + modes.rdm2[1:, None, None] * sol0
     aipohs = (ochom * wop[None]).sum(axis=(1, 2)) * dxo * dyo
@@ -106,7 +108,7 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids, modes: Modes,
                           cdhinv=_tensor(cdhinv, device, dtype))
 
 
-def _check_supported(cfg: ModelConfig, device: torch.device):
+def _check_supported(cfg: ModelConfig):
     if cfg.atmos_only or not cfg.ocean_only or cfg.tau_udiff:
         raise NotImplementedError(
             "qgcm_torch runs ocean-only configurations so far; coupled "
@@ -123,19 +125,15 @@ def _check_supported(cfg: ModelConfig, device: torch.device):
         raise ValueError(f"unknown solver_transform {cfg.solver_transform!r}")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not {cfg.dtype}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} asked for, but CUDA is not "
-                           "available")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"qgcm_torch runs on cuda or cpu, not {device}")
 
 
-def build_model(cfg: ModelConfig, device="cpu") -> Model:
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """Build the static model data of an ocean-only box configuration,
-    over flat topography, on `device` ('cpu' or 'cuda[:n]')."""
+    over flat topography, on `device` ('cuda[:n]', the default, or
+    'cpu'; see device.py)."""
     cfg = cfg.validate()
-    device = torch.device(device)
-    _check_supported(cfg, device)
+    _check_supported(cfg)
+    device = resolve_device(device)
     if device.type == "cuda":
         # The step's float32 matmuls (the layer <-> mode einsums) must
         # run in full float32: TF32 keeps about three decimal digits,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +26,15 @@ from .stencils import del2_bc, jacobian9, _row_mask, _col_mask, _pad_y, \
 #          beta*dy, f0/H0, f0/H1)
 N_CONSTS = 11
 MAX_LAYERS = 8      # kMaxLayers in csrc/qgstep.cu
+STRIP_W = 122       # kStripW in csrc/qgstep.cu: output columns per strip
+# Bounds of the strip height (output rows per strip). A strip re-reads
+# 6 halo rows of pom (2 of po and qo) and spends 6 iterations filling its
+# pipeline: at 3x4801^2 heights 48-96 time within 0.2% of each other and
+# 16 is 6% slower. Where one wave of resident blocks covers the grid at
+# some height in between, the shortest such height is best: at 3x961^2 a
+# second, partial wave costs 15-30% (chip_smoke.py phase 5, PERF.md).
+MIN_STRIP_H = 16
+MAX_STRIP_H = 64
 
 
 def qgstep_reference(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
@@ -73,11 +83,36 @@ def qgstep_reference(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
     return torch.where(zonal, qo, qnew)
 
 
+class Geometry(NamedTuple):
+    """The kernel's launch geometry. Block (bx, by, k) of the grid
+    (strips_x, strips_y, nl) owns layer k, rows [by*strip_h,
+    min((by+1)*strip_h, ny)) and columns [bx*strip_w, min((bx+1)*strip_w,
+    nx)), as csrc/qgstep.cu computes them."""
+    strip_w: int
+    strip_h: int
+    strips_x: int
+    strips_y: int
+
+
+def launch_geometry(nl: int, ny: int, nx: int, resident: int) -> Geometry:
+    """Strips of STRIP_W columns, and of the fewest rows that keep the
+    launch within one wave of `resident` blocks (those the card holds at
+    once), within [MIN_STRIP_H, MAX_STRIP_H]. The last strip of each
+    direction may be narrower or shorter."""
+    strips_x = -(-nx // STRIP_W)
+    per_column = resident // (nl * strips_x)
+    h = -(-ny // per_column) if per_column else MAX_STRIP_H
+    h = min(max(h, MIN_STRIP_H), MAX_STRIP_H)
+    return Geometry(STRIP_W, h, strips_x, -(-ny // h))
+
+
 class _QgParams(ctypes.Structure):
     # Mirrors struct QgParams in csrc/qgstep.cu.
     _fields_ = [("nl", ctypes.c_int), ("ny", ctypes.c_int),
                 ("nx", ctypes.c_int), ("cyclic", ctypes.c_int),
-                ("sponge", ctypes.c_int), ("pad", ctypes.c_int),
+                ("sponge", ctypes.c_int), ("strip_w", ctypes.c_int),
+                ("strip_h", ctypes.c_int), ("strips_x", ctypes.c_int),
+                ("strips_y", ctypes.c_int), ("pad", ctypes.c_int),
                 ("c", ctypes.c_double * N_CONSTS),
                 ("ah2", ctypes.c_double * MAX_LAYERS),
                 ("ah4", ctypes.c_double * MAX_LAYERS)]
@@ -93,7 +128,25 @@ def build_kernel():
         fn.argtypes = ([ctypes.c_void_p] * 8
                        + [ctypes.POINTER(_QgParams), ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.cdll.qgstep_resident_blocks.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.cdll.qgstep_resident_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def resident_blocks(device: torch.device, dtype: torch.dtype,
+                    sponge: bool) -> int:
+    """Blocks of the kernel that the card holds at once, for this type and
+    sponge setting (the sponge's ring takes shared memory)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = build_kernel().cdll.qgstep_resident_blocks(
+            int(dtype == torch.float64), int(sponge), ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"qgstep occupancy query failed: CUDA error {err}, "
+                           f"{n.value} blocks")
+    return n.value
 
 
 def _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
@@ -148,8 +201,12 @@ def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, "
                          f"got {nl}")
     lib = build_kernel().cdll
+    geom = launch_geometry(nl, ny, nx,
+                           resident_blocks(pom.device, pom.dtype, sponge))
     prm = _QgParams(nl=nl, ny=ny, nx=nx, cyclic=int(cyclic),
-                    sponge=int(sponge), pad=0)
+                    sponge=int(sponge), strip_w=geom.strip_w,
+                    strip_h=geom.strip_h, strips_x=geom.strips_x,
+                    strips_y=geom.strips_y, pad=0)
     prm.c[:] = [float(c) for c in consts]
     prm.ah2[:nl] = [float(a) for a in ah2]
     prm.ah4[:nl] = [float(a) for a in ah4]

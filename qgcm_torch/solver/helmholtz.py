@@ -20,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def dst1(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Unnormalised type-I discrete sine transform along `dim`.
@@ -97,9 +99,11 @@ class BoxHelmholtz:
 
 def make_box_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                        rdm2: np.ndarray, dtype=torch.float64,
-                       device="cpu") -> BoxHelmholtz:
+                       device="cuda") -> BoxHelmholtz:
     """rdm2: (nm,) vector of 1/Rd^2 values (0 for barotropic). The
-    vectors are computed in float64 NumPy and moved to `device` once."""
+    vectors are computed in float64 NumPy and moved to `device` ('cuda',
+    the default, or 'cpu') once."""
+    device = resolve_device(device)
     nx, ny = nxp - 1, nyp - 1
     k = np.arange(1, nx)                       # x wavenumbers (DST-I)
     l = np.arange(1, ny)                       # y wavenumbers (DST-I)

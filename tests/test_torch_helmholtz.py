@@ -32,7 +32,7 @@ def test_box_solve(shape):
     nxp, nyp = shape
     dx = dy = 20e3
     rhs = np.random.default_rng(8).standard_normal((3, nyp, nxp)) * 1e-9
-    th = T_h.make_box_helmholtz(nxp, nyp, dx, dy, RDM2)
+    th = T_h.make_box_helmholtz(nxp, nyp, dx, dy, RDM2, device="cpu")
     jh = J_h.make_box_helmholtz(nxp, nyp, dx, dy, RDM2)
     got = th.solve(torch.from_numpy(rhs))
     assert got.shape == rhs.shape
@@ -50,6 +50,6 @@ def test_box_solve(shape):
 
 def test_solve_np_needs_a_float64_solver():
     th = T_h.make_box_helmholtz(33, 17, 20e3, 20e3, RDM2,
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="float64"):
         th.solve_np(np.ones((3, 17, 33)))

@@ -34,7 +34,7 @@ def _same(got, want, what):
 def test_build_model_bit_for_bit(kind, kw):
     cfg_j, cfg_t = cfg_pair(kind, **kw)
     jm = jax_build_model(cfg_j.replace(solver_transform="fft"))
-    tm = build_model(cfg_t)
+    tm = build_model(cfg_t, "cpu")
     for name in ("amat", "cl2m", "cm2l", "rdm2", "cphs", "rdef"):
         _same(getattr(tm.modes_oc, name), getattr(jm.modes_oc, name), name)
     _same(tm.amat, jm.modes_oc.amat.astype(cfg_j.dtype), "amat tensor")
@@ -65,7 +65,7 @@ def test_build_model_bit_for_bit(kind, kw):
 @pytest.mark.parametrize("kind", ["golden", "pallas", "tall"])
 def test_generators_bit_for_bit(kind):
     cfg_j, cfg_t = cfg_pair(kind)
-    jm, tm = jax_build_model(cfg_j), build_model(cfg_t)
+    jm, tm = jax_build_model(cfg_j), build_model(cfg_t, "cpu")
     _same(torch_gen.eddy_pressure(cfg_t, ssh_amp=0.15),
           jax_gen.eddy_pressure(cfg_j, ssh_amp=0.15), "eddy_pressure")
     for got, want in zip(torch_gen.double_gyre_windstress(cfg_t, tm.grids),
@@ -82,4 +82,4 @@ def test_generators_bit_for_bit(kind):
 def test_build_model_refuses_unported(override, err):
     _, cfg_t = cfg_pair("pallas")
     with pytest.raises(err):
-        build_model(cfg_t.replace(**override))
+        build_model(cfg_t.replace(**override), "cpu")

@@ -110,7 +110,7 @@ def test_qcomp_inversion_round_trip():
     the box inversion is exact up to float64 roundoff (the bar of
     tools/verify_drive.py)."""
     _, cfg = cfg_pair("pallas", nlo=3)
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     st = init_ocean_state(model, po=eddy_pressure(cfg))
     f = ocean_forcing_from_mean(
         model, *double_gyre_windstress(cfg, model.grids))

@@ -5,7 +5,11 @@ On CPU tensors ops.qgstep runs its plain PyTorch version
 (_qgostep with allow_pallas=False) and to the Pallas kernel in interpret
 mode, at the bar the Pallas kernel meets (tests/test_pallas_qg.py):
 max|dq| <= 1e-12 max|q|, with qom bit-exact. The CUDA kernel itself is
-checked on the card (chip_smoke.py)."""
+checked on the card (chip_smoke.py); here its launch geometry and its
+parameter block are checked against the kernel source."""
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -16,7 +20,10 @@ from qgcm_tpu.models.ocean import _qgostep as jax_qgostep
 from qgcm_torch.grids import build_grids
 from qgcm_torch.model import _sponge_ramp, build_model
 from qgcm_torch.models.ocean import _qgostep, qgstep_consts
-from qgcm_torch.ops.qgstep import qgstep, qgstep_reference
+from qgcm_torch.ops import qgstep as qgstep_mod
+from qgcm_torch.ops.qgstep import (MAX_STRIP_H, MIN_STRIP_H, STRIP_W,
+                                   launch_geometry, qgstep,
+                                   qgstep_reference)
 
 from test_torch_cases import cfg_pair, jax_case, rel_err, to_port
 
@@ -58,7 +65,8 @@ def test_qgstep_matches_jax_chain(kind, kw):
         *args, cyclic=cfg_t.cyclic_ocean, sponge=cfg_t.sponge.enabled))
     if not cfg_t.cyclic_ocean:
         # through the port's step: qom_new is the old qo, bit for bit
-        q_new, qm_new = _qgostep(build_model(cfg_t), st_t, f_t, args[5])
+        q_new, qm_new = _qgostep(build_model(cfg_t, "cpu"), st_t, f_t,
+                                 args[5])
         assert torch.equal(q_new, got)
         assert np.array_equal(qm_new.numpy(), np.asarray(qm_ref))
 
@@ -70,7 +78,7 @@ def test_qgstep_matches_pallas_interpret():
                            "cfg": jm.cfg.replace(use_pallas=True)})
     q_pl, qm_pl, _ = jax_qgostep(jm_p, st, f, entoc)
     st_t, f_t = to_port(st, f)
-    q_new, qm_new = _qgostep(build_model(cfg_t), st_t, f_t,
+    q_new, qm_new = _qgostep(build_model(cfg_t, "cpu"), st_t, f_t,
                              torch.tensor(np.asarray(entoc)))
     assert rel_err(q_new, q_pl) <= TOL
     assert np.array_equal(qm_new.numpy(), np.asarray(qm_pl))
@@ -119,3 +127,73 @@ def test_qgstep_refuses_other_devices():
             for a in _small_args()]
     with pytest.raises(ValueError, match="cuda or cpu"):
         qgstep(*args, cyclic=False, sponge=False)
+
+
+KERNEL_SRC = (Path(qgstep_mod.__file__).resolve().parents[1] / "csrc"
+              / "qgstep.cu").read_text()
+
+# tiny grids; heights at and beside the bounds of the strip height;
+# widths at and beside one strip; the port's test grids; the main path
+# (961^2) and NAtl 1 km (4801^2)
+GEOMETRY_CASES = (
+    [(2, 3, 3), (2, 5, 7), (3, 9, 9), (8, 4, 6), (2, 9, 3)]
+    + [(3, ny, nx) for ny in (MIN_STRIP_H - 1, MIN_STRIP_H, MIN_STRIP_H + 1)
+       for nx in (STRIP_W - 1, STRIP_W, STRIP_W + 1)]
+    + [(2, ny, 4801) for ny in (MAX_STRIP_H - 1, MAX_STRIP_H,
+                                MAX_STRIP_H + 1)]
+    + [(3, 73, 145), (3, 145, 145), (3, 961, 961), (3, 4801, 4801),
+       (2, 4801, STRIP_W + 1), (8, 1023, 2 * STRIP_W - 1)])
+# blocks an H100 SXM holds at once: 132 SMs times 4 (float64) or 8
+# (float32) blocks of the kernel
+RESIDENT = (528, 1056)
+
+
+@pytest.mark.parametrize("resident", RESIDENT)
+@pytest.mark.parametrize("nl,ny,nx", GEOMETRY_CASES,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in GEOMETRY_CASES])
+def test_launch_geometry_tiles_every_point_once(nl, ny, nx, resident):
+    """Block (bx, by, k) owns layer k, rows [by*h, min(by*h + h, ny)) and
+    columns [bx*w, min(bx*w + w, nx)) (csrc/qgstep.cu): every (k, row,
+    col) belongs to exactly one block, no block starts past the grid, the
+    strip counts are the ones the kernel's launch accepts, and the launch
+    stays within one wave of resident blocks unless the height is at its
+    upper bound."""
+    g = launch_geometry(nl, ny, nx, resident)
+    assert g.strip_w == STRIP_W
+    assert MIN_STRIP_H <= g.strip_h <= MAX_STRIP_H
+    assert g.strips_x == -(-nx // g.strip_w)
+    assert g.strips_y == -(-ny // g.strip_h)
+    if g.strip_h > MIN_STRIP_H:
+        assert (nl * g.strips_x * g.strips_y <= resident
+                or g.strip_h == MAX_STRIP_H)
+    owned = np.zeros((nl, ny, nx), np.uint8)
+    for k in range(nl):
+        for by in range(g.strips_y):
+            r0 = by * g.strip_h
+            assert r0 < ny
+            for bx in range(g.strips_x):
+                c0 = bx * g.strip_w
+                assert c0 < nx
+                owned[k, r0:min(r0 + g.strip_h, ny),
+                      c0:min(c0 + g.strip_w, nx)] += 1
+    assert (owned == 1).all()
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """STRIP_W, MAX_LAYERS and the _QgParams layout mirror
+    csrc/qgstep.cu; a mismatch would launch the kernel on a wrong
+    geometry or a garbled parameter block."""
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             KERNEL_SRC).group(1))
+    assert STRIP_W == const("kWindow") - 2 * const("kHalo")
+    assert qgstep_mod.MAX_LAYERS == const("kMaxLayers")
+    body = re.search(r"struct QgParams \{(.*?)\};", KERNEL_SRC,
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.replace("int ", "").replace("double ", "").strip()
+        fields += [re.sub(r"\[.*\]", "", f).strip()
+                   for f in decl.split(",") if f.strip()]
+    assert fields == [f[0] for f in qgstep_mod._QgParams._fields_]

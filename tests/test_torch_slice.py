@@ -15,13 +15,15 @@ import torch
 
 from qgcm_tpu.model import build_model as jax_build_model
 from qgcm_tpu.models.ocean import make_ocean_step as jax_make_ocean_step
-from qgcm_torch.convert import to_numpy
+from qgcm_torch.convert import forcing_to_torch, state_to_torch, to_numpy
 from qgcm_torch.generators import eddy_pressure, double_gyre_windstress
 from qgcm_torch.model import build_model
 from qgcm_torch.models.ocean import (init_ocean_state, make_ocean_step,
                                      ocean_forcing_from_mean)
 from qgcm_torch.models.stepper import make_ocean_only_runner
 from qgcm_torch.ops.qgstep import qgstep
+from qgcm_torch.solver.helmholtz import make_box_helmholtz
+from qgcm_torch.state import OceanForcing, OceanState
 
 from test_torch_cases import cfg_pair, jax_case, rel_err, to_port
 
@@ -36,8 +38,8 @@ def _step_both(cfg_j, cfg_t, dtype):
     jm = jax_build_model(cfg_j.replace(dtype=dtype))
     st_j, _ = jax.jit(jax_make_ocean_step(jm))(cast(st), cast(f))
     st_t, f_t = to_port(st, f, dtype=getattr(torch, dtype))
-    st_t, _ = make_ocean_step(build_model(cfg_t.replace(dtype=dtype)))(
-        st_t, f_t)
+    st_t, _ = make_ocean_step(build_model(cfg_t.replace(dtype=dtype),
+                                        "cpu"))(st_t, f_t)
     return st_j, st_t
 
 
@@ -73,7 +75,7 @@ def test_golden_ocean_only_box():
     """tests/test_golden.py::test_golden_ocean_only_box through the
     port's runner (its 50 substeps include two averagings)."""
     _, cfg = cfg_pair("golden")
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     st = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.1))
     f = ocean_forcing_from_mean(
         model, *double_gyre_windstress(cfg, model.grids, tau0=2e-5))
@@ -95,7 +97,7 @@ def test_golden_ocean_only_box():
 
 def test_runner_step0_keeps_the_averaging_cadence():
     _, cfg = cfg_pair("golden")
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     st0 = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.1))
     f = ocean_forcing_from_mean(
         model, *double_gyre_windstress(cfg, model.grids))
@@ -125,7 +127,7 @@ def test_unforced_eddy_conserves_energy():
     cfg = _small_box(ocean=qc.OceanConfig(ah2oc=(0.0,) * 3,
                                           ah4oc=(0.0,) * 3, delek=0.0),
                      no_oml=True)
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     st = init_ocean_state(model, po=eddy_pressure(
         cfg, ssh_amp=0.05, l_efold=3 * cfg.ocean.dxo))
     f = ocean_forcing_from_mean(model, *zero_forcing(cfg))
@@ -155,7 +157,7 @@ def test_mass_constraint_and_forced_spin_up():
     the ocean up from the radiative-balance rest state."""
     from qgcm_torch.ops.integrals import xintp
     cfg = _small_box()
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     st = init_ocean_state(model, init="rbal")
     assert not st.po.any() and st.sst.any()
     f = ocean_forcing_from_mean(
@@ -177,7 +179,7 @@ def test_ml_f64_mixed_layer(dtype):
     _, cfg = cfg_pair("golden", dtype=dtype)
     runs = []
     for flag in (True, False):
-        model = build_model(cfg.replace(ml_f64=flag))
+        model = build_model(cfg.replace(ml_f64=flag), "cpu")
         st = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.1),
                               init="rbal")
         f = ocean_forcing_from_mean(
@@ -208,11 +210,23 @@ def test_port_imports_no_jax():
 
 
 def test_cuda_device_without_cuda_raises():
+    """The entry points default to the card: without CUDA, a call that
+    asks for it, or asks for no device, raises and runs nothing on the
+    CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, cfg = cfg_pair("golden")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        build_model(cfg, "cuda")
+    st_np = {name: np.zeros((2, 3)) for name in OceanState._fields}
+    f_np = {name: np.zeros((3,)) for name in OceanForcing._fields}
+    calls = [lambda *d: build_model(cfg, *d),
+             lambda *d: state_to_torch(st_np, *d),
+             lambda *d: forcing_to_torch(f_np, *d),
+             lambda *d: make_box_helmholtz(33, 17, 20e3, 20e3, np.zeros(3),
+                                           torch.float64, *d)]
+    for call in calls:
+        for dev in [("cuda",), ()]:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call(*dev)
 
 
 def test_jax_and_port_state_round_trip():
