@@ -9,14 +9,22 @@ random fields at the ragged edges of the kernel's strips), reproduces
 the ocean golden run in float64 on the card, then drives the main path
 -- the ocean-only double-gyre box, 961x961 p-points x 3 layers in
 float32 -- through the public entry points, times it and profiles a few
-substeps of it, and last times the kernel alone against its bound at
-3x961^2 (float32 and float64) and 3x4801^2 (NAtl 1 km, float32), with
-a hot and with a cold L2, at the wrapper's strip height and at the
-heights around it. Every phase raises on a failure; nothing runs on the
-CPU. The last line of standard output is {"ok": true, "device":
+substeps of it, and times the kernel alone against its bound at 3x961^2
+(float32 and float64) and 3x4801^2 (NAtl 1 km, float32), with a hot and
+with a cold L2, at the wrapper's strip height and at the heights around
+it. Then the coupled model: the golden coupled run in float64, and the
+two coupled paths at full width in float32 -- the double gyre (box
+ocean 3x961^2 under a 3x97x385 atmosphere) and the southern-ocean
+channel (cyclic ocean 3x577x4609 under 3x109x289) -- each timed per
+coupling cycle, profiled whole and by part (xforc, ocean substep,
+atmosphere step), with the kernel checked in its box and cyclic modes
+at the coupled state; and last the two ocean-only channel presets
+(southern_ocean_ocean_only, 3x577x4609, and k247_default, 2x961x961
+with the sponge) for a few substeps each. Every phase raises on a
+failure; nothing runs on the CPU. The last line of standard output is {"ok": true, "device":
 {...}}; the line before it lists each kernel with its launch count on
-the main path, its error against the plain version, its times and its
-bound.
+the main path and on each coupled path, its error against the plain
+version, its times and its bound.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -51,6 +59,13 @@ GOLDEN_RTOL = 1e-9
 MAIN_STEPS = 250
 WARMUP_STEPS = 25
 PROFILE_STEPS = 10
+# the coupled paths, in coupling cycles (one ocean substep and nstr = 3
+# atmosphere steps each)
+COUPLED_WARMUP_CYCLES = 10
+COUPLED_CYCLES = 30
+PROFILE_CYCLES = 3
+# the ocean-only channel presets: substeps timed
+CHANNEL_STEPS = 20
 # where the main path's profiler trace is written (the kernel's build
 # directory, listed in .gitignore)
 TRACE = "build/qgcm_torch/main_path_trace.json"
@@ -72,6 +87,15 @@ SPONGE_FLOP_PER_POINT = 4
 FLUSH_BYTES = 128 * 2**20
 # strip heights timed beside the wrapper's own in phase 5
 SWEEP_HEIGHTS = (16, 24, 32, 48, 64, 96)
+
+
+@contextlib.contextmanager
+def phase(title):
+    """Print a phase's title, then its seconds when it ends."""
+    print(title)
+    t0 = time.perf_counter()
+    yield
+    print(f"    ({time.perf_counter() - t0:.1f} s)")
 
 
 def card_line() -> str:
@@ -172,29 +196,29 @@ def kernel_ms(fn, reps: int) -> tuple[float, float]:
     return hot, (both - writes) / reps
 
 
-def profile_substeps(run, st, f, step0, card):
-    """Profile PROFILE_STEPS substeps of the main path with torch.profiler
-    and print, all from that one run: the host-clock ms/substep with the
-    profiler on, the device-busy ms/substep (the union of the card's
-    kernel, memcpy and memset intervals in the trace), the idle share
-    1 - busy/host, and the device time by kernel name. Only the card's
-    activity is traced: host-side op records would slow the host, which
-    sets the pace of the substep, and so inflate the idle share."""
+def profile_units(fn, n, unit, card, top=8):
+    """Profile fn(), which runs n units of work (substeps, cycles,
+    calls), with torch.profiler and print, all from that one run: the
+    host-clock ms/unit with the profiler on, the device-busy ms/unit
+    (the union of the card's kernel, memcpy and memset intervals in the
+    trace), the idle share 1 - busy/host, and the device time by kernel
+    name. Only the card's activity is traced: host-side op records would
+    slow the host, which sets the pace, and so inflate the idle share."""
     from pathlib import Path
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         h0 = time.perf_counter()
-        run(st, f, PROFILE_STEPS, step0=step0)
+        fn()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - h0) * 1e3 / PROFILE_STEPS
+        host_ms = (time.perf_counter() - h0) * 1e3 / n
     trace = Path(__file__).resolve().parent / TRACE
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    print(f"  profile of {PROFILE_STEPS} substeps: host clock "
-          f"{host_ms:.4f} ms/substep with the profiler on [{card}]")
+    print(f"  profile of {n} {unit}s: host clock {host_ms:.4f} ms/{unit} "
+          f"with the profiler on [{card}]")
     if not events:
         print("  device busy: not measured (no device activity in the "
               "profiler's trace)")
@@ -204,17 +228,16 @@ def profile_substeps(run, st, f, step0, card):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    busy_ms = busy_us / 1e3 / PROFILE_STEPS
-    print(f"  device busy {busy_ms:.4f} ms/substep in {len(events)} device "
-          f"activities; idle share 1 - busy/host = "
-          f"{1 - busy_ms / host_ms:.4f}")
+    busy_ms = busy_us / 1e3 / n
+    print(f"  device busy {busy_ms:.4f} ms/{unit} in {len(events)} device "
+          f"activities ({len(events) / n:.0f}/{unit}); idle share "
+          f"1 - busy/host = {1 - busy_ms / host_ms:.4f}")
     by_name = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {us / 1e3 / PROFILE_STEPS:8.4f} ms/substep "
-              f"{100 * us / 1e3 / PROFILE_STEPS / busy_ms:5.1f}%  "
-              f"{name[:90]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {us / 1e3 / n:8.4f} ms/{unit} "
+              f"{100 * us / 1e3 / n / busy_ms:5.1f}%  {name[:90]}")
 
 
 def small_cfg(nlo, sponge=False, tall=False):
@@ -432,7 +455,6 @@ def phase_main(device, card):
                                          ocean_forcing_from_mean)
     from qgcm_torch.models.stepper import make_ocean_only_runner
     from qgcm_torch.ops.qgstep import qgstep, qgstep_reference
-    from qgcm_torch.ops.vorticity import qcomp
 
     cfg = double_gyre_ocean_only(dtype="float32")
     t0 = time.perf_counter()
@@ -472,16 +494,16 @@ def phase_main(device, card):
           f"[{card}]")
     print(f"  qgstep launches on the main path: {launches}")
 
-    dxom2 = 1.0 / model.grids.dxo**2
-    q_re = qcomp(st.po, model.amat, model.yporel, dxom2, cfg.fnot, cfg.beta,
-                 model.ddyn, cfg.nlo - 1, cyclic=False)
-    rt = ((st.qo - q_re)[:, 1:-1, 1:-1].abs().max()
-          / st.qo.abs().max()).item()
+    rt = round_trip(st.qo, st.po, model.amat, model.yporel,
+                    1.0 / model.grids.dxo**2, cfg, model.ddyn, cfg.nlo - 1,
+                    cyclic=False)
     print(f"  inversion round trip max|qcomp(po) - qo| / max|qo| = {rt:.3e} "
           f"(bar {ROUND_TRIP_TOL:g})")
     if not rt <= ROUND_TRIP_TOL:
         raise AssertionError("qcomp(po) does not reproduce qo")
-    profile_substeps(run, st, f, WARMUP_STEPS + MAIN_STEPS, card)
+    profile_units(lambda: run(st, f, PROFILE_STEPS,
+                              step0=WARMUP_STEPS + MAIN_STEPS),
+                  PROFILE_STEPS, "substep", card)
 
     args = kernel_inputs(model, st, f, cyclic=False)
     err, scale = compare(args, cyclic=False, sponge=False)
@@ -510,6 +532,237 @@ def phase_main(device, card):
                 ms_method="cuda_graph_replay", eager_ms=eager_ms,
                 plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
                 share_of_bound=bound / k_ms)
+
+
+def phase_golden_coupled(device):
+    """tests/test_golden.py::test_golden_coupled on the card: 30
+    atmosphere steps (10 coupling cycles) of the small coupled box in
+    float64 from the radiative balance."""
+    from qgcm_torch.config import OceanConfig, double_gyre_coupled
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ocean import init_ocean_state
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep
+    cfg = double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8, ndxr=4,
+                              dta=180.0, ocean=OceanConfig(dxo=20.0e3))
+    model = build_model(cfg, device)
+    oc = init_ocean_state(model, init="rbal")
+    at = init_atmos_state(model, init="rbal")
+    qgstep.launches = 0
+    oc, at = make_coupled_runner(model)(oc, at, 30)
+    torch.cuda.synchronize()
+    if qgstep.launches != 10:
+        raise AssertionError(f"the golden coupled run launched qgstep "
+                             f"{qgstep.launches} times in 10 cycles")
+    got = dict(pa_l1=at.pa.abs().sum().item(), pa_max=at.pa.max().item(),
+               ast_l1=at.ast.abs().sum().item(),
+               hmixa_sum=at.hmixa.sum().item(),
+               po_l1=oc.po.abs().sum().item(),
+               sst_l1=oc.sst.abs().sum().item())
+    expected = dict(pa_l1=4494126.575996573, pa_max=10034.029753613597,
+                    ast_l1=3013.375749852249, hmixa_sum=287999.9999953847,
+                    po_l1=8.576337767308004, sst_l1=7884.8790379866205)
+    for k, v in expected.items():
+        rel = abs(got[k] - v) / abs(v)
+        print(f"  {k:9s} {got[k]!r:>24} expected {v!r:>24} rel {rel:.2e}")
+        if not rel <= GOLDEN_RTOL:
+            raise AssertionError(f"golden coupled {k} off by {rel:.3e}")
+
+
+def round_trip(q, p, amat, yprel, dxm2, cfg, ddyn, kbot, cyclic):
+    """max|qcomp(p) - q| / max|q| at the interior points (the rows
+    inside the zonal walls, and in the box the columns inside the
+    meridional ones)."""
+    from qgcm_torch.ops.vorticity import qcomp
+    q_re = qcomp(p, amat, yprel, dxm2, cfg.fnot, cfg.beta, ddyn, kbot,
+                 cyclic=cyclic)
+    inner = (slice(None), slice(1, -1),
+             slice(None) if cyclic else slice(1, -1))
+    return ((q - q_re)[inner].abs().max() / q.abs().max()).item()
+
+
+def phase_coupled(device, card, preset):
+    """A coupled path at full width in float32 through the public entry
+    points: build_model -> init_ocean_state / init_atmos_state ('rbal',
+    and a Gaussian eddy in the ocean's pressure) -> make_coupled_runner;
+    warm-up, a timed run (CUDA events), a
+    profiled run, each part of a cycle profiled alone, and the checks:
+    launches, finite fields, the kernel against its plain version at
+    the coupled state, both inversions' round trips, the continuity
+    monitors, and in the channel the duplicate column. Returns the
+    path's entry of the kernels line."""
+    from qgcm_torch.coupling import make_xforc
+    from qgcm_torch.generators import eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state, make_atmos_step
+    from qgcm_torch.models.ocean import init_ocean_state, make_ocean_step
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep, qgstep_reference
+
+    cfg = preset(dtype="float32")
+    cyclic = cfg.cyclic_ocean
+    nstr = cfg.nstr
+    t0 = time.perf_counter()
+    model = build_model(cfg, device)
+    # The balanced atmosphere has no wind in its bottom layer, so an
+    # ocean at rest would stay at rest in float32 over these cycles (the
+    # channel's does) and the kernel would be checked on zero increments.
+    oc = init_ocean_state(model, init="rbal",
+                          po=eddy_pressure(cfg, ssh_amp=0.15))
+    at = init_atmos_state(model, init="rbal")
+    run = make_coupled_runner(model)
+    torch.cuda.synchronize()
+    print(f"  ocean {cfg.nlo}x{cfg.nypo}x{cfg.nxpo} "
+          f"({'cyclic' if cyclic else 'box'}), atmosphere "
+          f"{cfg.nla}x{cfg.nypa}x{cfg.nxpa}, fine grid "
+          f"{cfg.nypaor}x{cfg.nxpaor}, float32; set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    step0 = COUPLED_WARMUP_CYCLES * nstr
+    oc, at = run(oc, at, step0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qgstep.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    oc, at = run(oc, at, COUPLED_CYCLES * nstr, step0=step0)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0
+    launches = qgstep.launches
+    step0 += COUPLED_CYCLES * nstr
+    if launches != COUPLED_CYCLES:
+        raise AssertionError(f"qgstep launched {launches} times in "
+                             f"{COUPLED_CYCLES} coupling cycles")
+    for name, t in (*oc._asdict().items(), *at._asdict().items()):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite values in {name}")
+    print(f"  {COUPLED_CYCLES} cycles ({COUPLED_CYCLES * nstr} atmosphere "
+          f"steps): {ev0.elapsed_time(ev1) / COUPLED_CYCLES:.4f} ms/cycle "
+          f"(CUDA events), {host_s / COUPLED_CYCLES * 1e3:.4f} ms/cycle "
+          f"(host clock); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+    print(f"  qgstep launches on this path: {launches} in {COUPLED_CYCLES} "
+          f"cycles")
+    profile_units(lambda: run(oc, at, PROFILE_CYCLES * nstr, step0=step0),
+                  PROFILE_CYCLES, "cycle", card)
+
+    # each part of a cycle alone, from the run's last state
+    xforc = make_xforc(model)
+    ostep, astep = make_ocean_step(model), make_atmos_step(model)
+    ofor, afor, _ = xforc(at.pam, oc.pom, oc.sstm, at.astm, at.hmixam)
+    for part, fn in (("xforc call", lambda: xforc(at.pam, oc.pom, oc.sstm,
+                                                  at.astm, at.hmixam)),
+                     ("ocean substep", lambda: ostep(oc, ofor)),
+                     ("atmosphere step", lambda: astep(at, afor))):
+        print(f"  -- {part}s alone:")
+        profile_units(lambda: [fn() for _ in range(PROFILE_CYCLES)],
+                      PROFILE_CYCLES, part.split()[-1], card, top=4)
+    _, od = ostep(oc, ofor)
+    _, ad = astep(at, afor)
+    print(f"  last emfroc {od.emfroc.tolist()}, emfrat {ad.emfrat.tolist()}")
+
+    g = model.grids
+    rt_o = round_trip(oc.qo, oc.po, model.amat, model.yporel, 1 / g.dxo**2,
+                      cfg, model.ddyn, cfg.nlo - 1, cyclic)
+    rt_a = round_trip(at.qa, at.pa, model.amat_at, model.yparel,
+                      1 / g.dxa**2, cfg, model.ddyn_at, 0, True)
+    print(f"  inversion round trips max|qcomp(p) - q| / max|q|: ocean "
+          f"{rt_o:.3e} (bar {ROUND_TRIP_TOL:g}), atmosphere {rt_a:.3e}")
+    if not rt_o <= ROUND_TRIP_TOL:
+        raise AssertionError("qcomp(po) does not reproduce qo")
+    if cyclic:
+        dup = torch.equal(oc.po[..., -1], oc.po[..., 0])
+        print(f"  po[..., -1] == po[..., 0] bit for bit: {dup}")
+        if not dup:
+            raise AssertionError("the channel lost its duplicate column")
+
+    args = kernel_inputs(model, oc, ofor, cyclic)
+    err, scale = compare(args, cyclic=cyclic, sponge=False)
+    nl, ny, nx = oc.po.shape
+    print(f"  kernel vs plain at {(nl, ny, nx)} float32, "
+          f"{'cyclic' if cyclic else 'box'} mode: max|dq| = {err:.3e} = "
+          f"{err / scale:.3e} max|q| (bar {F32_TOL:g})")
+    if not err <= F32_TOL * scale:
+        raise AssertionError("kernel disagrees with the plain chain on the "
+                             "coupled path")
+    hot, cold = kernel_ms(lambda: qgstep(*args, cyclic=cyclic, sponge=False),
+                          50)
+    plain = cuda_ms(lambda: qgstep_reference(*args, cyclic=cyclic,
+                                             sponge=False), 5)
+    bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=False)
+    print(f"  qgstep kernel {hot:.4f} ms hot L2, {cold:.4f} ms cold L2 "
+          f"(CUDA-graph replays); plain chain {plain:.4f} ms; bound "
+          f"{bound:.4f} ms ({by}); share of bound {bound / hot:.3f} hot "
+          f"[{card}]")
+    return dict(path=preset.__name__, shape=[nl, ny, nx], cyclic=cyclic,
+                launches=launches, max_abs_err=err, ms=hot, cold_ms=cold,
+                plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
+def phase_channel(device, card, preset):
+    """An ocean-only channel preset at full width in float32 through the
+    public entry points (an unforced Gaussian eddy over the
+    radiative-balance SST): timed substeps, launches, finite fields, the
+    duplicate column, and the kernel against its plain version in cyclic
+    mode (with the k247 sponge where the preset has it). Returns the
+    path's entry of the kernels line."""
+    from qgcm_torch.generators import eddy_pressure, zero_forcing
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import (init_ocean_state,
+                                         ocean_forcing_from_mean)
+    from qgcm_torch.models.stepper import make_ocean_only_runner
+    from qgcm_torch.ops.qgstep import qgstep
+
+    cfg = preset(dtype="float32")
+    sponge = cfg.sponge.enabled
+    t0 = time.perf_counter()
+    model = build_model(cfg, device)
+    st = init_ocean_state(model, init="rbal",
+                          po=eddy_pressure(cfg, ssh_amp=0.15))
+    f = ocean_forcing_from_mean(model, *zero_forcing(cfg))
+    run = make_ocean_only_runner(model)
+    st = run(st, f, 5)
+    torch.cuda.synchronize()
+    print(f"  {preset.__name__}: ocean {cfg.nlo}x{cfg.nypo}x{cfg.nxpo} "
+          f"(cyclic{', sponge' if sponge else ''}), float32; set-up and 5 "
+          f"substeps {time.perf_counter() - t0:.2f} s")
+    qgstep.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    st = run(st, f, CHANNEL_STEPS, step0=5)
+    ev1.record()
+    torch.cuda.synchronize()
+    launches = qgstep.launches
+    if launches != CHANNEL_STEPS:
+        raise AssertionError(f"qgstep launched {launches} times in "
+                             f"{CHANNEL_STEPS} substeps")
+    for name, t in st._asdict().items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite values in {name}")
+    if not torch.equal(st.po[..., -1], st.po[..., 0]):
+        raise AssertionError("the channel lost its duplicate column")
+    args = kernel_inputs(model, st, f, cyclic=True)
+    err, scale = compare(args, cyclic=True, sponge=sponge)
+    nl, ny, nx = st.po.shape
+    hot, cold = kernel_ms(lambda: qgstep(*args, cyclic=True, sponge=sponge),
+                          20)
+    bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=sponge)
+    print(f"    {ev0.elapsed_time(ev1) / CHANNEL_STEPS:.4f} ms/substep (CUDA "
+          f"events); {launches} launches in {CHANNEL_STEPS} substeps; "
+          f"duplicate column bit for bit; kernel vs plain "
+          f"{err / scale:.3e} max|q| (bar {F32_TOL:g}); kernel {hot:.4f} / "
+          f"{cold:.4f} ms hot/cold, bound {bound:.4f} ms ({by}) [{card}]")
+    if not err <= F32_TOL * scale:
+        raise AssertionError(f"kernel disagrees with the plain chain on "
+                             f"{preset.__name__}")
+    return dict(path=preset.__name__, shape=[nl, ny, nx], cyclic=True,
+                sponge=sponge, launches=launches, max_abs_err=err, ms=hot,
+                cold_ms=cold, bound_ms=bound, bound_by=by)
 
 
 def phase_kernel_timing(card):
@@ -572,6 +825,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port is not run on "
               "the CPU", file=sys.stderr)
         return 1
+    from qgcm_torch.config import (double_gyre_coupled, k247_default,
+                                   southern_ocean_coupled,
+                                   southern_ocean_ocean_only)
     from qgcm_torch.ops.qgstep import build_kernel
 
     device = torch.device("cuda")
@@ -579,6 +835,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    t_start = time.perf_counter()
     print(f"[1] card: {card}")
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -590,16 +847,32 @@ def main() -> int:
     for line in sass_census(lib.path):
         print(f"      sass {line}")
 
-    print("[2] kernel vs plain chain on the card (small configurations)")
-    phase_kernel_small(device)
-    phase_kernel_ragged()
-    print("[3] golden ocean box, float64, 50 substeps on the card")
-    phase_golden(device)
-    print("[4] main path: double_gyre_ocean_only, float32")
-    kernel = phase_main(device, card)
-    print("[5] the kernel alone against its bound")
-    phase_kernel_timing(card)
+    with phase("[2] kernel vs plain chain on the card (small "
+               "configurations)"):
+        phase_kernel_small(device)
+        phase_kernel_ragged()
+    with phase("[3] golden ocean box, float64, 50 substeps on the card"):
+        phase_golden(device)
+    with phase("[4] main path: double_gyre_ocean_only, float32"):
+        kernel = phase_main(device, card)
+    with phase("[5] the kernel alone against its bound"):
+        phase_kernel_timing(card)
+    with phase("[6] golden coupled box, float64, 30 steps on the card"):
+        phase_golden_coupled(device)
+    with phase("[7] coupled double gyre: double_gyre_coupled, float32"):
+        paths = [phase_coupled(device, card, double_gyre_coupled)]
+    with phase("[8] coupled southern-ocean channel: "
+               "southern_ocean_coupled, float32"):
+        paths.append(phase_coupled(device, card, southern_ocean_coupled))
+    with phase("[9] ocean-only channels: southern_ocean_ocean_only, "
+               "k247_default, float32"):
+        paths += [phase_channel(device, card, preset)
+                  for preset in (southern_ocean_ocean_only, k247_default)]
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
+    kernel["paths"] = [dict(path="double_gyre_ocean_only",
+                            launches=kernel["launches"],
+                            max_abs_err=kernel["max_abs_err"]), *paths]
     print(card_line())
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ NumPy on the host and is moved to the device once; the stepped fields
 take `ModelConfig.dtype`. Nothing here sets a global default dtype or
 device: every tensor is made on the device `build_model` was given.
 
-The port covers the ocean-only box so far (config, grids, modes,
-radiation, topography, the box PV inversion, the ocean substep and its
-runner). Importing this package never imports JAX.
+The port covers the ocean (box and zonally-cyclic channel), the
+atmosphere, the air-sea coupling and the ocean-only, coupled and
+atmosphere-only runners (config, grids, modes, radiation, topography,
+both PV inversions, coupling, models/). Importing this package never
+imports JAX.
 """
 
 from .config import (ModelConfig, OceanConfig, AtmosConfig,  # noqa: F401

@@ -1,9 +1,10 @@
-"""Carry ocean state and forcing across between qgcm_tpu and the port.
+"""Carry state and forcing across between qgcm_tpu and the port.
 
-The JAX package's OceanState / OceanForcing are handed over as a
-mapping of field name to NumPy array ({k: np.asarray(v) for k, v in
-st._asdict().items()}); they become the port's tensors on a given
-device (the card unless the caller asks for "cpu") and dtype.
+The JAX package's OceanState / OceanForcing / AtmosState /
+AtmosForcing are handed over as a mapping of field name to NumPy array
+({k: np.asarray(v) for k, v in st._asdict().items()}); they become
+the port's tensors on a given device (the card unless the caller asks
+for "cpu") and dtype.
 `to_numpy` goes back: a dict of NumPy arrays (in the tensors' dtype)
 keyed by field name, from which the JAX NamedTuple is rebuilt with
 `Cls(**d)`.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .state import OceanForcing, OceanState
+from .state import AtmosForcing, AtmosState, OceanForcing, OceanState
 
 
 def _to_torch(cls, src: Mapping, device, dtype):
@@ -37,6 +38,18 @@ def forcing_to_torch(src: Mapping, device="cuda",
                      dtype=torch.float64) -> OceanForcing:
     """OceanForcing of tensors from {field: array}."""
     return _to_torch(OceanForcing, src, device, dtype)
+
+
+def atmos_state_to_torch(src: Mapping, device="cuda",
+                         dtype=torch.float64) -> AtmosState:
+    """AtmosState of tensors from {field: array}."""
+    return _to_torch(AtmosState, src, device, dtype)
+
+
+def atmos_forcing_to_torch(src: Mapping, device="cuda",
+                           dtype=torch.float64) -> AtmosForcing:
+    """AtmosForcing of tensors from {field: array}."""
+    return _to_torch(AtmosForcing, src, device, dtype)
 
 
 def to_numpy(nt: NamedTuple) -> dict:

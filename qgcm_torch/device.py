@@ -1,8 +1,8 @@
 """The device the port's entry points put their tensors on.
 
-Every entry point that makes tensors (`model.build_model`,
-`convert.state_to_torch` / `forcing_to_torch`,
-`solver.helmholtz.make_box_helmholtz`) defaults to the card, "cuda",
+Every entry point that makes tensors (`model.build_model`, the
+`convert.*_to_torch` converters, `solver.helmholtz.make_box_helmholtz`
+and `make_cyclic_helmholtz`) defaults to the card, "cuda",
 and runs on the CPU only when the caller asks for "cpu"; where CUDA is
 absent a call for the card raises instead of running on the CPU.
 """

@@ -1,12 +1,15 @@
-"""Oceanic component, box geometry: mixed layer, QG vorticity step, PV
-inversion (port of qgcm_tpu/models/ocean.py).
+"""Oceanic component: mixed layer, QG vorticity step, PV inversion, in
+the box and in the zonally-cyclic channel (port of
+qgcm_tpu/models/ocean.py).
 
 Replaces reference src/omlsubs.F (oml/omladf), src/qgosubs.F (qgostep)
 and src/ocisubs.F (ocinvq) with one functional substep on tensors. The
 vorticity step goes through ops.qgstep: the hand-written CUDA kernel on
-the card, its plain PyTorch version on the CPU. Equation references are
-to the Q-GCM v1.5.0 users' guide numbering (7.x). The cyclic channel
-(momentum constraints, CyclicHelmholtz) is a later slice.
+the card, its plain PyTorch version on the CPU. In the channel the
+momentum-constraint integrals the kernel does not return come from thin
+wall slices (_edge_d2d4), as in qgcm_tpu's fused-kernel path, and every
+p-grid field keeps its east column equal to its west one. Equation
+references are to the Q-GCM v1.5.0 users' guide numbering (7.x).
 """
 
 from __future__ import annotations
@@ -14,15 +17,20 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ModelConfig, ml_f64_enabled
 from ..grids import Grids
 from ..model import Model
-from ..ops.integrals import xintp
+from ..ops.integrals import line_sum, xintp
 from ..ops.qgstep import qgstep
-from ..ops.stencils import _col_mask
+from ..ops.stencils import del2_bc, _col_mask, _eshift, _wshift
 from ..ops.vorticity import qcomp, ocqbdy
 from ..state import OceanState, OceanForcing
+
+# threshold of the continuity monitors emfroc/emfrat (ocisubs.F:281,
+# atisubs.F:248)
+ECRIT = 1.0e-13
 
 
 class OceanStepDiags(NamedTuple):
@@ -34,11 +42,31 @@ class OceanStepDiags(NamedTuple):
     centoc: torch.Tensor  # scalar: integrated convective entrainment
 
 
-def _pad_t_grid(f: torch.Tensor, south=None, north=None) -> torch.Tensor:
-    """Pad a T-grid field by one ghost cell on each side: edge-replicate
-    in x (no normal flux through the box walls) and in y, unless a
-    constant boundary value is given (sb_hflux/nb_hflux)."""
-    f = torch.cat([f[:, :1], f, f[:, -1:]], dim=1)
+def _first(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n,) vector (x, 0, ..., 0) of a 0-d tensor x."""
+    return F.pad(x.reshape(1), (0, n - 1))
+
+
+def _interface_jump(e: torch.Tensor, nl: int) -> torch.Tensor:
+    """(e, -e, 0, ...): the per-layer difference of an entrainment that
+    acts across interface 1 only (ocisubs.F:176-193)."""
+    return F.pad(torch.stack([e, -e]), (0, nl - 2))
+
+
+def _wrap_x(f: torch.Tensor, cyclic: bool) -> torch.Tensor:
+    """One ghost column on each side of a T-grid field: the wraparound
+    in the channel, edge-replicated (no normal flux) in the box."""
+    if cyclic:
+        return torch.cat([f[:, -1:], f, f[:, :1]], dim=1)
+    return torch.cat([f[:, :1], f, f[:, -1:]], dim=1)
+
+
+def _pad_t_grid(f: torch.Tensor, cyclic: bool, south=None,
+                north=None) -> torch.Tensor:
+    """Pad a T-grid field by one ghost cell on each side: _wrap_x in x,
+    edge-replicate in y unless a constant boundary value is given
+    (sb_hflux/nb_hflux)."""
+    f = _wrap_x(f, cyclic)
     srow = f[:1] if south is None else torch.full_like(f[:1], south)
     nrow = f[-1:] if north is None else torch.full_like(f[-1:], north)
     return torch.cat([srow, f, nrow], dim=0)
@@ -60,6 +88,7 @@ def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
     geostrophic + Ekman velocities, del2 and del4 diffusion of sstm."""
     cfg = model.cfg
     g = model.grids
+    cyclic = cfg.cyclic_ocean
     uvgfac = cfg.ycexp / (g.dxo * cfg.fnot)
     rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
     hdxom1 = 0.5 / g.dxo
@@ -72,10 +101,15 @@ def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
              + rhf0hm * (tauyo[1:, :] + tauyo[:-1, :]))
     # T at W/E faces (sum of adjacent cells; the 1/2 is in hdxom1); no
     # flux through the box walls
-    zcol = torch.zeros_like(sst[:, :1])
-    tface = torch.cat([zcol, sst[:, :-1] + sst[:, 1:], zcol], dim=1)
-    wecols = _col_mask(uface, 0) | _col_mask(uface, -1)
-    xflux = torch.where(wecols, 0.0, uface * tface)
+    if cyclic:
+        twrap = sst[:, :1] + sst[:, -1:]
+        xflux = uface * torch.cat([twrap, sst[:, :-1] + sst[:, 1:], twrap],
+                                  dim=1)
+    else:
+        zcol = torch.zeros_like(sst[:, :1])
+        tface = torch.cat([zcol, sst[:, :-1] + sst[:, 1:], zcol], dim=1)
+        wecols = _col_mask(uface, 0) | _col_mask(uface, -1)
+        xflux = torch.where(wecols, 0.0, uface * tface)
     hxadv = hdxom1 * (xflux[:, 1:] - xflux[:, :-1])
 
     # v at T-cell S/N faces: faces line up with p rows. (nypo, nxto)
@@ -99,27 +133,31 @@ def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
     rhs = -(hxadv + hyadv)
 
     # del2 of lagged SST with no-flux (or specified-T) boundaries
-    sstm_p = _pad_t_grid(sstm, south=tsbdy if cfg.sb_hflux else None,
+    sstm_p = _pad_t_grid(sstm, cyclic,
+                         south=tsbdy if cfg.sb_hflux else None,
                          north=tnbdy if cfg.nb_hflux else None)
     del2t = _lap_padded(sstm_p)
     # del4: second application, always no-flux in y (omlsubs.F:748-758)
-    del4t = _lap_padded(_pad_t_grid(del2t))
+    del4t = _lap_padded(_pad_t_grid(del2t, cyclic))
     return rhs + d2tfac * del2t - d4tfac * del4t
 
 
-def _entrain_to_p(xfo: torch.Tensor) -> torch.Tensor:
+def _entrain_to_p(xfo: torch.Tensor, cyclic: bool) -> torch.Tensor:
     """Average T-grid entrainment onto p points, conserving the area
-    integral (omlsubs.F:158-206): edge-replicate ghosts make the
-    reference's half and quarter wall and corner weights fall out of one
-    4-point average."""
-    xp = torch.cat([xfo[:, :1], xfo, xfo[:, -1:]], dim=1)
+    integral (omlsubs.F:158-206): wraparound (channel) or
+    edge-replicate (box) ghosts make the reference's half and quarter
+    wall and corner weights fall out of one 4-point average. In the
+    channel the east column repeats the west one bit for bit."""
+    xp = _wrap_x(xfo, cyclic)
     xp = torch.cat([xp[:1], xp, xp[-1:]], dim=0)
     return 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
 
 
 def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     """Step the ocean mixed layer (oml, src/omlsubs.F:47-236).
-    Returns (sst_new, sstm_new, entoc, xon1, cfraoc, centoc).
+    Returns (sst_new, sstm_new, entoc, xon1, enis1, enin1, cfraoc,
+    centoc); enis1/enin1 are the boundary line integrals of entoc that
+    the channel's momentum constraints take.
 
     On float32 models the SST prediction and the convection clamp run
     in float64 by default and are stored in float32 (config.ml_f64): the
@@ -165,9 +203,11 @@ def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     # Remove mean so net entrainment (deep-ocean heat flux) is zero
     xfo = xfo - xfo.sum() * cfg.ocnorm
 
-    entoc = _entrain_to_p(xfo)
+    entoc = _entrain_to_p(xfo, cfg.cyclic_ocean)
     xon1 = xintp(entoc) * model.grids.dxo * model.grids.dyo
-    return sstnew, state.sst, entoc, xon1, cfraoc, centoc
+    enis1 = model.grids.dxo * line_sum(entoc[0, :])
+    enin1 = model.grids.dxo * line_sum(entoc[-1, :])
+    return sstnew, state.sst, entoc, xon1, enis1, enin1, cfraoc, centoc
 
 
 # ----------------------------------------------------------------------
@@ -197,43 +237,149 @@ def _qgostep(model: Model, state: OceanState, forcing: OceanForcing,
                     forcing.wekpo, entoc, model.r_spl,
                     qgstep_consts(cfg, model.grids),
                     cfg.ocean.ah2oc, cfg.ocean.ah4oc,
-                    cyclic=False, sponge=cfg.sponge.enabled)
+                    cyclic=cfg.cyclic_ocean, sponge=cfg.sponge.enabled)
     return qo_new, state.qo
 
 
+def _edge_d2d4(pom, bcfac, dxm2):
+    """The two wall-adjacent rows of del2(pom) and del4(pom) in the
+    channel, from thin slices (the constraint integrals need no more).
+    Returns (d2_s, d2_n, d4_s, d4_n), each (nl, 2, nxp): south rows
+    [wall, wall+1], north rows [wall-1, wall]."""
+
+    def lap_row(r3):
+        return dxm2 * (r3[:, 0] + r3[:, 2] + _wshift(r3[:, 1])
+                       + _eshift(r3[:, 1]) - 4.0 * r3[:, 1])
+
+    d2s = del2_bc(pom[:, :5], bcfac, dxm2, True)[:, :3]
+    d2n = del2_bc(pom[:, -5:], bcfac, dxm2, True)[:, -3:]
+    d4_s = torch.stack([bcfac * (d2s[:, 1] - d2s[:, 0]), lap_row(d2s)],
+                       dim=1)
+    d4_n = torch.stack([lap_row(d2n), bcfac * (d2n[:, -2] - d2n[:, -1])],
+                       dim=1)
+    return d2s[:, :2], d2n[:, -2:], d4_s, d4_n
+
+
+def _cyclic_boundary_terms(model: Model, state: OceanState, d2_s, d2_n,
+                           d4_s, d4_n) -> dict:
+    """Momentum-constraint boundary integrals of the channel
+    (qgosubs.F:150-163 bottom drag; ocadif:279-297, 404-443) from the
+    wall slices of del2/del4 (_edge_d2d4) and the state's wall rows."""
+    cfg = model.cfg
+    g = model.grids
+    po, pom, qo = state.po, state.pom, state.qo
+    ah2, ah4 = model.ah2oc, model.ah4oc
+    adfaco = 1.0 / (12.0 * g.dxo * g.dyo * cfg.fnot)
+
+    pdx = _eshift(po) - _wshift(po)
+    pdx_s, pdx_n = pdx[:, 1, :], pdx[:, -2, :]
+    aj5s = line_sum(qo[:, 0, :] * pdx_s)
+    aj9s = line_sum(qo[:, 1, :] * pdx_s)
+    aj5n = -line_sum(qo[:, -1, :] * pdx_n)
+    aj9n = -line_sum(qo[:, -2, :] * pdx_n)
+    ajfac = cfg.fnot * adfaco * g.dxo * g.dyo
+    half_ek = 0.5 * (1.0 if cfg.fnot > 0 else -1.0) * cfg.ocean.delek
+    return dict(
+        ajis=ajfac * (aj5s + 2.0 * aj9s), ajin=ajfac * (aj5n + 2.0 * aj9n),
+        ap3s=ah2 * (d2_s[:, 1, :-1] - d2_s[:, 0, :-1]).sum(-1),
+        ap3n=ah2 * (d2_n[:, 1, :-1] - d2_n[:, 0, :-1]).sum(-1),
+        ap5s=ah4 * (d4_s[:, 1, :-1] - d4_s[:, 0, :-1]).sum(-1),
+        ap5n=ah4 * (d4_n[:, 1, :-1] - d4_n[:, 0, :-1]).sum(-1),
+        bdrins=half_ek * (pom[-1, 1, :-1] - pom[-1, 0, :-1]).sum(),
+        bdrinn=half_ek * (pom[-1, -1, :-1] - pom[-1, -2, :-1]).sum())
+
+
 # ----------------------------------------------------------------------
-# PV inversion, box (src/ocisubs.F ocinvq:328-401)
+# PV inversion (src/ocisubs.F ocinvq)
 # ----------------------------------------------------------------------
 
-def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1):
-    """Invert PV to pressure under the box's mass constraint.
+def _channel_pressure(inv, sol, cl2m, cm2l, cs_new, cn_new, dx, dy):
+    """Layer pressures of a channel inversion, and their area integrals
+    (ocisubs.F:208-264, atisubs.F:181-230): the homogeneous solutions
+    that the new momentum-constraint vectors cs_new/cn_new call for are
+    added to the inhomogeneous modal solutions `sol`, and the modes
+    turned into layers. The east column is the west one, bit for bit.
+    Returns (p, aiplay)."""
+    xinhom = xintp(sol) * dx * dy
+    # line integrals of dp/dy of the inhomogeneous solutions
+    ayis = line_sum(sol[:, 1, :]) * (dx / dy)
+    ayin = -line_sum(sol[:, -2, :]) * (dx / dy)
+    clhss = cl2m @ cs_new + ayis
+    clhsn = cl2m @ cn_new - ayin
+    # homogeneous solution coefficients (ocisubs.F:238-246)
+    c3 = clhss[0] * inv.hbsi
+    c1 = inv.hc2n * clhss[1:] - inv.hc2s * clhsn[1:]
+    c2 = inv.hc1s * clhsn[1:] - inv.hc1n * clhss[1:]
+    aipmod = torch.cat([xinhom[:1] + c3 * inv.aipbh,
+                        xinhom[1:] + (c1 + c2) * inv.aipch])
+    homcor = torch.cat([(c3 * inv.pbh)[None],
+                        c1[:, None] * inv.pch1 + c2[:, None] * inv.pch2])
+    p = torch.einsum("km,myx->kyx", cm2l, sol[..., :-1] + homcor[:, :, None])
+    return torch.cat([p, p[..., :1]], dim=-1), cm2l @ aipmod
 
-    Everything stays in spectral space until one inverse transform: the
-    inhomogeneous-solution area integrals come from a Parseval
-    contraction with the DST of the ones vector, and the homogeneous
-    correction hclco * (1 + rdm2*sol0), with Helm(sol0) = 1, is added as
-    a separable spectrum. Returns (po_new, pom_new, dpioc, dpiocp)."""
+
+def _continuity(est1, dpip, gp, xn1, tdt, area):
+    """Continuity monitor of a channel (ocisubs.F:266-294): the layer
+    integrals' new interface displacements est1 against the leapfrog
+    of the old ones with the interface-1 entrainment. Returns
+    (ermas, emfr)."""
+    est2 = dpip - tdt * gp * _first(xn1, gp.shape[0])
+    edif = est1 - est2
+    esum = est1.abs() + est2.abs()
+    thresh = ECRIT * area * tdt * gp
+    return edif, torch.where(esum > thresh, 2.0 * edif / esum, 0.0)
+
+
+def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
+            enis1, enin1, cyc, forcing: OceanForcing):
+    """Invert PV to pressure under the mass constraint, and in the
+    channel the momentum constraints too. Returns (po_new, pom_new,
+    dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp, ermaso, emfroc)."""
     cfg = model.cfg
     g = model.grids
     inv = model.inv_oc
-    helm = inv.helm
     nlo = cfg.nlo
     tdto = 2.0 * cfg.dto
-    betay = (cfg.beta * model.yporel)[None, :, None]
 
     # Modal vorticity RHS (8.13): wrk_m = f0 * sum_k cl2m[m,k] (q_k - by)
-    ql = qo_new - betay
+    ql = qo_new - (cfg.beta * model.yporel)[None, :, None]
     ql[nlo - 1] -= model.ddyn
     wrk = cfg.fnot * torch.einsum("mk,kyx->myx", model.cl2m, ql)
 
+    if cfg.cyclic_ocean:
+        # momentum constraints, leapfrogged (ocisubs.F:169-206)
+        sol = inv.helm.solve(wrk)
+        ent = (0.5 * g.dyo * cfg.fnot**2) / model.hoc
+        rhss = (ent * _interface_jump(enis1, nlo) + cyc["ajis"]
+                - cyc["ap3s"] + cyc["ap5s"])
+        rhsn = (ent * _interface_jump(enin1, nlo) + cyc["ajin"]
+                + cyc["ap3n"] - cyc["ap5n"])
+        rhss[0] += (cfg.fnot / model.hoc[0]) * forcing.txisoc
+        rhsn[0] -= (cfg.fnot / model.hoc[0]) * forcing.txinoc
+        rhss[-1] += (cfg.fnot / model.hoc[-1]) * cyc["bdrins"]
+        rhsn[-1] -= (cfg.fnot / model.hoc[-1]) * cyc["bdrinn"]
+        ocsnew = state.ocncsp + tdto * rhss
+        ocnnew = state.ocncnp + tdto * rhsn
+        po_new, aiplay = _channel_pressure(inv, sol, model.cl2m, model.cm2l,
+                                           ocsnew, ocnnew, g.dxo, g.dyo)
+        est1 = aiplay[1:] - aiplay[:-1]
+        ermaso, emfroc = _continuity(est1, state.dpiocp, model.gpoc, xon1,
+                                     tdto, g.xlo * g.ylo)
+        return (po_new, state.po, est1, state.dpioc, ocsnew, ocnnew,
+                state.ocncs, state.ocncn, ermaso, emfroc)
+
+    # Box (ocisubs.F:328-401). Everything stays in spectral space until
+    # one inverse transform: the inhomogeneous-solution area integrals
+    # come from a Parseval contraction with the DST of the ones vector,
+    # and the homogeneous correction hclco * (1 + rdm2*sol0), with
+    # Helm(sol0) = 1, is added as a separable spectrum.
+    helm = inv.helm
     fwd = helm.forward(wrk)
     denom = helm._denom()
     xinhom = helm.norm * torch.einsum(
         "myx,y,x->m", fwd / denom, helm.gy, helm.gx) * g.dxo * g.dyo
 
-    aient = torch.zeros_like(model.gpoc)
-    aient[0] = xon1
-    dpioc_new = state.dpiocp - tdto * model.gpoc * aient
+    dpioc_new = state.dpiocp - tdto * model.gpoc * _first(xon1, nlo - 1)
     rhsum = torch.einsum("mk,m->k", inv.cdiffo, xinhom)
     hclco = inv.cdhinv @ (dpioc_new - rhsum)
 
@@ -243,7 +389,9 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1):
     spec = (fwd + coef[:, None, None] * gyx) / denom
     pm = helm.inverse(spec) + torch.cat([zero1, hclco])[:, None, None]
     po_new = torch.einsum("km,myx->kyx", model.cm2l, pm)
-    return po_new, state.po, dpioc_new, state.dpioc
+    zero = torch.zeros_like(dpioc_new)
+    return (po_new, state.po, dpioc_new, state.dpioc, state.ocncs,
+            state.ocncn, state.ocncsp, state.ocncnp, zero, zero)
 
 
 # ----------------------------------------------------------------------
@@ -255,30 +403,36 @@ def make_ocean_step(model: Model):
     loop q-gcm.F:1222-1255). Returns step(state, forcing) ->
     (state, OceanStepDiags)."""
     cfg = model.cfg
+    cyclic = cfg.cyclic_ocean
     dxom2 = 1.0 / model.grids.dxo**2
+    bcfaco = cfg.ocean.bccooc * dxom2 / (0.5 * cfg.ocean.bccooc + 1.0)
 
     def step(state: OceanState, forcing: OceanForcing):
         if cfg.no_oml:
             zero = state.po.new_zeros(())
             entoc = torch.zeros_like(state.po[0])
             sst_new, sstm_new = state.sst, state.sstm
-            xon1 = cfraoc = centoc = zero
+            xon1 = enis1 = enin1 = cfraoc = centoc = zero
         else:
-            (sst_new, sstm_new, entoc, xon1, cfraoc,
+            (sst_new, sstm_new, entoc, xon1, enis1, enin1, cfraoc,
              centoc) = _oml(model, state, forcing)
 
         qo_new, qom_new = _qgostep(model, state, forcing, entoc)
-        po_new, pom_new, dpioc, dpiocp = _ocinvq(model, state, qo_new,
-                                                 xon1)
+        cyc = (_cyclic_boundary_terms(model, state,
+                                      *_edge_d2d4(state.pom, bcfaco, dxom2))
+               if cyclic else None)
+        (po_new, pom_new, dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp,
+         ermaso, emfroc) = _ocinvq(model, state, qo_new, xon1, enis1,
+                                   enin1, cyc, forcing)
         qo_new = ocqbdy(qo_new, po_new, model.amat, model.yporel, dxom2,
                         cfg.fnot, cfg.beta, cfg.ocean.bccooc, model.ddyn,
-                        cyclic=False)
+                        cyclic=cyclic)
 
-        new_state = state._replace(
+        new_state = OceanState(
             po=po_new, pom=pom_new, qo=qo_new, qom=qom_new,
-            sst=sst_new, sstm=sstm_new, dpioc=dpioc, dpiocp=dpiocp)
-        zero = torch.zeros_like(dpioc)
-        diags = OceanStepDiags(ermaso=zero, emfroc=zero, xon1=xon1,
+            sst=sst_new, sstm=sstm_new, dpioc=dpioc, dpiocp=dpiocp,
+            ocncs=ocncs, ocncn=ocncn, ocncsp=ocncsp, ocncnp=ocncnp)
+        diags = OceanStepDiags(ermaso=ermaso, emfroc=emfroc, xon1=xon1,
                                cfraoc=cfraoc, centoc=centoc)
         return new_state, diags
 
@@ -291,16 +445,31 @@ def _as_field(model: Model, a) -> torch.Tensor:
                                  copy=True)
 
 
+def momentum_constraints(p: torch.Tensor, amat: torch.Tensor, dx: float,
+                         dy: float, fnot: float):
+    """The channel's momentum-constraint vectors of a pressure field
+    (constr, src/conhoms.F:93-199 ocean, :203-310 atmosphere): the S
+    and N line integrals of dp/dy plus the f0^2 A p line integrals."""
+    fsq = 0.5 * dy * fnot**2
+    pins = dx * line_sum(p[:, 0, :])
+    pinn = dx * line_sum(p[:, -1, :])
+    cs = line_sum(p[:, 1, :] - p[:, 0, :]) * (dx / dy)
+    cn = line_sum(p[:, -1, :] - p[:, -2, :]) * (dx / dy)
+    return -cs + fsq * (amat @ pins), cn + fsq * (amat @ pinn)
+
+
 def init_ocean_state(model: Model, init: str = "zero",
                      po=None, pom=None, sst=None, sstm=None) -> OceanState:
     """Initial ocean state: 'zero' (q-gcm.F zeroin:1615), 'rbal'
     (rbalin:1712 -- zero pressure, sstbar SST), or explicit arrays
     (NumPy or tensors). PV is derived from pressure (q-gcm.F:715-732),
-    the mass-constraint values from `constr` (src/conhoms.F:44-199)."""
+    the constraint values from `constr` (src/conhoms.F:44-199)."""
     cfg = model.cfg
+    g = model.grids
     dev, dtype = model.device, model.dtype
     nlo, nypo, nxpo = cfg.nlo, cfg.nypo, cfg.nxpo
     nyto, nxto = cfg.nyto, cfg.nxto
+    cyclic = cfg.cyclic_ocean
 
     po = (torch.zeros((nlo, nypo, nxpo), device=dev, dtype=dtype)
           if po is None else _as_field(model, po))
@@ -315,40 +484,57 @@ def init_ocean_state(model: Model, init: str = "zero",
         sst = _as_field(model, sst)
     sstm = sst if sstm is None else _as_field(model, sstm)
 
-    dxom2 = 1.0 / model.grids.dxo**2
+    dxom2 = 1.0 / g.dxo**2
 
     def q_from_p(p):
         q = qcomp(p, model.amat, model.yporel, dxom2, cfg.fnot, cfg.beta,
-                  model.ddyn, nlo - 1, cyclic=False)
+                  model.ddyn, nlo - 1, cyclic=cyclic)
         return ocqbdy(q, p, model.amat, model.yporel, dxom2, cfg.fnot,
-                      cfg.beta, cfg.ocean.bccooc, model.ddyn, cyclic=False)
+                      cfg.beta, cfg.ocean.bccooc, model.ddyn, cyclic=cyclic)
 
-    area = model.grids.dxo * model.grids.dyo
-    z = torch.zeros(nlo, device=dev, dtype=dtype)
+    area = g.dxo * g.dyo
+    if cyclic:
+        ocncs, ocncn = momentum_constraints(po, model.amat, g.dxo, g.dyo,
+                                            cfg.fnot)
+        ocncsp, ocncnp = momentum_constraints(pom, model.amat, g.dxo,
+                                              g.dyo, cfg.fnot)
+    else:
+        ocncs = ocncn = ocncsp = ocncnp = torch.zeros(nlo, device=dev,
+                                                      dtype=dtype)
     return OceanState(po=po, pom=pom, qo=q_from_p(po), qom=q_from_p(pom),
                       sst=sst, sstm=sstm,
                       dpioc=xintp(po[1:] - po[:-1]) * area,
                       dpiocp=xintp(pom[1:] - pom[:-1]) * area,
-                      ocncs=z, ocncn=z, ocncsp=z, ocncnp=z)
+                      ocncs=ocncs, ocncn=ocncn, ocncsp=ocncsp, ocncnp=ocncnp)
 
 
-def ocean_forcing_from_mean(model: Model, tauxo, tauyo,
-                            fnetoc) -> OceanForcing:
-    """Static OceanForcing for ocean_only runs from mean windstress and
-    heat flux: the Ekman velocities as the ocean section of xforc
-    derives them (src/xfosubs.F:568-707)."""
+def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
+                  fnetoc: torch.Tensor) -> OceanForcing:
+    """OceanForcing of the model's dtype and device from the windstress
+    and heat flux: the Ekman velocities and, in the channel, the
+    boundary stress integrals, as the ocean section of xforc derives
+    them (src/xfosubs.F:568-707)."""
     cfg = model.cfg
     g = model.grids
-
-    tauxo, tauyo, fnetoc = (_as_field(model, a)
-                            for a in (tauxo, tauyo, fnetoc))
     hxofac = 0.5 / (g.dxo * cfg.fnot)
     # Ekman velocity at T points (7.7): curl of tau around the T cell
     wekto = hxofac * (
         tauyo[:-1, 1:] + tauyo[1:, 1:] - tauyo[:-1, :-1] - tauyo[1:, :-1]
         + tauxo[:-1, :-1] + tauxo[:-1, 1:] - tauxo[1:, :-1] - tauxo[1:, 1:])
     # wekpo by averaging wekto (xfosubs.F:589-646)
-    wekpo = _entrain_to_p(wekto)
-    zero = tauxo.new_zeros(())
+    wekpo = _entrain_to_p(wekto, cfg.cyclic_ocean)
+    if cfg.cyclic_ocean:
+        txis = 0.5 * g.dxo * line_sum(tauxo[0, :] + tauxo[1, :])
+        txin = 0.5 * g.dxo * line_sum(tauxo[-2, :] + tauxo[-1, :])
+    else:
+        txis = txin = tauxo.new_zeros(())
     return OceanForcing(tauxo=tauxo, tauyo=tauyo, fnetoc=fnetoc,
-                        wekto=wekto, wekpo=wekpo, txisoc=zero, txinoc=zero)
+                        wekto=wekto, wekpo=wekpo, txisoc=txis, txinoc=txin)
+
+
+def ocean_forcing_from_mean(model: Model, tauxo, tauyo,
+                            fnetoc) -> OceanForcing:
+    """Static OceanForcing for ocean_only runs from mean windstress and
+    heat flux (arrays or tensors), through ekman_forcing."""
+    return ekman_forcing(model, *(_as_field(model, a)
+                                  for a in (tauxo, tauyo, fnetoc)))

@@ -1,20 +1,26 @@
-"""Time stepping of the ocean-only model (port of
-qgcm_tpu/models/stepper.py).
+"""Time stepping: the ocean-only, coupled and atmosphere-only runners
+(port of qgcm_tpu/models/stepper.py).
 
-Leapfrog computational-mode suppression (q-gcm.F:1325-1366): the
-current time level is averaged with the lagged one, x <- (x + xm)/2,
-after every ocean substep whose 0-based index n has n % 25 == 0. NOT a
-Robert-Asselin filter: the lagged level is left as it is, exactly as
-the reference does.
+The loops are plain Python; PyTorch runs each step's operations eagerly
+on the model's device, and nothing in a loop waits for the device.
+
+Leapfrog computational-mode suppression (q-gcm.F:1325-1366, 1370-1407):
+the current time level is averaged with the lagged one, x <- (x + xm)/2,
+after every ocean substep whose 0-based index n has n % 25 == 0, and
+after every atmosphere step whose index has n % 100 == 0. NOT a
+Robert-Asselin filter: the lagged level is left as it is, exactly as the
+reference does.
 """
 
 from __future__ import annotations
 
 from ..model import Model
-from ..state import OceanState, OceanForcing
-from .ocean import make_ocean_step
+from ..state import AtmosState, OceanState, OceanForcing
+from .atmos import make_atmos_step
+from .ocean import _as_field, make_ocean_step
 
 OCEAN_AVG_PERIOD = 25   # ocean substeps between time-level averagings
+ATMOS_AVG_PERIOD = 100  # atmos steps between averagings
 
 
 def average_ocean_levels(st: OceanState) -> OceanState:
@@ -27,6 +33,19 @@ def average_ocean_levels(st: OceanState) -> OceanState:
         dpioc=0.5 * (st.dpioc + st.dpiocp),
         ocncs=0.5 * (st.ocncs + st.ocncsp),
         ocncn=0.5 * (st.ocncn + st.ocncnp),
+    )
+
+
+def average_atmos_levels(st: AtmosState) -> AtmosState:
+    """The atmospheric analogue (q-gcm.F:1370-1407)."""
+    return st._replace(
+        pa=0.5 * (st.pa + st.pam),
+        qa=0.5 * (st.qa + st.qam),
+        ast=0.5 * (st.ast + st.astm),
+        hmixa=0.5 * (st.hmixa + st.hmixam),
+        dpiat=0.5 * (st.dpiat + st.dpiatp),
+        atmcs=0.5 * (st.atmcs + st.atmcsp),
+        atmcn=0.5 * (st.atmcn + st.atmcnp),
     )
 
 
@@ -46,5 +65,83 @@ def make_ocean_only_runner(model: Model):
             if n % OCEAN_AVG_PERIOD == 0:
                 state = average_ocean_levels(state)
         return state
+
+    return run
+
+
+def _split_cycles(n_steps: int, step0: int, nstr: int) -> range:
+    """The coupling cycles of a run of n_steps atmosphere steps from
+    step0: the cycle-structured runners advance in whole cycles (xforc,
+    then nstr atmosphere steps), so both must be multiples of nstr."""
+    if n_steps % nstr:
+        raise ValueError(
+            f"n_steps ({n_steps}) must be a multiple of nstr ({nstr}) "
+            "for the cycle-structured coupled/atmos-only runners")
+    if step0 % nstr:
+        raise ValueError(f"step0 ({step0}) must be a multiple of "
+                         f"nstr ({nstr})")
+    return range(step0 // nstr, (step0 + n_steps) // nstr)
+
+
+def _atmos_cycle(astep, at: AtmosState, afor, c: int, nstr: int):
+    """The nstr atmosphere steps of coupling cycle c under one forcing."""
+    for i in range(nstr):
+        at, _diags = astep(at, afor)
+        if (c * nstr + i) % ATMOS_AVG_PERIOD == 0:
+            at = average_atmos_levels(at)
+    return at
+
+
+def make_atmos_only_runner(model: Model):
+    """Atmosphere-only mode: the ocean surface is a prescribed mean SST
+    field (reference q-gcm.F:752-826 reads it from avges.nc). xforc is
+    re-evaluated every nstr steps exactly as when coupled.
+
+    Returns run(state, sst_mean, n_steps, step0=0) -> state, n_steps
+    and step0 counting atmosphere steps, both multiples of nstr."""
+    from ..coupling import make_xforc
+    xforc = make_xforc(model)
+    astep = make_atmos_step(model)
+    nstr = model.cfg.nstr
+
+    def run(state: AtmosState, sst_mean, n_steps: int,
+            step0: int = 0) -> AtmosState:
+        cycles = _split_cycles(n_steps, step0, nstr)
+        sst_mean = _as_field(model, sst_mean)
+        for c in cycles:
+            _, afor, _ = xforc(state.pam, None, sst_mean, state.astm,
+                               state.hmixam)
+            state = _atmos_cycle(astep, state, afor, c, nstr)
+        return state
+
+    return run
+
+
+def make_coupled_runner(model: Model):
+    """Fully coupled ocean-atmosphere stepping (main loop
+    q-gcm.F:1220-1491), one coupling cycle at a time: xforc from the
+    lagged states, one ocean substep with dto = nstr*dta, then nstr
+    atmosphere steps under that cycle's forcing.
+
+    Returns run(ocean, atmos, n_steps, step0=0) -> (ocean, atmos).
+    `n_steps` counts ATMOSPHERIC steps; step0 keeps the coupling and
+    averaging cadences aligned across chunks. Both are multiples of
+    nstr."""
+    from ..coupling import make_xforc
+    xforc = make_xforc(model)
+    ostep = make_ocean_step(model)
+    astep = make_atmos_step(model)
+    nstr = model.cfg.nstr
+
+    def run(ocean: OceanState, atmos: AtmosState, n_steps: int,
+            step0: int = 0):
+        for c in _split_cycles(n_steps, step0, nstr):
+            ofor, afor, _ = xforc(atmos.pam, ocean.pom, ocean.sstm,
+                                  atmos.astm, atmos.hmixam)
+            ocean, _diags = ostep(ocean, ofor)
+            if c % OCEAN_AVG_PERIOD == 0:
+                ocean = average_ocean_levels(ocean)
+            atmos = _atmos_cycle(astep, atmos, afor, c, nstr)
+        return ocean, atmos
 
     return run

@@ -3,7 +3,8 @@ qgcm_tpu/ops/integrals.py).
 
 xintp is the p-grid trapezoidal sum with 1/2 edge and 1/4 corner
 weights (reference src/intsubs.f); multiply by dx*dy for the physical
-area integral, as the reference's call sites do.
+area integral, as the reference's call sites do. line_sum is its
+one-dimensional form along a boundary row.
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ def xintp_weights(nyp: int, nxp: int, dtype=np.float64) -> np.ndarray:
     w[:, 0] *= 0.5
     w[:, -1] *= 0.5
     return w
+
+
+def line_sum(row: torch.Tensor) -> torch.Tensor:
+    """Sum along a p-grid row with 1/2 weights at the two ends (the
+    reference's 0.5*f(1) + sum + 0.5*f(nxp) pattern)."""
+    return row[..., 1:-1].sum(-1) + 0.5 * (row[..., 0] + row[..., -1])
 
 
 def xintp(field: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ qgcm_tpu/ops/vorticity.py; reference src/vorsubs.F). Fields are
   q = (1/f0) del^2 p + beta*y - f0 * (A @ p) [ + ddyn in layer kbot ]
 
 qcomp fills the interior (plus the periodic meridional boundaries in
-the cyclic case); ocqbdy fills the solid boundaries, where the
-tangential derivative vanishes and the normal derivative obeys the
-mixed condition.
+the cyclic case); ocqbdy (ocean) and atqzbd (atmosphere) fill the solid
+boundaries, where the tangential derivative vanishes and the normal
+derivative obeys the mixed condition.
 """
 
 from __future__ import annotations
@@ -96,3 +96,15 @@ def ocqbdy(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,
     bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
     return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn,
                       p.shape[0] - 1, fnot, cyclic)
+
+
+def atqzbd(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,
+           yprel: torch.Tensor, dxm2: float, fnot: float, beta: float,
+           bcco: float, ddyn: torch.Tensor) -> torch.Tensor:
+    """Atmospheric zonal-boundary PV (src/vorsubs.F:396-480). Topography
+    lives in the BOTTOM layer, which for the atmosphere is layer 0.
+    The reference's pa(i,2,nla) at src/vorsubs.F:470 is taken as the
+    boundary row, as every analogous line has it (as qgcm_tpu does)."""
+    bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
+    return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, 0, fnot,
+                      cyclic=True)

@@ -1,16 +1,20 @@
-"""Modified-Helmholtz solver for the box PV inversion (port of the
-'fft' transform of qgcm_tpu/solver/helmholtz.py::BoxHelmholtz).
+"""Modified-Helmholtz solvers of the PV inversions (port of the 'fft'
+transforms of qgcm_tpu/solver/helmholtz.py: BoxHelmholtz and
+CyclicHelmholtz).
 
 Solves del^2(p) - rdm2 * p = rhs (5-point FD Laplacian) with p = 0 on
-all four walls as one 2-D DST-I solve:
+the zonal walls, and on the meridional walls too in the box (periodic
+in x in the channel), as one 2-D transform solve:
 
     p = T^-1 [ T(rhs) / (lam_x + lam_y - rdm2) ]
 
 which is the same discrete solution as the reference's
-transform-plus-tridiagonal method (src/ocisubs.F:415-618). The DST-I is
-an odd extension fed to torch.fft.rfft (cuFFT on the card). The
-qgcm_tpu sine-matrix GEMM DST ('matmul') and its packed and block
-forms are not ported yet.
+transform-plus-tridiagonal method (src/ocisubs.F:415-618,
+src/atisubs.F:301-400). T is a DST-I in both directions in the box, and
+a real FFT in x with a DST-I in y in the channel. The DST-I is an odd
+extension fed to torch.fft.rfft (cuFFT on the card). The qgcm_tpu
+sine-matrix GEMM DST ('matmul') and its packed and block forms are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -115,8 +119,79 @@ def make_box_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
     gy = dst1_np(np.ones((1, ny - 1)))[0]
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
-            device=device, dtype=dtype)
+        return _vector(a, device, dtype)
 
     return BoxHelmholtz(nxp=nxp, nyp=nyp, lamx=dev(lamx), lamy=dev(lamy),
                         rdm2=dev(rdm2), gx=dev(gx), gy=dev(gy), norm=norm)
+
+
+def _vector(a, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
+        device=device, dtype=dtype)
+
+
+@dataclass(frozen=True)
+class CyclicHelmholtz:
+    """Solver for the zonally periodic channel (Dirichlet N/S).
+
+    Grid: p-array of shape (nyp, nxp) whose column nxp-1 duplicates
+    column 0. The transform works on the nx = nxp-1 distinct columns;
+    the solution repeats column 0 at the east edge, bit for bit.
+    """
+
+    nxp: int
+    nyp: int
+    lamx: torch.Tensor       # (nx//2+1,) rfft eigenvalues
+    lamy: torch.Tensor       # (nyp-2,)
+    rdm2: torch.Tensor       # (nm,)
+    norm: float              # the DST's; rfft/irfft normalise themselves
+
+    def _denom(self) -> torch.Tensor:
+        return (self.lamx[None, None, :] + self.lamy[None, :, None]
+                - self.rdm2[:, None, None])
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """rhs: (nm, nyp, nxp); returns the solution with zero zonal
+        walls. The y-DST runs on the real field, before the forward and
+        after the inverse x-transform (the two commute): two real sine
+        transforms instead of four on the real and imaginary parts."""
+        nx = self.nxp - 1
+        sy = dst1(rhs[..., 1:-1, :nx], dim=-2)
+        spec = torch.fft.rfft(sy, dim=-1) / self._denom()
+        sy = torch.fft.irfft(spec, n=nx, dim=-1)
+        sol = dst1(sy, dim=-2) * self.norm
+        sol = torch.cat([sol, sol[..., :1]], dim=-1)
+        return torch.nn.functional.pad(sol, (0, 0, 1, 1))
+
+    def solve_np(self, rhs: np.ndarray) -> np.ndarray:
+        """Host-side float64 solve (model initialisation only) of a
+        float64 solver on the CPU."""
+        if self.lamx.dtype != torch.float64 or self.lamx.device.type != "cpu":
+            raise ValueError("solve_np needs a float64 solver on the cpu")
+        rhs = np.asarray(rhs, dtype=np.float64)
+        nx = self.nxp - 1
+        spec = np.fft.rfft(rhs[..., 1:-1, :nx], axis=-1)
+        spec = dst1_np(spec.real, axis=-2) + 1j * dst1_np(spec.imag, axis=-2)
+        spec = spec * (1.0 / self._denom().numpy())
+        spec = dst1_np(spec.real, axis=-2) + 1j * dst1_np(spec.imag, axis=-2)
+        sol = np.fft.irfft(spec, n=nx, axis=-1) * self.norm
+        sol = np.concatenate([sol, sol[..., :1]], axis=-1)
+        return np.pad(sol, [(0, 0)] * (rhs.ndim - 2) + [(1, 1), (0, 0)])
+
+
+def make_cyclic_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
+                          rdm2: np.ndarray, dtype=torch.float64,
+                          device="cuda") -> CyclicHelmholtz:
+    """Channel solver; the vectors are computed in float64 NumPy and
+    moved to `device` ('cuda', the default, or 'cpu') once."""
+    device = resolve_device(device)
+    nx, ny = nxp - 1, nyp - 1
+    k = np.arange(nx // 2 + 1)                 # rfft wavenumbers
+    l = np.arange(1, ny)
+    lamx = 2.0 / dx**2 * (np.cos(2.0 * np.pi * k / nx) - 1.0)
+    lamy = 2.0 / dy**2 * (np.cos(np.pi * l / ny) - 1.0)
+    return CyclicHelmholtz(nxp=nxp, nyp=nyp,
+                           lamx=_vector(lamx, device, dtype),
+                           lamy=_vector(lamy, device, dtype),
+                           rdm2=_vector(rdm2, device, dtype),
+                           norm=1.0 / (2.0 * ny))

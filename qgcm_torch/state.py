@@ -1,4 +1,4 @@
-"""Ocean state and forcing (port of qgcm_tpu/state.py).
+"""Model state and forcing of both fluids (port of qgcm_tpu/state.py).
 
 NamedTuples of tensors threaded through the functional step; leapfrog
 keeps two time levels of each prognostic field (x and xm). Fields are
@@ -30,8 +30,26 @@ class OceanState(NamedTuple):
     ocncnp: torch.Tensor
 
 
+class AtmosState(NamedTuple):
+    pa: torch.Tensor      # (nla, nypa, nxpa)
+    pam: torch.Tensor
+    qa: torch.Tensor
+    qam: torch.Tensor
+    ast: torch.Tensor     # (nyta, nxta)
+    astm: torch.Tensor
+    hmixa: torch.Tensor   # (nyta, nxta) mixed layer thickness
+    hmixam: torch.Tensor
+    dpiat: torch.Tensor   # (nla-1,)
+    dpiatp: torch.Tensor
+    atmcs: torch.Tensor   # (nla,)
+    atmcn: torch.Tensor
+    atmcsp: torch.Tensor
+    atmcnp: torch.Tensor
+
+
 class OceanForcing(NamedTuple):
-    """Surface forcing of the ocean; static in ocean_only runs."""
+    """Surface forcing of the ocean; static in ocean_only runs,
+    recomputed by xforc when coupled."""
     tauxo: torch.Tensor   # (nypo, nxpo) dynamic stress (m^2 s^-2)
     tauyo: torch.Tensor
     fnetoc: torch.Tensor  # (nyto, nxto) net diabatic forcing (W m^-2)
@@ -39,3 +57,16 @@ class OceanForcing(NamedTuple):
     wekpo: torch.Tensor   # (nypo, nxpo) Ekman velocity at p points
     txisoc: torch.Tensor  # scalar: S-boundary taux line integral (cyclic)
     txinoc: torch.Tensor  # scalar: N-boundary taux line integral (cyclic)
+
+
+class AtmosForcing(NamedTuple):
+    """Surface and diabatic forcing of the atmosphere (from xforc)."""
+    tauxa: torch.Tensor   # (nypa, nxpa)
+    tauya: torch.Tensor
+    fnetat: torch.Tensor  # (nyta, nxta)
+    wekta: torch.Tensor   # (nyta, nxta)
+    wekpa: torch.Tensor   # (nypa, nxpa)
+    uekat: torch.Tensor   # (nyta, nxpa) Ekman u at T-cell W/E faces
+    vekat: torch.Tensor   # (nypa, nxta) Ekman v at T-cell S/N faces
+    txisat: torch.Tensor  # scalar: S-boundary taux line integral
+    txinat: torch.Tensor  # scalar

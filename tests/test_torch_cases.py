@@ -8,6 +8,7 @@ as NumPy arrays through qgcm_torch.convert.
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import qgcm_tpu.config as jax_config
@@ -87,6 +88,54 @@ def to_port(st, f, dtype=torch.float64):
     numpy = (lambda nt: {k: np.asarray(v) for k, v in nt._asdict().items()})
     return (state_to_torch(numpy(st), "cpu", dtype),
             forcing_to_torch(numpy(f), "cpu", dtype))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch work on one intra-op thread: its grids hold a
+    few thousand points, where threads only add overhead, and beside
+    other test workers they oversubscribe the cores (the baroclinic
+    Rossby oracle took 127 s there against 8 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def coupled_cfg(cfgmod, kind="box", dtype="float64", **over):
+    """The small coupled configurations of the JAX tests, in `cfgmod`:
+    'box' is the double gyre of tests/test_golden.py:67 and
+    tests/test_coupling.py:15, 'channel' the miniature southern-ocean
+    channel of tests/test_southern_ocean.py:22."""
+    if kind == "box":
+        return cfgmod.double_gyre_coupled(
+            nxta=24, nyta=12, nxaooc=8, nyaooc=8, ndxr=4, dta=180.0,
+            ocean=cfgmod.OceanConfig(dxo=20.0e3),
+            dtype=dtype).replace(**over).validate()
+    assert kind == "channel", kind
+    return cfgmod.ModelConfig(
+        nxta=24, nyta=18, nxaooc=24, nyaooc=6, ndxr=4,
+        fnot=-1.19467e-4, beta=1.31301e-11, dta=180.0,
+        ocean=cfgmod.OceanConfig(dxo=20.0e3), cyclic_ocean=True,
+        nb_hflux=True, dtype=dtype).replace(**over).validate()
+
+
+def coupled_pair(*args, **kw):
+    """(qgcm_tpu config, qgcm_torch config) of one coupled case."""
+    return (coupled_cfg(jax_config, *args, **kw),
+            coupled_cfg(torch_config, *args, **kw))
+
+
+def numpy_of(nt) -> dict:
+    """{field: NumPy array} of a JAX or port NamedTuple."""
+    return {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.asarray(v)) for k, v in nt._asdict().items()}
+
+
+def to_jax(cls, nt):
+    """A JAX NamedTuple `cls` holding the fields of a port NamedTuple."""
+    import jax.numpy as jnp
+    return cls(**{k: jnp.asarray(v) for k, v in numpy_of(nt).items()})
 
 
 def rel_err(got, want):

@@ -74,12 +74,18 @@ def test_generators_bit_for_bit(kind):
 
 
 @pytest.mark.parametrize("override,err", [
-    ({"cyclic_ocean": True}, NotImplementedError),
-    ({"ocean_only": False}, NotImplementedError),
-    ({"ocean_only": False, "atmos_only": True}, NotImplementedError),
+    ({"solver_transform": "matmul", "cyclic_ocean": True},
+     NotImplementedError),
+    ({"solver_transform": "matmul", "ocean_only": False},
+     NotImplementedError),
+    ({"solver_transform": "matmul", "ocean_only": False,
+      "atmos_only": True}, NotImplementedError),
     ({"solver_transform": "matmul"}, NotImplementedError),
     ({"dtype": "float16"}, ValueError)])
 def test_build_model_refuses_unported(override, err):
+    """The GEMM DST is refused in every geometry (box, cyclic ocean,
+    coupled, atmosphere-only), as is a dtype the model has no kernel
+    for; nothing else is."""
     _, cfg_t = cfg_pair("pallas")
     with pytest.raises(err):
         build_model(cfg_t.replace(**override), "cpu")

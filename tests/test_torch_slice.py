@@ -201,6 +201,8 @@ def test_port_imports_no_jax():
             "import qgcm_torch.models.stepper, qgcm_torch.ops.qgstep\n"
             "import qgcm_torch.ops._cuda, qgcm_torch.solver.helmholtz\n"
             "import qgcm_torch.generators, qgcm_torch.topo\n"
+            "import qgcm_torch.coupling, qgcm_torch.models.atmos\n"
+            "import qgcm_torch.models.ocean, qgcm_torch.state\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"
             "assert not bad, bad\n")
@@ -218,11 +220,24 @@ def test_cuda_device_without_cuda_raises():
     _, cfg = cfg_pair("golden")
     st_np = {name: np.zeros((2, 3)) for name in OceanState._fields}
     f_np = {name: np.zeros((3,)) for name in OceanForcing._fields}
+    from qgcm_torch.convert import (atmos_forcing_to_torch,
+                                    atmos_state_to_torch)
+    from qgcm_torch.solver.helmholtz import make_cyclic_helmholtz
+    from qgcm_torch.state import AtmosForcing, AtmosState
+    coupled = cfg.replace(ocean_only=False)
+    at_np = {name: np.zeros((2, 3)) for name in AtmosState._fields}
+    af_np = {name: np.zeros((3,)) for name in AtmosForcing._fields}
     calls = [lambda *d: build_model(cfg, *d),
+             lambda *d: build_model(coupled, *d),
              lambda *d: state_to_torch(st_np, *d),
              lambda *d: forcing_to_torch(f_np, *d),
+             lambda *d: atmos_state_to_torch(at_np, *d),
+             lambda *d: atmos_forcing_to_torch(af_np, *d),
              lambda *d: make_box_helmholtz(33, 17, 20e3, 20e3, np.zeros(3),
-                                           torch.float64, *d)]
+                                           torch.float64, *d),
+             lambda *d: make_cyclic_helmholtz(33, 17, 20e3, 20e3,
+                                              np.zeros(3), torch.float64,
+                                              *d)]
     for call in calls:
         for dev in [("cuda",), ()]:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
