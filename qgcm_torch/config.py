@@ -136,9 +136,11 @@ class ModelConfig:
     dtype: str = "float64"        # dtype of stepped fields
     # The fused CUDA vorticity kernel has no switch: ops.qgstep launches
     # it exactly when the fields live on a CUDA device.
-    # Box-inversion DST backend. The port has only the FFT DST
-    # (torch.fft): 'auto' and 'fft' select it, 'matmul' is refused by
-    # model.build_model until the GEMM DST is ported.
+    # Inversion DST backend. 'fft' selects the FFT DST (torch.fft)
+    # everywhere; 'auto' too, except that a float32 channel of at least
+    # 512 interior rows takes its y-DST as a GEMM, as qgcm_tpu does
+    # (solver.helmholtz.resolve_ytransform); 'matmul' is refused by
+    # model.build_model until the box's GEMM DST is ported.
     solver_transform: str = "auto"
     # Accumulation of the (unported) matmul DST; kept so configs carry
     # over from qgcm_tpu unchanged.

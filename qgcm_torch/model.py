@@ -20,11 +20,12 @@ from .device import resolve_device
 from .grids import Grids, build_grids
 from .modes import Modes, eigenmodes
 from .radiation import Radiation, radiat
-from .topo import Topography, build_topography
+from .topo import Topography, TopoSpec, build_topography
 from .coupling import Coupling, build_coupling
 from .ops.integrals import xintp_weights
 from .solver.helmholtz import (BoxHelmholtz, CyclicHelmholtz,
-                               make_box_helmholtz, make_cyclic_helmholtz)
+                               make_box_helmholtz, make_cyclic_helmholtz,
+                               resolve_ytransform)
 
 
 @dataclass(frozen=True)
@@ -42,8 +43,13 @@ class ChannelInversion:
     """Static data of a zonally-cyclic channel's PV inversion: the
     cyclic ocean's (conhoms.F:376-543) and the atmosphere's
     (conhoms.F:644-811). Profiles are along y; the homogeneous
-    solutions are constant in x."""
+    solutions are constant in x. All but `helm` are float64 in any
+    model dtype: models/ocean.py::_channel_pressure solves the
+    momentum constraints in float64 (a few scalars and profiles a
+    step)."""
     helm: CyclicHelmholtz
+    cl2m: torch.Tensor               # (m, k) layer -> mode
+    cm2l: torch.Tensor               # (k, m) mode -> layer
     pbh: torch.Tensor                # (nyp,) barotropic homog. profile
     pch1: torch.Tensor               # (nl-1, nyp) baroclinic, 1 at S
     pch2: torch.Tensor               # (nl-1, nyp) baroclinic, 1 at N
@@ -78,6 +84,7 @@ class Model:
     ah4oc: torch.Tensor              # (nlo,) Del-4th viscosities
     yporel: torch.Tensor             # (nypo,) p-row y relative to centre
     ddyn: torch.Tensor               # () zero, or (nypo, nxpo) topography
+    dtopoc: torch.Tensor             # () zero, or (nypo, nxpo) topography (m)
     r_spl: Optional[torch.Tensor]    # (nypo, nxpo) k247 sponge ramp
     # ... atmosphere (inv_at None when ocean_only) ...
     inv_at: Optional[ChannelInversion]
@@ -186,18 +193,20 @@ def _channel_homogeneous(nyp: int, nxp: int, yp: np.ndarray,
 
 def _build_channel_inversion(nxp: int, nyp: int, yp: np.ndarray,
                              modes: Modes, dx: float, dy: float, device,
-                             dtype) -> ChannelInversion:
+                             dtype, ytransform: str) -> ChannelInversion:
     helm = make_cyclic_helmholtz(nxp, nyp, dx, dy, modes.rdm2,
-                                 dtype=dtype, device=device)
+                                 dtype=dtype, device=device,
+                                 ytransform=ytransform)
     (pbh, pch1, pch2, hbsi, aipbh, aipch, hc1s, hc2s, hc1n,
      hc2n) = _channel_homogeneous(nyp, nxp, yp, modes.rdm2, dx, dy,
                                   xintp_weights(nyp, nxp))
 
     def dev(a):
-        return _tensor(a, device, dtype)
+        return _tensor(a, device, torch.float64)
 
     return ChannelInversion(
-        helm=helm, pbh=dev(pbh), pch1=dev(pch1), pch2=dev(pch2),
+        helm=helm, cl2m=dev(modes.cl2m), cm2l=dev(modes.cm2l),
+        pbh=dev(pbh), pch1=dev(pch1), pch2=dev(pch2),
         hbsi=float(hbsi), aipbh=float(aipbh), aipch=dev(aipch),
         hc1s=dev(hc1s), hc2s=dev(hc2s), hc1n=dev(hc1n), hc2n=dev(hc2n))
 
@@ -211,7 +220,8 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids, modes: Modes,
     nlo = cfg.nlo
     if cfg.cyclic_ocean:
         return _build_channel_inversion(nxpo, nypo, grids.ypo, modes, dxo,
-                                        dyo, device, dtype)
+                                        dyo, device, dtype,
+                                        resolve_ytransform(cfg, nypo))
     wop = xintp_weights(nypo, nxpo)
     helm = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2,
                               dtype=dtype, device=device)
@@ -249,11 +259,14 @@ def _or_scalar(field: np.ndarray) -> np.ndarray:
     return field if field.any() else np.zeros(())
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> Model:
+def build_model(cfg: ModelConfig, device="cuda",
+                topocname: TopoSpec = "flat", topatname: TopoSpec = "flat",
+                extant_oc=None, extant_at=None) -> Model:
     """Build the static model data of a configuration (ocean-only,
-    coupled or atmosphere-only; box or cyclic ocean), over flat
-    topography, on `device` ('cuda[:n]', the default, or 'cpu'; see
-    device.py)."""
+    coupled or atmosphere-only; box or cyclic ocean) on `device`
+    ('cuda[:n]', the default, or 'cpu'; see device.py). The topography
+    arguments are those of topo.build_topography: 'flat', 'define',
+    'extant' (with extant_oc/extant_at), an array, or a netCDF path."""
     cfg = cfg.validate()
     _check_supported(cfg)
     device = resolve_device(device)
@@ -274,12 +287,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     modes_oc = eigenmodes(cfg.ocean.gpoc, cfg.ocean.hoc, cfg.fnot)
     modes_at = eigenmodes(cfg.atmos.gpat, cfg.atmos.hat, cfg.fnot)
     rad = radiat(cfg, grids)
-    topo = build_topography(cfg, grids)
+    topo = build_topography(cfg, grids, topocname, topatname,
+                            extant_oc=extant_oc, extant_at=extant_at)
     inv_oc = None if cfg.atmos_only else _build_ocean_inversion(
         cfg, grids, modes_oc, device, dtype)
     inv_at = None if cfg.ocean_only else _build_channel_inversion(
         cfg.nxpa, cfg.nypa, grids.ypa, modes_at, grids.dxa, grids.dya,
-        device, dtype)
+        device, dtype, resolve_ytransform(cfg, cfg.nypa))
     coupling = (build_coupling(cfg, grids, rad, device, dtype)
                 if not cfg.ocean_only or cfg.tau_udiff else None)
     return Model(
@@ -292,6 +306,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         hoc=to_dev(cfg.ocean.hoc), ah2oc=to_dev(cfg.ocean.ah2oc),
         ah4oc=to_dev(cfg.ocean.ah4oc), yporel=to_dev(grids.yporel),
         ddyn=to_dev(_or_scalar(topo.ddynoc)),
+        dtopoc=to_dev(_or_scalar(topo.dtopoc)),
         r_spl=to_dev(_sponge_ramp(cfg)) if cfg.sponge.enabled else None,
         inv_at=inv_at,
         amat_at=to_dev(modes_at.amat), cl2m_at=to_dev(modes_at.cl2m),

@@ -267,9 +267,8 @@ def _atinvq(model: Model, state: AtmosState, qa_new: torch.Tensor,
     atsnew = state.atmcsp + tdta * rhss
     atnnew = state.atmcnp + tdta * rhsn
 
-    pa_new, aiplay = _channel_pressure(model.inv_at, sol, model.cl2m_at,
-                                       model.cm2l_at, atsnew, atnnew,
-                                       g.dxa, g.dya)
+    pa_new, aiplay = _channel_pressure(model.inv_at, sol, model.cm2l_at,
+                                       atsnew, atnnew, g.dxa, g.dya)
     est1 = aiplay[:-1] - aiplay[1:]
     ermasa, emfrat = _continuity(est1, state.dpiatp, model.gpat, xan1,
                                  tdta, g.xla * g.yla)

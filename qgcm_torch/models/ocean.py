@@ -153,6 +153,38 @@ def _entrain_to_p(xfo: torch.Tensor, cyclic: bool) -> torch.Tensor:
     return 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
 
 
+def boundary_flux_diags(model: Model, state: OceanState,
+                        forcing: OceanForcing) -> dict:
+    """Mean advective/diffusive SST fluxes through the modified
+    sb_hflux / nb_hflux boundaries and the mean Ekman outflow velocity
+    (monitoring section of omladf, src/omlsubs.F:684-727; +ve into the
+    domain). Zeros when the modified conditions are inactive."""
+    cfg = model.cfg
+    g = model.grids
+    z = state.sst.new_zeros(())
+    ttmads = vfmads = ttmdfs = ttmadn = vfmadn = ttmdfn = z
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
+    hdxom1 = 0.5 / g.dxo
+    d2tfac = cfg.mixed.st2d / g.dxo**2
+    nxto = cfg.nxto
+    if cfg.sb_hflux:
+        tsbdy = model.rad.tsbdy
+        vm = -rhf0hm * (forcing.tauxo[0, 1:] + forcing.tauxo[0, :-1])
+        tm = state.sst[0, :] + tsbdy
+        ttmads = hdxom1 * (vm * tm).sum() / nxto
+        vfmads = vm.sum() / nxto
+        ttmdfs = -d2tfac * (state.sstm[0, :] - tsbdy).sum() / nxto
+    if cfg.nb_hflux:
+        tnbdy = model.rad.tnbdy
+        vp = -rhf0hm * (forcing.tauxo[-1, 1:] + forcing.tauxo[-1, :-1])
+        tp = state.sst[-1, :] + tnbdy
+        ttmadn = -hdxom1 * (vp * tp).sum() / nxto
+        vfmadn = -vp.sum() / nxto
+        ttmdfn = d2tfac * (tnbdy - state.sstm[-1, :]).sum() / nxto
+    return dict(ttmads=ttmads, vfmads=vfmads, ttmdfs=ttmdfs,
+                ttmadn=ttmadn, vfmadn=vfmadn, ttmdfn=ttmdfn)
+
+
 def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     """Step the ocean mixed layer (oml, src/omlsubs.F:47-236).
     Returns (sst_new, sstm_new, entoc, xon1, enis1, enin1, cfraoc,
@@ -293,19 +325,26 @@ def _cyclic_boundary_terms(model: Model, state: OceanState, d2_s, d2_n,
 # PV inversion (src/ocisubs.F ocinvq)
 # ----------------------------------------------------------------------
 
-def _channel_pressure(inv, sol, cl2m, cm2l, cs_new, cn_new, dx, dy):
+def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy):
     """Layer pressures of a channel inversion, and their area integrals
     (ocisubs.F:208-264, atisubs.F:181-230): the homogeneous solutions
     that the new momentum-constraint vectors cs_new/cn_new call for are
     added to the inhomogeneous modal solutions `sol`, and the modes
     turned into layers. The east column is the west one, bit for bit.
-    Returns (p, aiplay)."""
-    xinhom = xintp(sol) * dx * dy
+
+    The constraints are solved in float64 (inv's data is float64): the
+    line integrals of `sol` nearly cancel the constraint vectors, and in
+    float32 their rounding, fed back every step into the zonal-mean
+    flow, took a float32 channel 5-20x farther from its float64 run
+    than qgcm_tpu's float32 goes (PERF.md, section 6). Only the grid
+    assembly runs in sol's dtype. Returns (p, aiplay)."""
+    f64 = torch.float64
+    xinhom = xintp(sol, dtype=f64) * dx * dy
     # line integrals of dp/dy of the inhomogeneous solutions
-    ayis = line_sum(sol[:, 1, :]) * (dx / dy)
-    ayin = -line_sum(sol[:, -2, :]) * (dx / dy)
-    clhss = cl2m @ cs_new + ayis
-    clhsn = cl2m @ cn_new - ayin
+    ayis = line_sum(sol[:, 1, :], dtype=f64) * (dx / dy)
+    ayin = -line_sum(sol[:, -2, :], dtype=f64) * (dx / dy)
+    clhss = inv.cl2m @ cs_new.to(f64) + ayis
+    clhsn = inv.cl2m @ cn_new.to(f64) - ayin
     # homogeneous solution coefficients (ocisubs.F:238-246)
     c3 = clhss[0] * inv.hbsi
     c1 = inv.hc2n * clhss[1:] - inv.hc2s * clhsn[1:]
@@ -314,8 +353,10 @@ def _channel_pressure(inv, sol, cl2m, cm2l, cs_new, cn_new, dx, dy):
                         xinhom[1:] + (c1 + c2) * inv.aipch])
     homcor = torch.cat([(c3 * inv.pbh)[None],
                         c1[:, None] * inv.pch1 + c2[:, None] * inv.pch2])
-    p = torch.einsum("km,myx->kyx", cm2l, sol[..., :-1] + homcor[:, :, None])
-    return torch.cat([p, p[..., :1]], dim=-1), cm2l @ aipmod
+    p = torch.einsum("km,myx->kyx", cm2l,
+                     sol[..., :-1] + homcor.to(sol.dtype)[:, :, None])
+    return (torch.cat([p, p[..., :1]], dim=-1),
+            (inv.cm2l @ aipmod).to(sol.dtype))
 
 
 def _continuity(est1, dpip, gp, xn1, tdt, area):
@@ -360,7 +401,7 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
         rhsn[-1] -= (cfg.fnot / model.hoc[-1]) * cyc["bdrinn"]
         ocsnew = state.ocncsp + tdto * rhss
         ocnnew = state.ocncnp + tdto * rhsn
-        po_new, aiplay = _channel_pressure(inv, sol, model.cl2m, model.cm2l,
+        po_new, aiplay = _channel_pressure(inv, sol, model.cm2l,
                                            ocsnew, ocnnew, g.dxo, g.dyo)
         est1 = aiplay[1:] - aiplay[:-1]
         ermaso, emfroc = _continuity(est1, state.dpiocp, model.gpoc, xon1,

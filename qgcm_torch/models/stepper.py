@@ -49,21 +49,82 @@ def average_atmos_levels(st: AtmosState) -> AtmosState:
     )
 
 
+def make_cycle_head(model: Model):
+    """The head of a coupling cycle (the reference's mod(nt,nstr)==1
+    block, q-gcm.F:1222-1249), shared by the runners and the Driver.
+
+    Returns head(ocean, atmos, ofor, afor, n, on_substep=None,
+    sst_mean=None) -> (ocean, ofor, afor) for the cycle that starts at
+    atmosphere step n (a multiple of nstr): coupled, xforc from the
+    lagged states and one ocean substep under the new ocean forcing;
+    ocean-only, one substep under the static `ofor`; atmosphere-only,
+    xforc over the prescribed SST `sst_mean` (a tensor of the model's
+    dtype on its device).
+    `on_substep(ocean, ofor)` sees the state right after the substep;
+    then the ocean's time levels are averaged when the cycle index
+    n // nstr is a multiple of OCEAN_AVG_PERIOD."""
+    from ..coupling import make_xforc
+    cfg = model.cfg
+    has_oc, has_at = not cfg.atmos_only, not cfg.ocean_only
+    nstr = cfg.nstr
+    xforc = make_xforc(model) if has_at else None
+    ostep = make_ocean_step(model) if has_oc else None
+
+    def head(ocean, atmos, ofor, afor, n: int, on_substep=None,
+             sst_mean=None):
+        if has_at and has_oc:
+            ofor, afor, _ = xforc(atmos.pam, ocean.pom, ocean.sstm,
+                                  atmos.astm, atmos.hmixam)
+        elif has_at:
+            _, afor, _ = xforc(atmos.pam, None, sst_mean, atmos.astm,
+                               atmos.hmixam)
+        if has_oc:
+            ocean, _diags = ostep(ocean, ofor)
+            if on_substep is not None:
+                on_substep(ocean, ofor)
+            if (n // nstr) % OCEAN_AVG_PERIOD == 0:
+                ocean = average_ocean_levels(ocean)
+        return ocean, ofor, afor
+
+    return head
+
+
+def make_atmos_segment(model: Model):
+    """`length` atmosphere steps under one forcing, shared by the runners
+    and the Driver (the partial cycles of an exact-cadence Driver run
+    included). Returns segment(atmos, afor, n0, length, on_step=None)
+    -> atmos: step n0 + i is followed by the time-level averaging when
+    (n0 + i) % ATMOS_AVG_PERIOD == 0 (q-gcm.F:1370-1407), then by
+    on_step(atmos, n0 + i)."""
+    astep = make_atmos_step(model)
+
+    def segment(atmos, afor, n0: int, length: int, on_step=None):
+        for i in range(length):
+            atmos, _diags = astep(atmos, afor)
+            if (n0 + i) % ATMOS_AVG_PERIOD == 0:
+                atmos = average_atmos_levels(atmos)
+            if on_step is not None:
+                on_step(atmos, n0 + i)
+        return atmos
+
+    return segment
+
+
 def make_ocean_only_runner(model: Model):
     """Returns run(state, forcing, n_steps, step0=0) -> state.
 
     `step0` is the 0-based index of the first ocean substep taken by
     this call, so chunked host loops keep the averaging cadence aligned.
-    The loop is plain Python over single substeps; PyTorch runs each
-    substep's operations eagerly on the model's device."""
-    step = make_ocean_step(model)
+    The loop is plain Python over single substeps (cycle heads of an
+    ocean-only model); PyTorch runs each substep's operations eagerly on
+    the model's device."""
+    head = make_cycle_head(model)
+    nstr = model.cfg.nstr
 
     def run(state: OceanState, forcing: OceanForcing, n_steps: int,
             step0: int = 0) -> OceanState:
         for n in range(step0, step0 + n_steps):
-            state, _diags = step(state, forcing)
-            if n % OCEAN_AVG_PERIOD == 0:
-                state = average_ocean_levels(state)
+            state, _, _ = head(state, None, forcing, None, n * nstr)
         return state
 
     return run
@@ -83,15 +144,6 @@ def _split_cycles(n_steps: int, step0: int, nstr: int) -> range:
     return range(step0 // nstr, (step0 + n_steps) // nstr)
 
 
-def _atmos_cycle(astep, at: AtmosState, afor, c: int, nstr: int):
-    """The nstr atmosphere steps of coupling cycle c under one forcing."""
-    for i in range(nstr):
-        at, _diags = astep(at, afor)
-        if (c * nstr + i) % ATMOS_AVG_PERIOD == 0:
-            at = average_atmos_levels(at)
-    return at
-
-
 def make_atmos_only_runner(model: Model):
     """Atmosphere-only mode: the ocean surface is a prescribed mean SST
     field (reference q-gcm.F:752-826 reads it from avges.nc). xforc is
@@ -99,9 +151,8 @@ def make_atmos_only_runner(model: Model):
 
     Returns run(state, sst_mean, n_steps, step0=0) -> state, n_steps
     and step0 counting atmosphere steps, both multiples of nstr."""
-    from ..coupling import make_xforc
-    xforc = make_xforc(model)
-    astep = make_atmos_step(model)
+    head = make_cycle_head(model)
+    segment = make_atmos_segment(model)
     nstr = model.cfg.nstr
 
     def run(state: AtmosState, sst_mean, n_steps: int,
@@ -109,9 +160,9 @@ def make_atmos_only_runner(model: Model):
         cycles = _split_cycles(n_steps, step0, nstr)
         sst_mean = _as_field(model, sst_mean)
         for c in cycles:
-            _, afor, _ = xforc(state.pam, None, sst_mean, state.astm,
-                               state.hmixam)
-            state = _atmos_cycle(astep, state, afor, c, nstr)
+            _, _, afor = head(None, state, None, None, c * nstr,
+                              sst_mean=sst_mean)
+            state = segment(state, afor, c * nstr, nstr)
         return state
 
     return run
@@ -127,21 +178,15 @@ def make_coupled_runner(model: Model):
     `n_steps` counts ATMOSPHERIC steps; step0 keeps the coupling and
     averaging cadences aligned across chunks. Both are multiples of
     nstr."""
-    from ..coupling import make_xforc
-    xforc = make_xforc(model)
-    ostep = make_ocean_step(model)
-    astep = make_atmos_step(model)
+    head = make_cycle_head(model)
+    segment = make_atmos_segment(model)
     nstr = model.cfg.nstr
 
     def run(ocean: OceanState, atmos: AtmosState, n_steps: int,
             step0: int = 0):
         for c in _split_cycles(n_steps, step0, nstr):
-            ofor, afor, _ = xforc(atmos.pam, ocean.pom, ocean.sstm,
-                                  atmos.astm, atmos.hmixam)
-            ocean, _diags = ostep(ocean, ofor)
-            if c % OCEAN_AVG_PERIOD == 0:
-                ocean = average_ocean_levels(ocean)
-            atmos = _atmos_cycle(astep, atmos, afor, c, nstr)
+            ocean, _, afor = head(ocean, atmos, None, None, c * nstr)
+            atmos = segment(atmos, afor, c * nstr, nstr)
         return ocean, atmos
 
     return run

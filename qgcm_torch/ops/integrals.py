@@ -23,20 +23,24 @@ def xintp_weights(nyp: int, nxp: int, dtype=np.float64) -> np.ndarray:
     return w
 
 
-def line_sum(row: torch.Tensor) -> torch.Tensor:
+def line_sum(row: torch.Tensor, dtype=None) -> torch.Tensor:
     """Sum along a p-grid row with 1/2 weights at the two ends (the
-    reference's 0.5*f(1) + sum + 0.5*f(nxp) pattern)."""
-    return row[..., 1:-1].sum(-1) + 0.5 * (row[..., 0] + row[..., -1])
+    reference's 0.5*f(1) + sum + 0.5*f(nxp) pattern), accumulated in
+    `dtype` (default: the row's)."""
+    t = dtype or row.dtype
+    return (row[..., 1:-1].sum(-1, dtype=dtype)
+            + 0.5 * (row[..., 0].to(t) + row[..., -1].to(t)))
 
 
-def xintp(field: torch.Tensor) -> torch.Tensor:
+def xintp(field: torch.Tensor, dtype=None) -> torch.Tensor:
     """Trapezoidal p-grid sum over the last two axes, from slices (no
-    grid-sized weight field)."""
-    inner = field[..., 1:-1, 1:-1].sum(dim=(-2, -1))
-    edges = 0.5 * (field[..., 0, 1:-1].sum(dim=-1)
-                   + field[..., -1, 1:-1].sum(dim=-1)
-                   + field[..., 1:-1, 0].sum(dim=-1)
-                   + field[..., 1:-1, -1].sum(dim=-1))
+    grid-sized weight field), accumulated in `dtype` (default: the
+    field's)."""
+    inner = field[..., 1:-1, 1:-1].sum(dim=(-2, -1), dtype=dtype)
+    edges = 0.5 * (field[..., 0, 1:-1].sum(dim=-1, dtype=dtype)
+                   + field[..., -1, 1:-1].sum(dim=-1, dtype=dtype)
+                   + field[..., 1:-1, 0].sum(dim=-1, dtype=dtype)
+                   + field[..., 1:-1, -1].sum(dim=-1, dtype=dtype))
     corners = 0.25 * (field[..., 0, 0] + field[..., 0, -1]
                       + field[..., -1, 0] + field[..., -1, -1])
-    return inner + edges + corners
+    return inner + edges + corners.to(dtype or field.dtype)

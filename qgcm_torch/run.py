@@ -1,0 +1,569 @@
+"""Experiment driver: the reference main program's run loop (port of
+qgcm_tpu/run.py).
+
+Replaces the orchestration half of src/q-gcm.F (main loop
+q-gcm.F:1220-1491) and the Ruby case workflow (exec_qgcm.rb): builds
+the model, initialises state (zero / rbal / restart file), then runs
+the time loop in chunks. A chunk is a plain Python loop over coupling
+cycles: the physics and the running means stay on the model's device
+and nothing in it waits for the device; the host wakes only at
+I/O-cadence boundaries to run the validity scan, write snapshots,
+monitoring and restart files, and print progress. Cadence predicates
+are Python ints, so no branch of the loop reads a tensor.
+
+Cadences (converted from days to steps as in q-gcm.F:656-698, which
+rounds every interval to a whole number of coupling cycles -- "Do all
+dumps when atmos. and ocean are in step"; cadence_rounding="exact"
+honours any whole atmospheric step instead, as qgcm_tpu does):
+  valday -> validity scan      odiday/adiday -> snapshot dumps
+  dgnday -> monitoring         prtday -> stdout sample
+  resday -> restart dump (only written if the state passes valids --
+            last-good-checkpoint semantics, q-gcm.F:1413-1416)
+  dtavoc/dtavat -> running means written to avges.nc
+  dtcovoc/dtcovat -> covariance samples (covar.nc)
+Events fire on the RELATIVE step count since run start, matching the
+reference's mod(ntdone, nout*) tests with ntdone = nt - nsteps0
+(q-gcm.F:1271-1272,1277): a resumed run restarts every cadence clock
+at the resume point. The coupling-cycle phase stays on the absolute
+step grid.
+
+Not ported: qgcm_tpu's device meshes, Orbax checkpoints and its
+jax.profiler hook; the constructor takes no such options.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from .model import Model, build_model
+from .params import RunParams, params_to_config, write_matlab_params, \
+    SECDAY, SECSYR
+from .state import OceanState, AtmosState
+from .models.ocean import (_as_field, init_ocean_state,
+                           ocean_forcing_from_mean)
+from .models.atmos import init_atmos_state
+from .models.stepper import make_atmos_segment, make_cycle_head
+from .diags import valids, compute_monitor, MonitorWriter
+from .diags.cfl import cfl_numbers
+from .diags.timavge import (zero_ocean_averages, zero_atmos_averages,
+                            accumulate_ocean, accumulate_atmos,
+                            write_avges)
+from .diags.covaria import (zero_cov, cov_size, accumulate_cov,
+                            write_covar)
+from .diags.areas import build_area_boxes, area_averages, AreasWriter
+from .diags.qocdiag import qocdiag_terms, QocdiagWriter
+from .io import (save_restart, load_restart, load_restart_forcing,
+                 OceanSnapshots, AtmosSnapshots, read_mean_forcing)
+from .io.ncdf import host
+
+
+def _gcd_all(vals):
+    """gcd of the nonzero entries; 0 when none are set."""
+    g = 0
+    for v in vals:
+        if v:
+            g = math.gcd(g, int(v))
+    return g
+
+
+def _nint(x: float) -> int:
+    """Fortran NINT for non-negative x: round half AWAY FROM ZERO.
+    Python's round() is banker's rounding (round(2.5) == 2 but
+    nint(2.5) == 3), which would silently shift any cadence that
+    lands exactly on a half cycle/step."""
+    return int(math.floor(x + 0.5))
+
+
+@dataclass
+class RunResult:
+    ocean: Optional[OceanState]
+    atmos: Optional[AtmosState]
+    steps_done: int
+    tyrs: float
+    aborted: bool
+    seconds: dict    # host seconds in the chunks and in cadence events
+
+
+class Carry(NamedTuple):
+    """What a chunk advances: both states, the forcing of the open
+    coupling cycle, the running means and the absolute atmosphere step
+    `n` (a Python int)."""
+    oc: Optional[OceanState]
+    at: Optional[AtmosState]
+    ofor: object
+    afor: object
+    oacc: object
+    aacc: object
+    n: int
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Driver:
+    def __init__(self, model: Model, params: RunParams, outdir: str,
+                 sst_mean=None, mean_forcing=None, verbose: bool = True,
+                 areas_limits: str = None, qoc_diag: bool = False,
+                 ocavg_days: float = 0.0, nscvoc: int = 4,
+                 nscvat: int = 2, cadence_rounding: str = "cycles",
+                 avges_sampling: str = "mean"):
+        """cadence_rounding: "cycles" (default) rounds every cadence to a
+        whole number of coupling cycles exactly like the reference
+        (nint(days*secday/dto)*nstr, q-gcm.F:656-698); "exact" honours
+        any whole atmospheric step (chunk boundaries then fall
+        mid-cycle and a chunk runs partial-cycle lead/tail segments).
+
+        avges_sampling: "mean" (default) accumulates the avges.nc
+        running means EVERY (sub)step -- true time means, a documented
+        departure (PARITY.md row 29). "midpoint" reproduces the
+        reference exactly: ONE sample per averaging interval, taken at
+        the interval's midpoint step nmid = ntav/2 on the relative
+        ntdone grid (q-gcm.F:674-694, :1477-1482); it needs an even
+        number of steps per interval."""
+        cfg = model.cfg
+        self.model = model
+        self.p = params
+        self.outdir = outdir
+        self.verbose = verbose
+        os.makedirs(outdir, exist_ok=True)
+
+        self.has_oc = not cfg.atmos_only
+        self.has_at = not cfg.ocean_only
+        p = params
+        dta, nstr = cfg.dta, cfg.nstr
+        if cadence_rounding not in ("cycles", "exact"):
+            raise ValueError("cadence_rounding must be 'cycles' or "
+                             f"'exact', got {cadence_rounding!r}")
+        self.cadence_rounding = cadence_rounding
+        if avges_sampling not in ("mean", "midpoint"):
+            raise ValueError("avges_sampling must be 'mean' or "
+                             f"'midpoint', got {avges_sampling!r}")
+        self.avges_sampling = avges_sampling
+
+        def steps(days, what=""):
+            """Cadence in atmospheric steps.  Default ("cycles"): the
+            reference's rounding to whole coupling cycles,
+            nint(days*secday/dto)*nstr (q-gcm.F:656-698).  "exact":
+            any whole atmospheric step.  Warn whenever the requested
+            time is rounded."""
+            if days <= 0:
+                return 0
+            if cadence_rounding == "cycles":
+                n = max(1, _nint(days * SECDAY / (nstr * dta))) * nstr
+            else:
+                n = max(1, _nint(days * SECDAY / dta))
+            if abs(n * dta - days * SECDAY) > 1e-6 * dta:
+                import warnings
+                unit = ("coupling cycles (dto=nstr*dta="
+                        f"{nstr * dta}s, q-gcm.F:656-698 rounding; "
+                        "pass cadence_rounding='exact' for whole-"
+                        "atmos-step cadences)"
+                        if cadence_rounding == "cycles" else
+                        f"atmospheric steps (dta={dta}s)")
+                warnings.warn(
+                    f"{what or 'cadence'} of {days} days is not a "
+                    f"whole number of {unit}; rounding to {n} steps "
+                    f"= {n * dta / SECDAY} days",
+                    stacklevel=3)
+            return n
+
+        # nint like the reference's nsteps derivation
+        # (q-gcm.F:649-651)
+        self.nsteps = max(1, _nint(p.trun * SECSYR / dta))
+        self.nvalid = steps(p.valday, "valday")
+        self.noutoc = steps(p.odiday, "odiday")
+        self.noutat = steps(p.adiday, "adiday")
+        self.nmonit = steps(p.dgnday, "dgnday")
+        self.nprint = steps(p.prtday, "prtday")
+        self.nrestart = steps(p.resday, "resday")
+        self.ntavoc = steps(p.dtavoc, "dtavoc")
+        self.ntavat = steps(p.dtavat, "dtavat")
+        if avges_sampling == "midpoint":
+            # the reference hard-stops on an odd interval ("Unsuitable
+            # choice of dtavat/dtavoc", q-gcm.F:679-694): the midpoint
+            # step ntav/2 must be whole
+            for nm, ntav in (("dtavoc", self.ntavoc),
+                             ("dtavat", self.ntavat)):
+                if ntav % 2:
+                    raise ValueError(
+                        f"avges_sampling='midpoint' needs an even "
+                        f"number of steps per averaging interval; "
+                        f"{nm} gives {ntav} (q-gcm.F:679-694)")
+        self.ncovoc = steps(p.dtcovoc, "dtcovoc")
+        self.ncovat = steps(p.dtcovat, "dtcovat")
+        self.nocavg = steps(ocavg_days, "ocavg_days")
+        # the host must wake at every cadence: chunks are their gcd.
+        # With no cadence set nothing needs a wake-up, and a chunk is
+        # the whole run (eager PyTorch compiles nothing per length).
+        self.chunk = _gcd_all([
+            self.nvalid, self.noutoc, self.noutat, self.nmonit,
+            self.nprint, self.nrestart, self.ntavoc, self.ntavat,
+            self.ncovoc, self.ncovat, self.nocavg]) or self.nsteps
+        self.areas_limits = areas_limits
+        self.qoc_diag = qoc_diag
+        self.nscvoc, self.nscvat = nscvoc, nscvat
+
+        # static surface fields for single-fluid modes
+        self.sst_mean = (_as_field(model, sst_mean)
+                         if sst_mean is not None else None)
+        self.mean_forcing = mean_forcing   # (tauxo, tauyo, fnetoc)
+        self._head = make_cycle_head(model)
+        self._segment = make_atmos_segment(model) if self.has_at else None
+        if self.has_at:
+            from .coupling import make_xforc
+            self._xforc = make_xforc(model)
+        self._step0 = 0
+        # host seconds in the chunks (the device drained at each chunk
+        # end) and in the cadence events, filled by run()
+        self.seconds = {"steps": 0.0, "events": 0.0}
+
+    # ------------------------------------------------------------------
+    def _initial_state(self):
+        model, p = self.model, self.p
+        cfg = model.cfg
+        tini = 0.0
+        self._stored_forcing = (None, None)
+        if p.name in ("zero", "rbal"):
+            oc = init_ocean_state(model, init=p.name)
+            at = init_atmos_state(model, init=p.name)
+        elif os.path.isdir(p.name):
+            raise ValueError(
+                f"{p.name} is a directory: qgcm_torch resumes from "
+                "restart.nc files only (Orbax checkpoints are not "
+                "ported)")
+        else:
+            oc, at, tini = load_restart(p.name, model)
+            # mid-cycle dumps embed the open cycle's forcing; using it
+            # (instead of recomputing from the advanced m-slots) keeps
+            # the resumed trajectory faithful
+            self._stored_forcing = load_restart_forcing(p.name, model)
+        if cfg.atmos_only and self.sst_mean is None:
+            raise ValueError("atmos_only run needs a mean SST field "
+                             "(sst_mean= or avges.nc)")
+        return oc, at, tini
+
+    def _initial_forcing(self, oc, at):
+        sofor, safor = self._stored_forcing
+        if self.has_at and safor is not None and \
+                (sofor is not None or not self.has_oc):
+            # resume from a mid-cycle dump: the open cycle's remaining
+            # lead atmos steps must run under the SAME forcing the
+            # uninterrupted run used (computed at the cycle head)
+            return sofor, safor
+        if self.has_at:
+            ofor, afor, _ = self._xforc(
+                at.pam, oc.pom if self.has_oc else None,
+                oc.sstm if self.has_oc else self.sst_mean,
+                at.astm, at.hmixam)
+            return ofor, afor
+        if self.mean_forcing is None:
+            raise ValueError("ocean_only run needs mean forcing "
+                             "(tauxo, tauyo, fnetoc)")
+        return ocean_forcing_from_mean(self.model, *self.mean_forcing), None
+
+    def initial_carry(self) -> tuple:
+        """(Carry at the run's start, tini in years): the initial states
+        and forcing on the model's device, zero running means, and
+        n = nsteps0, the absolute step of the start."""
+        oc, at, tini = self._initial_state()
+        ofor, afor = self._initial_forcing(oc, at)
+        step0 = _nint(tini * SECSYR / self.model.cfg.dta)  # q-gcm.F:649
+        self._step0 = step0
+        return Carry(oc, at, ofor, afor, zero_ocean_averages(self.model),
+                     zero_atmos_averages(self.model), step0), tini
+
+    def advance(self, carry: Carry, n_steps: int) -> Carry:
+        """`n_steps` atmosphere steps from carry.n, keeping the cycle
+        structure of qgcm_tpu's chunk program: the open cycle's trailing
+        atmosphere steps (lead: its forcing and ocean substep ran in the
+        previous chunk), whole cycles, and a cycle head with a partial
+        atmosphere tail. Aligned runs are whole cycles only. The running
+        means are updated after every ocean substep and every atmosphere
+        step ("mean" sampling), or at the interval midpoints only
+        ("midpoint"). Nothing here waits for the device."""
+        model = self.model
+        nstr = model.cfg.nstr
+        step0 = self._step0
+        oc, at, ofor, afor, oacc, aacc, n = carry
+        midpoint = self.avges_sampling == "midpoint"
+        nmidoc, nmidat = self.ntavoc // 2, self.ntavat // 2
+
+        def acc_oc(oc_new, ofor_new):
+            # the ocean state/forcing sampled at the (atmos-step)
+            # midpoint ntdone are those set at the head of the cycle
+            # CONTAINING that step; this head covers ntdone in
+            # [rel_n + 1, rel_n + nstr]
+            nonlocal oacc
+            if midpoint and self.ntavoc and \
+                    ((n - step0 + nstr) - nmidoc) % self.ntavoc >= nstr:
+                return
+            oacc = accumulate_ocean(oacc, oc_new, ofor_new, model)
+
+        def acc_at(at_new, i):
+            # after atmosphere step i (absolute, 0-based): ntdone is
+            # i + 1 - step0 (q-gcm.F:1477-1482)
+            nonlocal aacc
+            if midpoint and self.ntavat and \
+                    (i + 1 - step0) % self.ntavat != nmidat:
+                return
+            aacc = accumulate_atmos(aacc, at_new, afor, model)
+
+        lead = min(n_steps, (nstr - n % nstr) % nstr)
+        if lead and self.has_at:
+            at = self._segment(at, afor, n, lead, acc_at)
+        n += lead
+        n_cycles, tail = divmod(n_steps - lead, nstr)
+        for length in [nstr] * n_cycles + ([tail] if tail else []):
+            oc, ofor, afor = self._head(oc, at, ofor, afor, n, acc_oc,
+                                        sst_mean=self.sst_mean)
+            if self.has_at:
+                at = self._segment(at, afor, n, length, acc_at)
+            n += length
+        return Carry(oc, at, ofor, afor, oacc, aacc, n)
+
+    def _midcycle_forcing(self, n_done, ofor, afor):
+        """kwargs for save_restart: embed the open cycle's forcing when
+        the dump lands mid coupling cycle (exact-cadence extension; a
+        cycle-aligned dump stays byte-compatible with the reference
+        restart schema and the resume recomputes forcing via xforc,
+        q-gcm.F:870)."""
+        if not self.has_at or (self._step0 + n_done) % \
+                self.model.cfg.nstr == 0:
+            return {}
+        return {"ofor": ofor if self.has_oc else None, "afor": afor}
+
+    # ------------------------------------------------------------------
+    def run(self) -> RunResult:
+        model, p, out = self.model, self.p, self.outdir
+        cfg = model.cfg
+        has_oc, has_at = self.has_oc, self.has_at
+        carry, tini = self.initial_carry()
+
+        write_matlab_params(f"{out}/input_parameters.m", p, cfg, model,
+                            tini=tini, nscvoc=self.nscvoc,
+                            nscvat=self.nscvat)
+        if model.topo.dtopoc.any() or model.topo.dtopat.any():
+            from .topo import write_topog
+            write_topog(f"{out}/topog.nc", model)
+        from .report import startup_report, sample_report, memory_report
+        self._log(startup_report(model))
+        self._log(memory_report(model))
+
+        osnap = (OceanSnapshots(out, model, flags=p.outfloc,
+                                stride=p.nsko)
+                 if has_oc and self.noutoc else None)
+        asnap = (AtmosSnapshots(out, model, flags=p.outflat,
+                                stride=p.nska)
+                 if has_at and self.noutat else None)
+        monw = MonitorWriter(f"{out}/monit.nc", model) \
+            if self.nmonit else None
+        boxes = areasw = None
+        if self.areas_limits and self.nmonit:
+            boxes = build_area_boxes(model, self.areas_limits)
+            areasw = AreasWriter(f"{out}/areas.nc", boxes)
+        qocw = (QocdiagWriter(f"{out}/qocdiag.nc", model, stride=p.nsko)
+                if self.qoc_diag and has_oc and self.noutoc else None)
+        covs = {}
+        if self.ncovoc and has_oc:
+            covs["po"] = zero_cov(cov_size(cfg.nypo, cfg.nxpo,
+                                           self.nscvoc, grid="p"))
+            covs["to"] = zero_cov(cov_size(cfg.nyto, cfg.nxto,
+                                           self.nscvoc))
+        if self.ncovat and has_at:
+            covs["pa"] = zero_cov(cov_size(cfg.nypa, cfg.nxpa,
+                                           self.nscvat, grid="p"))
+            covs["ta"] = zero_cov(cov_size(cfg.nyta, cfg.nxta,
+                                           self.nscvat))
+        if self.nocavg:
+            os.makedirs(f"{out}/avg", exist_ok=True)
+        n_ocavg = 0
+        oacc_mark = None
+
+        def fluids(oc, at):
+            return (oc if has_oc else None), (at if has_at else None)
+
+        aborted = False
+        n_done = 0
+        t0 = time.time()
+        while n_done < self.nsteps:
+            n = min(self.chunk, self.nsteps - n_done)
+            ts = time.perf_counter()
+            carry = self.advance(carry, n)
+            _sync(model.device)
+            te = time.perf_counter()
+            self.seconds["steps"] += te - ts
+            n_done += n
+            oc, at, ofor, afor, oacc, aacc, _ = carry
+            ocf, atf = fluids(oc, at)
+            tyrs = tini + n_done * cfg.dta / SECSYR
+
+            def due(cad):
+                return cad and n_done % cad == 0
+
+            if due(self.nvalid):
+                rep = valids(model, ocf, atf, ofor, afor)
+                if not bool(rep.ok):
+                    # fail-fast with post-mortem artifacts
+                    if osnap:
+                        osnap.append(oc, ofor, tyrs)
+                    if asnap:
+                        asnap.append(at, afor, tyrs)
+                    if monw:
+                        monw.append(compute_monitor(
+                            model, ocf, atf, ofor, afor), tyrs)
+                    self._log(f"VALIDITY FAILURE at step {n_done}: "
+                              f"{rep}")
+                    from .diags.valids import post_mortem
+                    self._log(post_mortem(model, ocf, atf, ofor, afor))
+                    aborted = True
+                    self.seconds["events"] += time.perf_counter() - te
+                    break
+            if due(self.nmonit) and monw:
+                xdiags = None
+                if has_at and has_oc:
+                    _, _, xdiags = self._xforc(
+                        at.pam, oc.pom, oc.sstm, at.astm, at.hmixam)
+                monw.append(compute_monitor(model, ocf, atf, ofor, afor,
+                                            xdiags=xdiags), tyrs)
+            if due(self.noutoc) and osnap:
+                osnap.append(oc, ofor, tyrs)
+            if due(self.noutat) and asnap:
+                asnap.append(at, afor, tyrs)
+            if due(self.ntavoc) or due(self.ntavat):
+                write_avges(f"{out}/avges.nc", model,
+                            oacc if has_oc else None,
+                            aacc if has_at else None)
+            if due(self.ncovoc):
+                covs["po"] = accumulate_cov(covs["po"], oc.po[0],
+                                            nsi=self.nscvoc, grid="p")
+                covs["to"] = accumulate_cov(covs["to"], oc.sst,
+                                            nsi=self.nscvoc)
+            if due(self.ncovat):
+                covs["pa"] = accumulate_cov(covs["pa"], at.pa[0],
+                                            nsi=self.nscvat, grid="p")
+                covs["ta"] = accumulate_cov(covs["ta"], at.ast,
+                                            nsi=self.nscvat)
+            if areasw and due(self.nmonit):
+                tavoc, tavat = area_averages(
+                    boxes, oc.sst if has_oc else None,
+                    at.ast if has_at else None)
+                areasw.append(tyrs, tavoc, tavat)
+            if qocw and due(self.noutoc):
+                from .models.ocean import _oml
+                entoc = (_oml(model, oc, ofor)[2] if not cfg.no_oml
+                         else torch.zeros_like(oc.po[0]))
+                qocw.append(qocdiag_terms(model, oc, ofor, entoc), tyrs)
+            if due(self.nocavg):
+                # k247 daily-mean po stream: window means by
+                # differencing the cumulative accumulator
+                from .io.ncdf import make_writer as NcWriter
+                if oacc_mark is None:
+                    pod = oacc.po / max(oacc.n, 1.0)
+                else:
+                    dn = max(oacc.n - oacc_mark.n, 1.0)
+                    pod = (oacc.po - oacc_mark.po) / dn
+                oacc_mark = oacc
+                wnc = NcWriter(f"{out}/avg/ocavg_{n_ocavg:04d}.nc")
+                wnc.dim("zo", cfg.nlo)
+                wnc.dim("ypo", cfg.nypo); wnc.dim("xpo", cfg.nxpo)
+                wnc.var("po", "f", ("zo", "ypo", "xpo"),
+                        units="m^2/s^2", data=host(pod))
+                wnc.close()
+                n_ocavg += 1
+            if due(self.nrestart):
+                rep = valids(model, ocf, atf, ofor, afor)
+                if bool(rep.ok):      # last-good checkpoint only
+                    save_restart(f"{out}/restart.nc", model, oc, at, tyrs,
+                                 **self._midcycle_forcing(n_done, ofor,
+                                                          afor))
+            if due(self.nprint):
+                wall = time.time() - t0
+                cflr = cfl_numbers(model, ocf, atf, ofor, afor)
+                self._log(f"step {n_done}/{self.nsteps} t={tyrs:.4f}y "
+                          f"wall={wall:.1f}s "
+                          f"cfl(oc)={float(cflr.cnqgoc):.3f} "
+                          f"cfl(at)={float(cflr.cnqgat):.3f}")
+                self._log(sample_report(model, ocf, atf))
+            self.seconds["events"] += time.perf_counter() - te
+
+        oc, at, ofor, afor, oacc, aacc, _ = carry
+        tyrs = tini + n_done * cfg.dta / SECSYR
+        te = time.perf_counter()
+        if not aborted:
+            # the reference writes its final resave only at normal
+            # termination (q-gcm.F:1528-1539); an aborted run must NOT
+            # leave the invalid state as the newest checkpoint (the
+            # post-mortem snapshots carry it, and restart.nc remains
+            # the last state that PASSED valids)
+            save_restart(f"{out}/lastday.nc", model, oc, at, tyrs,
+                         **self._midcycle_forcing(n_done, ofor, afor))
+        write_avges(f"{out}/avges.nc", model,
+                    oacc if has_oc else None, aacc if has_at else None)
+        if covs:
+            write_covar(f"{out}/covar.nc", covs)
+        for wtr in (osnap, asnap, monw, areasw, qocw):
+            if wtr:
+                wtr.close()
+        self.seconds["events"] += time.perf_counter() - te
+        return RunResult(ocean=oc if has_oc else None,
+                         atmos=at if has_at else None,
+                         steps_done=n_done, tyrs=tyrs, aborted=aborted,
+                         seconds=dict(self.seconds))
+
+    def _log(self, msg):
+        if self.verbose:
+            print(msg, flush=True)
+
+
+def run_case(params: RunParams, base_config, outdir: str,
+             sst_mean=None, mean_forcing=None, topoc="flat",
+             topat="flat", verbose=True, device="cuda",
+             **driver_kwargs) -> RunResult:
+    """One-call experiment: merge params into the dimension-carrying
+    base config, build the model on `device` (the card unless the
+    caller asks for "cpu") and run."""
+    cfg = params_to_config(params, base_config)
+    topocname = params.topocname if params.topocname != "flat" else topoc
+    topatname = params.topatname if params.topatname != "flat" else topat
+    # 'extant' in input.params: use the pre-existing topography dataset
+    # (topog.nc prepared earlier in the case directory,
+    # topsubs.F:146-163 semantics)
+    extant_oc = extant_at = None
+    if "extant" in (topocname, topatname):
+        case_dir = os.path.dirname(os.path.abspath(outdir))
+        for cand in (os.path.join(case_dir, "topog.nc"),
+                     os.path.join(outdir, "topog.nc")):
+            if os.path.exists(cand):
+                from .topo import _load_netcdf
+                if topocname == "extant":
+                    extant_oc = _load_netcdf(cand, "dtopoc",
+                                             (cfg.nypo, cfg.nxpo))
+                if topatname == "extant":
+                    extant_at = _load_netcdf(cand, "dtopat",
+                                             (cfg.nypa, cfg.nxpa))
+                break
+        else:
+            raise FileNotFoundError(
+                "topography 'extant' requested but no topog.nc found "
+                "in the case or output directory")
+    model = build_model(cfg, device, topocname=topocname,
+                        topatname=topatname, extant_oc=extant_oc,
+                        extant_at=extant_at)
+    if cfg.ocean_only and mean_forcing is None:
+        mean_forcing = read_mean_forcing(f"{outdir}/avges_in.nc") \
+            if os.path.exists(f"{outdir}/avges_in.nc") else None
+    case_dir = os.path.dirname(os.path.abspath(outdir))
+    limits = os.path.join(case_dir, "areas.limits")
+    drv = Driver(model, params, outdir, sst_mean=sst_mean,
+                 mean_forcing=mean_forcing, verbose=verbose,
+                 areas_limits=limits if os.path.exists(limits) else None,
+                 **driver_kwargs)
+    return drv.run()

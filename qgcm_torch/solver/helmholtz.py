@@ -12,9 +12,10 @@ which is the same discrete solution as the reference's
 transform-plus-tridiagonal method (src/ocisubs.F:415-618,
 src/atisubs.F:301-400). T is a DST-I in both directions in the box, and
 a real FFT in x with a DST-I in y in the channel. The DST-I is an odd
-extension fed to torch.fft.rfft (cuFFT on the card). The qgcm_tpu
-sine-matrix GEMM DST ('matmul') and its packed and block forms are not
-ported yet.
+extension fed to torch.fft.rfft (cuFFT on the card), or in the channel's
+y direction a GEMM with the sine matrix where qgcm_tpu picks its
+'matmul' y-transform (resolve_ytransform). The box's GEMM DST and
+qgcm_tpu's packed and block forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,36 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+
+
+# Interior rows from which a float32 channel takes its y-DST as a GEMM
+# under solver_transform='auto' (qgcm_tpu/solver/helmholtz.py:48,64-74).
+# With the float64 constraint algebra of models/ocean.py::_channel_pressure
+# it keeps the port's float32 channel as near its float64 run as
+# qgcm_tpu's; with the FFT form the forced southern-ocean channel drifted
+# farther from float64 in ten days (PERF.md, section 6).
+MATMUL_DST_MIN = 512
+
+
+def resolve_ytransform(cfg, nyp: int) -> str:
+    """The y-DST of a channel of nyp p-rows: 'matmul' (a GEMM with the
+    sine matrix) for float32 under solver_transform='auto' when it has
+    at least MATMUL_DST_MIN interior rows, as qgcm_tpu resolves it;
+    otherwise 'fft'."""
+    if (cfg.solver_transform == "auto" and cfg.dtype == "float32"
+            and nyp - 2 >= MATMUL_DST_MIN):
+        return "matmul"
+    return "fft"
+
+
+def sine_matrix(n: int) -> np.ndarray:
+    """The DST-I of length n as a symmetric float64 matrix in dst1's
+    convention: K[k-1, j-1] = 2 sin(pi j k / (n+1)), so K @ x equals
+    dst1(x) along the first axis. j*k is reduced modulo 2(n+1) before
+    the sine so that the argument stays exact."""
+    j = np.arange(1, n + 1)
+    jk = np.outer(j, j) % (2 * (n + 1))
+    return 2.0 * np.sin(np.pi * jk / (n + 1))
 
 
 def dst1(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -136,7 +167,8 @@ class CyclicHelmholtz:
 
     Grid: p-array of shape (nyp, nxp) whose column nxp-1 duplicates
     column 0. The transform works on the nx = nxp-1 distinct columns;
-    the solution repeats column 0 at the east edge, bit for bit.
+    the solution repeats column 0 at the east edge, bit for bit. The
+    y-DST is dst1's FFT form, or a GEMM with `ysine` where it is set.
     """
 
     nxp: int
@@ -145,10 +177,16 @@ class CyclicHelmholtz:
     lamy: torch.Tensor       # (nyp-2,)
     rdm2: torch.Tensor       # (nm,)
     norm: float              # the DST's; rfft/irfft normalise themselves
+    ysine: torch.Tensor = None   # (nyp-2, nyp-2) sine_matrix, or None
 
     def _denom(self) -> torch.Tensor:
         return (self.lamx[None, None, :] + self.lamy[None, :, None]
                 - self.rdm2[:, None, None])
+
+    def _ydst(self, f: torch.Tensor) -> torch.Tensor:
+        if self.ysine is None:
+            return dst1(f, dim=-2)
+        return torch.matmul(self.ysine, f)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs: (nm, nyp, nxp); returns the solution with zero zonal
@@ -156,10 +194,10 @@ class CyclicHelmholtz:
         after the inverse x-transform (the two commute): two real sine
         transforms instead of four on the real and imaginary parts."""
         nx = self.nxp - 1
-        sy = dst1(rhs[..., 1:-1, :nx], dim=-2)
+        sy = self._ydst(rhs[..., 1:-1, :nx])
         spec = torch.fft.rfft(sy, dim=-1) / self._denom()
         sy = torch.fft.irfft(spec, n=nx, dim=-1)
-        sol = dst1(sy, dim=-2) * self.norm
+        sol = self._ydst(sy) * self.norm
         sol = torch.cat([sol, sol[..., :1]], dim=-1)
         return torch.nn.functional.pad(sol, (0, 0, 1, 1))
 
@@ -181,17 +219,23 @@ class CyclicHelmholtz:
 
 def make_cyclic_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                           rdm2: np.ndarray, dtype=torch.float64,
-                          device="cuda") -> CyclicHelmholtz:
-    """Channel solver; the vectors are computed in float64 NumPy and
-    moved to `device` ('cuda', the default, or 'cpu') once."""
+                          device="cuda",
+                          ytransform: str = "fft") -> CyclicHelmholtz:
+    """Channel solver; the vectors (and with ytransform='matmul' the
+    sine matrix of the y-DST) are computed in float64 NumPy and moved to
+    `device` ('cuda', the default, or 'cpu') once."""
+    if ytransform not in ("fft", "matmul"):
+        raise ValueError(f"unknown ytransform {ytransform!r}")
     device = resolve_device(device)
     nx, ny = nxp - 1, nyp - 1
     k = np.arange(nx // 2 + 1)                 # rfft wavenumbers
     l = np.arange(1, ny)
     lamx = 2.0 / dx**2 * (np.cos(2.0 * np.pi * k / nx) - 1.0)
     lamy = 2.0 / dy**2 * (np.cos(np.pi * l / ny) - 1.0)
+    ysine = (_vector(sine_matrix(ny - 1), device, dtype)
+             if ytransform == "matmul" else None)
     return CyclicHelmholtz(nxp=nxp, nyp=nyp,
                            lamx=_vector(lamx, device, dtype),
                            lamy=_vector(lamy, device, dtype),
                            rdm2=_vector(rdm2, device, dtype),
-                           norm=1.0 / (2.0 * ny))
+                           norm=1.0 / (2.0 * ny), ysine=ysine)

@@ -9,8 +9,7 @@ Replaces reference src/topsubs.F:41-479. Modes per fluid:
                (topsubs.F:146-163: the field is used as already set,
                e.g. by a dataset-preparation program like toptest)
   ndarray   -- user-supplied physical topography at p points (m)
-  str path  -- NetCDF file with variable dtopoc/dtopat (topsubs.F:165+);
-               raises NotImplementedError until the port has its I/O
+  str path  -- NetCDF file with variable dtopoc/dtopat (topsubs.F:165+)
 
 Validation as in topset: non-flat topographies are warned about if not
 exactly cyclic in x (topsubs.F:227-236, 425-437), and any nonzero
@@ -24,7 +23,6 @@ atmosphere.
 
 Copied from qgcm_tpu/topo.py, which is NumPy-only but cannot be
 imported without JAX (the qgcm_tpu package __init__ imports jax).
-The netCDF reader and the topog.nc writer wait for the port's I/O.
 """
 
 from __future__ import annotations
@@ -89,9 +87,32 @@ def _atmos_define(cfg: ModelConfig, grids: Grids) -> np.ndarray:
 
 
 def _load_netcdf(path: str, var: str, shape) -> np.ndarray:
-    raise NotImplementedError(
-        f"reading {var} from the netCDF file {path} needs the port's "
-        "I/O slice; pass the topography as an array instead")
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        data = np.asarray(f.variables[var][:], dtype=np.float64)
+    # reference stores (x, y); we use (y, x)
+    if data.shape == shape:
+        return data
+    if data.shape == shape[::-1]:
+        return data.T
+    raise ValueError(f"{var} in {path} has shape {data.shape}, "
+                     f"expected {shape} (or its transpose)")
+
+
+def write_topog(path: str, model):
+    """topog.nc: physical + dynamic topography record (topout_nc,
+    src/topsubs.F:482-560), written when topography is active."""
+    from .io.ncdf import make_writer as NcWriter
+    cfg = model.cfg
+    t = model.topo
+    w = NcWriter(path)
+    w.dim("xpo", cfg.nxpo); w.dim("ypo", cfg.nypo)
+    w.dim("xpa", cfg.nxpa); w.dim("ypa", cfg.nypa)
+    w.var("dtopoc", "d", ("ypo", "xpo"), units="m", data=t.dtopoc)
+    w.var("ddynoc", "d", ("ypo", "xpo"), units="s^-1", data=t.ddynoc)
+    w.var("dtopat", "d", ("ypa", "xpa"), units="m", data=t.dtopat)
+    w.var("ddynat", "d", ("ypa", "xpa"), units="s^-1", data=t.ddynat)
+    w.close()
 
 
 def build_topography(cfg: ModelConfig, grids: Grids,

@@ -50,6 +50,97 @@ def test_cyclic_helmholtz_matches_jax(nxp, nyp):
     assert rel_err(th.solve_np(rhs), jh.solve_np(rhs)) <= TOL
 
 
+@pytest.mark.parametrize("nxp,nyp", [(25, 13), (97, 25)])
+def test_cyclic_helmholtz_gemm_ydst_matches_jax(nxp, nyp):
+    """The y-DST as a GEMM with the sine matrix (ytransform='matmul')
+    against qgcm_tpu's 'matmul' y-transform and the port's FFT form, in
+    float64; the duplicate east column is kept."""
+    rng = np.random.default_rng(nyp)
+    rdm2 = np.array([0.0, 2.5e-9, 9.0e-9])
+    rhs = rng.standard_normal((3, nyp, nxp))
+    rhs[..., -1] = rhs[..., 0]
+    jh = jax_cyclic(nxp, nyp, 20e3, 20e3, rdm2, ytransform="matmul")
+    th = make_cyclic_helmholtz(nxp, nyp, 20e3, 20e3, rdm2, device="cpu",
+                               ytransform="matmul")
+    fft = make_cyclic_helmholtz(nxp, nyp, 20e3, 20e3, rdm2, device="cpu")
+    got = th.solve(torch.from_numpy(rhs))
+    assert rel_err(got, np.asarray(jh.solve(rhs))) <= TOL
+    assert rel_err(got, fft.solve(torch.from_numpy(rhs))) <= TOL
+    assert torch.equal(got[..., -1], got[..., 0])
+
+
+def test_ytransform_policy_is_jax():
+    """The channel's y-DST is chosen as qgcm_tpu chooses it: a GEMM for
+    the float32 southern-ocean ocean (575 interior rows) under 'auto',
+    the FFT for its atmosphere (107 rows), in float64 and under 'fft'.
+    At that height the port's float32 GEMM solve matches qgcm_tpu's
+    within float32 roundoff (1e-5 of the solution's maximum)."""
+    from qgcm_tpu.solver.helmholtz import (
+        resolve_ytransform as jax_resolve)
+    from qgcm_torch.solver.helmholtz import resolve_ytransform
+    picked = set()
+    for dtype in ("float32", "float64"):
+        for transform in ("auto", "fft"):
+            kw = dict(dtype=dtype, solver_transform=transform)
+            cj = jax_config.southern_ocean_coupled(**kw)
+            ct = torch_config.southern_ocean_coupled(**kw)
+            for nyp in (ct.nypo, ct.nypa):
+                picked.add((dtype, transform, nyp,
+                            resolve_ytransform(ct, nyp)))
+                assert resolve_ytransform(ct, nyp) == jax_resolve(cj, nyp)
+    assert ("float32", "auto", 577, "matmul") in picked
+    assert ("float32", "auto", 109, "fft") in picked
+    cfg = torch_config.southern_ocean_ocean_only(nxaooc=2, nxta=2,
+                                                 dtype="float32")
+    helm = build_model(cfg, "cpu").inv_oc.helm
+    assert helm.ysine.shape == (575, 575) and helm.ysine.dtype == torch.float32
+    rng = np.random.default_rng(577)
+    rdm2 = np.array([0.0, 2.5e-9, 9.0e-9])
+    rhs = rng.standard_normal((3, 577, 33)).astype(np.float32)
+    rhs[..., -1] = rhs[..., 0]
+    jh = jax_cyclic(33, 577, 5e3, 5e3, rdm2, dtype=np.float32,
+                    ytransform="matmul")
+    th = make_cyclic_helmholtz(33, 577, 5e3, 5e3, rdm2, dtype=torch.float32,
+                               device="cpu", ytransform="matmul")
+    assert rel_err(th.solve(torch.from_numpy(rhs)),
+                   np.asarray(jh.solve(rhs))) <= 1e-5
+
+
+def test_channel_constraints_solved_in_float64():
+    """A float32 channel solves its momentum constraints in float64: on
+    the southern-ocean channel's full 4609-point rows (one ocean cell
+    high), with constraint vectors that cancel the inhomogeneous
+    solution's line integrals to 1e-4, the float32 model's pressure and
+    layer area integrals equal the float64 model's on the same float32
+    inputs within 1e-6. In float32 that algebra misses the area
+    integrals by 1.7e-4."""
+    from qgcm_torch.models.ocean import _channel_pressure
+    from qgcm_torch.ops.integrals import line_sum
+    cfg = torch_config.southern_ocean_ocean_only(nyaooc=1, nyta=16)
+    m32 = build_model(cfg.replace(dtype="float32"), "cpu")
+    m64 = build_model(cfg.replace(dtype="float64"), "cpu")
+    g = m64.grids
+    rng = np.random.default_rng(5)
+    sol = torch.from_numpy(rng.standard_normal((3, cfg.nypo, cfg.nxpo)))
+    sol[..., -1] = sol[..., 0]
+    sol[:, [0, -1]] = 0.0
+    sol[:, 1] += 1.0
+    sol[:, -2] -= 1.0
+    sol = sol.float()
+    ayis = line_sum(sol[:, 1, :].double()) * (g.dxo / g.dyo)
+    ayin = -line_sum(sol[:, -2, :].double()) * (g.dxo / g.dyo)
+    inv = torch.linalg.inv(torch.from_numpy(m64.modes_oc.cl2m))
+    cs = (inv @ (-ayis * (1.0 - 1e-4))).float()
+    cn = (inv @ (ayin * (1.0 - 1e-4))).float()
+    p32, ai32 = _channel_pressure(m32.inv_oc, sol, m32.cm2l, cs, cn,
+                                  g.dxo, g.dyo)
+    p64, ai64 = _channel_pressure(m64.inv_oc, sol.double(), m64.cm2l,
+                                  cs.double(), cn.double(), g.dxo, g.dyo)
+    assert p32.dtype == ai32.dtype == torch.float32
+    assert rel_err(p32, p64) <= 1e-6
+    assert rel_err(ai32, ai64) <= 1e-6
+
+
 @pytest.mark.parametrize("fluid", ["ocean", "atmos"])
 def test_channel_homogeneous_data_matches_jax(fluid):
     """The channel inversion's homogeneous data (conhoms.F:376-543 and

@@ -203,6 +203,15 @@ def test_port_imports_no_jax():
             "import qgcm_torch.generators, qgcm_torch.topo\n"
             "import qgcm_torch.coupling, qgcm_torch.models.atmos\n"
             "import qgcm_torch.models.ocean, qgcm_torch.state\n"
+            "import qgcm_torch.params, qgcm_torch.report\n"
+            "import qgcm_torch.io, qgcm_torch.io.ncdf, qgcm_torch.io.native\n"
+            "import qgcm_torch.io.restart, qgcm_torch.io.snapshots\n"
+            "import qgcm_torch.io.forcing, qgcm_torch.diags\n"
+            "import qgcm_torch.diags.valids, qgcm_torch.diags.cfl\n"
+            "import qgcm_torch.diags.monitor, qgcm_torch.diags.timavge\n"
+            "import qgcm_torch.diags.covaria, qgcm_torch.diags.areas\n"
+            "import qgcm_torch.diags.qocdiag, qgcm_torch.run\n"
+            "import qgcm_torch.cli\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"
             "assert not bad, bad\n")
@@ -211,10 +220,11 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def test_cuda_device_without_cuda_raises():
+def test_cuda_device_without_cuda_raises(tmp_path):
     """The entry points default to the card: without CUDA, a call that
     asks for it, or asks for no device, raises and runs nothing on the
-    CPU."""
+    CPU. That holds for the Driver, run_case and the CLI's prepare and
+    run without --device too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, cfg = cfg_pair("golden")
@@ -238,10 +248,24 @@ def test_cuda_device_without_cuda_raises():
              lambda *d: make_cyclic_helmholtz(33, 17, 20e3, 20e3,
                                               np.zeros(3), torch.float64,
                                               *d)]
+    from qgcm_torch.cli import main
+    from qgcm_torch.params import RunParams
+    from qgcm_torch.run import Driver, run_case
+    p = RunParams(trun=1e-5, dta=200.0, nstr=3, dxo=25.0e3, name="rbal",
+                  hoc=(350.0, 750.0, 2900.0))
+    out = str(tmp_path / "out")
+    calls += [lambda *d: Driver(build_model(cfg, *d), p, out),
+              lambda *d: run_case(p, cfg, out, *d)]
     for call in calls:
         for dev in [("cuda",), ()]:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call(*dev)
+    (tmp_path / "case").mkdir()
+    for argv in (["prepare", str(tmp_path / "case"), "--ocean-only"],
+                 ["run", str(tmp_path / "case"), "--ocean-only"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert not os.listdir(tmp_path / "case")
 
 
 def test_jax_and_port_state_round_trip():
