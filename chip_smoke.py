@@ -26,8 +26,14 @@ build/qgcm_torch/cases): the coupled double gyre for two days with
 every cadence firing (file set, monit.nc, resume equivalence, the
 Driver's ms/cycle and a profile of its cycles between cadence events),
 and the forced southern-ocean channel for ten days against the first
-ten days of its committed production record. Every phase raises on a
-failure; nothing runs on the CPU. The last line of standard output is
+ten days of its committed production record. Last, the multi-process
+path: the kernel's row-window and x_ext modes (the blocks of a
+decomposed run) against its full-field mode, bit for bit, and timed
+alone; and the ocean-only runner decomposed into row blocks over 4
+ranks (qgcm_torch.parallel) against the single-device runner, the
+ranks sharing the one card over gloo (or, where the host has a card for
+each, over NCCL). Every phase raises on a failure; nothing runs on the
+CPU. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
 with its launch count on the main path and on each other path, its
 error against the plain version, its times and its bound.
@@ -410,22 +416,13 @@ def phase_kernel_ragged():
 
 def phase_golden(device):
     """tests/test_golden.py::test_golden_ocean_only_box on the card."""
-    from qgcm_torch.config import ModelConfig, OceanConfig
     from qgcm_torch.generators import eddy_pressure, double_gyre_windstress
     from qgcm_torch.model import build_model
     from qgcm_torch.models.ocean import (init_ocean_state,
                                          ocean_forcing_from_mean)
     from qgcm_torch.models.stepper import make_ocean_only_runner
     from qgcm_torch.ops.qgstep import qgstep
-    cfg = ModelConfig(nxta=24, nyta=24, nxaooc=16, nyaooc=8, ndxr=2,
-                      fnot=9.37456e-5, beta=1.7536e-11, dta=200.0, nstr=3,
-                      ocean=OceanConfig(nlo=3, dxo=25.0e3, delek=2.0,
-                                        hoc=(350.0, 750.0, 2900.0),
-                                        gpoc=(0.015, 0.0075),
-                                        tabsoc=(287.0, 282.0, 276.0),
-                                        ah2oc=(0.0, 0.0, 0.0),
-                                        ah4oc=(2e12, 2e12, 2e12)),
-                      ocean_only=True)
+    cfg = golden_cfg()
     model = build_model(cfg, device)
     st = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.1))
     f = ocean_forcing_from_mean(
@@ -1251,6 +1248,562 @@ def check_monit_record(path32, path64):
                              f"{fails}")
 
 
+# ----------------------------------------------------------------------
+# Phases 12-13: the kernel's shard modes, and the decomposed ocean-only
+# runner in ranks that share the one card
+# ----------------------------------------------------------------------
+
+# ranks of the phase-13 runs: processes on this host; with fewer cards
+# than ranks they share card 0 over gloo (NCCL refuses two ranks on one
+# card), each collective's CUDA tensors staged through host memory, and
+# with a card each they take NCCL (mesh_backend)
+MESH_RANKS = 4
+MESH_STEPS = 20         # substeps of the overlap runs, 2 of them warm-up
+MESH_WARMUP = 2
+MESH_SHORT_STEPS = 2    # substeps of the deep and staged runs
+# where the ranks meet and leave their results (listed in .gitignore)
+MESH_WORKDIR = "build/qgcm_torch/mesh"
+# the float32 mesh runs against the single-device runner from the same
+# state, each field's max|difference| over its max: the sums of the
+# mixed layer and the inversion are taken in another order, and float32
+# roundoff of ~1e-7 relative grows over 20 leapfrog substeps
+MESH_F32_TOL = 1e-4
+# the float64 golden box on 4 ranks against its single-device run
+# (tests/test_sharding.py:41-58)
+MESH_F64_TOL = 1e-11
+GOLDEN_STEPS = 50
+
+
+def window_bound(nl, rows, cols, win_rows, win_cols, dtype, sponge):
+    """(bound_ms, bound_by) of one window launch: pom, po and qo read
+    over the window once, qom, wek, ent (and r_spl) over the core once,
+    the core written once; the operations are the full-field step's at
+    the core's points."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = item * (3 * nl * win_rows * win_cols + 2 * nl * rows * cols
+                     + (3 if sponge else 2) * rows * cols)
+    flop = (nl * rows * cols * (FLOP_PER_POINT
+                                + (SPONGE_FLOP_PER_POINT if sponge else 0))
+            + FLOP_PER_COLUMN * rows * cols)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_FLOP_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_args(args, r0, rows, c0=None, cols=None):
+    """The window-mode arguments of one block of the full-field `args`:
+    pom, po, qo over global rows [r0-3, r0+rows+3) (and, with c0, the x_ext
+    window's columns [c0-3, c0+cols+3)), the rest over the block; zero
+    outside the grid. Returns (args, keywords)."""
+    import torch.nn.functional as F
+    from qgcm_torch.ops.qgstep import HALO
+    pom, po, qo, qom, wek, ent, rspl, consts, ah2, ah4 = args
+    ny, nx = pom.shape[-2:]
+    xext = c0 is not None
+    if not xext:
+        c0, cols = 0, nx
+    h, w = HALO, (HALO if xext else 0)
+
+    def window(f):      # global (r, c) sits at [r + h, c + w] of `big`
+        big = F.pad(f, (w, w + cols, h, h + rows))
+        return big[..., r0:r0 + rows + 2 * h, c0:c0 + cols + 2 * w]
+
+    def core(f):
+        big = F.pad(f, (0, cols, 0, rows))
+        return big[..., r0:r0 + rows, c0:c0 + cols]
+
+    wargs = ([window(f).contiguous() for f in (pom, po, qo)]
+             + [None if f is None else core(f).contiguous()
+                for f in (qom, wek, ent, rspl)])
+    kw = dict(row0=r0 - HALO, ny_total=ny)
+    if xext:
+        kw.update(col0=c0, nx_total=nx, x_ext=True)
+    return (*wargs, consts, ah2, ah4), kw
+
+
+def check_windows(label, args, full, cyclic, sponge, blocks, tol):
+    """Each block's window launch against the full-field kernel's rows
+    (bit for bit, padding zero) and against the window's plain version
+    on the card. Returns (windows, worst error against the plain version
+    over the full field's max|q|, worst max|kernel - plain|, worst
+    max|window - full field|)."""
+    from qgcm_torch.ops.qgstep import qgstep, window_reference
+    ny, nx = full.shape[-2:]
+    scale = full.abs().max().item()
+    worst = worst_abs = worst_full = 0.0
+    for r0, rows, c0, cols in blocks:
+        wargs, kw = window_args(args, r0, rows, c0, cols)
+        got = qgstep(*wargs, cyclic=cyclic, sponge=sponge, **kw)
+        cc0, cn = (0, nx) if c0 is None else (c0, cols)
+        tr, tc = min(rows, ny - r0), min(cn, nx - cc0)
+        want = full[:, r0:r0 + tr, cc0:cc0 + tc]
+        d = (got[:, :tr, :tc] - want).abs().amax().item() if want.numel() \
+            else 0.0
+        worst_full = max(worst_full, d)
+        if not torch.equal(got[:, :tr, :tc], want):
+            raise AssertionError(f"{label}: window rows {r0}+{rows} cols "
+                                 f"{c0}+{cols} differ from the full-field "
+                                 f"kernel by {d:.3e}")
+        if got[:, tr:].count_nonzero() or got[..., tc:].count_nonzero():
+            raise AssertionError(f"{label}: padding is not zero")
+        ref = window_reference(*wargs, cyclic=cyclic, sponge=sponge, **kw)
+        err = (got - ref).abs().max().item()
+        worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
+        if not err <= tol * scale:
+            raise AssertionError(f"{label}: window kernel vs plain "
+                                 f"{err / scale:.3e} max|q| (bar {tol:g})")
+    return len(blocks), worst, worst_abs, worst_full
+
+
+def row_blocks(ny, my):
+    """Ceil blocks of ny rows over my ranks, and the 9-row bands at each
+    block's edges: (r0, rows, None, None)."""
+    by = -(-ny // my)
+    out = [(i * by, by, None, None) for i in range(my)]
+    out += [(i * by, 3, None, None) for i in range(my)]
+    out += [(i * by + by - 3, 3, None, None) for i in range(my)]
+    return out, by
+
+
+def phase_shard_modes(card):
+    """The kernel's row-window and x_ext modes at full width on the card,
+    against its full-field mode (bit for bit) and its plain version, and
+    timed alone beside their bounds. Returns the two modes' entries of
+    the kernels line."""
+    from qgcm_torch.config import (double_gyre_ocean_only, k247_default,
+                                   natl_1km, southern_ocean_ocean_only)
+    from qgcm_torch.grids import build_grids
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.ops.qgstep import qgstep, window_reference
+    entries = {}
+    # worst (relative, absolute) error against the plain version by mode
+    # and type
+    err = {(m, t): (0.0, 0.0, 0.0) for m in ("rows", "x_ext")
+           for t in (torch.float32, torch.float64)}
+
+    def note(mode, dtype, *errs):
+        err[(mode, dtype)] = tuple(map(max, err[(mode, dtype)], errs))
+
+    for seed, (preset, dtype, cyclic, my, splits2d) in enumerate((
+            (double_gyre_ocean_only, torch.float32, False, 4, ((2, 2), (3, 2))),
+            (southern_ocean_ocean_only, torch.float32, True, 4, ()),
+            (k247_default, torch.float32, True, 4, ()),
+            (double_gyre_ocean_only, torch.float64, False, 3, ((2, 2),)))):
+        cfg = preset()
+        sponge = cfg.sponge.enabled
+        nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+        args = random_args(nl, ny, nx, dtype, cyclic, sponge, 2000 + seed,
+                           consts=qgstep_consts(cfg, build_grids(cfg)),
+                           ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+        full = qgstep(*args, cyclic=cyclic, sponge=sponge)
+        tol = F64_TOL if dtype == torch.float64 else F32_TOL
+        label = (f"{preset.__name__} {nl}x{ny}x{nx} {str(dtype)[6:]}"
+                 f"{' cyclic' if cyclic else ''}{' sponge' if sponge else ''}")
+        blocks, by = row_blocks(ny, my)
+        n, worst, worst_abs, worst_full = check_windows(
+            label, args, full, cyclic, sponge, blocks, tol)
+        note("rows", dtype, worst, worst_abs, worst_full)
+        print(f"  rows {label}: {n} windows over {my} blocks of {by} rows "
+              f"(the last {ny - (my - 1) * by} true) and their 9-row bands "
+              f"bit-equal to the full-field kernel; vs plain "
+              f"{worst:.3e} max|q| (bar {tol:g})")
+        for py, px in splits2d:
+            by2, bx2 = -(-ny // py), -(-nx // px)
+            blocks2 = [(iy * by2, by2, ix * bx2, bx2)
+                       for iy in range(py) for ix in range(px)]
+            n, worst, worst_abs, worst_full = check_windows(
+                f"{label} x_ext {py}x{px}", args, full, False, sponge,
+                blocks2, tol)
+            note("x_ext", dtype, worst, worst_abs, worst_full)
+            print(f"  x_ext {label}, {py}x{px} split: {n} windows of "
+                  f"{by2}x{bx2} bit-equal to the full-field kernel; vs "
+                  f"plain {worst:.3e} max|q| (bar {tol:g})")
+        del args, full
+        torch.cuda.empty_cache()
+
+    # each mode alone, float32, at the shapes the decomposed paths give it
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for mode, (cfg, rows, cols, xext) in (
+            ("rows", (double_gyre_ocean_only(), 241, 961, False)),
+            ("band", (double_gyre_ocean_only(), 3, 961, False)),
+            ("rows NAtl", (natl_1km(), 1201, 4801, False)),
+            ("x_ext", (double_gyre_ocean_only(), 481, 481, True))):
+        nl = cfg.nlo
+        wc = cols + 6 if xext else cols
+        wins = [torch.randn(nl, rows + 6, wc, generator=g, device="cuda")
+                for _ in range(3)]
+        qom = torch.randn(nl, rows, cols, generator=g, device="cuda")
+        wek, ent = (torch.randn(rows, cols, generator=g, device="cuda")
+                    for _ in range(2))
+        wargs = (*wins, qom, wek, ent, None,
+                 qgstep_consts(cfg, build_grids(cfg)), cfg.ocean.ah2oc,
+                 cfg.ocean.ah4oc)
+        kw = dict(row0=241 - 3, ny_total=cfg.nypo)
+        if xext:
+            kw.update(col0=481, nx_total=cfg.nxpo, x_ext=True)
+
+        def run():
+            qgstep(*wargs, cyclic=False, sponge=False, **kw)
+
+        hot, cold = kernel_ms(run, 50)
+        plain = cuda_ms(lambda: window_reference(*wargs, cyclic=False,
+                                                 sponge=False, **kw), 5)
+        bound, by_ = window_bound(nl, rows, cols, rows + 6, wc,
+                                  torch.float32, False)
+        print(f"  {mode} window ({nl}, {rows + 6}, {wc}) -> ({nl}, {rows}, "
+              f"{cols}) float32: kernel {hot:.4f} ms hot L2, {cold:.4f} ms "
+              f"cold L2; plain {plain:.4f} ms; bound {bound:.4f} ms ({by_}); "
+              f"share of bound {bound / hot:.3f} hot [{card}]")
+        key = {"rows": "rows", "x_ext": "x_ext"}.get(mode)
+        if key:
+            entries[key] = dict(
+                name=f"qgstep[{key}]", route="cuda",
+                source="qgcm_torch/csrc/qgstep.cu",
+                replaces="qgcm_tpu/ops/pallas_qg.py:277",
+                mode=("row window (row0/ny_total)" if key == "rows"
+                      else "x_ext/col0/nx_total"),
+                shape=[nl, rows + 6, wc], ms=hot, cold_ms=cold,
+                ms_method="cuda_graph_replay", plain_ms=plain,
+                bound_ms=bound, bound_by=by_, library_ms=None,
+                share_of_bound=bound / hot,
+                max_abs_err=err[(key, torch.float32)][1],
+                rel_err_f32=err[(key, torch.float32)][0],
+                rel_err_f64=err[(key, torch.float64)][0],
+                max_abs_err_vs_full_field=max(
+                    err[(key, torch.float32)][2],
+                    err[(key, torch.float64)][2]))
+        del wins, qom
+    torch.cuda.empty_cache()
+    return entries
+
+
+def golden_cfg(dtype="float64"):
+    """The ocean box of tests/test_golden.py:27-36 (phases 3 and 13)."""
+    from qgcm_torch.config import ModelConfig, OceanConfig
+    return ModelConfig(nxta=24, nyta=24, nxaooc=16, nyaooc=8, ndxr=2,
+                       fnot=9.37456e-5, beta=1.7536e-11, dta=200.0, nstr=3,
+                       ocean=OceanConfig(nlo=3, dxo=25.0e3, delek=2.0,
+                                         hoc=(350.0, 750.0, 2900.0),
+                                         gpoc=(0.015, 0.0075),
+                                         tabsoc=(287.0, 282.0, 276.0),
+                                         ah2oc=(0.0, 0.0, 0.0),
+                                         ah4oc=(2e12, 2e12, 2e12)),
+                       ocean_only=True, dtype=dtype)
+
+
+def mesh_case(task, dtype):
+    """(cfg, model, state, forcing) of a phase-13 runner task in `dtype`
+    on the card: an eddy under the double-gyre wind in the box; in the
+    channel an eddy on the radiative balance, under the channel wind
+    ('wind', which drives the entrainment, its wall line integrals and
+    the momentum constraints) or at rest ('rest')."""
+    from qgcm_torch.generators import (channel_windstress,
+                                       double_gyre_windstress,
+                                       eddy_pressure, zero_forcing)
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import (init_ocean_state,
+                                         ocean_forcing_from_mean)
+    cfg = task["preset"](dtype=dtype)
+    model = build_model(cfg, "cuda")
+    if task["state"] == "box":
+        st = init_ocean_state(model, po=eddy_pressure(
+            cfg, ssh_amp=task.get("ssh_amp", 0.15)))
+        mean = double_gyre_windstress(cfg, model.grids, **task.get("wind",
+                                                                   {}))
+    else:
+        st = init_ocean_state(model, init="rbal",
+                              po=eddy_pressure(cfg, ssh_amp=0.15))
+        mean = (channel_windstress(cfg, model.grids)
+                if task["state"] == "wind" else zero_forcing(cfg))
+    return cfg, model, st, ocean_forcing_from_mean(model, *mean)
+
+
+def field_errors(ref, got, fields):
+    """max|got - ref| / max|ref| of each named field of two states."""
+    return {name: ((getattr(ref, name) - getattr(got, name).to(
+        getattr(ref, name).dtype)).abs().max()
+        / getattr(ref, name).abs().max().clamp_min(1e-300)).item()
+        for name in fields}
+
+
+def _mesh_rank(tasks):
+    """What each rank of phase 13 runs: the tasks in order, each over the
+    world group. Rank 0 also runs each task's single-device reference and
+    compares. Returns per task: the rank's launches by mode, collectives
+    and staged bytes per substep and host ms per substep; rank 0 adds
+    the errors."""
+    import torch.distributed as dist
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.models.stepper import make_ocean_only_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.halo import qgstep_halo
+    from qgcm_torch.parallel.mesh import (Mesh, gather, gather_tree,
+                                          make_mesh, shard, shard_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()          # NCCL sets up its communicator here
+    out = []
+    for task in tasks:
+        kind = task["kind"]
+        res = dict(task=task["label"])
+        if kind == "halo2d":
+            from qgcm_torch.config import double_gyre_ocean_only
+            from qgcm_torch.grids import build_grids
+            cfg = double_gyre_ocean_only()
+            nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+            args = random_args(nl, ny, nx, torch.float32, False, False, 3000,
+                               consts=qgstep_consts(cfg, build_grids(cfg)),
+                               ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+            mesh = Mesh((2, 2), grid=(ny, nx))
+            blocks = [None if a is None else shard(a, mesh)
+                      for a in args[:7]]
+            full = qgstep(*args, cyclic=False, sponge=False) if rank == 0 \
+                else None
+            for v in task["variants"]:
+                reset_launches()
+                mesh.counts.clear()
+                q = qgstep_halo(*blocks, *args[7:], cyclic=False,
+                                sponge=False, mesh=mesh, variant=v)
+                launches = dict(qgstep.mode_launches)
+                q = gather(q, mesh, site="check")
+                res[v] = dict(launches=launches, counts=dict(mesh.counts))
+                if rank == 0:
+                    res[v]["bit_equal"] = torch.equal(q, full)
+                    res[v]["max_diff"] = (q - full).abs().max().item()
+            out.append(res)
+            continue
+        cfg, model, st, f = mesh_case(task, task["dtype"])
+        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        fb = shard_tree(f, mesh)
+        for variant, steps, warm in task["runs"]:
+            run = make_ocean_only_runner(model, mesh=mesh,
+                                         halo_variant=variant,
+                                         spectral_variant="a2a")
+            stb = run(shard_tree(st, mesh), fb, warm)
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            mesh.counts.clear()
+            mesh.staged_bytes = 0
+            t0 = time.perf_counter()
+            stb = run(stb, fb, steps - warm, step0=warm)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / (steps - warm)
+            n = steps - warm
+            r = dict(launches=dict(qgstep.mode_launches),
+                     launches_per_substep={k: v / n for k, v in
+                                           qgstep.mode_launches.items()},
+                     counts={k: v / n for k, v in mesh.counts.items()},
+                     staged_mb=mesh.staged_bytes / n / 1e6, host_ms=host_ms)
+            full = gather_tree(stb, mesh)
+            if rank == 0:
+                # every schedule against the single-device runner, whose
+                # vorticity step is the kernel ('staged' runs the plain
+                # stages and launches none)
+                ref = make_ocean_only_runner(model)(st, f, steps)
+                r["errors"] = field_errors(ref, full, task["fields"])
+                r["max_abs"] = {name: getattr(ref, name).abs().max().item()
+                                for name in task["fields"]}
+                r["finite"] = all(bool(torch.isfinite(t).all())
+                                  for t in full)
+                if cfg.cyclic_ocean:
+                    r["duplicate_column"] = torch.equal(full.po[..., -1],
+                                                        full.po[..., 0])
+                if task.get("witness32"):
+                    # the float32 single-device runner from the same
+                    # state, against this float64 one
+                    _, m32, st32, f32 = mesh_case(task, "float32")
+                    r["errors_f32_runner"] = field_errors(
+                        ref, make_ocean_only_runner(m32)(st32, f32, steps),
+                        task["fields"])
+                    del m32, st32, f32
+                del ref
+            res[variant] = r
+            del full
+        out.append(res)
+        del model, st, f, fb
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_backend():
+    """(backend, label) of phase 13's ranks: NCCL with a card per rank
+    where this host has MESH_RANKS cards, else gloo with every rank on
+    card 0."""
+    if torch.cuda.device_count() >= MESH_RANKS:
+        return "nccl", f"{MESH_RANKS} ranks on {MESH_RANKS} cards over NCCL"
+    return "gloo", (f"{MESH_RANKS} ranks sharing one card through the host "
+                    "over gloo, not NVLink")
+
+
+def phase_oml_fork(card):
+    """What the main path would pay if the single-device substep were the
+    row-block substep on one block (a one-rank mesh, no process group):
+    the kernel launches (profile_counts) and the host's ms (CUDA events
+    around eager calls: the host sets this step's pace) of the mixed
+    layer alone and of the whole substep, at the main path's double gyre
+    in float32. Raises if the one-block mixed layer's SST and entrainment
+    are not the single-device ones within MESH_F32_TOL."""
+    from qgcm_torch.config import double_gyre_ocean_only
+    from qgcm_torch.models import ocean
+    from qgcm_torch.parallel.mesh import Mesh, shard_tree
+    task = dict(preset=double_gyre_ocean_only, state="box")
+    cfg, model, st, f = mesh_case(task, "float32")
+    mesh = Mesh((1, 1), grid=(cfg.nypo, cfg.nxpo))
+    sb, fb = shard_tree(st, mesh), shard_tree(f, mesh)
+    bm = ocean.block_model(model, mesh)
+    rows = ocean._Rows(mesh, cfg, model.device)
+    one = ocean._oml(model, st, f)
+    blk = ocean._oml_rows(bm, rows, sb, fb)
+    for i, name in ((0, "sst"), (2, "entoc")):
+        a, b = one[i], blk[i][:one[i].shape[0]]
+        err = ((a - b).abs().max() / a.abs().max()).item()
+        print(f"  one-block mixed layer vs the single-device one: {name} "
+              f"{err:.3e} of its max (bar {MESH_F32_TOL:g})")
+        if not err <= MESH_F32_TOL:
+            raise AssertionError("the one-block mixed layer is not the "
+                                 "single-device one")
+    step, step_rows = (ocean.make_ocean_step(model),
+                       ocean.make_ocean_step(model, halo=(mesh, "deep")))
+    for label, fn in (
+            ("mixed layer, single-device _oml", lambda: ocean._oml(
+                model, st, f)),
+            ("mixed layer, _oml_rows on one block", lambda: ocean._oml_rows(
+                bm, rows, sb, fb)),
+            ("substep, single-device", lambda: step(st, f)),
+            ("substep, row-block on one block ('deep')",
+             lambda: step_rows(sb, fb))):
+        print(f"  {label}: host {cuda_ms(fn, 20):.4f} ms a call [{card}]")
+        profile_counts(lambda: [fn() for _ in range(5)], 5, "call", card)
+    del model, st, f, sb, fb, bm
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(card, workdir):
+    """The decomposed ocean-only path in MESH_RANKS ranks (mesh_backend):
+    qgstep_halo on a 2x2 box mesh; the float64 golden box on 4 rows; the
+    double gyre and the wind-driven southern-ocean channel at full width
+    in float32, 'overlap' for MESH_STEPS substeps and 'deep' and 'staged'
+    for MESH_SHORT_STEPS, each held against the single-device runner
+    from the same state; and, printed and not held, the channel at rest
+    in float32 and float64 with the float32 single-device runner against
+    the float64 one (the float64 witness of the roundoff-sized momentum
+    constraints there). Returns (the kernels line's launch counts by
+    mode on this path, the paths' entries)."""
+    import shutil
+    from pathlib import Path
+    from qgcm_torch.config import (double_gyre_ocean_only,
+                                   southern_ocean_ocean_only)
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    box_fields = ("po", "qo", "sst", "dpioc")
+    ch_fields = box_fields + ("ocncs", "ocncn")
+    short = [("deep", MESH_SHORT_STEPS, 1), ("staged", MESH_SHORT_STEPS, 1)]
+    witness = dict(kind="runner", preset=southern_ocean_ocean_only,
+                   state="rest", runs=[("staged", MESH_SHORT_STEPS, 1)],
+                   fields=ch_fields, tol=None)
+    tasks = [
+        dict(kind="halo2d", label="qgstep_halo 2x2 box 3x961^2 float32",
+             variants=("deep", "overlap")),
+        # its 5-row blocks are too thin for 'overlap' (6 rows), which
+        # qgstep_halo would take as 'deep'
+        dict(kind="runner", label="golden box float64", preset=golden_cfg,
+             dtype="float64", state="box", ssh_amp=0.1,
+             wind=dict(tau0=2e-5),
+             runs=[("deep", GOLDEN_STEPS, MESH_WARMUP)],
+             fields=box_fields, tol=MESH_F64_TOL),
+        dict(kind="runner", label="double_gyre_ocean_only float32",
+             preset=double_gyre_ocean_only, dtype="float32", state="box",
+             runs=[("overlap", MESH_STEPS, MESH_WARMUP)] + short,
+             fields=box_fields, tol=MESH_F32_TOL),
+        dict(kind="runner", label="southern_ocean_ocean_only wind float32",
+             preset=southern_ocean_ocean_only, dtype="float32",
+             state="wind",
+             runs=[("overlap", MESH_STEPS, MESH_WARMUP)] + short,
+             fields=ch_fields, tol=MESH_F32_TOL),
+        dict(witness, label="southern_ocean_ocean_only at rest float32",
+             dtype="float32"),
+        dict(witness, label="southern_ocean_ocean_only at rest float64",
+             dtype="float64", witness32=True)]
+    work = Path(__file__).resolve().parent / workdir
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    backend, label = mesh_backend()
+    results = spawn_ranks(_mesh_rank, MESH_RANKS, tasks, backend=backend,
+                          workdir=work, timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths = []
+
+    def fmt(errors):
+        return ", ".join(f"{k} {v:.3e}" for k, v in errors.items())
+
+    for i, task in enumerate(tasks):
+        r0 = results[0][i]
+        for variant in [k for k in r0 if k != "task"]:
+            per_rank = [res[i][variant] for res in results]
+            launches = {m: sum(pr["launches"][m] for pr in per_rank)
+                        for m in totals}
+            for m in totals:
+                totals[m] += launches[m]
+            if task["kind"] == "halo2d":
+                ok = r0[variant]["bit_equal"]
+                print(f"  {task['label']}, {variant}: bit-equal to the "
+                      f"full-field kernel: {ok} (max diff "
+                      f"{r0[variant]['max_diff']:.3e}); launches by mode "
+                      f"(all ranks) {launches}; collectives of rank 0 "
+                      f"{r0[variant]['counts']}")
+                if not ok:
+                    raise AssertionError(f"{task['label']} {variant} is not "
+                                         "the single-device kernel step")
+                paths.append(dict(path=f"{task['label']} {variant}",
+                                  launches=launches,
+                                  max_abs_err=r0[variant]["max_diff"]))
+                continue
+            rv = r0[variant]
+            worst = max(rv["errors"].values())
+            held = task["tol"] is not None
+            bar = (f"bar {task['tol']:g}" if held
+                   else "a witness, not held")
+            print(f"  {task['label']}, {variant}, {MESH_RANKS} ranks: "
+                  f"errors vs the single-device runner (max|diff|/max) "
+                  f"{fmt(rv['errors'])} ({bar}); finite {rv['finite']}"
+                  + (f"; duplicate column {rv['duplicate_column']}"
+                     if "duplicate_column" in rv else ""))
+            if "errors_f32_runner" in rv:
+                print("    the float32 single-device runner vs this float64 "
+                      f"one: {fmt(rv['errors_f32_runner'])}")
+            print("    max|field| of the reference: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in
+                              rv["max_abs"].items()))
+            print(f"    per rank per substep: qgstep launches "
+                  f"{rv['launches_per_substep']}; collectives "
+                  f"{rv['counts']}; {rv['staged_mb']:.3f} MB staged through "
+                  f"the host; host {rv['host_ms']:.2f} ms/substep (rank 0; "
+                  f"max over ranks {max(p['host_ms'] for p in per_rank):.2f}) "
+                  f"-- {label} [{card}]")
+            if not (rv["finite"] and rv.get("duplicate_column", True)
+                    and (not held or worst <= task["tol"])):
+                raise AssertionError(f"{task['label']} {variant} misses the "
+                                     "single-device runner")
+            # 'overlap' is one interior and two band launches, 'deep'
+            # one, 'staged' none
+            want = {"overlap": 3, "deep": 1, "staged": 0}[variant]
+            if any(p["launches_per_substep"]["rows"] != want
+                   for p in per_rank):
+                raise AssertionError(f"{task['label']} {variant}: expected "
+                                     f"{want} row-window launches per rank "
+                                     "per substep")
+            paths.append(dict(path=f"{task['label']} {variant}",
+                              launches=launches, rel_err=worst))
+    if totals["full"]:
+        raise AssertionError("a decomposed run launched the full-field mode")
+    return totals, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -1277,7 +1830,6 @@ def main() -> int:
             print(f"      {line.strip()}")
     for line in sass_census(lib.path):
         print(f"      sass {line}")
-
     with phase("[2] kernel vs plain chain on the card (small "
                "configurations)"):
         phase_kernel_small(device)
@@ -1306,17 +1858,32 @@ def main() -> int:
     with phase("[11] the Driver through the CLI: the forced southern-ocean "
                "channel against its committed record"):
         paths.append(phase_driver_channel(card, paths[2]))
+    with phase("[12] the kernel's shard modes (row window, x_ext) on the "
+               "card"):
+        modes = phase_shard_modes(card)
+    with phase(f"[13] the rows-mesh ocean-only runner: "
+               f"{mesh_backend()[1]}"):
+        phase_oml_fork(card)
+        totals, mesh_paths = phase_mesh(card, MESH_WORKDIR)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
                             launches=kernel["launches"],
                             max_abs_err=kernel["max_abs_err"]), *paths]
+    for mode in ("rows", "x_ext"):
+        modes[mode]["launches"] = totals[mode]
+        modes[mode]["paths"] = [
+            {**p, "launches": p["launches"][mode]}
+            for p in mesh_paths if p["launches"][mode]]
     print(card_line())
-    print(json.dumps({"kernels": [kernel]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"kernels": [kernel, modes["rows"], modes["x_ext"]]}))
+    print(json.dumps({"ok": True, "device": device_info()}))
     return 0
+
+
+def device_info() -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,23 @@
 // Fused QG vorticity leapfrog for the ocean, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel qgcm_tpu/ops/pallas_qg.py::qgstep_pallas
-// (pallas_call at :277, body _make_kernel.kernel :71-216) in its
-// full-field mode: box or cyclic-x, optional k247 sponge. One pass
-// computes, per layer k and grid point,
+// (pallas_call at :277, body _make_kernel.kernel :71-216): box or
+// cyclic-x, optional k247 sponge, in its three modes (pallas_qg.py:
+// 227-244):
+//   * full field: the arrays are the whole (nl, ny, nx) grid;
+//   * row window (row0/ny_total): pom, po and qo are a window of the
+//     output rows with 3 ghost rows on each side, whose first output row
+//     sits at global row `row0` of a grid `ny_total` rows tall; the walls,
+//     the zonal rows and the sponge's beta*y key on global rows, and
+//     output rows at or beyond ny_total are padding, written as zeros
+//     (parallel/halo.py's deep and overlap schedules);
+//   * x_ext (box only): the window also carries 3 real ghost columns on
+//     each side, and the W/E walls key on global columns (col0,
+//     nx_total); output columns at or beyond nx_total are padding.
+// In the window modes qom, wek, ent, r_spl and the output have the
+// output's (core) shape: the Pallas kernel's outputs on ghost rows were
+// discarded by every caller (halo.py:425, :578), so none is computed.
+// One pass computes, per layer k and grid point,
 //   del2, del4 of the lagged pressure pom with mixed-BC walls (bcfac),
 //   del6 (zero on the edges), the Arakawa 9-point J(qo, po),
 //   dqdt = adfac*J + (ah2_k/f0)*del4 - (ah4_k/f0)*del6 (zero on box W/E),
@@ -72,13 +86,16 @@
 // element-wise copies and their addresses, the row and wall tests and the
 // register rotation (chip_smoke.py prints the census).
 //
-// Ghosts outside the domain are zeros (box) or the x-wrap (cyclic: west
-// of column 0 is column nx-2, east of nx-1 is column 1); every output a
-// ghost reaches is overwritten by a wall mask, as in the Pallas kernel
-// (pallas_qg.py:14-19). Rows at or beyond ny load zeros and are never
-// written; columns at or beyond nx are never written. Values formed in
-// the first iterations of a march, and in the window's edge columns,
-// from rows or neighbours that were never loaded, reach no output.
+// Ghosts outside the input arrays are zeros (box) or the x-wrap (cyclic:
+// west of column 0 is column nx-2, east of nx-1 is column 1); every
+// output a ghost reaches is overwritten by a wall mask, as in the Pallas
+// kernel (pallas_qg.py:14-19). Input rows outside the arrays load zeros;
+// output rows and columns beyond the output's shape are never written.
+// Values formed in the first iterations of a march, and in the window's
+// edge columns, from rows or neighbours that were never loaded, reach no
+// output. So do values formed on padding rows and columns (at or beyond
+// ny_total / nx_total): the north and east walls' conditions read only
+// inward, and every output next to them is a wall output.
 
 #include <cuda_runtime.h>
 
@@ -105,9 +122,19 @@ static_assert((kRing & (kRing - 1)) == 0 && kRing >= kAhead + 2,
 
 // Must match _QgParams in qgcm_torch/ops/qgstep.py field for field.
 struct QgParams {
+  // ny, nx: the output's rows and columns (the whole grid in the
+  // full-field mode)
   int nl, ny, nx, cyclic, sponge;
   // launch geometry: output columns and rows per strip, strip counts
   int strip_w, strip_h, strips_x, strips_y, pad;
+  // the input window of pom/po/qo: its rows and columns, and the input
+  // row and column of output (0, 0): (ny, nx, 0, 0) in the full-field
+  // mode, (ny + 6, nx, 3, 0) for a row window, (ny + 6, nx + 6, 3, 3) in
+  // x_ext mode
+  int ny_in, nx_in, gy, gx;
+  // the global row and column of output (0, 0) and the global grid's
+  // extent, on which the walls, the zonal rows and the padding key
+  int row0, col0, ny_total, nx_total;
   // dxm2, bcfac, adfac, 1/f0, 2dt, bdrfac, c1spl, beta*y0, beta*dy,
   // f0/H0, f0/H1
   double c[11];
@@ -220,6 +247,8 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   constexpr int M = kRing - 1;
 
   const int ny = prm.ny, nx = prm.nx, nl = prm.nl;
+  const int ny_in = prm.ny_in, nx_in = prm.nx_in, gy = prm.gy;
+  const int row0 = prm.row0, ny_total = prm.ny_total;
   const bool cyclic = prm.cyclic != 0, sponge = prm.sponge != 0;
   const T dxm2 = cf.dxm2, bcfac = cf.bcfac;
 
@@ -238,24 +267,27 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   const int r_end = min(r0 + prm.strip_h, ny);     // rows [r0, r_end)
   const int t = threadIdx.x;
   const int x0 = 2 * t;                            // window column of pair
-  const int gc0 = blockIdx.x * kStripW - kHalo + x0;
+  const int gc0 = blockIdx.x * kStripW - kHalo + x0;  // output column
 
-  // Per column of the pair: where it is read from (itself, its cyclic
-  // wrap of period nx - 1 -- the east column duplicates the west one --
-  // or nowhere, a zero ghost of the box), its walls, and whether it is
-  // an output column of this strip.
+  // Per column of the pair: where it is read from (its input column, its
+  // cyclic wrap of period nx_in - 1 -- the east column duplicates the
+  // west one -- or nowhere, a zero ghost of the box), its walls and
+  // padding by global column, and whether it is an output column of this
+  // strip.
   int cin[2];
-  bool col_ok[2], wall_w[2], wall_e[2], writer[2];
+  bool col_ok[2], wall_w[2], wall_e[2], writer[2], pad_col[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int gc = gc0 + c;
-    int src = gc;
-    if (cyclic && (gc < 0 || gc >= nx))
-      src = (gc % (nx - 1) + nx - 1) % (nx - 1);
-    col_ok[c] = src >= 0 && src < nx;
+    int src = gc + prm.gx;
+    if (cyclic && (src < 0 || src >= nx_in))
+      src = (src % (nx_in - 1) + nx_in - 1) % (nx_in - 1);
+    col_ok[c] = src >= 0 && src < nx_in;
     cin[c] = col_ok[c] ? src : 0;
-    wall_w[c] = !cyclic && gc == 0;
-    wall_e[c] = !cyclic && gc == nx - 1;
+    const int g = prm.col0 + gc;                   // global column
+    wall_w[c] = !cyclic && g == 0;
+    wall_e[c] = !cyclic && g == prm.nx_total - 1;
+    pad_col[c] = g >= prm.nx_total;
     writer[c] = x0 + c >= kHalo && x0 + c < kWindow - kHalo && gc < nx;
   }
   const int pt0 = writer[0] ? gc0 : 0, pt1 = writer[1] ? gc0 + 1 : 0;
@@ -263,11 +295,13 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   // what they compute reaches no output
   const int wo = t > 0 ? -1 : 0, eo = t < kThreads - 1 ? 2 : 1;
 
-  // Element offsets are 32-bit: the launch checks nl * ny * nx < 2^31.
+  // Element offsets are 32-bit: the launch checks nl * ny_in * nx_in <
+  // 2^31.
   const int koff = k * ny * nx;
-  const T* pom_k = pom + koff;
-  const T* po_k = po + koff;
-  const T* qo_k = qo + koff;
+  const int kin = k * ny_in * nx_in;
+  const T* pom_k = pom + kin;
+  const T* po_k = po + kin;
+  const T* qo_k = qo + kin;
   const T* qom_k = qom + koff;
   T* out_k = out + koff;
   const unsigned my_sh =
@@ -282,16 +316,18 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   auto issue = [&](int i) {
     const unsigned sh = my_sh + (i & M) * kRowB;
     if (i <= r_end + 2) {                          // pom rows r0-3..r_end+2
-      const bool in = i >= 0 && i < ny;
-      const int off = in ? i * nx : 0;
+      const int ri = i + gy;                       // input row
+      const bool in = ri >= 0 && ri < ny_in;
+      const int off = in ? ri * nx_in : 0;
       cp_async(sh + kPom * kFieldB, pom_k + off + cin[0], in && col_ok[0]);
       cp_async(sh + kPom * kFieldB + kE, pom_k + off + cin[1],
                in && col_ok[1]);
     }
     const int rq = i - kLagPQ;
     if (rq >= r0 - 1 && rq <= r_end) {             // po/qo rows r0-1..r_end
-      const bool in = rq >= 0 && rq < ny;
-      const int off = in ? rq * nx : 0;
+      const int ri = rq + gy;
+      const bool in = ri >= 0 && ri < ny_in;
+      const int off = in ? ri * nx_in : 0;
       const bool ok0 = in && col_ok[0], ok1 = in && col_ok[1];
       cp_async(sh + kPo * kFieldB, po_k + off + cin[0], ok0);
       cp_async(sh + kPo * kFieldB + kE, po_k + off + cin[1], ok1);
@@ -346,9 +382,10 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
     {
       const T* R = prev + kPom * kField;
       const T w = R[wo], e = R[eo];
-      v2[0] = lap_bc(pC[0], pS[0], pN[0], w, pC[1], s - 1, ny, wall_w[0],
+      const int g = row0 + s - 1;                  // global row
+      v2[0] = lap_bc(pC[0], pS[0], pN[0], w, pC[1], g, ny_total, wall_w[0],
                      wall_e[0], dxm2, bcfac);
-      v2[1] = lap_bc(pC[1], pS[1], pN[1], pC[0], e, s - 1, ny, wall_w[1],
+      v2[1] = lap_bc(pC[1], pS[1], pN[1], pC[0], e, g, ny_total, wall_w[1],
                      wall_e[1], dxm2, bcfac);
     }
     store_pair(d2s + ((s - 1) & 1) * kWindow + x0, v2[0], v2[1]);
@@ -359,10 +396,11 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
     {
       const T* R = d2s + ((s - 2) & 1) * kWindow + x0;
       const T w = R[wo], e = R[eo];
-      v4[0] = lap_bc(d2C[0], d2S[0], v2[0], w, d2C[1], s - 2, ny, wall_w[0],
-                     wall_e[0], dxm2, bcfac);
-      v4[1] = lap_bc(d2C[1], d2S[1], v2[1], d2C[0], e, s - 2, ny, wall_w[1],
-                     wall_e[1], dxm2, bcfac);
+      const int g = row0 + s - 2;
+      v4[0] = lap_bc(d2C[0], d2S[0], v2[0], w, d2C[1], g, ny_total,
+                     wall_w[0], wall_e[0], dxm2, bcfac);
+      v4[1] = lap_bc(d2C[1], d2S[1], v2[1], d2C[0], e, g, ny_total,
+                     wall_w[1], wall_e[1], dxm2, bcfac);
     }
     store_pair(d4s + ((s - 2) & 1) * kWindow + x0, v4[0], v4[1]);
 
@@ -374,7 +412,12 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
     const int r = s - kLagOut;
     if (r >= r0) {
       T qnew[2];
-      if (r == 0 || r == ny - 1) {  // the boundary PV relation rewrites these
+      const int gr = row0 + r;                     // global row
+      if (gr >= ny_total) {                        // padding
+        qnew[0] = T(0);
+        qnew[1] = T(0);
+      } else if (gr == 0 || gr == ny_total - 1) {
+        // the boundary PV relation rewrites these
         qnew[0] = qC.a;
         qnew[1] = qC.b;
       } else {
@@ -397,7 +440,7 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
         if (sponge) rs = *reinterpret_cast<const V*>(slot + kRspl * kField);
         const T qmv[2] = {qm.x, qm.y}, wkv[2] = {wk.x, wk.y};
         const T env[2] = {en.x, en.y}, rsv[2] = {rs.x, rs.y};
-        const T betay = cf.beta_y0 + cf.beta_dy * T(r);
+        const T betay = cf.beta_y0 + cf.beta_dy * T(gr);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           T dqdt = T(0);
@@ -411,8 +454,8 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
             qnew[c] = qnew[c] + cf.tdt_c1spl * rsv[c] * (qmv[c] - betay);
         }
       }
-      if (writer[0]) out_k[r * nx + gc0] = qnew[0];
-      if (writer[1]) out_k[r * nx + gc0 + 1] = qnew[1];
+      if (writer[0]) out_k[r * nx + gc0] = pad_col[0] ? T(0) : qnew[0];
+      if (writer[1]) out_k[r * nx + gc0 + 1] = pad_col[1] ? T(0) : qnew[1];
     }
 
     // rotate the windows by one row
@@ -475,8 +518,17 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
            const T* wek, const T* ent, const T* rspl, T* out,
            const QgParams* prm, void* stream) {
   const QgParams& p = *prm;
-  if (p.nl < 2 || p.nl > kMaxLayers || p.ny < 3 || p.nx < 3
-      || (long long)p.nl * p.ny * p.nx >= (1LL << 31)
+  const bool full = p.gy == 0 && p.gx == 0;
+  const bool rows = p.gy == kHalo && p.gx == 0;
+  const bool x_ext = p.gy == kHalo && p.gx == kHalo;
+  if (p.nl < 2 || p.nl > kMaxLayers || p.ny < 1 || p.nx < 1
+      || !(full || rows || (x_ext && !p.cyclic))
+      || p.ny_in != p.ny + 2 * p.gy || p.nx_in != p.nx + 2 * p.gx
+      || (full && (p.ny < 3 || p.nx < 3 || p.row0 != 0 || p.col0 != 0
+                   || p.ny_total != p.ny || p.nx_total != p.nx))
+      || (!x_ext && (p.col0 != 0 || p.nx_total != p.nx))
+      || p.ny_total < 3 || p.nx_total < 3 || (p.cyclic && p.nx < 3)
+      || (long long)p.nl * p.ny_in * p.nx_in >= (1LL << 31)
       || p.strip_w != kStripW || p.strip_h < 1
       || p.strips_x != (p.nx + kStripW - 1) / kStripW
       || p.strips_y != (p.ny + p.strip_h - 1) / p.strip_h

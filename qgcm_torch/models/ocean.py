@@ -22,10 +22,10 @@ import torch.nn.functional as F
 from ..config import ModelConfig, ml_f64_enabled
 from ..grids import Grids
 from ..model import Model
-from ..ops.integrals import line_sum, xintp
+from ..ops.integrals import line_sum, xintp, xintp_rows
 from ..ops.qgstep import qgstep
 from ..ops.stencils import del2_bc, _col_mask, _eshift, _wshift
-from ..ops.vorticity import qcomp, ocqbdy
+from ..ops.vorticity import qcomp, ocqbdy, ocqbdy_rows
 from ..state import OceanState, OceanForcing
 
 # threshold of the continuity monitors emfroc/emfrat (ocisubs.F:281,
@@ -82,26 +82,19 @@ def _lap_padded(fp: torch.Tensor) -> torch.Tensor:
 # Mixed layer (src/omlsubs.F)
 # ----------------------------------------------------------------------
 
-def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
-    """Advective + diffusive RHS of the SST equation (omladf,
-    src/omlsubs.F:244-763): 2nd-order C-grid advection of sst by
-    geostrophic + Ekman velocities, del2 and del4 diffusion of sstm."""
+def _hxadv(model: Model, sst, po1, tauyo):
+    """The x part of omladf's advection, hdxom1 * d(u T)/dx, on the T rows
+    of `sst` from the p rows that bound them (po1, tauyo: one row more)."""
     cfg = model.cfg
     g = model.grids
-    cyclic = cfg.cyclic_ocean
     uvgfac = cfg.ycexp / (g.dxo * cfg.fnot)
     rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
-    hdxom1 = 0.5 / g.dxo
-    d2tfac = cfg.mixed.st2d / g.dxo**2
-    d4tfac = cfg.mixed.st4d / g.dxo**4
-    tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
-
     # u at T-cell W/E faces: faces line up with p columns. (nyto, nxpo)
     uface = (-uvgfac * (po1[1:, :] - po1[:-1, :])
              + rhf0hm * (tauyo[1:, :] + tauyo[:-1, :]))
     # T at W/E faces (sum of adjacent cells; the 1/2 is in hdxom1); no
     # flux through the box walls
-    if cyclic:
+    if cfg.cyclic_ocean:
         twrap = sst[:, :1] + sst[:, -1:]
         xflux = uface * torch.cat([twrap, sst[:, :-1] + sst[:, 1:], twrap],
                                   dim=1)
@@ -110,11 +103,34 @@ def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
         tface = torch.cat([zcol, sst[:, :-1] + sst[:, 1:], zcol], dim=1)
         wecols = _col_mask(uface, 0) | _col_mask(uface, -1)
         xflux = torch.where(wecols, 0.0, uface * tface)
-    hxadv = hdxom1 * (xflux[:, 1:] - xflux[:, :-1])
+    return (0.5 / g.dxo) * (xflux[:, 1:] - xflux[:, :-1])
 
-    # v at T-cell S/N faces: faces line up with p rows. (nypo, nxto)
-    vface = (uvgfac * (po1[:, 1:] - po1[:, :-1])
-             - rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1]))
+
+def _vface(model: Model, po1, tauxo):
+    """v at T-cell S/N faces, which line up with p rows: (rows of po1,
+    nxto)."""
+    cfg = model.cfg
+    uvgfac = cfg.ycexp / (model.grids.dxo * cfg.fnot)
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
+    return (uvgfac * (po1[:, 1:] - po1[:, :-1])
+            - rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1]))
+
+
+def _omladf(model: Model, sst, sstm, po1, tauxo, tauyo):
+    """Advective + diffusive RHS of the SST equation (omladf,
+    src/omlsubs.F:244-763): 2nd-order C-grid advection of sst by
+    geostrophic + Ekman velocities, del2 and del4 diffusion of sstm."""
+    cfg = model.cfg
+    g = model.grids
+    cyclic = cfg.cyclic_ocean
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
+    hdxom1 = 0.5 / g.dxo
+    d2tfac = cfg.mixed.st2d / g.dxo**2
+    d4tfac = cfg.mixed.st4d / g.dxo**4
+    tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
+
+    hxadv = _hxadv(model, sst, po1, tauyo)
+    vface = _vface(model, po1, tauxo)
     zrow = torch.zeros_like(sst[:1])
     tyface = torch.cat([zrow, sst[:-1, :] + sst[1:, :], zrow], dim=0)
     yflux = vface * tyface
@@ -189,7 +205,28 @@ def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     """Step the ocean mixed layer (oml, src/omlsubs.F:47-236).
     Returns (sst_new, sstm_new, entoc, xon1, enis1, enin1, cfraoc,
     centoc); enis1/enin1 are the boundary line integrals of entoc that
-    the channel's momentum constraints take.
+    the channel's momentum constraints take."""
+    cfg = model.cfg
+    rhs = _omladf(model, state.sst, state.sstm, state.po[0],
+                  forcing.tauxo, forcing.tauyo)
+    sstnew, dtonew, coneno, xfo = _oml_point(model, state, forcing, rhs)
+    cfraoc = (dtonew > 0.0).to(dtonew.dtype).mean()
+    centoc = -coneno.sum() * model.grids.dxo * model.grids.dyo
+
+    # Remove mean so net entrainment (deep-ocean heat flux) is zero
+    xfo = xfo - xfo.sum() * cfg.ocnorm
+
+    entoc = _entrain_to_p(xfo, cfg.cyclic_ocean)
+    xon1 = xintp(entoc) * model.grids.dxo * model.grids.dyo
+    enis1 = model.grids.dxo * line_sum(entoc[0, :])
+    enin1 = model.grids.dxo * line_sum(entoc[-1, :])
+    return sstnew, state.sst, entoc, xon1, enis1, enin1, cfraoc, centoc
+
+
+def _oml_point(model: Model, state: OceanState, forcing: OceanForcing, rhs):
+    """The pointwise part of oml from the SST equation's stencil RHS:
+    the SST prediction and convection clamp, and the entrainment before
+    its mean is removed. Returns (sst_new, dtonew, coneno, xfo).
 
     On float32 models the SST prediction and the convection clamp run
     in float64 by default and are stored in float32 (config.ml_f64): the
@@ -206,9 +243,6 @@ def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     dtoinv = 1.0 / (toc[0] - toc[1])
     entfac = cfg.mixed.hmoc * dtoinv / tdto
     rrcpoc = 1.0 / (cfg.rhooc * cfg.cpoc)
-
-    rhs = _omladf(model, state.sst, state.sstm, state.po[0],
-                  forcing.tauxo, forcing.tauyo)
 
     ct = (torch.float64 if ml_f64_enabled(cfg) and sdt == torch.float32
           else sdt)
@@ -227,19 +261,7 @@ def _oml(model: Model, state: OceanState, forcing: OceanForcing):
     # entrainment (7.12) and everything downstream in the storage dtype
     xfoent = -(0.5 * dtoinv) * forcing.wekto * (state.sstm - toc[0])
     coneno = entfac * conv
-    xfo = xfoent - coneno
-
-    cfraoc = (dtonew > 0.0).to(sdt).mean()
-    centoc = -coneno.sum() * model.grids.dxo * model.grids.dyo
-
-    # Remove mean so net entrainment (deep-ocean heat flux) is zero
-    xfo = xfo - xfo.sum() * cfg.ocnorm
-
-    entoc = _entrain_to_p(xfo, cfg.cyclic_ocean)
-    xon1 = xintp(entoc) * model.grids.dxo * model.grids.dyo
-    enis1 = model.grids.dxo * line_sum(entoc[0, :])
-    enin1 = model.grids.dxo * line_sum(entoc[-1, :])
-    return sstnew, state.sst, entoc, xon1, enis1, enin1, cfraoc, centoc
+    return sstnew, dtonew, coneno, xfoent - coneno
 
 
 # ----------------------------------------------------------------------
@@ -325,7 +347,8 @@ def _cyclic_boundary_terms(model: Model, state: OceanState, d2_s, d2_n,
 # PV inversion (src/ocisubs.F ocinvq)
 # ----------------------------------------------------------------------
 
-def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy):
+def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy, sums=None,
+                      rows=None):
     """Layer pressures of a channel inversion, and their area integrals
     (ocisubs.F:208-264, atisubs.F:181-230): the homogeneous solutions
     that the new momentum-constraint vectors cs_new/cn_new call for are
@@ -337,12 +360,12 @@ def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy):
     float32 their rounding, fed back every step into the zonal-mean
     flow, took a float32 channel 5-20x farther from its float64 run
     than qgcm_tpu's float32 goes (PERF.md, section 6). Only the grid
-    assembly runs in sol's dtype. Returns (p, aiplay)."""
+    assembly runs in sol's dtype. On a row block, `sums` are
+    _channel_sums over the whole grid and `rows` the block's slice of
+    the y profiles (padded). Returns (p, aiplay)."""
     f64 = torch.float64
-    xinhom = xintp(sol, dtype=f64) * dx * dy
-    # line integrals of dp/dy of the inhomogeneous solutions
-    ayis = line_sum(sol[:, 1, :], dtype=f64) * (dx / dy)
-    ayin = -line_sum(sol[:, -2, :], dtype=f64) * (dx / dy)
+    xinhom, ayis, ayin = (_channel_sums(sol, dx, dy) if sums is None
+                          else sums)
     clhss = inv.cl2m @ cs_new.to(f64) + ayis
     clhsn = inv.cl2m @ cn_new.to(f64) - ayin
     # homogeneous solution coefficients (ocisubs.F:238-246)
@@ -353,10 +376,21 @@ def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy):
                         xinhom[1:] + (c1 + c2) * inv.aipch])
     homcor = torch.cat([(c3 * inv.pbh)[None],
                         c1[:, None] * inv.pch1 + c2[:, None] * inv.pch2])
+    if rows is not None:
+        homcor = rows(homcor)
     p = torch.einsum("km,myx->kyx", cm2l,
                      sol[..., :-1] + homcor.to(sol.dtype)[:, :, None])
     return (torch.cat([p, p[..., :1]], dim=-1),
             (inv.cm2l @ aipmod).to(sol.dtype))
+
+
+def _channel_sums(sol, dx, dy):
+    """The float64 area integrals and the line integrals of dp/dy next to
+    the walls of the inhomogeneous modal solutions (nm, nyp, nxp)."""
+    f64 = torch.float64
+    return (xintp(sol, dtype=f64) * dx * dy,
+            line_sum(sol[:, 1, :], dtype=f64) * (dx / dy),
+            -line_sum(sol[:, -2, :], dtype=f64) * (dx / dy))
 
 
 def _continuity(est1, dpip, gp, xn1, tdt, area):
@@ -372,10 +406,14 @@ def _continuity(est1, dpip, gp, xn1, tdt, area):
 
 
 def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
-            enis1, enin1, cyc, forcing: OceanForcing):
+            enis1, enin1, cyc, forcing: OceanForcing, rows=None):
     """Invert PV to pressure under the mass constraint, and in the
     channel the momentum constraints too. Returns (po_new, pom_new,
-    dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp, ermaso, emfroc)."""
+    dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp, ermaso, emfroc).
+
+    On a row block (`rows`, a _Rows; model.inv_oc.helm a sharded solver
+    and model's y profiles the block's) the grid sums are the blocks'
+    shares summed over the ranks, and po_new's padding rows are zero."""
     cfg = model.cfg
     g = model.grids
     inv = model.inv_oc
@@ -401,8 +439,10 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
         rhsn[-1] -= (cfg.fnot / model.hoc[-1]) * cyc["bdrinn"]
         ocsnew = state.ocncsp + tdto * rhss
         ocnnew = state.ocncnp + tdto * rhsn
-        po_new, aiplay = _channel_pressure(inv, sol, model.cm2l,
-                                           ocsnew, ocnnew, g.dxo, g.dyo)
+        sums = None if rows is None else rows.channel_sums(sol, g.dxo, g.dyo)
+        po_new, aiplay = _channel_pressure(
+            inv, sol, model.cm2l, ocsnew, ocnnew, g.dxo, g.dyo, sums=sums,
+            rows=None if rows is None else rows.profile)
         est1 = aiplay[1:] - aiplay[:-1]
         ermaso, emfroc = _continuity(est1, state.dpiocp, model.gpoc, xon1,
                                      tdto, g.xlo * g.ylo)
@@ -417,8 +457,10 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
     helm = inv.helm
     fwd = helm.forward(wrk)
     denom = helm._denom()
-    xinhom = helm.norm * torch.einsum(
-        "myx,y,x->m", fwd / denom, helm.gy, helm.gx) * g.dxo * g.dyo
+    parseval = torch.einsum("myx,y,x->m", fwd / denom, helm.gy, helm.gx)
+    if rows is not None:
+        parseval = rows.mesh.all_reduce(parseval, INV_SUMS)
+    xinhom = helm.norm * parseval * g.dxo * g.dyo
 
     dpioc_new = state.dpiocp - tdto * model.gpoc * _first(xon1, nlo - 1)
     rhsum = torch.einsum("mk,m->k", inv.cdiffo, xinhom)
@@ -430,6 +472,8 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
     spec = (fwd + coef[:, None, None] * gyx) / denom
     pm = helm.inverse(spec) + torch.cat([zero1, hclco])[:, None, None]
     po_new = torch.einsum("km,myx->kyx", model.cm2l, pm)
+    if rows is not None:
+        po_new = torch.where(rows.p_true, po_new, 0.0)
     zero = torch.zeros_like(dpioc_new)
     return (po_new, state.po, dpioc_new, state.dpioc, state.ocncs,
             state.ocncn, state.ocncsp, state.ocncnp, zero, zero)
@@ -439,10 +483,25 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
 # Full substep + init helpers
 # ----------------------------------------------------------------------
 
-def make_ocean_step(model: Model):
+def make_ocean_step(model: Model, halo=None, sharded: bool = False):
     """Build the ocean substep oml -> qgostep -> ocinvq -> ocqbdy (main
     loop q-gcm.F:1222-1255). Returns step(state, forcing) ->
-    (state, OceanStepDiags)."""
+    (state, OceanStepDiags).
+
+    halo: a (mesh, variant) pair (qgcm_tpu/models/ocean.py:666-677): the
+    step then takes and returns this rank's row blocks of a run
+    decomposed over `mesh` (parallel/mesh.py), the vorticity step
+    exchanging its ghosts by `variant` ('staged', 'deep' or 'overlap',
+    parallel/halo.py) and the inversions transposing (parallel/
+    spectral.py). sharded=True without a halo pair is qgcm_tpu's bare
+    GSPMD partitioning, which has no PyTorch counterpart: it raises."""
+    if halo is not None:
+        return _make_rows_step(model, *halo)
+    if sharded:
+        raise ValueError(
+            "a decomposed ocean step needs halo=(mesh, variant): qgcm_tpu's "
+            "automatic GSPMD partitioning (sharded=True alone) has no "
+            "PyTorch counterpart")
     cfg = model.cfg
     cyclic = cfg.cyclic_ocean
     dxom2 = 1.0 / model.grids.dxo**2
@@ -468,6 +527,267 @@ def make_ocean_step(model: Model):
         qo_new = ocqbdy(qo_new, po_new, model.amat, model.yporel, dxom2,
                         cfg.fnot, cfg.beta, cfg.ocean.bccooc, model.ddyn,
                         cyclic=cyclic)
+
+        new_state = OceanState(
+            po=po_new, pom=pom_new, qo=qo_new, qom=qom_new,
+            sst=sst_new, sstm=sstm_new, dpioc=dpioc, dpiocp=dpiocp,
+            ocncs=ocncs, ocncn=ocncn, ocncsp=ocncsp, ocncnp=ocncnp)
+        diags = OceanStepDiags(ermaso=ermaso, emfroc=emfroc, xon1=xon1,
+                               cfraoc=cfraoc, centoc=centoc)
+        return new_state, diags
+
+    return step
+
+
+# ----------------------------------------------------------------------
+# The substep on row blocks (a run decomposed over parallel/mesh.py)
+# ----------------------------------------------------------------------
+
+# collective call sites (Mesh.counts)
+OML_ROWS = "ocean.oml.rows"
+OML_SUMS = "ocean.oml.sums"
+WALLS = "ocean.walls"
+INV_SUMS = "ocean.inversion.sums"
+BDY_ROWS = "ocean.ocqbdy.rows"
+# the global rows of the wall strips the channel's constraint terms read
+# (_edge_d2d4 and _cyclic_boundary_terms: 5 rows at each wall)
+_STRIP = 5
+
+
+class _Rows:
+    """This rank's rows of the ocean's grids in a run decomposed over
+    `mesh`: p rows [r0, r0 + n) of nyp, and the T rows of the same
+    indices of nyt = nyp - 1; those at or beyond the grid's end are
+    padding."""
+
+    def __init__(self, mesh, cfg, device):
+        self.mesh = mesh
+        self.r0, self.n = mesh.iy * mesh.by, mesh.by
+        self.nyp, self.nyt = cfg.nypo, cfg.nyto
+        g = self.r0 + torch.arange(self.n, device=device)
+        self.gy = g[:, None]                      # global rows, (n, 1)
+        self.p_true = self.gy < self.nyp
+        self.t_true = self.gy < self.nyt
+
+    def local(self, g: int):
+        """The block's index of global row g, or None."""
+        i = g - self.r0
+        return i if 0 <= i < self.n else None
+
+    def profile(self, v: torch.Tensor) -> torch.Tensor:
+        """The block's rows of a (..., nyp) profile, zero-padded."""
+        part = v[..., self.r0:self.r0 + self.n]
+        return F.pad(part, (0, self.n - part.shape[-1]))
+
+    def channel_sums(self, sol, dx, dy):
+        """_channel_sums of the whole grid from the blocks of sol: the
+        shares of the area integral and the wall-side line integrals
+        (each held by one block), summed over the ranks in float64."""
+        f64 = torch.float64
+        nm = sol.shape[0]
+        parts = [xintp_rows(sol, self.r0, self.nyp, dtype=f64)]
+        for g, sign in ((1, 1.0), (self.nyp - 2, -1.0)):
+            i = self.local(g)
+            parts.append(sign * line_sum(sol[:, i, :], dtype=f64)
+                         * (dx / dy) if i is not None
+                         else sol.new_zeros(nm, dtype=f64))
+        tot = self.mesh.all_reduce(torch.cat(parts), INV_SUMS)
+        return tot[:nm] * dx * dy, tot[nm:2 * nm], tot[2 * nm:]
+
+    def wall_strips(self, fields):
+        """(len, nl, 2*_STRIP, nx) every rank's copy of the global rows
+        0 .. _STRIP-1 and nyp-_STRIP .. nyp-1 of the row-blocked (nl, n,
+        nx) `fields`: each row from the block that holds it (the others
+        add zeros, so the sum is exact)."""
+        stack = torch.stack(fields)
+        out = stack.new_zeros(stack.shape[:2] + (2 * _STRIP,)
+                              + stack.shape[-1:])
+        want = list(range(_STRIP)) + list(range(self.nyp - _STRIP,
+                                                self.nyp))
+        for k, g in enumerate(want):
+            i = self.local(g)
+            if i is not None:
+                out[:, :, k] = stack[:, :, i]
+        return self.mesh.all_reduce(out, WALLS)
+
+
+def _ghost_rows(rows: _Rows, ext, lo: int, south=None, north=None):
+    """The T-grid rows of `ext` (rows r0-lo, ...) outside the grid as its
+    walls have them (_pad_t_grid): row -1 takes `south` or a copy of row
+    0, row nyt takes `north` or a copy of row nyt-1."""
+    g = rows.r0 - lo + torch.arange(ext.shape[0], device=ext.device)[:, None]
+    below = torch.cat([ext[1:], ext[-1:]]) if south is None else south
+    above = torch.cat([ext[:1], ext[:-1]]) if north is None else north
+    return torch.where(g == -1, below, torch.where(g == rows.nyt, above, ext))
+
+
+def _omladf_rows(model: Model, rows: _Rows, ext):
+    """_omladf on a row block: `ext` is the exchanged stack of sstm, sst,
+    po[0], tauxo and tauyo with 2 ghost rows each side (T fields padded
+    to the p width). The walls' ghosts and the S/N flux rows apply where
+    the block holds them (global rows)."""
+    cfg = model.cfg
+    g = model.grids
+    cyclic = cfg.cyclic_ocean
+    nxt = cfg.nxto
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
+    hdxom1 = 0.5 / g.dxo
+    d2tfac = cfg.mixed.st2d / g.dxo**2
+    d4tfac = cfg.mixed.st4d / g.dxo**4
+    tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
+    sstm = ext[0, :, :nxt]                   # T rows r0-2 .. r0+n+1
+    sst = ext[1, 1:-1, :nxt]                 # T rows r0-1 .. r0+n
+    po1, tauxo, tauyo = (f[2:-1] for f in ext[2:])   # p rows r0 .. r0+n
+
+    hxadv = _hxadv(model, sst[1:-1], po1, tauyo)
+
+    # S/N faces on p rows r0 .. r0+n, the walls' rows where held
+    yflux = _vface(model, po1, tauxo) * (sst[:-1, :] + sst[1:, :])
+    gp = rows.r0 + torch.arange(po1.shape[0], device=po1.device)[:, None]
+    vwall = -rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1])
+    south = vwall * (sst[1:, :] + tsbdy) if cfg.sb_hflux else 0.0
+    north = vwall * (sst[:-1, :] + tnbdy) if cfg.nb_hflux else 0.0
+    yflux = torch.where(gp == 0, south,
+                        torch.where(gp == rows.nyp - 1, north, yflux))
+    hyadv = hdxom1 * (yflux[1:, :] - yflux[:-1, :])
+    rhs = -(hxadv + hyadv)
+
+    full = torch.full_like
+    sstm_g = _ghost_rows(rows, sstm, 2,
+                         south=full(sstm, tsbdy) if cfg.sb_hflux else None,
+                         north=full(sstm, tnbdy) if cfg.nb_hflux else None)
+    del2t = _lap_padded(_wrap_x(sstm_g, cyclic))       # T rows r0-1 ..
+    del4t = _lap_padded(_wrap_x(_ghost_rows(rows, del2t, 1), cyclic))
+    return rhs + d2tfac * del2t[1:-1] - d4tfac * del4t
+
+
+def _oml_rows(model: Model, rows: _Rows, state: OceanState,
+              forcing: OceanForcing):
+    """_oml on this rank's row blocks; the sums go through all_reduce."""
+    cfg = model.cfg
+    mesh = rows.mesh
+    dxo, dyo = model.grids.dxo, model.grids.dyo
+    stack = torch.stack([F.pad(state.sstm, (0, 1)), F.pad(state.sst, (0, 1)),
+                         state.po[0], forcing.tauxo, forcing.tauyo])
+    south, north = mesh.start_exchange(stack, 2, "y", OML_ROWS).wait()
+    rhs = _omladf_rows(model, rows, torch.cat([south, stack, north], dim=-2))
+    sstnew, dtonew, coneno, xfo = _oml_point(model, state, forcing, rhs)
+    t = rows.t_true
+    sstnew = torch.where(t, sstnew, 0.0)
+    coneno = torch.where(t, coneno, 0.0)
+    xfo = torch.where(t, xfo, 0.0)
+    sums = mesh.all_reduce(torch.stack([
+        xfo.sum(), (t & (dtonew > 0.0)).sum().to(xfo.dtype), coneno.sum()]),
+        OML_SUMS)
+    cfraoc = sums[1] / (cfg.nyto * cfg.nxto)
+    centoc = -sums[2] * dxo * dyo
+    xfo = torch.where(t, xfo - sums[0] * cfg.ocnorm, 0.0)
+
+    # _entrain_to_p on p rows r0 .. r0+n-1 from T rows r0-1 .. r0+n-1
+    below, _ = mesh.start_exchange(xfo, 1, "y", OML_ROWS).wait()
+    xp = _wrap_x(_ghost_rows(rows, torch.cat([below, xfo]), 1), cfg.cyclic_ocean)
+    entoc = 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
+    entoc = torch.where(rows.p_true, entoc, 0.0)
+
+    parts = [xintp_rows(entoc, rows.r0, rows.nyp)]
+    for g in (0, rows.nyp - 1):
+        i = rows.local(g)
+        parts.append(dxo * line_sum(entoc[i, :]) if i is not None
+                     else entoc.new_zeros(()))
+    xon1, enis1, enin1 = mesh.all_reduce(torch.stack(parts), OML_SUMS)
+    return (sstnew, state.sst, entoc, xon1 * dxo * dyo, enis1, enin1,
+            cfraoc, centoc)
+
+
+def _qgostep_halo(model: Model, state: OceanState, forcing: OceanForcing,
+                  entoc: torch.Tensor, mesh, variant: str):
+    """_qgostep on this rank's row blocks through parallel/halo.py
+    (qgcm_tpu/models/ocean.py:463); `model` holds the block's r_spl.
+    Returns (qo_new, qom_new)."""
+    from ..parallel.halo import qgstep_halo
+    cfg = model.cfg
+    qo_new = qgstep_halo(state.pom, state.po, state.qo, state.qom,
+                         forcing.wekpo, entoc, model.r_spl,
+                         qgstep_consts(cfg, model.grids), cfg.ocean.ah2oc,
+                         cfg.ocean.ah4oc, cyclic=cfg.cyclic_ocean,
+                         sponge=cfg.sponge.enabled, mesh=mesh,
+                         variant=variant)
+    return qo_new, state.qo
+
+
+def _cyclic_terms_rows(model: Model, rows: _Rows, state: OceanState,
+                       bcfac, dxm2) -> dict:
+    """_cyclic_boundary_terms of the channel from the wall strips, which
+    every rank gets whole (rows.wall_strips): the same values on every
+    rank, bit for bit those of the whole grid."""
+    pom, po, qo = rows.wall_strips([state.pom, state.po, state.qo])
+    strips = state._replace(pom=pom, po=po, qo=qo)
+    return _cyclic_boundary_terms(model, strips,
+                                  *_edge_d2d4(pom, bcfac, dxm2))
+
+
+def block_model(model: Model, mesh) -> Model:
+    """The model as a rank of a run decomposed over `mesh` sees it: its
+    PV inversion on row blocks (parallel/spectral.py) and its y profiles
+    and fields (yporel, ddyn, r_spl) cut to the rank's rows."""
+    import dataclasses
+    from ..parallel.mesh import shard
+    from ..parallel.spectral import wrap_inversions
+    model = wrap_inversions(model, mesh)
+    rows = _Rows(mesh, model.cfg, model.device)
+    return dataclasses.replace(
+        model, yporel=rows.profile(model.yporel),
+        ddyn=model.ddyn if model.ddyn.dim() == 0 else shard(model.ddyn, mesh),
+        r_spl=None if model.r_spl is None else shard(model.r_spl, mesh))
+
+
+def _make_rows_step(model: Model, mesh, variant: str):
+    """make_ocean_step's substep on this rank's row blocks."""
+    cfg = model.cfg
+    if mesh.grid != (cfg.nypo, cfg.nxpo):
+        raise ValueError(f"the mesh was made for the grid {mesh.grid}, the "
+                         f"ocean's is {(cfg.nypo, cfg.nxpo)}")
+    if mesh.mx != 1:
+        raise NotImplementedError(
+            "the decomposed substep runs on rows meshes (x = 1); the 2-D "
+            "runner (2-D pencils, mixed layer and ocqbdy) is not ported yet")
+    if mesh.by < 3:
+        raise ValueError(f"row blocks of {mesh.by} rows are too thin for "
+                         "the mixed layer's ghost rows (3 at least)")
+    cyclic = cfg.cyclic_ocean
+    bm = block_model(model, mesh)
+    rows = _Rows(mesh, cfg, model.device)
+    dxom2 = 1.0 / model.grids.dxo**2
+    bcfaco = cfg.ocean.bccooc * dxom2 / (0.5 * cfg.ocean.bccooc + 1.0)
+    # ocqbdy needs the row inside the north wall from the block below
+    # only when the wall row starts a block
+    bdy_exchange = rows.nyp - 1 > 0 and (rows.nyp - 1) % mesh.by == 0
+
+    def step(state: OceanState, forcing: OceanForcing):
+        if cfg.no_oml:
+            zero = state.po.new_zeros(())
+            entoc = torch.zeros_like(state.po[0])
+            sst_new, sstm_new = state.sst, state.sstm
+            xon1 = enis1 = enin1 = cfraoc = centoc = zero
+        else:
+            (sst_new, sstm_new, entoc, xon1, enis1, enin1, cfraoc,
+             centoc) = _oml_rows(bm, rows, state, forcing)
+
+        qo_new, qom_new = _qgostep_halo(bm, state, forcing, entoc, mesh,
+                                        variant)
+        cyc = (_cyclic_terms_rows(bm, rows, state, bcfaco, dxom2)
+               if cyclic else None)
+        (po_new, pom_new, dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp,
+         ermaso, emfroc) = _ocinvq(bm, state, qo_new, xon1, enis1, enin1,
+                                   cyc, forcing, rows=rows)
+        south = north = None
+        if bdy_exchange:
+            south, north = mesh.start_exchange(po_new, 1, "y",
+                                               BDY_ROWS).wait()
+            south, north = south[:, 0], north[:, 0]
+        qo_new = ocqbdy_rows(qo_new, po_new, bm.amat, bm.yporel, dxom2,
+                             cfg.fnot, cfg.beta, cfg.ocean.bccooc, bm.ddyn,
+                             cyclic, rows.r0, rows.nyp, south, north)
 
         new_state = OceanState(
             po=po_new, pom=pom_new, qo=qo_new, qom=qom_new,

@@ -110,24 +110,54 @@ def make_atmos_segment(model: Model):
     return segment
 
 
-def make_ocean_only_runner(model: Model):
+def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
+                           spectral_variant=None):
     """Returns run(state, forcing, n_steps, step0=0) -> state.
 
     `step0` is the 0-based index of the first ocean substep taken by
     this call, so chunked host loops keep the averaging cadence aligned.
     The loop is plain Python over single substeps (cycle heads of an
     ocean-only model); PyTorch runs each substep's operations eagerly on
-    the model's device."""
-    head = make_cycle_head(model)
-    nstr = model.cfg.nstr
+    the model's device.
 
-    def run(state: OceanState, forcing: OceanForcing, n_steps: int,
-            step0: int = 0) -> OceanState:
+    With `mesh` (parallel/mesh.py, a rows mesh made for the ocean's
+    p-grid) the state and forcing are this rank's row blocks
+    (parallel/mesh.shard_tree) and so is the result: the vorticity step
+    exchanges its ghosts by `halo_variant` ('staged', 'deep' or
+    'overlap', parallel/halo.py) and the inversions transpose by
+    all_to_all (spectral_variant='a2a', parallel/spectral.py). A mesh
+    with halo_variant=None, or with another spectral_variant, is
+    qgcm_tpu's automatic GSPMD partitioning, which has no PyTorch
+    counterpart: it raises. Without a mesh the two variants are not
+    read, as in qgcm_tpu."""
+    if mesh is None:
+        head = make_cycle_head(model)
+        nstr = model.cfg.nstr
+
+        def run(state: OceanState, forcing: OceanForcing, n_steps: int,
+                step0: int = 0) -> OceanState:
+            for n in range(step0, step0 + n_steps):
+                state, _, _ = head(state, None, forcing, None, n * nstr)
+            return state
+
+        return run
+
+    if halo_variant is None or spectral_variant != "a2a":
+        raise ValueError(
+            "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
+            "and spectral_variant='a2a': qgcm_tpu's GSPMD partitioning of "
+            "the rest has no PyTorch counterpart")
+    step = make_ocean_step(model, halo=(mesh, halo_variant))
+
+    def run_rows(state: OceanState, forcing: OceanForcing, n_steps: int,
+                 step0: int = 0) -> OceanState:
         for n in range(step0, step0 + n_steps):
-            state, _, _ = head(state, None, forcing, None, n * nstr)
+            state, _ = step(state, forcing)
+            if n % OCEAN_AVG_PERIOD == 0:
+                state = average_ocean_levels(state)
         return state
 
-    return run
+    return run_rows
 
 
 def _split_cycles(n_steps: int, step0: int, nstr: int) -> range:

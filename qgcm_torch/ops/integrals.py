@@ -4,7 +4,10 @@ qgcm_tpu/ops/integrals.py).
 xintp is the p-grid trapezoidal sum with 1/2 edge and 1/4 corner
 weights (reference src/intsubs.f); multiply by dx*dy for the physical
 area integral, as the reference's call sites do. line_sum is its
-one-dimensional form along a boundary row.
+one-dimensional form along a boundary row. xintp_rows is one row
+block's share of xintp in a decomposed run (parallel/mesh.py): the
+zonal rows' half weights fall on the blocks that hold them, and the
+W/E columns are in every block.
 """
 
 from __future__ import annotations
@@ -44,3 +47,14 @@ def xintp(field: torch.Tensor, dtype=None) -> torch.Tensor:
     corners = 0.25 * (field[..., 0, 0] + field[..., 0, -1]
                       + field[..., -1, 0] + field[..., -1, -1])
     return inner + edges + corners.to(dtype or field.dtype)
+
+
+def xintp_rows(field: torch.Tensor, r0: int, ny: int,
+               dtype=None) -> torch.Tensor:
+    """This row block's share of xintp(field): `field` holds rows r0,
+    r0+1, ... of a grid ny rows tall (rows at or beyond ny are padding
+    and weigh nothing); the shares of all blocks sum to xintp."""
+    n = field.shape[-2]
+    g = r0 + torch.arange(n, device=field.device)
+    w = torch.where((g == 0) | (g == ny - 1), 0.5, 1.0) * (g < ny)
+    return (line_sum(field, dtype=dtype) * w.to(dtype or field.dtype)).sum(-1)

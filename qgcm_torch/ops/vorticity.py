@@ -61,12 +61,19 @@ def _ddyn_col(ddyn, i):
 
 
 def _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, kbot, fnot,
-               cyclic):
+               cyclic, r0=0, ny=None, south=None, north=None):
     """Write the mixed-BC PV bcfac_f*(p_in - p_wall) + base onto the
     wall rows (and, box case, wall columns) of a copy of q. Columns
     first so rows win the corners (the reference's loop order,
-    vorsubs.F:245-388)."""
-    nl = p.shape[0]
+    vorsubs.F:245-388).
+
+    On a row block (r0, ny: the block's first global row and the grid's
+    height; yprel and ddyn the block's rows) only the zonal rows the
+    block holds are written; `south`/`north` are the (nl, nx) p rows
+    just outside it, read where a wall row's inner neighbour lies in the
+    next block."""
+    nl, nrows = p.shape[0], p.shape[1]
+    ny = nrows if ny is None else ny
     kbv = (torch.arange(nl, device=p.device) == (kbot % nl)).to(
         p.dtype)[:, None]
 
@@ -82,8 +89,13 @@ def _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, kbot, fnot,
                     + kbv * _ddyn_col(ddyn, i))
         q[:, :, 0] = bcfac_f * (p[:, :, 1] - p[:, :, 0]) + base_col(0)
         q[:, :, -1] = bcfac_f * (p[:, :, -2] - p[:, :, -1]) + base_col(-1)
-    q[:, 0, :] = bcfac_f * (p[:, 1, :] - p[:, 0, :]) + base_row(0)
-    q[:, -1, :] = bcfac_f * (p[:, -2, :] - p[:, -1, :]) + base_row(-1)
+    lo, hi = -r0, ny - 1 - r0              # the walls' rows in the block
+    if 0 <= lo < nrows:
+        inner = p[:, lo + 1, :] if lo + 1 < nrows else north
+        q[:, lo, :] = bcfac_f * (inner - p[:, lo, :]) + base_row(lo)
+    if 0 <= hi < nrows:
+        inner = p[:, hi - 1, :] if hi >= 1 else south
+        q[:, hi, :] = bcfac_f * (inner - p[:, hi, :]) + base_row(hi)
     return q
 
 
@@ -96,6 +108,20 @@ def ocqbdy(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,
     bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
     return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn,
                       p.shape[0] - 1, fnot, cyclic)
+
+
+def ocqbdy_rows(q, p, amat, yprel, dxm2, fnot, beta, bcco, ddyn, cyclic,
+                r0: int, ny: int, south=None, north=None):
+    """ocqbdy on a row block of a decomposed run: q and p hold rows r0,
+    r0+1, ... of a grid ny rows tall, yprel and ddyn the same rows. The
+    zonal rows exist on the end blocks only; in the box the W/E columns
+    are in every block. `south`/`north` are the p rows just outside the
+    block, needed only where a wall row is the block's first or last
+    row and its inner neighbour lies in the next block."""
+    bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
+    return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn,
+                      p.shape[0] - 1, fnot, cyclic, r0=r0, ny=ny,
+                      south=south, north=north)
 
 
 def atqzbd(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,

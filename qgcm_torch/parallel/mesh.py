@@ -1,0 +1,293 @@
+"""Row and column blocks of a decomposed grid, and their collectives
+(port of qgcm_tpu/parallel/mesh.py).
+
+qgcm_tpu lays its fields over a ('y', 'x') device mesh and lets GSPMD
+insert the halo exchanges and transposes. PyTorch has no partitioner, so
+here each rank of a torch.distributed process group holds one block of
+every grid field and calls the collectives itself: exchanges of ghost
+rows (y) and columns (x) with its neighbours, `all_reduce` of sums, and
+`all_to_all_single` for the spectral transposes (parallel/spectral.py).
+
+Ranks are laid out row-major over (my, mx): rank = iy * mx + ix, row
+block iy counting northwards. Blocks are ceil blocks, as qgcm_tpu's
+(spectral.py:33-50): rank (iy, ix) of a grid (ny, nx) holds rows
+[iy*by, iy*by + by) and columns [ix*bx, ix*bx + bx) with by = ceil(ny /
+my), bx = ceil(nx / mx); the rows and columns past the grid's end are
+padding, zero on input and kept zero by every stage. The ocean's T-grid
+(nyp - 1 rows) takes the p-grid's row blocks: T row j sits between p
+rows j and j + 1.
+
+With the gloo backend and CUDA tensors every collective stages its
+tensors through pinned host memory (gloo moves host memory); with NCCL
+it does not. `counts` counts the collectives by call site, as
+ops.qgstep counts kernel launches; an exchange of ghosts counts one for
+each direction, as qgcm_tpu's collective-permutes do. `staged_bytes`
+counts the bytes copied to and from the host for the collectives.
+qgcm_tpu's HLO census of collectives (parallel/inspect.py) has no
+counterpart here; these counts take its place.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import Counter
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from ..state import T_GRID_FIELDS
+
+
+def _ceil_div(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+class Mesh:
+    """A (my, mx) layout of the ranks of the default process group (one
+    rank when none is initialised), this rank's (iy, ix), and, when made
+    for a grid (ny, nx) -- the ocean's p-grid -- its block sizes
+    (by, bx)."""
+
+    def __init__(self, shape, grid=None):
+        self.my, self.mx = shape
+        if dist.is_initialized():
+            self.size = dist.get_world_size()
+            self.rank = dist.get_rank()
+            self.backend = dist.get_backend()
+        else:
+            self.size, self.rank, self.backend = 1, 0, None
+        if self.my * self.mx != self.size:
+            raise ValueError(f"a {self.my}x{self.mx} mesh needs "
+                             f"{self.my * self.mx} ranks, the group has "
+                             f"{self.size}")
+        self.iy, self.ix = divmod(self.rank, self.mx)
+        self.grid = None if grid is None else tuple(grid)
+        if self.grid is not None:
+            self.by = self.block(self.grid[0], "y")
+            self.bx = self.block(self.grid[1], "x")
+        self.counts = Counter()
+        self.staged_bytes = 0
+
+    def block(self, n: int, axis: str) -> int:
+        """The ceil block of an extent n over the mesh axis 'y' or 'x'."""
+        return _ceil_div(n, self.my if axis == "y" else self.mx)
+
+    def _peer(self, dy: int, dx: int):
+        """The rank of the neighbour (iy + dy, ix + dx), or None."""
+        iy, ix = self.iy + dy, self.ix + dx
+        if not (0 <= iy < self.my and 0 <= ix < self.mx):
+            return None
+        return iy * self.mx + ix
+
+    # -- staging ------------------------------------------------------
+    @property
+    def stages(self) -> bool:
+        return self.backend == "gloo"
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """t as a contiguous tensor the backend can move: a pinned host
+        copy of a CUDA tensor under gloo (the caller synchronises before
+        the backend reads it), else t itself."""
+        if not (self.stages and t.is_cuda):
+            return t.contiguous()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        self.staged_bytes += t.numel() * t.element_size()
+        return h
+
+    def _recv_buffer(self, like: torch.Tensor, shape) -> torch.Tensor:
+        if self.stages and like.is_cuda:
+            self.staged_bytes += math.prod(shape) * like.element_size()
+            return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    def _sync(self, t: torch.Tensor):
+        if self.stages and t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+
+    @staticmethod
+    def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return h.to(like.device, non_blocking=True)
+
+    # -- collectives ------------------------------------------------
+    def all_reduce(self, t: torch.Tensor, site: str) -> torch.Tensor:
+        """The sum of t over the ranks (a new tensor)."""
+        self.counts[site] += 1
+        if self.size == 1:
+            return t.clone()
+        h = self._host(t)
+        if h.device != t.device:
+            self.staged_bytes += t.numel() * t.element_size()
+        else:
+            h = h.clone()
+        self._sync(t)
+        dist.all_reduce(h)
+        return self._back(h, t) if h.device != t.device else h
+
+    def all_to_all(self, t: torch.Tensor, site: str) -> torch.Tensor:
+        """all_to_all_single over dim 0 of t, whose extent is the mesh's
+        size: chunk i goes to rank i, and chunk i of the result came from
+        rank i."""
+        self.counts[site] += 1
+        if self.size == 1:
+            return t.clone()
+        h = self._host(t)
+        out = self._recv_buffer(t, t.shape)
+        self._sync(t)
+        dist.all_to_all_single(out, h)
+        return self._back(out, t) if out.device != t.device else out
+
+    def all_gather(self, t: torch.Tensor, site: str) -> list:
+        """[t of rank 0, t of rank 1, ...]: every rank's t."""
+        self.counts[site] += 1
+        if self.size == 1:
+            return [t]
+        h = self._host(t)
+        outs = [self._recv_buffer(t, t.shape) for _ in range(self.size)]
+        self._sync(t)
+        dist.all_gather(outs, h)
+        return [self._back(o, t) if o.device != t.device else o
+                for o in outs]
+
+    def start_exchange(self, f: torch.Tensor, h: int, axis: str,
+                       site: str) -> "Exchange":
+        """Post the exchange of h ghost rows (axis 'y', dim -2) or columns
+        ('x', dim -1) of the block f with its two neighbours along that
+        axis, as qgcm_tpu's ppermute pair (halo.py:_exchange): this
+        block's last h rows go north (to iy + 1), its first h rows south.
+        Returns an Exchange whose wait() gives (south, north) ghosts, or
+        (west, east) for 'x'; the ends of the domain receive zeros (the
+        wall convention, halo.py:33-35)."""
+        self.counts[site] += 2
+        dim = -2 if axis == "y" else -1
+        lo_peer = self._peer(-1, 0) if axis == "y" else self._peer(0, -1)
+        hi_peer = self._peer(1, 0) if axis == "y" else self._peer(0, 1)
+        shape = list(f.shape)
+        shape[dim] = h
+        ops, recvs = [], {}
+        sends = []
+        for name, peer, part in (("lo", lo_peer, f.narrow(dim, 0, h)),
+                                 ("hi", hi_peer,
+                                  f.narrow(dim, f.shape[dim] - h, h))):
+            if peer is None:
+                continue
+            s = self._host(part)
+            sends.append(s)
+            recvs[name] = self._recv_buffer(f, shape)
+            ops += [dist.P2POp(dist.isend, s, peer),
+                    dist.P2POp(dist.irecv, recvs[name], peer)]
+        if ops:
+            self._sync(f)
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return Exchange(works, recvs, sends, f, shape)
+
+
+class Exchange:
+    """A posted ghost exchange (Mesh.start_exchange)."""
+
+    def __init__(self, works, recvs, sends, like, shape):
+        self._works, self._recvs, self._sends = works, recvs, sends
+        self._like, self._shape = like, shape
+
+    def wait(self):
+        """(lo, hi) ghosts on the block's device: (south, north) rows or
+        (west, east) columns; zeros where there is no neighbour."""
+        for w in self._works:
+            w.wait()
+        like = self._like
+        out = []
+        for name in ("lo", "hi"):
+            r = self._recvs.get(name)
+            if r is None:
+                out.append(like.new_zeros(self._shape))
+            else:
+                out.append(r.to(like.device, non_blocking=True)
+                           if r.device != like.device else r)
+        return tuple(out)
+
+
+def make_mesh(rows_only: bool = False, grid=None) -> Mesh:
+    """A (my, mx) mesh of the process group's ranks, as square as their
+    number allows; rows_only=True puts every rank on 'y' (row blocks, the
+    analogue of the reference's OpenMP loops over rows, and the layout
+    for channels: qgcm_tpu/parallel/mesh.py:make_mesh). `grid` is the
+    ocean's p-grid (nyp, nxp), whose blocks shard_tree and gather_tree
+    deal out."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    my = n if rows_only else int(math.sqrt(n))
+    while n % my:
+        my -= 1
+    return Mesh((my, n // my), grid=grid)
+
+
+class Block(NamedTuple):
+    """Where this rank's block of a field lies: rows [r0, r0 + nr) and
+    columns [c0, c0 + nc) of the global field, of which `rows` and
+    `cols` are the true ones (the rest is padding)."""
+    r0: int
+    nr: int
+    rows: int
+    c0: int
+    nc: int
+    cols: int
+
+
+def block_of(mesh: Mesh, ny: int, nx: int, t_grid: bool = False) -> Block:
+    """This rank's block of a (ny, nx) field of the mesh's p-grid (or of
+    its T-grid, which has one row and, in the box, one column fewer)."""
+    if mesh.grid is None:
+        raise ValueError("the mesh was made without a grid")
+    r0, c0 = mesh.iy * mesh.by, mesh.ix * mesh.bx
+    rows = max(0, min(mesh.by, ny - r0))
+    if t_grid:
+        if mesh.mx > 1:
+            raise NotImplementedError("T-grid fields are decomposed over "
+                                      "rows only")
+        return Block(r0, mesh.by, rows, 0, nx, nx)
+    cols = max(0, min(mesh.bx, nx - c0))
+    return Block(r0, mesh.by, rows, c0, mesh.bx, cols)
+
+
+def shard(x: torch.Tensor, mesh: Mesh, t_grid: bool = False):
+    """This rank's block of a full field (..., ny, nx), zero-padded to
+    (..., by, bx); contiguous. Tensors of fewer than two dimensions (the
+    state's scalars and mode vectors) are replicated: returned as they
+    are."""
+    if x.dim() < 2:
+        return x
+    ny, nx = x.shape[-2:]
+    b = block_of(mesh, ny, nx, t_grid)
+    part = x[..., b.r0:b.r0 + b.rows, b.c0:b.c0 + b.cols]
+    return F.pad(part, (0, b.nc - b.cols, 0, b.nr - b.rows)).contiguous()
+
+
+def gather(x: torch.Tensor, mesh: Mesh, t_grid: bool = False,
+           site: str = "gather"):
+    """The full field from every rank's block (the inverse of shard), on
+    every rank; replicated tensors are returned as they are."""
+    if x.dim() < 2:
+        return x
+    nyp, nxp = mesh.grid
+    ny = nyp - 1 if t_grid else nyp
+    nx = x.shape[-1] if mesh.mx == 1 else nxp
+    parts = mesh.all_gather(x.contiguous(), site)
+    rows = [torch.cat(parts[iy * mesh.mx:(iy + 1) * mesh.mx], dim=-1)
+            for iy in range(mesh.my)]
+    return torch.cat(rows, dim=-2)[..., :ny, :nx]
+
+
+def shard_tree(tree, mesh: Mesh):
+    """This rank's blocks of a full OceanState or OceanForcing (a
+    NamedTuple of tensors); the T-grid fields (state.T_GRID_FIELDS) take
+    the p-grid's row blocks, scalars and mode vectors are replicated."""
+    return type(tree)(**{k: shard(v, mesh, k in T_GRID_FIELDS)
+                         for k, v in tree._asdict().items()})
+
+
+def gather_tree(tree, mesh: Mesh):
+    """The full NamedTuple from its blocks (the inverse of shard_tree), on
+    every rank."""
+    return type(tree)(**{k: gather(v, mesh, k in T_GRID_FIELDS)
+                         for k, v in tree._asdict().items()})

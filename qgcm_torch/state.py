@@ -11,6 +11,12 @@ from typing import NamedTuple
 
 import torch
 
+# Fields of the ocean's T-grid (nyto, nxto): a decomposed run gives them
+# the p-grid's row blocks (parallel/mesh.py). Every other field of two or
+# more dimensions is on the p-grid; scalars and mode vectors are
+# replicated, as on the TPU.
+T_GRID_FIELDS = frozenset({"sst", "sstm", "fnetoc", "wekto"})
+
 
 class OceanState(NamedTuple):
     po: torch.Tensor      # (nlo, nypo, nxpo) dynamic pressure

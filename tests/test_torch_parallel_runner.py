@@ -1,0 +1,237 @@
+"""qgcm_torch.parallel: the decomposed ocean-only runner, in float64 on
+the CPU in real gloo ranks (rows meshes of 2 and 4 ranks), against
+qgcm_tpu's make_ocean_only_runner(mesh, halo_variant, 'a2a') over 20
+substeps on a mesh of the same shape, at 1e-11 of each field's maximum
+(the bar of tests/test_sharding.py:41-58); and what the runner refuses,
+what it counts, and that the port's parallel modules load no JAX."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JaxMesh
+
+import _torch_ranks as ranks
+from qgcm_torch.models.ocean import make_ocean_step
+from qgcm_torch.models.stepper import make_ocean_only_runner
+from qgcm_torch.parallel.launch import (distributed_session, is_primary,
+                                        spawn_ranks)
+from qgcm_torch.parallel.mesh import gather_tree, make_mesh, shard_tree
+
+from test_torch_cases import one_torch_thread, rel_err
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = 1e-11
+STEPS = 20
+# (cyclic, variant, n_steps, nyaooc) run by every rank count; nyaooc 6
+# gives 13 rows, where 4 ranks leave the last with the north wall row
+# alone (its inner neighbour comes from the block below)
+CASES = [(False, "overlap", STEPS, 12), (True, "overlap", STEPS, 12),
+         (False, "deep", 2, 6), (True, "staged", 2, 6)]
+RANKS = (2, 4)
+FIELDS = {False: ("po", "qo", "sst", "dpioc"),
+          True: ("po", "qo", "sst", "dpioc", "ocncs", "ocncn")}
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    return {n: spawn_ranks(ranks.runner_rank, n, CASES, backend="gloo",
+                           workdir=tmp_path_factory.mktemp(f"run{n}"),
+                           timeout=120)[0]
+            for n in RANKS}
+
+
+def _jax_run(cyclic, nyaooc, n, variant, steps):
+    import qgcm_tpu.config
+    from test_torch_cases import to_jax
+    from qgcm_tpu.model import build_model as jax_build
+    from qgcm_tpu.models.stepper import make_ocean_only_runner as jax_runner
+    from qgcm_tpu.parallel.mesh import shard_tree as jax_shard
+    from qgcm_tpu.state import OceanForcing, OceanState
+    cfg = ranks.small_cfg(cyclic, nyaooc=nyaooc, cfgmod=qgcm_tpu.config)
+    jm = jax_build(cfg.replace(solver_transform="fft"))
+    _, st, f = ranks.seeded_state(ranks.small_cfg(cyclic, nyaooc=nyaooc))
+    mesh = JaxMesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("y", "x"))
+    run = jax_runner(jm, mesh=mesh, halo_variant=variant,
+                     spectral_variant="a2a")
+    out = run(jax_shard(to_jax(OceanState, st), mesh),
+              jax_shard(to_jax(OceanForcing, f), mesh), steps)
+    return {k: np.asarray(v) for k, v in out._asdict().items()}
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("cyclic", [False, True], ids=["box", "channel"])
+def test_runner_matches_qgcm_tpu_mesh_runner(spawned, cyclic, n):
+    """20 substeps of the overlap + a2a runner on n rows ranks against
+    qgcm_tpu's mesh runner on n devices: each field within 1e-11 of its
+    maximum; 20 kernel-path launches of the plain chain: none."""
+    res = spawned[n][0 if not cyclic else 1]
+    want = _jax_run(cyclic, 12, n, "overlap", STEPS)
+    for name in FIELDS[cyclic]:
+        assert rel_err(res["state"][name], want[name]) <= TOL, name
+    assert res["pad_zero"]
+    assert res["launches"] == 0        # CPU tensors: the plain chains
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("case", [2, 3], ids=["box-deep", "channel-staged"])
+def test_runner_short_schedules_match_single_device(spawned, case, n):
+    """'deep' and 'staged' for 2 substeps on 13 rows (the north wall row
+    alone in the last block at 4 ranks) against the port's single-device
+    runner at 1e-11 of each field's maximum."""
+    cyclic, variant, steps, nyaooc = CASES[case]
+    model, st, f = ranks.seeded_state(ranks.small_cfg(cyclic,
+                                                      nyaooc=nyaooc))
+    ref = make_ocean_only_runner(model)(st, f, steps)
+    res = spawned[n][case]
+    for name in FIELDS[cyclic]:
+        assert rel_err(res["state"][name], getattr(ref, name)) <= TOL, name
+    assert res["pad_zero"]
+
+
+# collectives per substep: the mixed layer's two exchanges (sst, sstm,
+# po, tau; the entrainment), its two sums, the vorticity step's
+# schedule, the channel's wall strips, the inversion's transposes (2 box,
+# 4 channel) and its sums, and ocqbdy's exchange where the north wall
+# row starts a block
+COUNTS = {
+    (False, "overlap", 12): {"ocean.oml.rows": 4, "ocean.oml.sums": 2,
+                             "halo.rows": 2, "spectral.a2a": 2,
+                             "ocean.inversion.sums": 1},
+    (True, "overlap", 12): {"ocean.oml.rows": 4, "ocean.oml.sums": 2,
+                            "halo.rows": 2, "ocean.walls": 1,
+                            "spectral.a2a": 4, "ocean.inversion.sums": 1},
+    (False, "deep", 6): {"ocean.oml.rows": 4, "ocean.oml.sums": 2,
+                         "halo.rows": 2, "spectral.a2a": 2,
+                         "ocean.inversion.sums": 1},
+    (True, "staged", 6): {"ocean.oml.rows": 4, "ocean.oml.sums": 2,
+                          "halo.rows": 6, "ocean.walls": 1,
+                          "spectral.a2a": 4, "ocean.inversion.sums": 1},
+}
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[f"{'channel' if c else 'box'}-{v}-{y}"
+                              for c, v, _, y in CASES])
+def test_runner_collectives_per_substep(spawned, case, n):
+    """The collectives of a substep are pinned by schedule, as
+    tests/test_halo.py:118,212 pin XLA's."""
+    cyclic, variant, _, nyaooc = CASES[case]
+    want = dict(COUNTS[(cyclic, variant, nyaooc)])
+    nyp = 2 * nyaooc + 1
+    by = -(-nyp // n)
+    if (nyp - 1) % by == 0:
+        want["ocean.ocqbdy.rows"] = 2
+    got = {k: v for k, v in spawned[n][case]["counts"].items()
+           if k != "gather"}
+    assert got == want
+
+
+def test_mesh_run_refuses_gspmd_choices():
+    """halo_variant=None, or a spectral_variant other than 'a2a', on a
+    mesh is qgcm_tpu's GSPMD partitioning: refused; so is a bare
+    sharded step. Without a mesh the variants are not read."""
+    cfg = ranks.small_cfg()
+    model, st, f = ranks.seeded_state(cfg)
+    mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    for kw in (dict(halo_variant=None, spectral_variant="a2a"),
+               dict(halo_variant="overlap", spectral_variant=None),
+               dict(halo_variant="overlap", spectral_variant="gspmd")):
+        with pytest.raises(ValueError, match="GSPMD"):
+            make_ocean_only_runner(model, mesh=mesh, **kw)
+    with pytest.raises(ValueError, match="GSPMD"):
+        make_ocean_step(model, sharded=True)
+    out = make_ocean_only_runner(model, halo_variant="deep")(st, f, 1)
+    ref = make_ocean_only_runner(model)(st, f, 1)
+    assert torch.equal(out.po, ref.po)
+
+
+@pytest.mark.parametrize("cyclic", [False, True], ids=["box", "channel"])
+def test_one_rank_mesh_runner_matches_single_device(cyclic):
+    """Without a process group a mesh is one rank: the decomposed runner
+    on one block of the whole grid against the single-device runner,
+    25 substeps (one averaging)."""
+    cfg = ranks.small_cfg(cyclic)
+    model, st, f = ranks.seeded_state(cfg)
+    mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    run = make_ocean_only_runner(model, mesh=mesh, halo_variant="overlap",
+                                 spectral_variant="a2a")
+    got = gather_tree(run(shard_tree(st, mesh), shard_tree(f, mesh), 25),
+                      mesh)
+    ref = make_ocean_only_runner(model)(st, f, 25)
+    for name in FIELDS[cyclic]:
+        assert rel_err(getattr(got, name), getattr(ref, name)) <= TOL, name
+
+
+def test_mesh_refusals():
+    """The decomposed step takes a rows mesh of the model's grid with
+    blocks of 3 rows at least."""
+    from qgcm_torch.parallel.mesh import Mesh
+    cfg = ranks.small_cfg()
+    model, _, _ = ranks.seeded_state(cfg)
+    with pytest.raises(ValueError, match="grid"):
+        make_ocean_step(model, halo=(make_mesh(grid=(9, 9)), "deep"))
+    with pytest.raises(ValueError, match="ranks"):
+        Mesh((2, 1), grid=(cfg.nypo, cfg.nxpo))
+
+
+def test_launch_without_a_process_group():
+    """distributed_session is a no-op in one process outside torchrun's
+    environment, and that process is the primary; spawn_ranks refuses a
+    used rendezvous directory."""
+    with distributed_session():
+        assert is_primary()
+        assert not torch.distributed.is_initialized()
+
+
+def test_distributed_session_under_torchrun(tmp_path):
+    """Under torchrun the rank and size come from its environment: two
+    gloo ranks started by torch.distributed.run sum their ranks."""
+    script = tmp_path / "ranks.py"
+    script.write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import torch, torch.distributed as dist\n"
+        "from qgcm_torch.parallel.launch import distributed_session\n"
+        "from qgcm_torch.parallel.mesh import make_mesh\n"
+        "with distributed_session('gloo'):\n"
+        "    mesh = make_mesh(rows_only=True)\n"
+        "    tot = mesh.all_reduce(torch.tensor([float(mesh.rank)]), 't')\n"
+        "    print(f'rank {mesh.rank} of {mesh.size}: {tot.item()}')\n")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(script)], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "rank 0 of 2: 1.0" in res.stdout
+    assert "rank 1 of 2: 1.0" in res.stdout
+
+
+def test_spawn_refuses_a_used_rendezvous(tmp_path):
+    (tmp_path / "rendezvous").write_text("")
+    with pytest.raises(FileExistsError):
+        spawn_ranks(ranks.runner_rank, 2, [], backend="gloo",
+                    workdir=tmp_path)
+
+
+def test_parallel_modules_import_no_jax():
+    """The port's parallel modules and the ranks' module load no JAX and
+    no qgcm_tpu (the spawned ranks import only these)."""
+    code = ("import sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import qgcm_torch.parallel.launch, qgcm_torch.parallel.mesh\n"
+            "import qgcm_torch.parallel.halo, qgcm_torch.parallel.spectral\n"
+            "import _torch_ranks\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

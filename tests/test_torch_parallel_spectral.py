@@ -1,0 +1,142 @@
+"""qgcm_torch.parallel.spectral: the Helmholtz solves on row blocks by
+all_to_all pencil transposes, in float64 on the CPU in real gloo ranks
+(2x1 and 4x1 rows meshes), against the port's single-device solvers at
+1e-13 of the solution's maximum (the bar of tests/test_spectral.py:
+46-56) and against qgcm_tpu's sharded solvers on meshes of the same
+shape at 1e-12 (the bar the single-device solvers meet against qgcm_tpu,
+tests/test_torch_helmholtz.py:40); box and channel, even and uneven
+shapes, among them the aspects of tests/test_spectral.py:222,252."""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JaxMesh
+
+import _torch_ranks as ranks
+from qgcm_torch.parallel.launch import spawn_ranks
+from qgcm_torch.parallel.mesh import make_mesh
+from qgcm_torch.parallel.spectral import (ShardedBoxHelmholtz,
+                                          ShardedCyclicHelmholtz,
+                                          wrap_inversions)
+
+from test_torch_cases import one_torch_thread, rel_err
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
+# (kind, nyp, nxp, ytransform, seed): tests/test_spectral.py's 15 x 19
+# box and 15 x 17 channel (uneven over 2 and 4 rows), an even box, the
+# channel's GEMM y-DST, and the uneven realistic aspects of
+# test_spectral.py:222 (577^2 box) and :252 (145 x 1153 channel)
+CASES = [("box", 15, 19, "fft", 0), ("cyclic", 15, 17, "fft", 1),
+         ("box", 16, 12, "fft", 2), ("cyclic", 15, 17, "matmul", 3),
+         ("box", 577, 577, "fft", 4), ("cyclic", 145, 1153, "fft", 5)]
+IDS = [f"{k}-{ny}x{nx}-{t}" for k, ny, nx, t, _ in CASES]
+RANKS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    return {n: spawn_ranks(ranks.solver_rank, n, CASES, backend="gloo",
+                           workdir=tmp_path_factory.mktemp(f"solve{n}"),
+                           timeout=120)[0]
+            for n in RANKS}
+
+
+@functools.lru_cache(maxsize=None)
+def single_device(i):
+    kind, nyp, nxp, yt, seed = CASES[i]
+    base = ranks.base_solver(kind, nyp, nxp, yt)
+    rhs = torch.from_numpy(ranks.solver_rng_rhs(kind, nyp, nxp, seed))
+    spec = base.forward(rhs) / base._denom() if kind == "box" else None
+    return base.solve(rhs).numpy(), spec
+
+
+@functools.lru_cache(maxsize=None)
+def qgcm_tpu_sharded(i, n):
+    from qgcm_tpu.parallel import spectral as jsp
+    from qgcm_tpu.solver.helmholtz import (make_box_helmholtz,
+                                           make_cyclic_helmholtz)
+    kind, nyp, nxp, yt, seed = CASES[i]
+    mesh = JaxMesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("y", "x"))
+    rhs = jax.numpy.asarray(ranks.solver_rng_rhs(kind, nyp, nxp, seed))
+    if kind == "box":
+        sh = jsp.ShardedBoxHelmholtz(
+            make_box_helmholtz(nxp, nyp, 0.7, 0.9, ranks.RDM2), mesh)
+    else:
+        sh = jsp.ShardedCyclicHelmholtz(
+            make_cyclic_helmholtz(nxp, nyp, 0.7, 0.9, ranks.RDM2,
+                                  ytransform=yt), mesh)
+    return np.asarray(jax.jit(sh.solve)(rhs))
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_sharded_solve_matches_single_device(spawned, i, n):
+    """The gathered row blocks are the single-device solution to 1e-13 of
+    its maximum; walls and padding rows are zero; a box solve is two
+    transposes, a channel solve four."""
+    res = spawned[n][i]
+    want, _ = single_device(i)
+    assert rel_err(res["sol"], want) <= 1e-13
+    assert res["pad_zero"]
+    assert res["a2a"] == (2 if CASES[i][0] == "box" else 4)
+    if CASES[i][0] == "cyclic":       # the duplicate column, bit for bit
+        assert np.array_equal(res["sol"][..., -1], res["sol"][..., 0])
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_sharded_solve_matches_qgcm_tpu(spawned, i, n):
+    """Within 1e-12 of qgcm_tpu's sharded solver on an n x 1 mesh."""
+    assert rel_err(spawned[n][i]["sol"], qgcm_tpu_sharded(i, n)) <= 1e-12
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("i", [i for i, c in enumerate(CASES)
+                               if c[0] == "box"],
+                         ids=[IDS[i] for i, c in enumerate(CASES)
+                              if c[0] == "box"])
+def test_box_spectrum_padding_is_inert(spawned, i, n):
+    """The box spectrum's column chunks, put together, are the
+    single-device spectrum over its nxi columns and zero beyond
+    (tests/test_spectral.py:90)."""
+    spec = spawned[n][i]["spec"]
+    _, want = single_device(i)
+    nxi = want.shape[-1]
+    assert rel_err(spec[..., :nxi], want.numpy()) <= 1e-13
+    assert np.all(spec[..., nxi:] == 0.0)
+
+
+def test_one_rank_mesh_solves_on_its_own():
+    """Without a process group a mesh is one rank, and the sharded
+    solvers are the single-device ones to roundoff, with no collective
+    but the trivial transposes."""
+    mesh = make_mesh(rows_only=True)
+    for i in (0, 1):
+        kind, nyp, nxp, yt, seed = CASES[i]
+        base = ranks.base_solver(kind, nyp, nxp, yt)
+        cls = ShardedBoxHelmholtz if kind == "box" else ShardedCyclicHelmholtz
+        rhs = torch.from_numpy(ranks.solver_rng_rhs(kind, nyp, nxp, seed))
+        got = cls(base, mesh).solve(rhs)
+        assert rel_err(got, single_device(i)[0]) <= 1e-13
+
+
+def test_wrap_inversions_and_2d_refusal():
+    """wrap_inversions swaps the ocean's solver for its sharded form and
+    leaves the rest of the inversion; an x > 1 mesh is refused until the
+    2-D pencils are ported."""
+    from qgcm_torch.model import build_model
+    from qgcm_torch.parallel.mesh import Mesh
+    model = build_model(ranks.small_cfg(cyclic=False), "cpu")
+    wrapped = wrap_inversions(model, make_mesh(rows_only=True))
+    assert isinstance(wrapped.inv_oc.helm, ShardedBoxHelmholtz)
+    assert wrapped.inv_oc.cdhinv is model.inv_oc.cdhinv
+    assert dataclasses.replace(wrapped, inv_oc=model.inv_oc) == model
+    fake = Mesh.__new__(Mesh)
+    fake.my, fake.mx, fake.size, fake.rank = 1, 2, 2, 0
+    with pytest.raises(NotImplementedError, match="2-D"):
+        ShardedBoxHelmholtz(model.inv_oc.helm, fake)
