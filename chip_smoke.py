@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (qgcm_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
 
 Builds the port's CUDA kernel from qgcm_torch/csrc with nvcc, holds it
 against its plain PyTorch version on the card (model states, and seeded
@@ -32,11 +33,24 @@ decomposed run) against its full-field mode, bit for bit, and timed
 alone; and the ocean-only runner decomposed into row blocks over 4
 ranks (qgcm_torch.parallel) against the single-device runner, the
 ranks sharing the one card over gloo (or, where the host has a card for
-each, over NCCL). Every phase raises on a failure; nothing runs on the
-CPU. The last line of standard output is
+each, over NCCL). Then ensembles and adjoints: the kernel's member mode
+(one launch for M members, bit for bit M single launches, timed alone),
+8 members of the main path through the ensemble runner at full width
+(and the golden box in float64, and 4 coupled members), each against
+its single-trajectory run; the float64 adjoint of the double gyre and
+the channel at full width, with the kernel in its forward, against
+finite differences and across remat policies; and the ensemble,
+analyze, sense and run --profile commands in this process. Every
+phase raises on a failure; nothing runs on the CPU. The last line of
+standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
 with its launch count on the main path and on each other path, its
 error against the plain version, its times and its bound.
+
+With --main-path it runs only phase 4, once for each checkout named
+(a directory holding chip_smoke.py and qgcm_torch, such as a parent
+commit unpacked under build/), each in a process of its own and in the
+order given, and prints their ms/substep side by side.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -118,7 +132,8 @@ def card_line() -> str:
 
 
 def sass_census(path) -> list[str]:
-    """Per kernel function of the built library, its machine instructions
+    """Per kernel function of the built library (each type, one member or
+    several), its machine instructions
     as cuobjdump -sass lists them: the total, the floating-point ones
     (FADD/FMUL/FFMA and the D forms), shared-memory loads (LDS, of which
     ptxas adds never-executed @!PT ones beside each cp.async) and the
@@ -134,7 +149,10 @@ def sass_census(path) -> list[str]:
     for func in sass.split("Function : ")[1:]:
         ops = [m.split()[-1].split(".")[0] for m in re.findall(
             r"/\*[0-9a-f]{4}\*/\s+((?:@!?U?P\w+\s+)?[A-Z0-9]+)", func)]
-        kind = "double" if "IdEE" in func.split()[0] else "float"
+        # the mangled name carries the instance: qgstep_kernelI<d|f>Lb<0|1>E
+        inst = re.search(r"qgstep_kernelI([df])Lb([01])E", func.split()[0])
+        kind = ("double" if inst and inst.group(1) == "d" else "float") + (
+            ", members" if inst and inst.group(2) == "1" else "")
         fp = sum(op in ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA")
                  for op in ops)
         lines.append(f"{kind}: {len(ops)} instructions, {fp} floating-point, "
@@ -142,16 +160,19 @@ def sass_census(path) -> list[str]:
     return lines
 
 
-def kernel_bound(nl, ny, nx, dtype, sponge):
-    """(bound_ms, bound_by) of one fused step: each of pom, po, qo, qom
-    read once, wek and ent (and r_spl) read once, qnew written once, over
-    the card's memory rate; or the step's operations over its peak float
-    rate, whichever takes longer."""
+def kernel_bound(nl, ny, nx, dtype, sponge, members=1, shared_planes=0):
+    """(bound_ms, bound_by) of one fused step of `members` members: each
+    of pom, po, qo, qom read once, wek and ent (and r_spl) read once,
+    qnew written once, over the card's memory rate; or the step's
+    operations over its peak float rate, whichever takes longer. Of the
+    planes, `shared_planes` are one copy that all members share (member
+    stride 0), read once for all of them."""
     item = torch.empty((), dtype=dtype).element_size()
-    nbytes = item * (5 * nl * ny * nx + (3 if sponge else 2) * ny * nx)
-    flop = (nl * ny * nx * (FLOP_PER_POINT
-                            + (SPONGE_FLOP_PER_POINT if sponge else 0))
-            + FLOP_PER_COLUMN * ny * nx)
+    planes = 3 if sponge else 2
+    nbytes = item * ny * nx * (members * (5 * nl + planes - shared_planes)
+                               + shared_planes)
+    flop = members * (nl * ny * nx * (FLOP_PER_POINT + (
+        SPONGE_FLOP_PER_POINT if sponge else 0)) + FLOP_PER_COLUMN * ny * nx)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flop / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -450,7 +471,9 @@ def phase_golden(device):
 
 def phase_main(device, card):
     """The main path at full width: build_model -> init_ocean_state ->
-    ocean_forcing_from_mean -> make_ocean_only_runner, float32."""
+    ocean_forcing_from_mean -> make_ocean_only_runner, float32. Returns
+    its kernels-line entry and (for phase 15) its model, final state,
+    forcing, substeps taken and ms/substep."""
     from qgcm_torch.config import double_gyre_ocean_only, ml_f64_enabled
     from qgcm_torch.generators import eddy_pressure, double_gyre_windstress
     from qgcm_torch.model import build_model
@@ -528,13 +551,16 @@ def phase_main(device, card):
     bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=False)
     print(f"  bound {bound:.4f} ms ({by}), share of bound "
           f"{bound / k_ms:.3f} [{card}]")
+    main = dict(model=model, state=st, forcing=f,
+                step0=WARMUP_STEPS + MAIN_STEPS,
+                substep_ms=dev_ms, host_ms=host_s / MAIN_STEPS * 1e3)
     return dict(name="qgstep", route="cuda",
                 source="qgcm_torch/csrc/qgstep.cu",
                 replaces="qgcm_tpu/ops/pallas_qg.py:277",
                 launches=launches, max_abs_err=err, ms=k_ms,
                 ms_method="cuda_graph_replay", eager_ms=eager_ms,
                 plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
-                share_of_bound=bound / k_ms)
+                share_of_bound=bound / k_ms), main
 
 
 def phase_golden_coupled(device):
@@ -755,6 +781,9 @@ def phase_channel(device, card, preset):
     nl, ny, nx = st.po.shape
     hot, cold = kernel_ms(lambda: qgstep(*args, cyclic=True, sponge=sponge),
                           20)
+    from qgcm_torch.ops.qgstep import qgstep_reference
+    plain = cuda_ms(lambda: qgstep_reference(*args, cyclic=True,
+                                             sponge=sponge), 3)
     bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=sponge)
     from qgcm_torch.ops.qgstep import launch_geometry, resident_blocks
     resident = resident_blocks(st.po.device, st.po.dtype, sponge)
@@ -763,7 +792,8 @@ def phase_channel(device, card, preset):
           f"events); {launches} launches in {CHANNEL_STEPS} substeps; "
           f"duplicate column bit for bit; kernel vs plain "
           f"{err / scale:.3e} max|q| (bar {F32_TOL:g}); kernel {hot:.4f} / "
-          f"{cold:.4f} ms hot/cold, bound {bound:.4f} ms ({by}); strips "
+          f"{cold:.4f} ms hot/cold, plain chain {plain:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}); strips "
           f"{geo.strip_w}x{geo.strip_h}, {geo.strips_x * geo.strips_y * nl} "
           f"blocks, {resident} resident at once [{card}]")
     if not err <= F32_TOL * scale:
@@ -771,7 +801,7 @@ def phase_channel(device, card, preset):
                              f"{preset.__name__}")
     return dict(path=preset.__name__, shape=[nl, ny, nx], cyclic=True,
                 sponge=sponge, launches=launches, max_abs_err=err, ms=hot,
-                cold_ms=cold, bound_ms=bound, bound_by=by,
+                cold_ms=cold, plain_ms=plain, bound_ms=bound, bound_by=by,
                 strip_h=geo.strip_h,
                 blocks=geo.strips_x * geo.strips_y * nl,
                 substep_ms=ev0.elapsed_time(ev1) / CHANNEL_STEPS)
@@ -881,8 +911,19 @@ def profile_counts(fn, n, unit, card) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
+    # launches by kernel name, and by the operator that launched them
+    # (the trace links a kernel to its operator by "External id")
+    op_of = {e["args"]["External id"]: e["name"] for e in ops
+             if "External id" in e.get("args", {})}
+    by_kernel, by_op = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0) + 1 / n
+            op = op_of.get(e.get("args", {}).get("External id"), "no operator")
+            by_op[op] = by_op.get(op, 0) + 1 / n
     out = dict(launches=kernels / n, busy_ms=busy_us / 1e3 / n,
-               d2h=d2h / n, syncs=syncs / n)
+               d2h=d2h / n, syncs=syncs / n, by_kernel=by_kernel,
+               by_op=by_op)
     print(f"    per {unit}: {out['launches']:.1f} kernel launches, device "
           f"busy {out['busy_ms']:.4f} ms, {out['d2h']:.2f} device-to-host "
           f"copies, {out['syncs']:.2f} host syncs [{card}]")
@@ -1804,6 +1845,668 @@ def phase_mesh(card, workdir):
     return totals, paths
 
 
+# ----------------------------------------------------------------------
+# Phases 14-17: the kernel's member mode, ensembles, adjoints and the
+# commands that run them
+# ----------------------------------------------------------------------
+
+# members of the timed member-mode launch and of the full-width ensemble
+ENSEMBLE_MEMBERS = 8
+ENSEMBLE_STEPS = 50
+ENSEMBLE_AMP = 1e-3
+# the float32 ensemble's members against their single-trajectory runs,
+# each field's max|difference| over its max: the batched operators of
+# the mixed layer and the inversion sum in another order, and float32
+# roundoff of ~1e-7 relative grows over the leapfrog substeps (phase
+# 13's bar for the same reason)
+ENSEMBLE_F32_TOL = 1e-4
+# the float64 golden box's members against their own single runs: the
+# same arithmetic in another order, at float64 roundoff
+ENSEMBLE_F64_TOL = 1e-12
+GOLDEN_MEMBERS = 3
+COUPLED_MEMBERS = 4
+COUPLED_ENSEMBLE_CYCLES = 5
+# device launches per substep of the ensemble over the single runner's
+# above which PERF.md names the operators that add them
+LAUNCH_RATIO_FINDING = 1.25
+# the adjoint: substeps of the float64 double gyre and channel, the
+# finite difference's step along the wind and its bar (qgcm_tpu's,
+# tests/test_adjoint.py), and the bar of gradients that recompute the
+# same arithmetic (remat, segments, the plain forward)
+ADJOINT_STEPS = 20
+ADJOINT_SEGMENT = 10
+ADJOINT_CHANNEL_STEPS = 10
+FD_EPS = 1e-3
+FD_RTOL = 1e-6
+ADJOINT_TOL = 1e-12
+# the gradient with the plain chain in the forward: a field also passes
+# within this factor of a one-ulp witness (the kernel's gradient from an
+# initial state moved by one ulp). Read on the H100: d/dpom 6.69e-11
+# against a witness of 8.48e-11, d/dpo 1.90e-12 against 2.90e-12; the
+# lagged fields' gradients sit 1e-7 to 1e-10 below d/dqo's.
+ADJOINT_WITNESS_FACTOR = 4.0
+REMATS = (False, True, 4, "dots")
+
+
+def member_args(m, nl, ny, nx, dtype, cyclic, sponge, seed, consts=None,
+                ah=None):
+    """random_args for m members: fields (m, nl, ny, nx) and the
+    entrainment (m, ny, nx) per member, the wind's Ekman pumping and
+    r_spl (ny, nx) shared, the constants those of the first member."""
+    first = random_args(nl, ny, nx, dtype, cyclic, sponge, seed, consts, ah)
+    per = [first] + [random_args(nl, ny, nx, dtype, cyclic, sponge,
+                                 seed + i, first[7], first[8:10])
+                     for i in range(1, m)]
+    fields = [torch.stack([a[k] for a in per]) for k in range(4)]
+    ent = torch.stack([a[5] for a in per])
+    return (*fields, first[4], ent, first[6], *first[7:])
+
+
+def check_members(label, args, cyclic, sponge, tol):
+    """One member-batched launch against m single launches (bit for bit)
+    and each member against the plain chain (max|dq| <= tol max|q|);
+    the launch counts one launch and m members. Returns (max abs error,
+    max|q|)."""
+    from qgcm_torch.ops.qgstep import qgstep, qgstep_reference, reset_launches
+    fields, (wek, ent, rspl), rest = args[:4], args[4:7], args[7:]
+    m = fields[0].shape[0]
+    kw = dict(cyclic=cyclic, sponge=sponge)
+    reset_launches()
+    batched = qgstep(*fields, wek, ent, rspl, *rest, **kw)
+    torch.cuda.synchronize()
+    if (qgstep.launches, qgstep.members) != (1, m):
+        raise AssertionError(f"{label}: {qgstep.launches} launches for "
+                             f"{qgstep.members} members, not 1 for {m}")
+    err = scale = 0.0
+    bit = True
+    for i in range(m):
+        one = [f[i] for f in fields]
+        single = qgstep(*one, wek, ent[i], rspl, *rest, **kw)
+        ref = qgstep_reference(*one, wek, ent[i], rspl, *rest, **kw)
+        bit &= torch.equal(batched[i], single)
+        err = max(err, (single - ref).abs().max().item())
+        scale = max(scale, ref.abs().max().item())
+    torch.cuda.synchronize()
+    if not bit:
+        raise AssertionError(f"{label}: the batched launch is not the "
+                             "single launches bit for bit")
+    if not err <= tol * scale:
+        raise AssertionError(f"{label}: kernel disagrees with the plain "
+                             f"chain ({err / scale:.3e} max|q|)")
+    return err, scale
+
+
+def phase_member_mode(card):
+    """The kernel's member axis: at M = 1, 3, 8 on the box (3x961^2), the
+    channel (3x577x4609) and k247 (2x961^2, cyclic + sponge), float32
+    and float64, and on ragged small grids, one launch bit for bit M
+    single launches and within phase 2's bars of the plain chain; under
+    torch.func.vmap one launch too; then 8 x 3x961^2 float32 timed alone
+    (CUDA-graph replays, hot and cold L2) against 8 single launches and
+    8x the single-member bound. Returns the member mode's entry of the
+    kernels line."""
+    from qgcm_torch.config import (double_gyre_ocean_only, k247_default,
+                                   southern_ocean_ocean_only)
+    from qgcm_torch.grids import build_grids
+    from qgcm_torch.models.ensemble import strict_vmap
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.ops.qgstep import (plain_members, qgstep,
+                                       reset_launches)
+    seed = 14000
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        for preset in (double_gyre_ocean_only, southern_ocean_ocean_only,
+                       k247_default):
+            cfg = preset()
+            cyclic, sponge = cfg.cyclic_ocean, cfg.sponge.enabled
+            shape = (cfg.nlo, cfg.nypo, cfg.nxpo)
+            line = []
+            for m in (1, 3, ENSEMBLE_MEMBERS):
+                seed += 10
+                args = member_args(m, *shape, dtype, cyclic, sponge, seed,
+                                   consts=qgstep_consts(cfg, build_grids(cfg)),
+                                   ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+                err, scale = check_members(
+                    f"{preset.__name__} {str(dtype)[6:]} M={m}", args,
+                    cyclic, sponge, tol)
+                line.append(f"M={m} {err / scale:.3e}")
+                del args
+            print(f"  {preset.__name__} {'x'.join(map(str, shape))} "
+                  f"{str(dtype)[6:]}: batched == singles bit for bit; vs "
+                  f"plain, max|dq|/max|q| {', '.join(line)} (bar {tol:g})")
+            torch.cuda.empty_cache()
+        n = 0
+        for nl, ny, nx in ((2, 17, 123), (3, 65, 121), (2, 3, 5)):
+            for cyclic in (False, True):
+                for sponge in (False, True):
+                    seed += 10
+                    n += 1
+                    check_members(f"ragged {nl}x{ny}x{nx}",
+                                  member_args(3, nl, ny, nx, dtype, cyclic,
+                                              sponge, seed), cyclic,
+                                  sponge, tol)
+        print(f"  {n} ragged {str(dtype)[6:]} cases of 3 members: bit for "
+              "bit the single launches, within the bar of the plain chain")
+
+    cfg = double_gyre_ocean_only()
+    nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+    m = ENSEMBLE_MEMBERS
+    args = member_args(m, nl, ny, nx, torch.float32, False, False, 15000,
+                       consts=qgstep_consts(cfg, build_grids(cfg)),
+                       ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+    err, scale = check_members("timed shape", args, False, False, F32_TOL)
+    fields, (wek, ent, _), rest = args[:4], args[4:7], args[7:]
+    kw = dict(cyclic=False, sponge=False)
+    reset_launches()
+    with strict_vmap():
+        mapped = torch.func.vmap(lambda a, b, c, d, e: qgstep(
+            a, b, c, d, wek, e, None, *rest, **kw))(*fields, ent)
+    torch.cuda.synchronize()
+    if qgstep.launches != 1 or not torch.equal(
+            mapped, qgstep(*fields, wek, ent, None, *rest, **kw)):
+        raise AssertionError("torch.func.vmap over members is not one "
+                             "launch of the batched kernel")
+    print(f"  torch.func.vmap over {m} members: 1 launch, bit for bit the "
+          "batched call")
+
+    def batched():
+        qgstep(*fields, wek, ent, None, *rest, **kw)
+
+    def singles():
+        for i in range(m):
+            qgstep(*(f[i] for f in fields), wek, ent[i], None, *rest, **kw)
+
+    hot, cold = kernel_ms(batched, 20)
+    s_hot, s_cold = kernel_ms(singles, 10)
+    # the host's cost of a call of the wrapper, beside a bare launch (CUDA events around eager calls of one
+    # member: the host sets their pace)
+    from qgcm_torch.ops.qgstep import _launch
+    one = [f[:1] for f in fields] + [wek.expand(1, ny, nx), ent[:1], None]
+    eager_op = cuda_ms(lambda: qgstep(*(f[0] for f in fields), wek, ent[0],
+                                      None, *rest, **kw), 100)
+    eager_bare = cuda_ms(lambda: _launch(one, *rest, False, False, "full"),
+                         100)
+    print(f"  one member, eager: {eager_op:.4f} ms a call of qgstep "
+          f"(its checks; no transform or autograd sees it, so not its "
+          f"rules), {eager_bare:.4f} ms a bare launch [{card}]")
+    plain = cuda_ms(lambda: plain_members(
+        *fields, wek.expand(m, ny, nx), ent, None, *rest, False, False), 2)
+    # wek is shared (member stride 0): the launch reads it once
+    bound, by = kernel_bound(nl, ny, nx, torch.float32, sponge=False,
+                             members=m, shared_planes=1)
+    print(f"  {m}x{nl}x{ny}x{nx} float32: one launch {hot:.4f} ms hot, "
+          f"{cold:.4f} ms cold L2; {m} single launches {s_hot:.4f} / "
+          f"{s_cold:.4f} ms; plain chain {plain:.4f} ms; bound {bound:.4f} "
+          f"ms ({by}, wek shared); share of bound {bound / hot:.3f} "
+          f"hot, {bound / cold:.3f} cold [{card}]")
+    del args, fields, mapped
+    torch.cuda.empty_cache()
+    return dict(name="qgstep (member mode)", route="cuda",
+                source="qgcm_torch/csrc/qgstep.cu",
+                replaces="qgcm_tpu/ops/pallas_qg.py:277", launches=0,
+                max_abs_err=err, ms=hot, cold_ms=cold,
+                ms_method="cuda_graph_replay", singles_ms=s_hot,
+                eager_ms=eager_op, eager_bare_ms=eager_bare,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, share_of_bound=bound / hot,
+                shape=[m, nl, ny, nx])
+
+
+def worst_member_error(m, single, ensemble, fields):
+    """max over members i < m, over the states j of a run and the named
+    fields of each, of max|ensemble(i)[j] - single(i)[j]| / max
+    (field_errors): single(i) is member i's single-trajectory run and
+    ensemble(i) its part of the ensemble run, tuples of states."""
+    return max(max(field_errors(ref, got, names).values())
+               for i in range(m)
+               for ref, got, names in zip(single(i), ensemble(i), fields))
+
+
+def phase_ensemble(card, main, device):
+    """The ensemble path at full width: 8 members of the main path's
+    double gyre perturbed from phase 4's final state (amp 1e-3) for 50
+    float32 substeps through make_ensemble_runner, each member held
+    against its single-trajectory run; one qgstep launch a substep;
+    launches, ms and the device's busy share beside phase 4's; 3 members
+    of the golden box in float64 against their own runs; and the coupled
+    double gyre, 4 members for 5 cycles. Returns the paths' entries."""
+    from qgcm_torch.config import double_gyre_coupled
+    from qgcm_torch.generators import double_gyre_windstress, eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ensemble import (make_ensemble_runner, member,
+                                            perturbed_atmos_members,
+                                            perturbed_ocean_members,
+                                            spread_rms)
+    from qgcm_torch.models.ocean import (init_ocean_state,
+                                         ocean_forcing_from_mean)
+    from qgcm_torch.models.stepper import (make_coupled_runner,
+                                           make_ocean_only_runner)
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    oc_fields = ("po", "pom", "qo", "qom", "sst", "dpioc")
+    paths = []
+    model, f, step0 = main["model"], main["forcing"], main["step0"]
+    m, n = ENSEMBLE_MEMBERS, ENSEMBLE_STEPS
+    gen = torch.Generator(device=device).manual_seed(15)
+    members = perturbed_ocean_members(model, main["state"], gen, m,
+                                      amp=ENSEMBLE_AMP)
+    run_e = make_ensemble_runner(model)
+    torch.cuda.synchronize()
+    reset_launches()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    out = run_e(members, f, n, step0)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / n
+    dev_ms = ev0.elapsed_time(ev1) / n
+    launches, stepped = qgstep.launches, qgstep.members
+    if (launches, stepped) != (n, n * m):
+        raise AssertionError(f"the ensemble launched qgstep {launches} times "
+                             f"for {stepped} member-substeps in {n} "
+                             f"substeps of {m} members")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise AssertionError("non-finite values in the ensemble")
+    run1 = make_ocean_only_runner(model)
+    worst = worst_member_error(
+        m, lambda i: (run1(member(members, i), f, n, step0),),
+        lambda i: (member(out, i),), (oc_fields,))
+    print(f"  {m} members x {model.cfg.nlo}x{model.cfg.nypo}x"
+          f"{model.cfg.nxpo} float32, {n} substeps from phase 4's state "
+          f"(averaging crossed): {launches} qgstep launches for {stepped} "
+          f"member-substeps; spread_po {spread_rms(out, 'po'):.4e}; worst "
+          f"member vs its single run {worst:.3e} of a field's max (bar "
+          f"{ENSEMBLE_F32_TOL:g})")
+    print(f"  {dev_ms:.4f} ms/substep (CUDA events), {host_ms:.4f} host; "
+          f"{dev_ms / m:.4f} ms/member-substep; phase 4's single member in "
+          f"this call: {main['substep_ms']:.4f} ms/substep (events), "
+          f"{main['host_ms']:.4f} host [{card}]")
+    if not worst <= ENSEMBLE_F32_TOL:
+        raise AssertionError("an ensemble member left its single run")
+    k = 5
+    step1 = step0 + n
+    print(f"  ensemble, {k} substeps:")
+    ens = profile_counts(lambda: run_e(out, f, k, step1), k, "substep", card)
+    profile_units(lambda: run_e(out, f, k, step1), k, "substep", card)
+    print(f"  single runner, {k} substeps:")
+    single = profile_counts(
+        lambda: make_ocean_only_runner(model)(main["state"], f, k, step1),
+        k, "substep", card)
+    ratio = ens["launches"] / single["launches"]
+    q_launch = sum(v for name, v in ens["by_kernel"].items()
+                   if "qgstep" in name)
+    print(f"  qgstep launches per ensemble substep in the profile: "
+          f"{q_launch:g}; device launches per substep {ens['launches']:.1f} "
+          f"(ensemble) vs {single['launches']:.1f} (single), ratio "
+          f"{ratio:.3f}")
+    if q_launch != 1:
+        raise AssertionError("the profile shows other than one qgstep launch "
+                             "per ensemble substep")
+    if ratio > LAUNCH_RATIO_FINDING:
+        extra = sorted(((v - single["by_op"].get(op, 0), op)
+                        for op, v in ens["by_op"].items()), reverse=True)
+        print("  operators adding launches per substep (ensemble - single): "
+              + ", ".join(f"{op} +{d:.1f}" for d, op in extra[:8] if d > 0))
+    paths.append(dict(path=f"ensemble double_gyre_ocean_only {m} members",
+                      launches=launches, members=stepped, rel_err=worst,
+                      ms_per_substep=dev_ms, ms_per_member_substep=dev_ms / m,
+                      launch_ratio=ratio))
+    del members, out
+    torch.cuda.empty_cache()
+
+    # the float64 golden box
+    cfg = golden_cfg()
+    gm = build_model(cfg, device)
+    st = init_ocean_state(gm, po=eddy_pressure(cfg, ssh_amp=0.1))
+    gf = ocean_forcing_from_mean(
+        gm, *double_gyre_windstress(cfg, gm.grids, tau0=2e-5))
+    gmem = perturbed_ocean_members(gm, st, gen, GOLDEN_MEMBERS,
+                                   amp=ENSEMBLE_AMP)
+    reset_launches()
+    gout = make_ensemble_runner(gm)(gmem, gf, GOLDEN_STEPS)
+    gl = qgstep.launches
+    grun1 = make_ocean_only_runner(gm)
+    gworst = worst_member_error(
+        GOLDEN_MEMBERS, lambda i: (grun1(member(gmem, i), gf, GOLDEN_STEPS),),
+        lambda i: (member(gout, i),), (oc_fields,))
+    print(f"  golden box float64, {GOLDEN_MEMBERS} members, {GOLDEN_STEPS} "
+          f"substeps: {gl} launches; worst member vs its single run "
+          f"{gworst:.3e} (bar {ENSEMBLE_F64_TOL:g})")
+    if gl != GOLDEN_STEPS or not gworst <= ENSEMBLE_F64_TOL:
+        raise AssertionError("the float64 golden ensemble left its single "
+                             "runs")
+    paths.append(dict(path=f"ensemble golden box float64 {GOLDEN_MEMBERS} "
+                      "members", launches=gl, rel_err=gworst))
+
+    # the coupled double gyre
+    cfg = double_gyre_coupled(dtype="float32")
+    cm = build_model(cfg, device)
+    oc = init_ocean_state(cm, init="rbal", po=eddy_pressure(cfg,
+                                                            ssh_amp=0.15))
+    at = init_atmos_state(cm, init="rbal")
+    mc = COUPLED_MEMBERS
+    ocm = perturbed_ocean_members(cm, oc, gen, mc, amp=ENSEMBLE_AMP)
+    atm = perturbed_atmos_members(cm, at, gen, mc, amp=10 * ENSEMBLE_AMP)
+    run_c = make_ensemble_runner(cm)
+    cyc = COUPLED_ENSEMBLE_CYCLES
+    steps = cyc * cfg.nstr
+    torch.cuda.synchronize()
+    reset_launches()
+    ev0.record()
+    h0 = time.perf_counter()
+    oco, ato = run_c(ocm, atm, steps)
+    ev1.record()
+    torch.cuda.synchronize()
+    c_host = (time.perf_counter() - h0) * 1e3 / cyc
+    c_dev = ev0.elapsed_time(ev1) / cyc
+    cl, cmem = qgstep.launches, qgstep.members
+    crun1 = make_coupled_runner(cm)
+    cworst = worst_member_error(
+        mc, lambda i: crun1(member(ocm, i), member(atm, i), steps),
+        lambda i: (member(oco, i), member(ato, i)),
+        (oc_fields, ("pa", "qa", "ast", "hmixa")))
+    print(f"  coupled double gyre float32, {mc} members, {cyc} cycles: {cl} "
+          f"launches for {cmem} member-substeps; worst member vs its single "
+          f"run {cworst:.3e} (bar {ENSEMBLE_F32_TOL:g}); {c_dev:.4f} "
+          f"ms/cycle (events), {c_host:.4f} host, {c_dev / mc:.4f} "
+          f"ms/member-cycle [{card}]")
+    if (cl, cmem) != (cyc, cyc * mc) or not cworst <= ENSEMBLE_F32_TOL:
+        raise AssertionError("the coupled ensemble missed its single runs or "
+                             "its launches")
+    profile_units(lambda: run_c(oco, ato, 2 * cfg.nstr, steps), 2, "cycle",
+                  card)
+    paths.append(dict(path=f"ensemble double_gyre_coupled {mc} members",
+                      launches=cl, members=cmem, rel_err=cworst,
+                      ms_per_cycle=c_dev, ms_per_member_cycle=c_dev / mc))
+    del cm, ocm, atm, oco, ato
+    torch.cuda.empty_cache()
+    return paths
+
+
+def grad_errors(got, want) -> dict:
+    """max|got - want| / max|want| of each gradient field (a field that
+    is zero in `want` must be zero in `got`)."""
+    out = {}
+    names = [f"d/d{n}" for n in got.state0._fields] + [
+        f"d/d{n}" for n in ("tauxo", "tauyo", "fnetoc")]
+    for name, a, b in zip(names, [*got.state0, *got.forcing],
+                          [*want.state0, *want.forcing]):
+        d = (a - b).abs().max().item()
+        s = b.abs().max().item()
+        out[name] = d / s if s else (0.0 if d == 0 else float("inf"))
+    return out
+
+
+def grad_error(got, want) -> float:
+    """The worst of grad_errors."""
+    return max(grad_errors(got, want).values())
+
+
+def adjoint_case(preset, device):
+    """A float64 preset from an eddy under its wind (double gyre in the
+    box, the channel stress in the channel): model, state, mean forcing
+    on the card."""
+    from qgcm_torch.generators import (channel_windstress,
+                                       double_gyre_windstress, eddy_pressure)
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import init_ocean_state
+    cfg = preset(dtype="float64")
+    model = build_model(cfg, device)
+    st = init_ocean_state(model, init="rbal",
+                          po=eddy_pressure(cfg, ssh_amp=0.15))
+    wind = channel_windstress if cfg.cyclic_ocean else double_gyre_windstress
+    mf = tuple(torch.as_tensor(a, device=device)
+               for a in wind(cfg, model.grids))
+    return model, st, mf
+
+
+def directional_fd(model, obj, st, mf, g, n):
+    """(adjoint, central finite difference) of d/da L(a tauxo) at a = 1."""
+    from qgcm_torch.models.ocean import ocean_forcing_from_mean
+    from qgcm_torch.models.stepper import make_ocean_only_runner
+    run = make_ocean_only_runner(model)
+    tauxo, tauyo, fnetoc = mf
+
+    def primal(a):
+        f = ocean_forcing_from_mean(model, a * tauxo, tauyo, fnetoc)
+        return float(obj(run(st, f, n)))
+
+    fd = (primal(1 + FD_EPS) - primal(1 - FD_EPS)) / (2 * FD_EPS)
+    return float((g.forcing[0] * tauxo).sum()), fd
+
+
+def timed_sensitivity(model, obj, st, mf, n, **kw):
+    """ocean_sensitivity(model, obj, **kw)(st, mf, n) with the forward
+    and backward passes timed apart (the loss sees the forward's end),
+    the forward's qgstep launches and the peak memory. Returns (value,
+    gradients, stats)."""
+    from qgcm_torch.adjoint import ocean_sensitivity
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    rec = {}
+
+    def loss(final):
+        torch.cuda.synchronize()
+        rec["t"], rec["launches"] = time.perf_counter(), qgstep.launches
+        return obj(final)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    val, g = ocean_sensitivity(model, loss, **kw)(st, mf, n)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    return val, g, dict(fwd_ms=(rec["t"] - t0) * 1e3 / n,
+                        bwd_ms=(t1 - rec["t"]) * 1e3 / n,
+                        fwd_launches=rec["launches"],
+                        all_launches=qgstep.launches,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def fused_step_backward(model, card):
+    """The fused step's two halves in the adjoint at the model's shape:
+    the kernel's forward (CUDA-graph replays) beside the backward, the
+    plain chain's VJP recomputed from the inputs (CUDA events), on
+    seeded fields with the model's constants."""
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.ops.qgstep import plain_members, qgstep
+    cfg = model.cfg
+    nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+    args = random_args(nl, ny, nx, model.dtype, False, False, 16000,
+                       consts=qgstep_consts(cfg, model.grids),
+                       ah=(cfg.ocean.ah2oc, cfg.ocean.ah4oc))
+    tensors = [a.unsqueeze(0) for a in args[:6]]
+    rest = ([float(c) for c in args[7]], [float(a) for a in args[8]],
+            [float(a) for a in args[9]], False, False)
+    grad = torch.ones_like(tensors[3])
+    fwd, _ = kernel_ms(lambda: qgstep(*args, cyclic=False, sponge=False), 20)
+    bwd = cuda_ms(lambda: torch.func.vjp(
+        lambda *xs: plain_members(*xs, None, *rest), *tensors)[1](grad), 3)
+    print(f"  the fused step at {nl}x{ny}x{nx} {str(model.dtype)[6:]}: "
+          f"forward (kernel) {fwd:.4f} ms, backward (the plain chain's "
+          f"VJP, recomputed) {bwd:.4f} ms [{card}]")
+
+
+def phase_adjoint(card, device):
+    """The adjoint at full width in float64 with the kernel in its
+    forward: the double gyre (961^2 x 3) for 20 substeps under
+    layer1_energy_proxy with remat False, True, 4 and "dots" (equal
+    within 1e-12 of each field's max; ms forward and backward a substep,
+    peak memory; the forward's qgstep launches), host segments of 10,
+    the gradient with the all-plain forward (with a one-ulp witness),
+    and the directional
+    derivative along the wind against a central finite difference; then
+    the southern-ocean channel (577x4609 x 3) for 10 substeps under
+    transport_proxy with remat=True against its finite difference.
+    Returns the paths' entries."""
+    from qgcm_torch.adjoint import layer1_energy_proxy, transport_proxy
+    from qgcm_torch.config import (double_gyre_ocean_only,
+                                   southern_ocean_ocean_only)
+    from qgcm_torch.ops import qgstep as qmod
+    paths = []
+    model, st, mf = adjoint_case(double_gyre_ocean_only, device)
+    obj = layer1_energy_proxy(model)
+    n = ADJOINT_STEPS
+    timed_sensitivity(model, obj, st, mf, 2, remat=False)     # warm-up
+    runs = {}
+    for remat in REMATS:
+        val, g, stats = timed_sensitivity(model, obj, st, mf, n, remat=remat)
+        runs[remat] = (val, g)
+        err = grad_error(g, runs[False][1])
+        print(f"  remat={remat!r:6}: value {float(val):.10e}; gradients vs "
+              f"remat=False {err:.3e} (bar {ADJOINT_TOL:g}); forward "
+              f"{stats['fwd_ms']:.2f} ms/substep, backward "
+              f"{stats['bwd_ms']:.2f} ms/substep (host clock, synced); peak "
+              f"{stats['peak_gb']:.3f} GB; qgstep launches: forward "
+              f"{stats['fwd_launches']}, with the backward's recomputation "
+              f"{stats['all_launches']} [{card}]")
+        if stats["fwd_launches"] != n or not err <= ADJOINT_TOL:
+            raise AssertionError(f"the adjoint with remat={remat!r} missed")
+        paths.append(dict(path=f"adjoint double_gyre float64 remat={remat}",
+                          launches=stats["fwd_launches"], rel_err=err,
+                          **stats))
+    val, g_seg, stats = timed_sensitivity(model, obj, st, mf, n,
+                                          segment_steps=ADJOINT_SEGMENT)
+    seg_err = grad_error(g_seg, runs[True][1])
+    print(f"  segments of {ADJOINT_SEGMENT}: gradients vs one program "
+          f"{seg_err:.3e} (bar {ADJOINT_TOL:g}); peak {stats['peak_gb']:.3f} "
+          f"GB; {stats['all_launches']} launches")
+    with contextlib.ExitStack() as plain:
+        # the forward's fused step as its plain chain on the card
+        plain.callback(setattr, qmod, "step_members", qmod.step_members)
+        qmod.step_members = qmod.plain_members
+        _, g_plain, pstats = timed_sensitivity(model, obj, st, mf, n,
+                                               remat=False)
+    # The two forwards part at float64 roundoff, and the gradients of
+    # the lagged fields (pom, dpiocp) are residues of the viscous
+    # stencils' transposes, orders of magnitude below the others, which
+    # such a difference moves by far more than 1e-12 of their max. The
+    # second witness: the kernel's own gradient from an initial state
+    # whose prognostic fields are moved by one ulp. A field passes within
+    # ADJOINT_TOL, or no farther from the kernel's gradient than
+    # ADJOINT_WITNESS_FACTOR times the witness is.
+    plain_errs = grad_errors(g_plain, runs[False][1])
+    st_w = st._replace(**{k: getattr(st, k) * (1 + 2.0**-52)
+                          for k in ("po", "pom", "qo", "qom")})
+    _, g_w, _ = timed_sensitivity(model, obj, st_w, mf, n, remat=False)
+    witness = grad_errors(g_w, runs[False][1])
+    missed = [k for k, e in plain_errs.items()
+              if not (e <= ADJOINT_TOL
+                      or e <= ADJOINT_WITNESS_FACTOR * witness[k])]
+    print(f"  the forward's fused step as the plain chain: "
+          f"{pstats['all_launches']} qgstep launches; forward "
+          f"{pstats['fwd_ms']:.2f} ms/substep; gradients vs the kernel's, by "
+          f"field, plain / one-ulp witness (held: the first within "
+          f"{ADJOINT_TOL:g} or within {ADJOINT_WITNESS_FACTOR:g}x the "
+          f"second):")
+    print("    " + "; ".join(f"{k} {e:.2e}/{witness[k]:.2e}"
+                           for k, e in plain_errs.items() if e or witness[k]))
+    if pstats["all_launches"] or missed or not seg_err <= ADJOINT_TOL:
+        raise AssertionError(f"segments or the plain forward changed the "
+                             f"gradient: {missed}")
+    adj, fd = directional_fd(model, obj, st, mf, runs[True][1], n)
+    rel = abs(adj - fd) / abs(fd)
+    print(f"  d/da L(a tauxo): adjoint {adj:.12e}, central difference "
+          f"{fd:.12e}, rel {rel:.3e} (bar {FD_RTOL:g})")
+    if not (fd != 0 and rel <= FD_RTOL):
+        raise AssertionError("the adjoint misses its finite difference")
+    paths[1]["fd_rel"] = rel
+    fused_step_backward(model, card)
+    del model, st, mf, runs, g_seg, g_plain
+    torch.cuda.empty_cache()
+
+    model, st, mf = adjoint_case(southern_ocean_ocean_only, device)
+    obj = transport_proxy(model)
+    n = ADJOINT_CHANNEL_STEPS
+    val, g, stats = timed_sensitivity(model, obj, st, mf, n, remat=True)
+    adj, fd = directional_fd(model, obj, st, mf, g, n)
+    rel = abs(adj - fd) / abs(fd)
+    print(f"  southern_ocean_ocean_only {model.cfg.nlo}x{model.cfg.nypo}x"
+          f"{model.cfg.nxpo} float64, {n} substeps, transport_proxy, "
+          f"remat=True: adjoint {adj:.12e}, central difference {fd:.12e}, "
+          f"rel {rel:.3e} (bar {FD_RTOL:g}); forward {stats['fwd_ms']:.2f}, "
+          f"backward {stats['bwd_ms']:.2f} ms/substep; peak "
+          f"{stats['peak_gb']:.3f} GB; {stats['fwd_launches']} forward "
+          f"launches [{card}]")
+    if stats["fwd_launches"] != n or not (fd != 0 and rel <= FD_RTOL):
+        raise AssertionError("the channel's adjoint misses its finite "
+                             "difference")
+    paths.append(dict(path="adjoint southern_ocean_ocean_only float64",
+                      launches=stats["fwd_launches"], fd_rel=rel, **stats))
+    del model, st, mf, g
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_commands(card):
+    """The new commands in this process under build/qgcm_torch/cases:
+    `ensemble` on phase 10's coupled case (4 members, 1 day, samples
+    every 0.25 day), `analyze` on its output, `sense` on a cut
+    ocean-only double gyre in float64 for 0.5 day with 0.25-day segments
+    and without (the same sensitivity.nc within 1e-12), and `run
+    --profile` on phase 10's case, whose report must name the kernel."""
+    from qgcm_torch.io.ncdf import read_vars
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    case = root / CASES / "double_gyre_coupled"
+    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
+    reset_launches()
+    log, _ = run_cli(["ensemble", str(case), "--members", "4", "--days", "1",
+                      "--sample-days", "0.25", "--quiet"] + grid)
+    cycles = 86400 // 540
+    print(f"  ensemble: {log.strip().splitlines()[-1]}; {qgstep.launches} "
+          f"qgstep launches for {qgstep.members} member-substeps")
+    if (qgstep.launches, qgstep.members) != (cycles, 4 * cycles):
+        raise AssertionError("the ensemble command missed its launches")
+    log, _ = run_cli(["analyze", str(case / "outdata_ens")])
+    for line in log.strip().splitlines():
+        print(f"    {line}")
+    sp = read_vars(str(case / "outdata_ens" / "ensemble.nc"),
+                   ["tyrs", "spread_po"])
+    rate = np.polyfit(sp["tyrs"] * 365.0, np.log(sp["spread_po"]), 1)[0]
+    print(f"    spread_po growth rate over all records (log-linear fit): "
+          f"{rate:.4e} per day")
+
+    sense = new_case("sense_double_gyre",
+                     "examples/double_gyre_ocean_only/input.params",
+                     name="restart.nc")
+    cut = ["--preset", "double_gyre_ocean_only", "--dtype", "float64",
+           "--nxaooc", "15", "--nyaooc", "15", "--nxta", "96", "--nyta", "24"]
+    run_cli(["prepare", str(sense), "--eddy-amp", "0.15", "--forcing",
+             "double-gyre"] + cut)
+    out = {}
+    for seg in ("0", "0.25"):
+        log, _ = run_cli(["sense", str(sense), "--days", "0.5",
+                          "--segment-days", seg, "--outdir",
+                          str(sense / f"seg{seg}")] + cut)
+        out[seg] = read_vars(str(sense / f"seg{seg}" / "sensitivity.nc"),
+                             ["objective", "dJ_dtauxo", "dJ_dtauyo",
+                              "dJ_dfnetoc", "dJ_dpo", "dJ_dsst"])
+        print(f"  sense, segments {seg} d: "
+              + "; ".join(log.strip().splitlines()[-3:-1]))
+    worst = max(float(np.abs(out["0"][k] - out["0.25"][k]).max()
+                      / np.abs(out["0"][k]).max()) for k in out["0"])
+    print(f"  sensitivity.nc, 0.25-day segments vs one program: worst "
+          f"{worst:.3e} of a field's max (bar {ADJOINT_TOL:g})")
+    if not worst <= ADJOINT_TOL:
+        raise AssertionError("the segmented sense command left the one "
+                             "program")
+
+    prof = root / CASES / "profile"
+    log, _ = run_cli(["run", str(case), "--trun", repr(0.75 / 365.0),
+                      "--outdir", str(root / CASES / "profiled"),
+                      "--profile", str(prof)] + grid)
+    report = log[log.index("profile of"):].splitlines()
+    for line in report:
+        print(f"    {line}")
+    if not any("qgstep" in line for line in report):
+        raise AssertionError("run --profile's report does not name the "
+                             "qgstep kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -1837,7 +2540,7 @@ def main() -> int:
     with phase("[3] golden ocean box, float64, 50 substeps on the card"):
         phase_golden(device)
     with phase("[4] main path: double_gyre_ocean_only, float32"):
-        kernel = phase_main(device, card)
+        kernel, main_path = phase_main(device, card)
     with phase("[5] the kernel alone against its bound"):
         phase_kernel_timing(card)
     with phase("[6] golden coupled box, float64, 30 steps on the card"):
@@ -1865,19 +2568,70 @@ def main() -> int:
                f"{mesh_backend()[1]}"):
         phase_oml_fork(card)
         totals, mesh_paths = phase_mesh(card, MESH_WORKDIR)
+    with phase("[14] the kernel's member mode: one launch for M members"):
+        members = phase_member_mode(card)
+    with phase(f"[15] ensembles at full width: {ENSEMBLE_MEMBERS} members "
+               "of double_gyre_ocean_only, the golden box in float64, "
+               f"{COUPLED_MEMBERS} of double_gyre_coupled"):
+        ens_paths = phase_ensemble(card, main_path, device)
+    del main_path
+    torch.cuda.empty_cache()
+    with phase("[16] the adjoint at full width, float64, the kernel in its "
+               "forward"):
+        adj_paths = phase_adjoint(card, device)
+    with phase("[17] the commands: ensemble, analyze, sense, run --profile"):
+        phase_commands(card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
                             launches=kernel["launches"],
-                            max_abs_err=kernel["max_abs_err"]), *paths]
+                            max_abs_err=kernel["max_abs_err"]), *paths,
+                       *adj_paths]
+    # the member mode's launches: the ensemble path's (phase 15)
+    members["launches"] = ens_paths[0]["launches"]
+    members["paths"] = ens_paths
     for mode in ("rows", "x_ext"):
         modes[mode]["launches"] = totals[mode]
         modes[mode]["paths"] = [
             {**p, "launches": p["launches"][mode]}
             for p in mesh_paths if p["launches"][mode]]
     print(card_line())
-    print(json.dumps({"kernels": [kernel, modes["rows"], modes["x_ext"]]}))
+    print(json.dumps({"kernels": [kernel, members, modes["rows"],
+                                  modes["x_ext"]]}))
     print(json.dumps({"ok": True, "device": device_info()}))
+    return 0
+
+
+def compare_main_path(checkouts) -> int:
+    """Phase 4 of each checkout in turn, each in a process of its own
+    running that checkout's chip_smoke.py and qgcm_torch: for instance a
+    parent commit unpacked under build/ and this one, in the order
+    parent, this, this, parent. Prints each run's ms/substep (CUDA
+    events and host clock) and its wrapper's eager and graph-replayed
+    kernel times, read from the phase's own lines."""
+    child = ("import sys, torch; import chip_smoke as c; "
+             "torch.backends.cuda.matmul.allow_tf32 = False; "
+             "torch.backends.cudnn.allow_tf32 = False; "
+             "c.phase_main(torch.device('cuda'), c.card_line())")
+    pattern = (r"substeps: ([\d.]+) ms/substep \(CUDA events\), ([\d.]+) "
+               r"ms/substep \(host clock\).*qgstep kernel ([\d.]+) ms "
+               r"\(CUDA-graph replay\), ([\d.]+) ms \(events around eager")
+    card = card_line()
+    rows = []
+    for where in checkouts:
+        run = subprocess.run([sys.executable, "-c", child], cwd=where,
+                             capture_output=True, text=True, timeout=900)
+        got = re.search(pattern, run.stdout, re.S)
+        if run.returncode or not got:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            print(f"chip_smoke: phase 4 of {where} failed", file=sys.stderr)
+            return 1
+        rows.append((where, *map(float, got.groups())))
+    print(f"phase 4 by checkout, in the order run [{card}]:")
+    for where, dev, host, kernel, eager in rows:
+        print(f"  {where}: {dev:.4f} ms/substep (CUDA events), {host:.4f} "
+              f"(host clock); qgstep eager {eager:.4f} ms, graph-replayed "
+              f"{kernel:.4f} ms")
     return 0
 
 
@@ -1887,4 +2641,8 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--main-path":
+        # python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
+        sys.exit(compare_main_path(sys.argv[2:]) if torch.cuda.is_available()
+                 else 1)
     sys.exit(main())

@@ -12,8 +12,11 @@ device: every tensor is made on the device `build_model` was given.
 The port covers the ocean (box and zonally-cyclic channel), the
 atmosphere, the air-sea coupling and the ocean-only, coupled and
 atmosphere-only runners (config, grids, modes, radiation, topography,
-both PV inversions, coupling, models/). Importing this package never
-imports JAX.
+both PV inversions, coupling, models/), ensembles and adjoint
+sensitivities (models/ensemble.py, adjoint.py), the experiment driver
+with its diagnostics, I/O, analysis and CLI, and the ocean-only runner
+on row blocks of a process group (parallel/). Importing this package
+never imports JAX.
 """
 
 from .config import (ModelConfig, OceanConfig, AtmosConfig,  # noqa: F401

@@ -1,0 +1,177 @@
+"""Adjoint sensitivities: gradients through the model (port of
+qgcm_tpu/adjoint.py).
+
+Q-GCM has no adjoint. Here, as in qgcm_tpu, reverse-mode automatic
+differentiation (torch.autograd) runs through the whole ocean-only
+time loop: the leapfrog, the Arakawa Jacobian, the mixed layer, the
+spectral PV inversion and the channel's constraint algebra. The fused
+vorticity step stays the hand-written kernel in the forward pass on the
+card; its gradient is that of its plain version, recomputed from the
+step's inputs (ops.qgstep._Step), as qgcm_tpu differentiates its op
+chain.
+
+Memory: the runner's `remat` (models/stepper.remat_loop) checkpoints
+pairs of substeps in nested levels, and `segment_steps` chains
+segments on the host for horizons whose backward pass would not fit
+the card.
+
+    sens = ocean_sensitivity(model, layer1_energy_proxy(model))
+    val, grads = sens(state0, (tauxo, tauyo, fnetoc), n_steps=1200)
+    dL_dtaux = grads.forcing[0]   # (nypo, nxpo)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from .model import Model
+from .models.ocean import _as_field, ocean_forcing_from_mean
+from .models.stepper import make_ocean_only_runner
+from .state import OceanState
+
+
+class OceanSensitivity(NamedTuple):
+    """Gradients of a scalar objective from ocean_sensitivity."""
+    state0: OceanState      # dL/d(initial state), field by field
+    forcing: tuple          # dL/d(tauxo, tauyo, fnetoc)
+
+
+def _leaves(tensors):
+    """Detached copies that require grad: the inputs of a backward pass."""
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+def _grads(outputs, inputs, grad_outputs=None):
+    """d(outputs)/d(inputs), zeros where an input does not reach them.
+    Outputs that depend on no input are left out."""
+    pairs = [(o, g) for o, g in zip(outputs, grad_outputs or
+                                    [None] * len(outputs))
+             if o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in pairs], inputs,
+                              grad_outputs=([g for _, g in pairs]
+                                            if grad_outputs else None),
+                              allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(got, inputs)]
+
+
+def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
+                                                   torch.Tensor],
+                      remat=True, segment_steps: int = 0, mesh=None,
+                      halo_variant=None):
+    """dL/d(initial state, mean forcing) of an ocean-only run.
+
+    loss: scalar function of the final OceanState. remat: as
+    make_ocean_only_runner takes it (True: nested checkpoints of
+    REMAT_LEVEL; an int: that fan-out; "dots": also keep the products
+    and FFTs; False: keep everything). segment_steps > 0: host-level
+    checkpoints: the forward pass keeps one state per segment in host
+    memory (pinned on the card's host), then one backward pass per
+    segment chains the cotangents from the last segment to the first;
+    the gradient is the one-program gradient, and the card holds one
+    segment's backward at a time.
+
+    Returns fn(state0, (tauxo, tauyo, fnetoc), n_steps, step0=0) ->
+    (loss value, OceanSensitivity). The forcing gradient is taken with
+    respect to the mean fields (the avges.nc triple) through
+    ocean_forcing_from_mean, so dL/dtauxo includes the Ekman velocity,
+    curl and boundary stress-integral (txis/txin) pathways.
+
+    qgcm_tpu's distributed adjoint (mesh, halo_variant) is not ported
+    and raises."""
+    if mesh is not None or halo_variant is not None:
+        raise NotImplementedError(
+            "the distributed adjoint is not ported; see the multi-GPU "
+            "items of ROADMAP.md")
+    run = make_ocean_only_runner(model, remat=remat)
+
+    def value_and_grad(state0, mean_forcing, n_steps, step0, cot=None):
+        """(loss, d/d state0, d/d forcing) of one program; with `cot` the
+        cotangent of the final state replaces the loss (value None)."""
+        with torch.enable_grad():
+            s0 = OceanState(*_leaves(state0))
+            mf = _leaves(_as_field(model, x) for x in mean_forcing)
+            st = run(s0, ocean_forcing_from_mean(model, *mf), n_steps,
+                     step0)
+            if cot is None:
+                val = loss(st)
+                g = _grads([val], [*s0, *mf])
+                val = val.detach()
+            else:
+                val = None
+                g = _grads(list(st), [*s0, *mf], list(cot))
+        return val, OceanState(*g[:len(s0)]), tuple(g[len(s0):])
+
+    def fn(state0, mean_forcing, n_steps: int, step0: int = 0):
+        val, gs, gf = value_and_grad(state0, mean_forcing, n_steps, step0)
+        return val, OceanSensitivity(state0=gs, forcing=gf)
+
+    if not segment_steps:
+        return fn
+
+    plain = make_ocean_only_runner(model)
+
+    def to_host(st):
+        return OceanState(*(torch.empty_like(
+            t, device="cpu", pin_memory=t.is_cuda).copy_(t) for t in st))
+
+    def to_device(st):
+        return OceanState(*(t.to(model.device, non_blocking=True)
+                            for t in st))
+
+    def fn_seg(state0, mean_forcing, n_steps: int, step0: int = 0):
+        if n_steps % segment_steps:
+            raise ValueError(f"n_steps ({n_steps}) must be a multiple of "
+                             f"segment_steps ({segment_steps})")
+        k_segs = n_steps // segment_steps
+        with torch.no_grad():
+            f = ocean_forcing_from_mean(model, *mean_forcing)
+            starts = [to_host(state0)]
+            st = state0
+            for k in range(k_segs - 1):
+                st = plain(st, f, segment_steps, step0 + k * segment_steps)
+                starts.append(to_host(st))
+        val, cot, gmf = value_and_grad(
+            to_device(starts[-1]), mean_forcing, segment_steps,
+            step0 + (k_segs - 1) * segment_steps)
+        for k in range(k_segs - 2, -1, -1):
+            _, cot, gmf_k = value_and_grad(
+                to_device(starts[k]), mean_forcing, segment_steps,
+                step0 + k * segment_steps, cot=cot)
+            gmf = tuple(a + b for a, b in zip(gmf, gmf_k))
+        return val, OceanSensitivity(state0=cot, forcing=gmf)
+
+    return fn_seg
+
+
+def layer1_energy_proxy(model: Model):
+    """Scalar objective: domain-mean layer-1 geostrophic kinetic energy
+    density from the final pressure (u = -p_y/f0, v = p_x/f0):
+    0.5 <|grad p|^2> / f0^2."""
+    f0 = model.cfg.fnot
+    dx = model.grids.dxo
+
+    def loss(st: OceanState):
+        p = st.po[0]
+        px = (p[:, 1:] - p[:, :-1]) / dx
+        py = (p[1:, :] - p[:-1, :]) / dx
+        return 0.5 * (torch.mean(torch.square(px))
+                      + torch.mean(torch.square(py))) / f0**2
+
+    return loss
+
+
+def transport_proxy(model: Model):
+    """Scalar objective: zonal-mean zonal transport of layer 1 in a
+    channel, <u1> = -<dp/dy>/f0 over the domain, the ACC transport
+    analogue whose wind-stress sensitivity is usually asked for."""
+    f0 = model.cfg.fnot
+    dy = model.grids.dxo
+
+    def loss(st: OceanState):
+        p = st.po[0]
+        return -torch.mean((p[1:, :] - p[:-1, :]) / dy) / f0
+
+    return loss

@@ -1,22 +1,29 @@
-"""Command-line interface (port of qgcm_tpu/cli.py, `run` and
-`prepare`).
+"""Command-line interface (port of qgcm_tpu/cli.py).
 
   qgcm-torch run <case-dir>      -- run an experiment; the case dir
                                     holds input.params (+ optional
                                     avges.nc / restart.nc); results land
                                     in <case-dir>/outdata
-                                    (exec_qgcm.rb:22-97)
+                                    (exec_qgcm.rb:22-97); --profile DIR
+                                    traces a chunk with torch.profiler
   qgcm-torch prepare <case-dir>  -- generate IC/forcing files
                                     (k247_make_{restart,forcing}_q-gcm.F90)
+  qgcm-torch ensemble <case-dir> -- perturbed-IC ensemble; the spread
+                                    series goes to outdata_ens/ensemble.nc
+  qgcm-torch sense <case-dir>    -- adjoint sensitivity of an objective
+                                    (ocean-only); outdata/sensitivity.nc
+  qgcm-torch analyze <outdata>   -- summarise monit.nc (or ensemble.nc)
 
 Also `python -m qgcm_torch.cli ...`. Grid dimensions come from --preset
 (config.PRESETS) or explicit flags, mirroring the reference's
-compile-time parameters_data.F presets. Both commands run on the card
-(--device cuda, the default) and raise without CUDA; pass
---device cpu for the CPU. The configuration's dtype is kept as given on
-every device: the H100 runs complex128 FFTs, so unlike qgcm_tpu nothing
-turns float64 into float32. qgcm_tpu's --mesh, --ckpt-format and
---profile and its ensemble, sense and analyze commands are not ported.
+compile-time parameters_data.F presets. The commands that build a
+model run on the card (--device cuda, the default) and raise without
+CUDA; pass --device cpu for the CPU. The configuration's dtype is kept
+as given on every device: the H100 runs complex128 FFTs, so unlike
+qgcm_tpu nothing turns float64 into float32. Not ported: qgcm_tpu's
+--mesh and --ckpt-format, and ensemble --shard-members, which shards
+members over devices and waits for the multi-GPU runners
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import numpy as np
 
 
 def _base_config(args):
@@ -129,7 +138,8 @@ def cmd_run(args):
                    device=args.device, qoc_diag=args.qoc_diag,
                    ocavg_days=args.ocavg_days,
                    cadence_rounding="exact" if args.exact_cadences
-                   else "cycles", avges_sampling=args.avges_sampling)
+                   else "cycles", avges_sampling=args.avges_sampling,
+                   profile_dir=args.profile)
     print(f"done: {res.steps_done} steps, t={res.tyrs:.4f} years; "
           f"{res.seconds['steps']:.4f} s stepping, "
           f"{res.seconds['events']:.4f} s in cadence events"
@@ -182,6 +192,322 @@ def cmd_prepare(args):
         f = double_gyre_windstress(cfg, model.grids, tau0=args.tau0)
     write_mean_forcing(os.path.join(args.case, "avges.nc"), model, *f)
     print(f"wrote {args.case}/avges.nc")
+    return 0
+
+
+def _case_model(args):
+    """(params, config, model) of the case directory args.case, as
+    qgcm_tpu's ensemble and sense commands read it; the initial-state
+    file of input.params is relative to the case."""
+    from .model import build_model
+    from .params import parse_input_params, params_to_config, RunParams
+    ppath = os.path.join(args.case, "input.params")
+    params = parse_input_params(ppath) if os.path.exists(ppath) \
+        else RunParams()
+    if params.name not in ("zero", "rbal"):
+        params.name = os.path.normpath(os.path.join(args.case, params.name))
+    cfg = params_to_config(params, _base_config(args))
+    return params, cfg, build_model(cfg, args.device)
+
+
+def _case_forcing(case, cfg):
+    """The mean forcing of an ocean-only case: avges.nc, else zero."""
+    from .io import read_mean_forcing
+    avpath = os.path.join(case, "avges.nc")
+    if os.path.exists(avpath):
+        return read_mean_forcing(avpath)
+    from .generators import zero_forcing
+    print("no avges.nc in case dir; using zero mean forcing")
+    return zero_forcing(cfg)
+
+
+def cmd_ensemble(args):
+    """Perturbed-IC ensemble run (models/ensemble.py, beyond the
+    reference, which runs one trajectory per job): the members ride a
+    leading axis of one run, each substep's vorticity kernel one launch
+    for all of them; the spread series goes to ensemble.nc in the case's
+    outdata_ens directory (qgcm_tpu's schema)."""
+    import torch
+    from .io.ncdf import NcWriter
+    from .io.restart import load_restart
+    from .models.atmos import init_atmos_state
+    from .models.ensemble import (make_ensemble_runner,
+                                  perturbed_atmos_members,
+                                  perturbed_ocean_members, spread_rms)
+    from .models.ocean import init_ocean_state, ocean_forcing_from_mean
+
+    params, cfg, model = _case_model(args)
+    if cfg.atmos_only:
+        raise SystemExit("qgcm-torch ensemble supports ocean-only and "
+                         "coupled configurations")
+    outdir = args.outdir or os.path.join(args.case, "outdata_ens")
+    os.makedirs(outdir, exist_ok=True)
+    tini = 0.0
+    at0 = None
+    if params.name in ("zero", "rbal"):
+        oc0 = init_ocean_state(model, init=params.name)
+        if not cfg.ocean_only:
+            at0 = init_atmos_state(model, init=params.name)
+    else:
+        oc0, at0, tini = load_restart(params.name, model)
+
+    m = args.members
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    ocm = perturbed_ocean_members(model, oc0, gen, m, amp=args.amp)
+    kind = "ocean" if cfg.ocean_only else "coupled"
+    atm = None
+    if kind == "coupled":
+        atm = perturbed_atmos_members(model, at0, gen, m,
+                                      amp=10.0 * args.amp)
+    run = make_ensemble_runner(model, kind=kind)
+    forcing = None
+    if cfg.ocean_only:
+        forcing = ocean_forcing_from_mean(model,
+                                          *_case_forcing(args.case, cfg))
+
+    day = 86400.0
+    # the runner's own step unit: ocean substeps (dto) ocean-only,
+    # atmosphere steps (dta) coupled, in whole coupling cycles
+    dt = cfg.nstr * cfg.dta if cfg.ocean_only else cfg.dta
+    quantum = 1 if cfg.ocean_only else cfg.nstr
+    sample = max(quantum,
+                 round(args.sample_days * day / dt / quantum) * quantum)
+    # whole sampling intervals, as qgcm_tpu (whose jitted program would
+    # otherwise compile again for a short last chunk)
+    total = max(sample, round(args.days * day / dt / sample) * sample)
+
+    w = NcWriter(os.path.join(outdir, "ensemble.nc"))
+    w.dim("time", None)
+    w.dim("member", m)
+    w.var("tyrs", "d", ("time",), units="years")
+    w.var("spread_po", "d", ("time",), units="m^2/s^2",
+          long_name="RMS ensemble spread of ocean pressure")
+    w.var("spread_sst", "d", ("time",), units="K",
+          long_name="RMS ensemble spread of SST")
+    w.var("po_rms", "d", ("time", "member"), units="m^2/s^2",
+          long_name="per-member RMS ocean pressure")
+    if kind == "coupled":
+        w.var("spread_pa", "d", ("time",), units="m^2/s^2",
+              long_name="RMS ensemble spread of atmos pressure")
+
+    def record(rec, n_done):
+        t = tini + n_done * dt / (day * 365.0)
+        sp = spread_rms(ocm, "po")
+        sst_sp = spread_rms(ocm, "sst")
+        w.append("tyrs", rec, t)
+        w.append("spread_po", rec, sp)
+        w.append("spread_sst", rec, sst_sp)
+        # per-member RMS reduced on the device; one (m,) vector fetched
+        w.append("po_rms", rec, torch.sqrt(torch.mean(
+            torch.square(ocm.po), dim=(1, 2, 3))).cpu().numpy())
+        if atm is not None:
+            w.append("spread_pa", rec, spread_rms(atm, "pa"))
+        if not args.quiet:
+            print(f"t={t:9.5f}y  spread_po={sp:.3e}  "
+                  f"spread_sst={sst_sp:.3e}")
+        w.flush()
+
+    record(0, 0)
+    n_done, rec = 0, 1
+    while n_done < total:
+        n = min(sample, total - n_done)
+        if kind == "ocean":
+            ocm = run(ocm, forcing, n, n_done)
+        else:
+            ocm, atm = run(ocm, atm, n, n_done)
+        n_done += n
+        record(rec, n_done)
+        rec += 1
+    w.close()
+    print(f"wrote {outdir}/ensemble.nc ({rec} records, {m} members)")
+    return 0
+
+
+def _remat_arg(text: str):
+    """--remat: true | dots | false | an int (the nested fan-out)."""
+    remat = {"true": True, "dots": "dots", "false": False}.get(text)
+    return int(text) if remat is None else remat
+
+
+def cmd_sense(args):
+    """Adjoint sensitivity of a scalar objective to the mean forcing and
+    the initial condition (adjoint.py; no reference analogue), for
+    ocean-only cases: loads the case's initial state and avges.nc
+    forcing, runs --days of physics, differentiates the objective
+    through the whole run and writes the gradient fields to
+    sensitivity.nc in the case's outdata directory (qgcm_tpu's
+    schema)."""
+    from .adjoint import (layer1_energy_proxy, ocean_sensitivity,
+                          transport_proxy)
+    from .io.ncdf import make_writer
+    from .io.restart import load_restart
+    from .models.ocean import init_ocean_state
+    from .params import SECDAY
+
+    params, cfg, model = _case_model(args)
+    if not cfg.ocean_only:
+        raise SystemExit("qgcm-torch sense supports ocean-only cases "
+                         "(coupled adjoints: models/stepper "
+                         "make_coupled_runner(remat=True) + "
+                         "torch.autograd)")
+    if params.name in ("zero", "rbal"):
+        oc0 = init_ocean_state(model, init=params.name)
+    else:
+        oc0, _, _ = load_restart(params.name, model)
+    mf = _case_forcing(args.case, cfg)
+
+    n_steps = max(1, round(args.days * SECDAY / cfg.dto))
+    obj = (transport_proxy(model) if args.objective == "transport"
+           else layer1_energy_proxy(model))
+    print(f"objective={args.objective}, horizon {args.days} d = "
+          f"{n_steps} ocean steps, remat={args.remat}")
+    seg = 0
+    if args.segment_days:
+        seg = max(1, round(args.segment_days * SECDAY / cfg.dto))
+        if n_steps % seg:
+            raise SystemExit(
+                f"--segment-days: {args.days} days is not a multiple "
+                f"of {args.segment_days}-day segments")
+        print(f"host-level segments of {seg} steps "
+              f"({n_steps // seg} segments)")
+    sens = ocean_sensitivity(model, obj, remat=_remat_arg(args.remat),
+                             segment_steps=seg)
+    val, g = sens(oc0, mf, n_steps)
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    outdir = args.outdir or os.path.join(args.case, "outdata")
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "sensitivity.nc")
+    w = make_writer(path)
+    w.dim("xpo", cfg.nxpo); w.dim("ypo", cfg.nypo)
+    w.dim("xto", cfg.nxto); w.dim("yto", cfg.nyto)
+    w.dim("zo", cfg.nlo)
+    w.var("objective", "d", (), data=float(val))
+    w.var("dJ_dtauxo", "d", ("ypo", "xpo"), data=host(g.forcing[0]))
+    w.var("dJ_dtauyo", "d", ("ypo", "xpo"), data=host(g.forcing[1]))
+    w.var("dJ_dfnetoc", "d", ("yto", "xto"), data=host(g.forcing[2]))
+    w.var("dJ_dpo", "d", ("zo", "ypo", "xpo"), data=host(g.state0.po))
+    w.var("dJ_dsst", "d", ("yto", "xto"), data=host(g.state0.sst))
+    w.close()
+    gx = host(g.forcing[0])
+    print(f"objective value: {float(val):.6e}")
+    print(f"dJ/dtauxo: rms {float(np.sqrt(np.mean(gx**2))):.3e}, "
+          f"|max| {float(np.abs(gx).max()):.3e}")
+    print(f"wrote {path}")
+    return 0
+
+
+def _ensemble_summary(enspath):
+    """The spread series of an ensemble.nc: its growth rate from a
+    log-linear fit over the growing part of the curve, as e-folding and
+    doubling times."""
+    from scipy.io import netcdf_file
+    f = netcdf_file(enspath, mmap=False)
+    tyrs = np.asarray(f.variables["tyrs"][:], dtype=float)
+    sp = np.asarray(f.variables["spread_po"][:], dtype=float)
+    nm = f.dimensions["member"]
+    f.close()
+    print(f"ensemble.nc: {nm} members, {len(tyrs)} records, "
+          f"{(tyrs[-1] - tyrs[0]) * 365.0:.2f} days")
+    print(f"spread_po: {sp[0]:.3e} -> {sp[-1]:.3e} m^2/s^2")
+    # fit over the pre-saturation records only: those past ~70% of the
+    # peak spread sit on the plateau and bias the e-folding time long
+    onset = np.nonzero(sp >= 0.7 * sp.max())[0]
+    end = max(int(onset[0]) if len(onset) else len(sp), 3)
+    seg = (sp[:end] > 0)
+    if seg.sum() >= 3 and sp[-1] > sp[0] > 0:
+        days = (tyrs[:end][seg] - tyrs[0]) * 365.0
+        rate = np.polyfit(days, np.log(sp[:end][seg]), 1)[0]
+        if rate > 0:
+            print(f"e-folding time {1.0 / rate:.2f} days "
+                  f"(doubling {np.log(2.0) / rate:.2f} days, "
+                  f"fit over the first {end} records)")
+    return 0
+
+
+def _unify_chain(outdata):
+    """--chain: unify the monit series of a --resume segment chain
+    (outdata, outdata_r2, ...) into <case>/outdata_unified/; returns
+    that directory."""
+    import shutil
+    from .analysis import unify_monit
+    first = os.path.abspath(outdata)
+    case = os.path.dirname(first)
+    segs = [first] + sorted(
+        (os.path.join(case, n) for n in os.listdir(case)
+         if n.startswith("outdata_r")
+         and os.path.isdir(os.path.join(case, n))), key=_segnum)
+    skipped = [s for s in segs
+               if not os.path.exists(os.path.join(s, "monit.nc"))]
+    segs = [s for s in segs if s not in skipped]
+    for s in skipped:
+        print(f"(skipping {s}: no monit.nc -- monitoring was "
+              f"off for that segment)")
+    if not segs:
+        raise SystemExit("--chain: no segment has a monit.nc")
+    uni = os.path.join(case, "outdata_unified")
+    os.makedirs(uni, exist_ok=True)
+    unify_monit(segs, os.path.join(uni, "monit.nc"))
+    pm = os.path.join(segs[-1], "input_parameters.m")
+    if os.path.exists(pm):
+        shutil.copy(pm, uni)
+    print(f"unified {len(segs)} segments -> {uni}/monit.nc")
+    return uni
+
+
+def cmd_analyze(args):
+    """Energy/diagnostics summary from monit.nc (the checks the Ruby
+    layer runs: KE/PE series, constraint errors, CFL), plus the
+    derived-product files monit_energy.nc and sshmax_etc.nc; or the
+    spread series of an ensemble output directory. --chain first
+    unifies the monit series of a --resume segment chain
+    (qgcm_prep_k247.rb:5-12). Host code only: no model is built."""
+    from scipy.io import netcdf_file
+    enspath = os.path.join(args.outdata, "ensemble.nc")
+    if os.path.exists(enspath) and not os.path.exists(
+            os.path.join(args.outdata, "monit.nc")):
+        return _ensemble_summary(enspath)
+    if args.chain:
+        args.outdata = _unify_chain(args.outdata)
+    try:
+        from .analysis import QgcmData
+        qd = QgcmData(args.outdata)
+        print("wrote", qd.write_energy())
+        if os.path.exists(os.path.join(args.outdata, "ocpo.nc")):
+            print("wrote", qd.write_sshmax())
+        qd.energy_check(verbose=True)
+    except (OSError, KeyError, ValueError) as e:
+        print(f"(derived products skipped: {e})")
+
+    path = os.path.join(args.outdata, "monit.nc")
+    with netcdf_file(path, "r", mmap=False) as f:
+        t = f.variables["time"][:].copy()
+        print(f"monit.nc: {len(t)} records, t = {t[0]:.4f}.."
+              f"{t[-1]:.4f} years")
+
+        def series(name):
+            return (f.variables[name][:].copy()
+                    if name in f.variables else None)
+
+        for fluid, kname in (("ocean", "kealoc"), ("atmos", "kealat")):
+            ke = series(kname)
+            if ke is None:
+                continue
+            print(f"\n{fluid}: KE per layer (J/m^2)")
+            print("  first:", np.array2string(ke[0], precision=4))
+            print("  last: ", np.array2string(ke[-1], precision=4))
+        for name in ("utauoc", "btdgoc", "pkenoc", "utauat", "olrtop",
+                     "cnqgoc", "cnqgat", "cnmlat"):
+            s = series(name)
+            if s is not None:
+                print(f"{name}: mean={s.mean():.4e} last={s[-1]:.4e}")
+        for name in ("emfroc", "emfrat"):
+            s = series(name)
+            if s is not None:
+                worst = np.abs(s).max()
+                print(f"{name}: worst fractional error = {worst:.2e}")
     return 0
 
 
@@ -239,6 +565,10 @@ def main(argv=None):
                     help="honour cadences at any whole atmospheric "
                     "step instead of the reference's rounding to "
                     "whole coupling cycles (q-gcm.F:656-698)")
+    pr.add_argument("--profile", metavar="DIR", default=None,
+                    help="trace the third chunk with torch.profiler into "
+                    "DIR (trace.json) and print the time by kernel (card) "
+                    "or operator (CPU) per coupling cycle")
     add_grid(pr)
     pr.set_defaults(fn=cmd_run)
 
@@ -256,6 +586,61 @@ def main(argv=None):
     pp.add_argument("--tau0", type=float, default=2.0e-5)
     add_grid(pp)
     pp.set_defaults(fn=cmd_prepare)
+
+    pe = sub.add_parser("ensemble",
+                        help="perturbed-IC ensemble (predictability) "
+                             "run; writes a spread series to "
+                             "ensemble.nc")
+    pe.add_argument("case")
+    pe.add_argument("--members", type=int, default=8)
+    pe.add_argument("--amp", type=float, default=1e-3,
+                    help="RMS ocean pressure perturbation (m^2 s^-2; "
+                         "~0.1 per cm of SSH at mid-latitude f0)")
+    pe.add_argument("--seed", type=int, default=0,
+                    help="seed of the torch.Generator of the "
+                    "perturbations (torch draws other numbers than "
+                    "jax.random from the same seed)")
+    pe.add_argument("--days", type=float, default=10.0,
+                    help="run length (days)")
+    pe.add_argument("--sample-days", type=float, default=1.0,
+                    dest="sample_days",
+                    help="spread-series sampling interval (days)")
+    pe.add_argument("--outdir")
+    pe.add_argument("--quiet", action="store_true")
+    add_grid(pe)
+    pe.set_defaults(fn=cmd_ensemble)
+
+    ps = sub.add_parser("sense",
+                        help="adjoint sensitivity of an objective to "
+                        "forcing/IC (writes sensitivity.nc)")
+    ps.add_argument("case")
+    ps.add_argument("--objective", choices=["energy", "transport"],
+                    default="energy",
+                    help="scalar objective of the final state: "
+                    "'energy' = layer-1 KE density; 'transport' = "
+                    "zonal-mean layer-1 zonal transport (channels)")
+    ps.add_argument("--days", type=float, default=10.0,
+                    help="sensitivity horizon in model days")
+    ps.add_argument("--remat", default="true",
+                    help="backward-pass memory policy: true | dots | "
+                    "false | an integer nested-checkpoint fan-out")
+    ps.add_argument("--segment-days", type=float, default=0.0,
+                    dest="segment_days",
+                    help="host-level checkpointing: chain per-segment "
+                    "backward passes of this many days each, for "
+                    "horizons whose one-program backward exceeds the "
+                    "card's memory (must divide --days)")
+    ps.add_argument("--outdir")
+    add_grid(ps)
+    ps.set_defaults(fn=cmd_sense)
+
+    pa = sub.add_parser("analyze", help="summarise a run's monit.nc")
+    pa.add_argument("outdata")
+    pa.add_argument("--chain", action="store_true",
+                    help="unify a --resume segment chain (outdata, "
+                    "outdata_r2, ...) into <case>/outdata_unified "
+                    "first, then analyze the unified series")
+    pa.set_defaults(fn=cmd_analyze)
 
     args = ap.parse_args(argv)
     return args.fn(args)

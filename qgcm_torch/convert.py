@@ -5,6 +5,9 @@ AtmosForcing are handed over as a mapping of field name to NumPy array
 ({k: np.asarray(v) for k, v in st._asdict().items()}); they become
 the port's tensors on a given device (the card unless the caller asks
 for "cpu") and dtype.
+The state converters take qgcm_tpu's stacked ensemble members as they
+are (NumPy arrays with a leading member axis, models/ensemble.py), and
+`sensitivity_to_torch` its adjoint's OceanSensitivity.
 `to_numpy` goes back: a dict of NumPy arrays (in the tensors' dtype)
 keyed by field name, from which the JAX NamedTuple is rebuilt with
 `Cls(**d)`.
@@ -50,6 +53,19 @@ def atmos_forcing_to_torch(src: Mapping, device="cuda",
                            dtype=torch.float64) -> AtmosForcing:
     """AtmosForcing of tensors from {field: array}."""
     return _to_torch(AtmosForcing, src, device, dtype)
+
+
+def sensitivity_to_torch(src: Mapping, device="cuda",
+                         dtype=torch.float64):
+    """adjoint.OceanSensitivity of tensors from {"state0": {field:
+    array}, "forcing": (d/dtauxo, d/dtauyo, d/dfnetoc) arrays}."""
+    from .adjoint import OceanSensitivity
+    device = resolve_device(device)
+    return OceanSensitivity(
+        state0=state_to_torch(src["state0"], device, dtype),
+        forcing=tuple(torch.tensor(np.asarray(a)).to(device=device,
+                                                     dtype=dtype)
+                      for a in src["forcing"]))
 
 
 def to_numpy(nt: NamedTuple) -> dict:

@@ -17,6 +17,18 @@
 // In the window modes qom, wek, ent, r_spl and the output have the
 // output's (core) shape: the Pallas kernel's outputs on ghost rows were
 // discarded by every caller (halo.py:425, :578), so none is computed.
+// The full-field mode also steps the members of an ensemble in one
+// launch: `members` copies of the problem, each input with its own
+// member stride (0 for an input all members share, such as the wind's
+// Ekman pumping), the output members contiguous. The grid's z runs over
+// member x layer; a member's arithmetic is the single launch's, point
+// for point, whatever strip height the larger launch picks, so the
+// batched launch is bit for bit the per-member launches (qgcm_tpu could
+// not batch its Pallas kernel: Mosaic's batching corrupted members,
+// tests/test_pallas_qg.py:75). A launch of one member takes the
+// kernel's kBatched = false instance, whose addresses are those of the
+// single-member kernel: the member's offsets cost the float64 kernel
+// registers, and with them 16% of its time at 3x961^2.
 // One pass computes, per layer k and grid point,
 //   del2, del4 of the lagged pressure pom with mixed-BC walls (bcfac),
 //   del6 (zero on the edges), the Arakawa 9-point J(qo, po),
@@ -43,8 +55,8 @@
 // need only element alignment.
 //
 // The design. A block owns a strip kStripW outputs wide and strip_h rows
-// tall, for one layer (blockIdx.z), and marches down it one row per
-// iteration with one __syncthreads per row. Thread t owns the window
+// tall, for one layer of one member (blockIdx.z), and marches down it
+// one row per iteration with one __syncthreads per row. Thread t owns the window
 // columns 2t and 2t+1 (global columns c0 - 3 + 2t and the next) for the
 // whole march, so their wall and cyclic-wrap tests are made once; the
 // row tests of the S/N walls and the zonal rows are uniform across the
@@ -135,6 +147,11 @@ struct QgParams {
   // the global row and column of output (0, 0) and the global grid's
   // extent, on which the walls, the zonal rows and the padding key
   int row0, col0, ny_total, nx_total;
+  // members stepped (1 in the window modes), and each input's member
+  // stride in elements, in kernel-argument order (pom, po, qo, qom, wek,
+  // ent, rspl); 0 shares one copy among all members
+  int members;
+  int mstride[7];
   // dxm2, bcfac, adfac, 1/f0, 2dt, bdrfac, c1spl, beta*y0, beta*dy,
   // f0/H0, f0/H1
   double c[11];
@@ -232,7 +249,7 @@ __device__ __forceinline__ T jacobian(T qsw, T qs, T qse, T qw, T qe, T qnw,
          - pe * (qne - qse) + pw * (qnw - qsw);
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
               const T* __restrict__ qo, const T* __restrict__ qom,
@@ -252,7 +269,7 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   const bool cyclic = prm.cyclic != 0, sponge = prm.sponge != 0;
   const T dxm2 = cf.dxm2, bcfac = cf.bcfac;
 
-  const int k = blockIdx.z;
+  const int k = kBatched ? blockIdx.z % nl : blockIdx.z;   // layer
   // the layer's viscosities, selected without indexing the parameter
   // block (which would copy it to local memory)
   T ah2f = cf.ah2f[0], ah4f = cf.ah4f[0];
@@ -295,15 +312,19 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   // what they compute reaches no output
   const int wo = t > 0 ? -1 : 0, eo = t < kThreads - 1 ? 2 : 1;
 
-  // Element offsets are 32-bit: the launch checks nl * ny_in * nx_in <
-  // 2^31.
+  // Element offsets within a member are 32-bit: the launch checks
+  // nl * ny_in * nx_in < 2^31. A member's offsets are 64-bit.
   const int koff = k * ny * nx;
   const int kin = k * ny_in * nx_in;
-  const T* pom_k = pom + kin;
-  const T* po_k = po + kin;
-  const T* qo_k = qo + kin;
-  const T* qom_k = qom + koff;
-  T* out_k = out + koff;
+  const long long mm = kBatched ? blockIdx.z / nl : 0;     // member
+  const T* pom_k = pom + mm * prm.mstride[kPom] + kin;
+  const T* po_k = po + mm * prm.mstride[kPo] + kin;
+  const T* qo_k = qo + mm * prm.mstride[kQo] + kin;
+  const T* qom_k = qom + mm * prm.mstride[kQom] + koff;
+  const T* wek_m = wek + mm * prm.mstride[kWek];
+  const T* ent_m = ent + mm * prm.mstride[kEnt];
+  const T* rspl_m = rspl + mm * prm.mstride[kRspl];
+  T* out_k = out + mm * nl * ny * nx + koff;
   const unsigned my_sh =
       static_cast<unsigned>(__cvta_generic_to_shared(ring + x0));
   constexpr unsigned kRowB = kWindow * sizeof(T);
@@ -341,16 +362,16 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
       cp_async(sh + kQom * kFieldB, qom_k + off + pt0, writer[0]);
       cp_async(sh + kQom * kFieldB + kE, qom_k + off + pt1, writer[1]);
       if (k == 0) {
-        cp_async(sh + kWek * kFieldB, wek + off + pt0, writer[0]);
-        cp_async(sh + kWek * kFieldB + kE, wek + off + pt1, writer[1]);
+        cp_async(sh + kWek * kFieldB, wek_m + off + pt0, writer[0]);
+        cp_async(sh + kWek * kFieldB + kE, wek_m + off + pt1, writer[1]);
       }
       if (k <= 1) {
-        cp_async(sh + kEnt * kFieldB, ent + off + pt0, writer[0]);
-        cp_async(sh + kEnt * kFieldB + kE, ent + off + pt1, writer[1]);
+        cp_async(sh + kEnt * kFieldB, ent_m + off + pt0, writer[0]);
+        cp_async(sh + kEnt * kFieldB + kE, ent_m + off + pt1, writer[1]);
       }
       if (sponge) {
-        cp_async(sh + kRspl * kFieldB, rspl + off + pt0, writer[0]);
-        cp_async(sh + kRspl * kFieldB + kE, rspl + off + pt1, writer[1]);
+        cp_async(sh + kRspl * kFieldB, rspl_m + off + pt0, writer[0]);
+        cp_async(sh + kRspl * kFieldB + kE, rspl_m + off + pt1, writer[1]);
       }
     }
     cp_async_commit();
@@ -479,7 +500,7 @@ int smem_bytes(int sponge) {
 // Lets the kernel take `smem` bytes of dynamic shared memory on the
 // current device; the limit above 48 KB is raised once per device, not
 // per launch.
-template <typename T>
+template <typename T, bool kBatched>
 cudaError_t allow_smem(int smem) {
   constexpr int kMaxDevices = 64;
   static int smem_allowed[kMaxDevices];
@@ -487,7 +508,7 @@ cudaError_t allow_smem(int smem) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > smem_allowed[dev])) {
-    e = cudaFuncSetAttribute(qgstep_kernel<T>,
+    e = cudaFuncSetAttribute(qgstep_kernel<T, kBatched>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return e;
@@ -498,17 +519,17 @@ cudaError_t allow_smem(int smem) {
 
 // Blocks of the kernel that the current device holds at once: its SMs
 // times the blocks one SM fits (the occupancy calculator).
-template <typename T>
+template <typename T, bool kBatched>
 int resident_blocks(int sponge, int* blocks) {
   const int smem = smem_bytes<T>(sponge);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = allow_smem<T>(smem);
+  cudaError_t e = allow_smem<T, kBatched>(smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, qgstep_kernel<T>, kThreads, smem);
+        &per_sm, qgstep_kernel<T, kBatched>, kThreads, smem);
   *blocks = sms * per_sm;
   return (int)e;
 }
@@ -532,8 +553,12 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
       || p.strip_w != kStripW || p.strip_h < 1
       || p.strips_x != (p.nx + kStripW - 1) / kStripW
       || p.strips_y != (p.ny + p.strip_h - 1) / p.strip_h
-      || p.strips_y > 65535)
+      || p.strips_y > 65535
+      || p.members < 1 || (!full && p.members != 1)
+      || (long long)p.members * p.nl > 65535)
     return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < kStreams; ++i)
+    if (p.mstride[i] < 0) return (int)cudaErrorInvalidValue;
   // each product rounded in T, as the plain chain does it
   Coef<T> cf{};
   cf.dxm2 = T(p.c[0]);
@@ -552,11 +577,16 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
     cf.ah4f[k] = T(p.ah4[k]) * rfnot;
   }
   const int smem = smem_bytes<T>(p.sponge);
-  const cudaError_t e = allow_smem<T>(smem);
+  const dim3 grid(p.strips_x, p.strips_y, p.members * p.nl);
+  const cudaError_t e = p.members > 1 ? allow_smem<T, true>(smem)
+                                      : allow_smem<T, false>(smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(p.strips_x, p.strips_y, p.nl);
-  qgstep_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      pom, po, qo, qom, wek, ent, rspl, out, p, cf);
+  if (p.members > 1)
+    qgstep_kernel<T, true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        pom, po, qo, qom, wek, ent, rspl, out, p, cf);
+  else
+    qgstep_kernel<T, false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        pom, po, qo, qom, wek, ent, rspl, out, p, cf);
   return (int)cudaGetLastError();
 }
 
@@ -578,9 +608,12 @@ int qgstep_f64(const double* pom, const double* po, const double* qo,
   return launch<double>(pom, po, qo, qom, wek, ent, rspl, out, prm, stream);
 }
 
-int qgstep_resident_blocks(int f64, int sponge, int* blocks) {
-  return f64 ? resident_blocks<double>(sponge, blocks)
-             : resident_blocks<float>(sponge, blocks);
+int qgstep_resident_blocks(int f64, int sponge, int batched, int* blocks) {
+  if (f64)
+    return batched ? resident_blocks<double, true>(sponge, blocks)
+                   : resident_blocks<double, false>(sponge, blocks);
+  return batched ? resident_blocks<float, true>(sponge, blocks)
+                 : resident_blocks<float, false>(sponge, blocks);
 }
 
 }  // extern "C"

@@ -36,7 +36,11 @@ class NcWriter:
         if long_name is not None:
             v.long_name = long_name.encode()
         if data is not None:
-            v[:] = np.asarray(data, dtype=dtype)
+            data = np.asarray(data, dtype=dtype)
+            if dims:
+                v[:] = data
+            else:           # a scalar: scipy takes no slice of it
+                v.data[...] = data
         self.vars[name] = v
         return v
 
@@ -76,12 +80,12 @@ def host(x) -> np.ndarray:
 
 def read_var(path: str, name: str) -> np.ndarray:
     with netcdf_file(path, "r", mmap=False) as f:
-        return np.asarray(f.variables[name][:], dtype=np.float64)
+        return np.array(f.variables[name].data, dtype=np.float64)
 
 
 def read_vars(path: str, names) -> dict:
     out = {}
     with netcdf_file(path, "r", mmap=False) as f:
         for n in names:
-            out[n] = np.asarray(f.variables[n][:], dtype=np.float64)
+            out[n] = np.array(f.variables[n].data, dtype=np.float64)
     return out

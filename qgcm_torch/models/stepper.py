@@ -4,6 +4,13 @@
 The loops are plain Python; PyTorch runs each step's operations eagerly
 on the model's device, and nothing in a loop waits for the device.
 
+With `remat`, the ocean-only and coupled runners checkpoint their steps
+for reverse-mode differentiation (adjoint.py) with
+torch.utils.checkpoint, as qgcm_tpu's runners wrap their scans in
+jax.checkpoint: the backward pass keeps a bounded number of states and
+recomputes the steps between them. The forward values are the same
+with and without it.
+
 Leapfrog computational-mode suppression (q-gcm.F:1325-1366, 1370-1407):
 the current time level is averaged with the lagged one, x <- (x + xm)/2,
 after every ocean substep whose 0-based index n has n % 25 == 0, and
@@ -14,6 +21,12 @@ reference does.
 
 from __future__ import annotations
 
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
 from ..model import Model
 from ..state import AtmosState, OceanState, OceanForcing
 from .atmos import make_atmos_step
@@ -21,6 +34,65 @@ from .ocean import _as_field, make_ocean_step
 
 OCEAN_AVG_PERIOD = 25   # ocean substeps between time-level averagings
 ATMOS_AVG_PERIOD = 100  # atmos steps between averagings
+
+# Per-level fan-out of the nested checkpoints (qgcm_tpu/models/
+# stepper.py:82-90): a run of N units nests ceil(log_LEVEL N) levels, so
+# the backward pass keeps about levels x LEVEL states and recomputes each
+# level's chunks once.
+REMAT_LEVEL = 16
+
+# remat="dots" keeps the outputs of these operators, the matrix products
+# and FFTs of the spectral solves, and recomputes the rest: the
+# counterpart of qgcm_tpu's dots_saveable policy, which keeps the MXU
+# products.
+_DOTS = frozenset(getattr(torch.ops.aten, name) for name in (
+    "mm", "bmm", "addmm", "baddbmm", "_fft_r2c", "_fft_c2r", "_fft_c2c"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, dots: bool = False):
+    """fn under non-reentrant checkpointing (which nests); with `dots`
+    the products and FFTs are saved (_DOTS)."""
+    kw = {}
+    if dots:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda carry: checkpoint(fn, carry, use_reentrant=False, **kw)
+
+
+def remat_loop(body, carry, length: int, remat=False):
+    """`length` calls carry = body(carry), checkpointed as qgcm_tpu's
+    _remat_scan nests its scans (stepper.py:93-122). remat False: plain.
+    True, "dots" or an int >= 2 (the per-level fan-out, else
+    REMAT_LEVEL): each call of body is checkpointed ("dots": saving the
+    products and FFTs), and runs longer than a level are cut into
+    checkpointed chunks of `level` units, recursively."""
+    if not remat:
+        for _ in range(length):
+            carry = body(carry)
+        return carry
+    level = (remat if isinstance(remat, int) and not isinstance(remat, bool)
+             and remat >= 2 else REMAT_LEVEL)
+
+    def run(fn, carry, n):
+        if n > level:
+            chunks, n = divmod(n, level)
+
+            def chunk(c):
+                for _ in range(level):
+                    c = fn(c)
+                return c
+
+            carry = run(_checkpointed(chunk), carry, chunks)
+        for _ in range(n):
+            carry = fn(carry)
+        return carry
+
+    return run(_checkpointed(body, remat == "dots"), carry, length)
 
 
 def average_ocean_levels(st: OceanState) -> OceanState:
@@ -111,7 +183,7 @@ def make_atmos_segment(model: Model):
 
 
 def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
-                           spectral_variant=None):
+                           spectral_variant=None, remat=False):
     """Returns run(state, forcing, n_steps, step0=0) -> state.
 
     `step0` is the 0-based index of the first ocean substep taken by
@@ -129,19 +201,37 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
     with halo_variant=None, or with another spectral_variant, is
     qgcm_tpu's automatic GSPMD partitioning, which has no PyTorch
     counterpart: it raises. Without a mesh the two variants are not
-    read, as in qgcm_tpu."""
+    read, as in qgcm_tpu.
+
+    remat (remat_loop): False stores every step for a backward pass;
+    True, "dots" or an int checkpoints pairs of substeps, as qgcm_tpu's
+    scan body is a pair. A mesh runner takes no remat."""
     if mesh is None:
         head = make_cycle_head(model)
         nstr = model.cfg.nstr
 
         def run(state: OceanState, forcing: OceanForcing, n_steps: int,
                 step0: int = 0) -> OceanState:
-            for n in range(step0, step0 + n_steps):
-                state, _, _ = head(state, None, forcing, None, n * nstr)
-            return state
+            def one(state, n):
+                return head(state, None, forcing, None, n * nstr)[0]
+
+            def pair(carry):
+                state, n = carry
+                return one(one(state, n), n + 1), n + 2
+
+            if not remat:
+                for n in range(step0, step0 + n_steps):
+                    state = one(state, n)
+                return state
+            pairs, rem = divmod(n_steps, 2)
+            state, n = remat_loop(pair, (state, step0), pairs, remat)
+            return one(state, n) if rem else state
 
         return run
 
+    if remat:
+        raise ValueError("a mesh runner takes no remat: the distributed "
+                         "adjoint is not ported")
     if halo_variant is None or spectral_variant != "a2a":
         raise ValueError(
             "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
@@ -198,7 +288,7 @@ def make_atmos_only_runner(model: Model):
     return run
 
 
-def make_coupled_runner(model: Model):
+def make_coupled_runner(model: Model, remat=False):
     """Fully coupled ocean-atmosphere stepping (main loop
     q-gcm.F:1220-1491), one coupling cycle at a time: xforc from the
     lagged states, one ocean substep with dto = nstr*dta, then nstr
@@ -207,16 +297,21 @@ def make_coupled_runner(model: Model):
     Returns run(ocean, atmos, n_steps, step0=0) -> (ocean, atmos).
     `n_steps` counts ATMOSPHERIC steps; step0 keeps the coupling and
     averaging cadences aligned across chunks. Both are multiples of
-    nstr."""
+    nstr. remat (remat_loop) checkpoints whole coupling cycles."""
     head = make_cycle_head(model)
     segment = make_atmos_segment(model)
     nstr = model.cfg.nstr
 
+    def cycle(carry):
+        ocean, atmos, c = carry
+        ocean, _, afor = head(ocean, atmos, None, None, c * nstr)
+        return ocean, segment(atmos, afor, c * nstr, nstr), c + 1
+
     def run(ocean: OceanState, atmos: AtmosState, n_steps: int,
             step0: int = 0):
-        for c in _split_cycles(n_steps, step0, nstr):
-            ocean, _, afor = head(ocean, atmos, None, None, c * nstr)
-            atmos = segment(atmos, afor, c * nstr, nstr)
+        cycles = _split_cycles(n_steps, step0, nstr)
+        ocean, atmos, _ = remat_loop(cycle, (ocean, atmos, cycles.start),
+                                     len(cycles), remat)
         return ocean, atmos
 
     return run

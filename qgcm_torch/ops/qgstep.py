@@ -19,6 +19,7 @@ kernel or an exception.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -45,6 +46,9 @@ MAX_STRIP_H = 64
 # del6 is three nested 5-point stencils (kHalo in csrc/qgstep.cu)
 HALO = 3
 MODES = ("full", "rows", "x_ext")
+# the kernel's tensor inputs, in argument order (mstride in csrc/qgstep.cu)
+INPUT_NAMES = ("pom", "po", "qo", "qom", "wekpo", "entoc", "r_spl")
+N_INPUTS = len(INPUT_NAMES)
 
 
 def qgstep_reference(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
@@ -302,10 +306,10 @@ def window_reference(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
 
 
 class Geometry(NamedTuple):
-    """The kernel's launch geometry. Block (bx, by, k) of the grid
-    (strips_x, strips_y, nl) owns layer k, rows [by*strip_h,
-    min((by+1)*strip_h, ny)) and columns [bx*strip_w, min((bx+1)*strip_w,
-    nx)), as csrc/qgstep.cu computes them."""
+    """The kernel's launch geometry. Block (bx, by, z) of the grid
+    (strips_x, strips_y, members * nl) owns member z // nl, layer z % nl,
+    rows [by*strip_h, min((by+1)*strip_h, ny)) and columns [bx*strip_w,
+    min((bx+1)*strip_w, nx)), as csrc/qgstep.cu computes them."""
     strip_w: int
     strip_h: int
     strips_x: int
@@ -315,8 +319,9 @@ class Geometry(NamedTuple):
 def launch_geometry(nl: int, ny: int, nx: int, resident: int) -> Geometry:
     """Strips of STRIP_W columns, and of the fewest rows that keep the
     launch within one wave of `resident` blocks (those the card holds at
-    once), within [MIN_STRIP_H, MAX_STRIP_H]. The last strip of each
-    direction may be narrower or shorter."""
+    once), within [MIN_STRIP_H, MAX_STRIP_H]. `nl` counts the launch's
+    layers: members x layers. The last strip of each direction may be
+    narrower or shorter."""
     strips_x = -(-nx // STRIP_W)
     per_column = resident // (nl * strips_x)
     h = -(-ny // per_column) if per_column else MAX_STRIP_H
@@ -335,6 +340,8 @@ class _QgParams(ctypes.Structure):
                 ("gy", ctypes.c_int), ("gx", ctypes.c_int),
                 ("row0", ctypes.c_int), ("col0", ctypes.c_int),
                 ("ny_total", ctypes.c_int), ("nx_total", ctypes.c_int),
+                ("members", ctypes.c_int),
+                ("mstride", ctypes.c_int * N_INPUTS),
                 ("c", ctypes.c_double * N_CONSTS),
                 ("ah2", ctypes.c_double * MAX_LAYERS),
                 ("ah4", ctypes.c_double * MAX_LAYERS)]
@@ -351,20 +358,23 @@ def build_kernel():
                        + [ctypes.POINTER(_QgParams), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.cdll.qgstep_resident_blocks.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
     lib.cdll.qgstep_resident_blocks.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def resident_blocks(device: torch.device, dtype: torch.dtype,
-                    sponge: bool) -> int:
-    """Blocks of the kernel that the card holds at once, for this type and
-    sponge setting (the sponge's ring takes shared memory)."""
+                    sponge: bool, batched: bool = False) -> int:
+    """Blocks of the kernel that the card holds at once, for this type,
+    sponge setting (the sponge's ring takes shared memory) and instance
+    (one member, or several)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = build_kernel().cdll.qgstep_resident_blocks(
-            int(dtype == torch.float64), int(sponge), ctypes.byref(n))
+            int(dtype == torch.float64), int(sponge), int(batched),
+            ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"qgstep occupancy query failed: CUDA error {err}, "
                            f"{n.value} blocks")
@@ -372,16 +382,20 @@ def resident_blocks(device: torch.device, dtype: torch.dtype,
 
 
 def _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
-           sponge, window):
+           sponge, window, members=None):
     """Check the arguments; `window` is None for the full field, else
-    the (R, C) of the output, which qom and the planes take."""
+    the (R, C) of the output, which qom and the planes take. With
+    `members` (M) every field carries a leading member axis, (M, nl, ny,
+    nx) and planes (M, ny, nx), whose contiguity the launch checks."""
     fields = {"pom": pom, "po": po, "qo": qo}
     planes = {"wekpo": wekpo, "entoc": entoc}
     if sponge:
         planes["r_spl"] = r_spl
-    if pom.dim() != 3:
-        raise ValueError(f"pom must be (nl, ny, nx), got {tuple(pom.shape)}")
-    nl, ny, nx = pom.shape
+    lead = () if members is None else (members,)
+    if pom.dim() != 3 + len(lead):
+        raise ValueError(f"pom must be ({'[M,] ' if lead else ''}nl, ny, "
+                         f"nx), got {tuple(pom.shape)}")
+    nl, ny, nx = pom.shape[-3:]
     out = (ny, nx) if window is None else window
     if nl < 2 or min(out) < (3 if window is None else 1):
         raise ValueError(f"need nl >= 2 and a larger grid; got "
@@ -389,8 +403,8 @@ def _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
     for name, t in {**fields, "qom": qom, **planes}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-        want = ((nl, ny, nx) if name in fields
-                else (nl, *out) if name == "qom" else out)
+        want = lead + ((nl, ny, nx) if name in fields
+                       else (nl, *out) if name == "qom" else out)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {want}")
@@ -400,7 +414,7 @@ def _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
         if t.dtype != pom.dtype or t.device != pom.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, pom is "
                              f"{pom.dtype} on {pom.device}")
-        if not t.is_contiguous():
+        if members is None and not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     if len(consts) != N_CONSTS:
         raise ValueError(f"consts needs {N_CONSTS} values, got {len(consts)}")
@@ -408,66 +422,36 @@ def _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
         raise ValueError(f"ah2/ah4 need one value per layer (nl={nl})")
 
 
-def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
-           cyclic: bool, sponge: bool, row0=None, ny_total=None, col0=0,
-           nx_total=None, x_ext: bool = False):
-    """Fused vorticity leapfrog. `consts`: float tuple (dxm2, bcfac,
-    adfac, 1/f0, 2dt, bdrfac, c1spl, beta*y0, beta*dy, f0/H0, f0/H1);
-    ah2/ah4: per-layer floats; r_spl may be None without the sponge.
-    Returns qo_new with the zonal rows carrying the old qo.
+def _inner_contiguous(t) -> bool:
+    """Whether t is contiguous apart from its leading (member) axis."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
 
-    With `row0` (an int) the call is a window's (pallas_qg.py:227-244):
-    pom, po and qo are (nl, R+6, W) windows of 3 ghost rows each side
-    whose row 0 sits at global row `row0` of a grid `ny_total` rows
-    tall; qom, wekpo, entoc, r_spl and the result are the (nl, R, C)
-    core, whose rows at or beyond ny_total are padding (zero out). Row
-    mode: C = W, the grid's whole width. x_ext (box only): W = C + 6
-    with 3 real ghost columns each side, the core's column 0 at global
-    column `col0` of a grid `nx_total` wide (columns beyond are
-    padding)."""
-    window = None
-    mode = "full"
-    if row0 is not None:
-        mode = "x_ext" if x_ext else "rows"
-        if x_ext and cyclic:
-            raise ValueError("x_ext windows are for the box only")
-        if ny_total is None:
-            raise ValueError("a window needs ny_total")
-        ghost = 2 * HALO
-        if pom.dim() != 3 or pom.shape[1] <= ghost or (
-                x_ext and pom.shape[2] <= ghost):
-            raise ValueError(f"a window needs {HALO} ghost rows (and "
-                             f"x_ext columns) each side; got "
-                             f"{tuple(pom.shape)}")
-        window = (pom.shape[1] - ghost,
-                  pom.shape[2] - (ghost if x_ext else 0))
-        nx_total = window[1] if nx_total is None else nx_total
-        if not x_ext and (col0 != 0 or nx_total != window[1]):
-            raise ValueError("a row window spans the whole width")
-    elif x_ext or ny_total is not None or nx_total is not None or col0:
-        raise ValueError("window arguments need row0")
-    _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, sponge,
-           window)
-    if pom.device.type == "cpu":
-        if window is None:
-            return qgstep_reference(pom, po, qo, qom, wekpo, entoc, r_spl,
-                                    consts, ah2, ah4, cyclic=cyclic,
-                                    sponge=sponge)
-        return window_reference(pom, po, qo, qom, wekpo, entoc, r_spl,
-                                consts, ah2, ah4, cyclic=cyclic,
-                                sponge=sponge, row0=row0, ny_total=ny_total,
-                                col0=col0, nx_total=nx_total, x_ext=x_ext)
-    if pom.device.type != "cuda":
-        raise ValueError(f"qgstep runs on cuda or cpu, not {pom.device}")
 
-    nl, ny_in, nx_in = pom.shape
+def _launch(inputs, consts, ah2, ah4, cyclic, sponge, mode, window=None,
+            row0=None, ny_total=None, col0=0, nx_total=None, x_ext=False):
+    """Launch the kernel on CUDA tensors. `inputs` are (pom, po, qo, qom,
+    wekpo, entoc, r_spl) with a leading member axis of M (1 in the window
+    modes), each contiguous apart from it (the callers check); the member
+    stride is free (0 shares one copy among the members). Returns the
+    (M, nl, R, C) output and counts the launch."""
+    pom = inputs[0]
+    for name, t in zip(INPUT_NAMES, inputs):
+        if t is not None and t.shape[0] > 1 and not 0 <= t.stride(0) < 2**31:
+            raise ValueError(f"{name} has member stride {t.stride(0)}")
+    members, nl, ny_in, nx_in = pom.shape
     ny, nx = (ny_in, nx_in) if window is None else window
     if nl > MAX_LAYERS:
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, "
                          f"got {nl}")
     lib = build_kernel().cdll
-    geom = launch_geometry(nl, ny, nx,
-                           resident_blocks(pom.device, pom.dtype, sponge))
+    geom = launch_geometry(members * nl, ny, nx,
+                           resident_blocks(pom.device, pom.dtype, sponge,
+                                           members > 1))
     gy = 0 if window is None else HALO
     gx = HALO if x_ext else 0
     prm = _QgParams(nl=nl, ny=ny, nx=nx, cyclic=int(cyclic),
@@ -478,29 +462,237 @@ def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
                     row0=0 if window is None else int(row0) + HALO,
                     col0=int(col0),
                     ny_total=ny if window is None else int(ny_total),
-                    nx_total=nx if window is None else int(nx_total))
+                    nx_total=nx if window is None else int(nx_total),
+                    members=members)
+    prm.mstride[:] = [t.stride(0) if t is not None and members > 1 else 0
+                      for t in inputs]
     prm.c[:] = [float(c) for c in consts]
     prm.ah2[:nl] = [float(a) for a in ah2]
     prm.ah4[:nl] = [float(a) for a in ah4]
-    out = torch.empty((nl, ny, nx), dtype=pom.dtype, device=pom.device)
+    out = torch.empty((members, nl, ny, nx), dtype=pom.dtype,
+                      device=pom.device)
     fn = lib.qgstep_f32 if pom.dtype == torch.float32 else lib.qgstep_f64
     with torch.cuda.device(pom.device):
         stream = torch.cuda.current_stream(pom.device).cuda_stream
-        err = fn(pom.data_ptr(), po.data_ptr(), qo.data_ptr(),
-                 qom.data_ptr(), wekpo.data_ptr(), entoc.data_ptr(),
-                 r_spl.data_ptr() if sponge else None, out.data_ptr(),
-                 ctypes.byref(prm), stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in inputs),
+                 out.data_ptr(), ctypes.byref(prm), stream)
     if err != 0:
         raise RuntimeError(f"qgstep kernel launch failed: CUDA error {err}")
     qgstep.launches += 1
     qgstep.mode_launches[mode] += 1
+    qgstep.members += members
     return out
 
 
+def plain_members(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                  cyclic, sponge):
+    """The plain version of a member-batched step: qgstep_reference over
+    the leading member axis of every input (torch.func.vmap; one member
+    directly)."""
+    def one(*xs):
+        return qgstep_reference(*xs, consts, ah2, ah4, cyclic=cyclic,
+                                sponge=sponge)
+    if pom.shape[0] == 1:
+        return one(*(None if t is None else t[0] for t in (
+            pom, po, qo, qom, wekpo, entoc, r_spl))).unsqueeze(0)
+    dims = (0,) * 6 + (None if r_spl is None else 0,)
+    return torch.func.vmap(one, in_dims=dims)(pom, po, qo, qom, wekpo,
+                                              entoc, r_spl)
+
+
+def step_members(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                 cyclic, sponge):
+    """The member-batched full-field step: fields (M, nl, ny, nx), planes
+    (M, ny, nx), each contiguous apart from its member axis, whose stride
+    may be 0 (an input all members share). CUDA: one launch of the kernel
+    for all members. CPU: plain_members. Profiles name it
+    `qgcm_torch::qgstep`."""
+    inputs = (pom, po, qo, qom, wekpo, entoc, r_spl)
+    for name, t in zip(INPUT_NAMES, inputs):
+        if t is not None and not (t.is_contiguous() or _inner_contiguous(t)):
+            raise ValueError(f"{name} is not contiguous within a member")
+    with (torch.profiler.record_function("qgcm_torch::qgstep")
+          if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+        if pom.device.type == "cuda":
+            return _launch(inputs, consts, ah2, ah4, cyclic, sponge, "full")
+        return plain_members(*inputs, consts, ah2, ah4, cyclic, sponge)
+
+
+class _Step(torch.autograd.Function):
+    """step_members with its rules. Gradients (reverse and forward mode)
+    are those of plain_members, recomputed from the saved inputs, as
+    qgcm_tpu differentiates its op chain (qgcm_tpu/adjoint.py:89-98): on
+    the card the forward is the kernel and the backward the plain chain.
+    Under torch.func.vmap the batch axis folds into the member axis, so a
+    vmap over members is one launch whatever their number."""
+
+    @staticmethod
+    def forward(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                cyclic, sponge):
+        return step_members(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
+                            ah2, ah4, cyclic, sponge)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:N_INPUTS])
+        ctx.save_for_forward(*inputs[:N_INPUTS])
+        ctx.rest = inputs[N_INPUTS:]
+
+    @staticmethod
+    def _plain(ctx):
+        """(plain function of the differentiable inputs, those inputs)."""
+        saved = ctx.saved_tensors
+        primals = [t for t in saved if t is not None]
+        sponge_in = saved[-1] is not None
+
+        def fn(*xs):
+            return plain_members(*xs[:6], xs[6] if sponge_in else None,
+                                 *ctx.rest)
+        return fn, primals
+
+    @staticmethod
+    def backward(ctx, grad):
+        fn, primals = _Step._plain(ctx)
+        grads = list(torch.func.vjp(fn, *primals)[1](grad))
+        if len(grads) < N_INPUTS:
+            grads.append(None)
+        return (*grads, *(None,) * len(ctx.rest))
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        fn, primals = _Step._plain(ctx)
+        # forward-mode duals cannot be made of tensors whose elements
+        # share memory (a member stride of 0)
+        tans = [torch.zeros_like(p) if t is None else t.contiguous()
+                for p, t in zip(primals, tangents)]
+        return torch.func.jvp(fn, tuple(p.contiguous() for p in primals),
+                              tuple(tans))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        b = info.batch_size
+
+        def fold(x, d):
+            if x is None:
+                return None
+            x = x.movedim(d, 0) if d is not None else x.expand(b, *x.shape)
+            x = x.reshape(-1, *x.shape[2:])
+            return x if _inner_contiguous(x) else x.contiguous()
+
+        tensors = [fold(x, d) for x, d in zip(args[:N_INPUTS],
+                                              in_dims[:N_INPUTS])]
+        out = _Step.apply(*tensors, *args[N_INPUTS:])
+        return out.unflatten(0, (b, -1)), 0
+
+
+def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
+           cyclic: bool, sponge: bool, row0=None, ny_total=None, col0=0,
+           nx_total=None, x_ext: bool = False):
+    """Fused vorticity leapfrog. `consts`: float tuple (dxm2, bcfac,
+    adfac, 1/f0, 2dt, bdrfac, c1spl, beta*y0, beta*dy, f0/H0, f0/H1);
+    ah2/ah4: per-layer floats; r_spl may be None without the sponge.
+    Returns qo_new with the zonal rows carrying the old qo.
+
+    Members: pom, po, qo and qom of shape (M, nl, ny, nx) step M members
+    in one launch, the planes (wekpo, entoc, r_spl) either (M, ny, nx) or
+    (ny, nx), shared by all; the result is (M, nl, ny, nx). The full
+    field goes through step_members and its autograd and vmap rules
+    (_Step), so the step can be differentiated and vmapped: a vmap over
+    members is one launch too.
+
+    With `row0` (an int) the call is a window's (pallas_qg.py:227-244),
+    of one member:
+    pom, po and qo are (nl, R+6, W) windows of 3 ghost rows each side
+    whose row 0 sits at global row `row0` of a grid `ny_total` rows
+    tall; qom, wekpo, entoc, r_spl and the result are the (nl, R, C)
+    core, whose rows at or beyond ny_total are padding (zero out). Row
+    mode: C = W, the grid's whole width. x_ext (box only): W = C + 6
+    with 3 real ghost columns each side, the core's column 0 at global
+    column `col0` of a grid `nx_total` wide (columns beyond are
+    padding)."""
+    if row0 is None:
+        if x_ext or ny_total is not None or nx_total is not None or col0:
+            raise ValueError("window arguments need row0")
+        return _full(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
+                     ah4, cyclic, sponge)
+    mode = "x_ext" if x_ext else "rows"
+    if x_ext and cyclic:
+        raise ValueError("x_ext windows are for the box only")
+    if ny_total is None:
+        raise ValueError("a window needs ny_total")
+    ghost = 2 * HALO
+    if pom.dim() != 3 or pom.shape[1] <= ghost or (
+            x_ext and pom.shape[2] <= ghost):
+        raise ValueError(f"a window needs {HALO} ghost rows (and "
+                         f"x_ext columns) each side, and one member; "
+                         f"got {tuple(pom.shape)}")
+    window = (pom.shape[1] - ghost, pom.shape[2] - (ghost if x_ext else 0))
+    nx_total = window[1] if nx_total is None else nx_total
+    if not x_ext and (col0 != 0 or nx_total != window[1]):
+        raise ValueError("a row window spans the whole width")
+    _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, sponge,
+           window)
+    _device_ok(pom)
+    if pom.device.type == "cpu":
+        return window_reference(pom, po, qo, qom, wekpo, entoc, r_spl,
+                                consts, ah2, ah4, cyclic=cyclic,
+                                sponge=sponge, row0=row0, ny_total=ny_total,
+                                col0=col0, nx_total=nx_total, x_ext=x_ext)
+    inputs = [t.unsqueeze(0) if t is not None else None
+              for t in (pom, po, qo, qom, wekpo, entoc,
+                        r_spl if sponge else None)]
+    return _launch(inputs, consts, ah2, ah4, cyclic, sponge, mode, window,
+                   row0, ny_total, col0, nx_total, x_ext)[0]
+
+
+def _device_ok(pom):
+    if pom.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"qgstep runs on cuda or cpu, not {pom.device}")
+
+
+def _full(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, cyclic,
+          sponge):
+    """The full field, with one member or with M: through _Step where a
+    transform or autograd may see the step, else straight to
+    step_members, which checks contiguity within a member (under vmap a
+    tensor's layout is the batch's, not the caller's)."""
+    batched = pom.dim() == 4
+    r_spl = r_spl if sponge else None
+    fields = [pom, po, qo, qom]
+    planes = [wekpo, entoc, r_spl]
+    if not batched:
+        fields = [t.unsqueeze(0) if torch.is_tensor(t) else t
+                  for t in fields]
+    m = fields[0].shape[0]
+    planes = [t.expand(m, *t.shape) if torch.is_tensor(t) and t.dim() == 2
+              else t for t in planes]
+    _check(*fields, *planes, consts, ah2, ah4, sponge, None, m)
+    _device_ok(pom)
+    args = (*fields, *planes, [float(c) for c in consts],
+            [float(a) for a in ah2], [float(a) for a in ah4], bool(cyclic),
+            bool(sponge))
+    step = _Step.apply if _seen(fields + planes) else step_members
+    out = step(*args)
+    return out if batched else out[0]
+
+
+def _seen(tensors) -> bool:
+    """Whether the step must go through its rules (_Step): a torch.func
+    transform or a forward-mode AD level is active, or autograd would
+    record it. Otherwise the rules' bookkeeping is host time and
+    nothing more (about 60 us a call)."""
+    return (torch._C._functorch.maybe_current_level() is not None
+            or torch.autograd.forward_ad._current_level >= 0
+            or (torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad for t in tensors)))
+
+
 def reset_launches():
-    """Set qgstep's launch counts to zero."""
+    """Set qgstep's counts to zero: its launches, by mode, and the members
+    its full-field launches stepped."""
     qgstep.launches = 0
     qgstep.mode_launches = dict.fromkeys(MODES, 0)
+    qgstep.members = 0
 
 
 reset_launches()

@@ -27,8 +27,15 @@ reference's mod(ntdone, nout*) tests with ntdone = nt - nsteps0
 at the resume point. The coupling-cycle phase stays on the absolute
 step grid.
 
-Not ported: qgcm_tpu's device meshes, Orbax checkpoints and its
-jax.profiler hook; the constructor takes no such options.
+`profile_dir` (the CLI's --profile) traces the third chunk of the run
+with torch.profiler into that directory (trace.json, for a Chrome or
+Perfetto timeline) and prints the time of each kernel (on the card) or
+operator (on the CPU) per atmosphere step, from the profiler's
+key_averages; qgcm_tpu's summary of JAX traces (profiling.py) is not
+ported.
+
+Not ported: qgcm_tpu's device meshes and Orbax checkpoints; the
+constructor takes no such options.
 """
 
 from __future__ import annotations
@@ -114,7 +121,7 @@ class Driver:
                  areas_limits: str = None, qoc_diag: bool = False,
                  ocavg_days: float = 0.0, nscvoc: int = 4,
                  nscvat: int = 2, cadence_rounding: str = "cycles",
-                 avges_sampling: str = "mean"):
+                 avges_sampling: str = "mean", profile_dir: str = None):
         """cadence_rounding: "cycles" (default) rounds every cadence to a
         whole number of coupling cycles exactly like the reference
         (nint(days*secday/dto)*nstr, q-gcm.F:656-698); "exact" honours
@@ -208,6 +215,7 @@ class Driver:
             self.nprint, self.nrestart, self.ntavoc, self.ntavat,
             self.ncovoc, self.ncovat, self.nocavg]) or self.nsteps
         self.areas_limits = areas_limits
+        self.profile_dir = profile_dir
         self.qoc_diag = qoc_diag
         self.nscvoc, self.nscvat = nscvoc, nscvat
 
@@ -392,11 +400,19 @@ class Driver:
 
         aborted = False
         n_done = 0
+        # --profile: the third chunk, or the last of fewer
+        n_chunks = -(-self.nsteps // self.chunk)
+        prof_chunk = min(2, n_chunks - 1) if self.profile_dir else -1
+        prof = None
         t0 = time.time()
         while n_done < self.nsteps:
             n = min(self.chunk, self.nsteps - n_done)
             ts = time.perf_counter()
-            carry = self.advance(carry, n)
+            if n_done // self.chunk == prof_chunk:
+                prof, carry = self._profiled(carry, n)
+                prof_steps = n
+            else:
+                carry = self.advance(carry, n)
             _sync(model.device)
             te = time.perf_counter()
             self.seconds["steps"] += te - ts
@@ -513,14 +529,63 @@ class Driver:
             if wtr:
                 wtr.close()
         self.seconds["events"] += time.perf_counter() - te
+        if prof is not None:
+            self._log(profile_report(prof, prof_steps / cfg.nstr,
+                                     model.device, self.profile_dir))
         return RunResult(ocean=oc if has_oc else None,
                          atmos=at if has_at else None,
                          steps_done=n_done, tyrs=tyrs, aborted=aborted,
                          seconds=dict(self.seconds))
 
+    def _profiled(self, carry, n):
+        """advance(carry, n) under torch.profiler; the trace goes to
+        profile_dir/trace.json. Returns (profile, carry)."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            carry = self.advance(carry, n)
+            _sync(self.model.device)
+        prof.export_chrome_trace(os.path.join(self.profile_dir,
+                                              "trace.json"))
+        return prof, carry
+
     def _log(self, msg):
         if self.verbose:
             print(msg, flush=True)
+
+
+def profile_report(prof, cycles: float, device, where: str, top: int = 12):
+    """The profiled chunk's time by kernel (on the card: device time) or
+    by operator (on the CPU: self time on the host), per coupling cycle
+    (one ocean substep and nstr atmosphere steps), largest first, from
+    torch.profiler's key_averages: the `top` largest, then the port's
+    fused step wherever it ranks."""
+    on_card = device.type == "cuda"
+    events = prof.key_averages()
+    if on_card:
+        events = [e for e in events if e.device_type.name == "CUDA"]
+
+    def us(e):
+        if not on_card:
+            return e.self_cpu_time_total
+        # torch before 2.4 names the device time after CUDA
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in events if us(e) > 0]
+    total = sum(us(e) for e in events)
+    what = "device time by kernel" if on_card else "host self time by op"
+    lines = [f"profile of {cycles:g} cycles ({where}/trace.json): {what}, "
+             f"{total / 1e3 / cycles:.4f} ms/cycle in all"]
+    ranked = sorted(events, key=us, reverse=True)
+    for e in ranked[:top] + [e for e in ranked[top:] if "qgstep" in e.key]:
+        lines.append(f"  {us(e) / 1e3 / cycles:9.4f} ms/cycle "
+                     f"{100 * us(e) / max(total, 1e-30):5.1f}% "
+                     f"{e.count / cycles:7.2f} calls/cycle  {e.key[:80]}")
+    return "\n".join(lines)
 
 
 def run_case(params: RunParams, base_config, outdir: str,

@@ -204,7 +204,8 @@ def test_cadence_rounding(tmp_path):
     """Fortran NINT rounds half away from zero; a cadence that is not a
     whole number of coupling cycles warns with its rounded value, and an
     exact one stays silent; an odd midpoint interval is refused; the
-    options the port does not have are refused."""
+    options the port does not have are refused, and profile_dir (the
+    CLI's --profile) is taken."""
     assert [_nint(x) for x in (0.5, 1.5, 2.5, 2.4999)] == [1, 2, 3, 2]
     model = build_model(_coupled_base(torch_config), "cpu")
     kw = dict(trun=0.01 / 365.0, dta=180.0, nstr=3, dxo=20.0e3, odiday=0.0,
@@ -221,9 +222,11 @@ def test_cadence_rounding(tmp_path):
     with pytest.raises(ValueError, match="midpoint"):
         Driver(model, RunParams(**{**kw, "dtavat": 540.0 / DAY}),
                str(tmp_path / "c"), verbose=False, avges_sampling="midpoint")
-    for opt in ("mesh", "ckpt_format", "profile_dir"):
+    for opt in ("mesh", "ckpt_format"):
         with pytest.raises(TypeError):
             Driver(model, RunParams(**kw), str(tmp_path / "d"), **{opt: None})
+    assert Driver(model, RunParams(**kw), str(tmp_path / "e"),
+                  profile_dir=None).profile_dir is None
 
 
 def test_cli_prepare_run_resume(tmp_path, capsys):

@@ -211,7 +211,8 @@ def test_port_imports_no_jax():
             "import qgcm_torch.diags.monitor, qgcm_torch.diags.timavge\n"
             "import qgcm_torch.diags.covaria, qgcm_torch.diags.areas\n"
             "import qgcm_torch.diags.qocdiag, qgcm_torch.run\n"
-            "import qgcm_torch.cli\n"
+            "import qgcm_torch.cli, qgcm_torch.models.ensemble\n"
+            "import qgcm_torch.adjoint, qgcm_torch.analysis\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"
             "assert not bad, bad\n")
@@ -224,7 +225,7 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     """The entry points default to the card: without CUDA, a call that
     asks for it, or asks for no device, raises and runs nothing on the
     CPU. That holds for the Driver, run_case and the CLI's prepare and
-    run without --device too."""
+    run without --device too, and for ensemble and sense."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, cfg = cfg_pair("golden")
@@ -262,7 +263,9 @@ def test_cuda_device_without_cuda_raises(tmp_path):
                 call(*dev)
     (tmp_path / "case").mkdir()
     for argv in (["prepare", str(tmp_path / "case"), "--ocean-only"],
-                 ["run", str(tmp_path / "case"), "--ocean-only"]):
+                 ["run", str(tmp_path / "case"), "--ocean-only"],
+                 ["ensemble", str(tmp_path / "case"), "--ocean-only"],
+                 ["sense", str(tmp_path / "case"), "--ocean-only"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
     assert not os.listdir(tmp_path / "case")
