@@ -611,7 +611,7 @@ def round_trip(q, p, amat, yprel, dxm2, cfg, ddyn, kbot, cyclic):
     return ((q - q_re)[inner].abs().max() / q.abs().max()).item()
 
 
-def phase_coupled(device, card, preset):
+def phase_coupled(device, card, preset, keep=None):
     """A coupled path at full width in float32 through the public entry
     points: build_model -> init_ocean_state / init_atmos_state ('rbal',
     and a Gaussian eddy in the ocean's pressure) -> make_coupled_runner;
@@ -620,7 +620,9 @@ def phase_coupled(device, card, preset):
     launches, finite fields, the kernel against its plain version at
     the coupled state, both inversions' round trips, the continuity
     monitors, and in the channel the duplicate column. Returns the
-    path's entry of the kernels line."""
+    path's entry of the kernels line; `keep` (a dict) gets the final
+    states on the host and their atmosphere step (phase 18 starts
+    there)."""
     from qgcm_torch.coupling import make_xforc
     from qgcm_torch.generators import eddy_pressure
     from qgcm_torch.model import build_model
@@ -678,6 +680,8 @@ def phase_coupled(device, card, preset):
           f"cycles")
     profile_units(lambda: run(oc, at, PROFILE_CYCLES * nstr, step0=step0),
                   PROFILE_CYCLES, "cycle", card)
+    if keep is not None:
+        keep[preset.__name__] = (to_host(oc), to_host(at), step0)
 
     # each part of a cycle alone, from the run's last state
     xforc = make_xforc(model)
@@ -2061,14 +2065,17 @@ def worst_member_error(m, single, ensemble, fields):
                for ref, got, names in zip(single(i), ensemble(i), fields))
 
 
-def phase_ensemble(card, main, device):
+def phase_ensemble(card, main, device, keep=None):
     """The ensemble path at full width: 8 members of the main path's
     double gyre perturbed from phase 4's final state (amp 1e-3) for 50
     float32 substeps through make_ensemble_runner, each member held
     against its single-trajectory run; one qgstep launch a substep;
     launches, ms and the device's busy share beside phase 4's; 3 members
     of the golden box in float64 against their own runs; and the coupled
-    double gyre, 4 members for 5 cycles. Returns the paths' entries."""
+    double gyre, 4 members for 5 cycles. Returns the paths' entries.
+    `keep` (a dict) gets the 8 members' fingerprints (fingerprint) and
+    where their inputs went (phase 18 runs them again on a member
+    mesh)."""
     from qgcm_torch.config import double_gyre_coupled
     from qgcm_torch.generators import double_gyre_windstress, eddy_pressure
     from qgcm_torch.model import build_model
@@ -2108,6 +2115,34 @@ def phase_ensemble(card, main, device):
                              f"substeps of {m} members")
     if not all(bool(torch.isfinite(t).all()) for t in out):
         raise AssertionError("non-finite values in the ensemble")
+    if keep is not None:
+        # the same members in MESH_RANKS launches of a block each, as a
+        # member mesh of MESH_RANKS ranks steps them (phase 18): torch's
+        # sums over two or more dimensions order their adds by the
+        # number of outputs of the launch, so a member's bits depend on
+        # how many members share it
+        from pathlib import Path
+        path = Path(__file__).resolve().parent / MESH18_WORKDIR
+        path.mkdir(parents=True, exist_ok=True)
+        torch.save(dict(state=to_host(main["state"]), forcing=to_host(f),
+                        cfg=model.cfg, step0=step0, steps=n),
+                   path / "members.pt")
+        b = m // MESH_RANKS
+        blocks = [run_e(type(members)(*(t[i:i + b] for t in members)), f,
+                        n, step0) for i in range(0, m, b)]
+        keep["members"] = dict(file=str(path / "members.pt"), fp=[
+            [fingerprint(getattr(blk, k)[i]) for k in oc_fields]
+            for blk in blocks for i in range(b)])
+        by_block = worst_member_error(
+            m, lambda i: (member(out, i),),
+            lambda i: (member(blocks[i // b], i % b),), (oc_fields,))
+        print(f"  the same {m} members in {m // b} launches of {b}: worst "
+              f"member vs the {m}-member launch {by_block:.3e} of a field's "
+              f"max (bar {ENSEMBLE_F32_TOL:g})")
+        if not by_block <= ENSEMBLE_F32_TOL:
+            raise AssertionError("members stepped in blocks leave the "
+                                 "ensemble run")
+        del blocks
     run1 = make_ocean_only_runner(model)
     worst = worst_member_error(
         m, lambda i: (run1(member(members, i), f, n, step0),),
@@ -2507,6 +2542,375 @@ def phase_commands(card):
                              "qgstep kernel")
 
 
+# ----------------------------------------------------------------------
+# Phase 18: the decomposed coupled model, the Driver and the commands on
+# rows meshes, in MESH_RANKS ranks (mesh_backend)
+# ----------------------------------------------------------------------
+
+# where phase 15 leaves the ensemble's inputs and phase 18's ranks meet
+# (listed in .gitignore)
+MESH18_WORKDIR = "build/qgcm_torch/mesh_coupled"
+# cycles of the full-width coupled mesh runs from phases 7 and 8's final
+# states, and their warm-up cycles (not timed)
+COUPLED_MESH_CYCLES = {"double_gyre_coupled": (20, 2),
+                       "southern_ocean_coupled": (5, 1)}
+# the golden coupled box in float64 (phase 6's configuration) from the
+# radiative balance under an ocean eddy, with tau_udiff
+GOLDEN_MESH_CYCLES = 10
+# each segment of the CLI's mesh run: half of phase 10's resumed day
+MESH_DRIVER_SEGMENT_DAYS = 0.5
+MESH_DRIVER_CADENCES = dict(valday=0.25, dgnday=0.25, odiday=0.25,
+                            adiday=0.25, prtday=0.25, resday=0.5,
+                            dtavoc=0.25, dtavat=0.25, name="restart.nc")
+# the monit.nc series held against phase 10's single-device day at
+# RESUME_TOL (the others are printed): the energies of both fluids
+MESH_MONIT_HELD = ("kealoc", "kealat")
+# `ensemble --shard-members` on phase 10's case, float64, against the
+# command unsharded: every series of ensemble.nc within SHARD_TOL of its
+# maximum. A spread is the members' small difference (3.7e-4 m^2/s^2 in
+# phase 17 beside pressures of order 10), so the launches' other orders
+# of adds (phase 15) reach it magnified some 1e5 times: 1e-16 of the
+# fields becomes 1e-11 of the spread, and the bar leaves a margin of 100
+SHARD_MEMBERS = 8
+SHARD_DAYS = 0.125
+SHARD_SAMPLE_DAYS = 0.0625
+SHARD_TOL = 1e-9
+
+
+def to_host(tree):
+    """A NamedTuple of tensors copied to the host."""
+    return type(tree)(*(t.detach().cpu() if torch.is_tensor(t) else t
+                        for t in tree))
+
+
+def fingerprint(t: torch.Tensor) -> tuple:
+    """Two integer sums of a tensor's bits (its float words read as
+    integers, plain and weighted by position): equal for equal bits, and
+    all but never equal for tensors that differ anywhere."""
+    b = t.detach().contiguous().reshape(-1)
+    b = b.view(torch.int32 if b.element_size() == 4 else torch.int64)
+    b = b.to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521
+    return int(b.sum()), int((b * (w + 1)).sum())
+
+
+def _coupled_mesh_rank(tasks):
+    """What each rank of phase 18 runs, in order over the world group:
+    'runner' tasks step a coupled state on a rows mesh through the
+    decomposed coupled runner (rank 0 also runs the single-device runner
+    from the same state and compares); the 'members' task steps phase
+    15's members on a member mesh. Returns per task the rank's launches
+    by mode, collectives, staged MB and host ms per cycle, and its
+    atmosphere's fingerprints; rank 0 adds the errors (or the members'
+    fingerprints)."""
+    import torch.distributed as dist
+    from qgcm_torch.generators import eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ensemble import (ensemble_mesh,
+                                            make_ensemble_runner,
+                                            perturbed_ocean_members)
+    from qgcm_torch.models.ocean import init_ocean_state
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.mesh import gather_tree, make_mesh, shard_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()          # NCCL sets up its communicator here
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for task in tasks:
+        res = dict(task=task["label"])
+        if task["kind"] == "members":
+            saved = torch.load(task["file"], weights_only=False)
+            model = build_model(saved["cfg"], dev)
+            gen = torch.Generator(device=dev).manual_seed(15)
+            members = perturbed_ocean_members(
+                model, type(saved["state"])(*(t.to(dev) for t in
+                                              saved["state"])),
+                gen, task["members"], amp=ENSEMBLE_AMP)
+            forcing = type(saved["forcing"])(*(t.to(dev) for t in
+                                               saved["forcing"]))
+            mesh = ensemble_mesh()
+            reset_launches()
+            got = make_ensemble_runner(model, mesh=mesh)(
+                members, forcing, saved["steps"], saved["step0"])
+            res.update(launches=dict(qgstep.mode_launches),
+                       members_stepped=qgstep.members,
+                       counts=dict(mesh.counts))
+            if rank == 0:
+                res["fp"] = [[fingerprint(getattr(got, k)[i])
+                              for k in task["fields"]]
+                             for i in range(task["members"])]
+            out.append(res)
+            del model, members, got
+            torch.cuda.empty_cache()
+            continue
+        cfg = task["cfg"]
+        model = build_model(cfg, dev)
+        if task.get("state"):
+            oc, at, step0 = task["state"]
+            oc = type(oc)(*(t.to(dev) for t in oc))
+            at = type(at)(*(t.to(dev) for t in at))
+        else:
+            oc = init_ocean_state(model, init="rbal",
+                                  po=eddy_pressure(cfg, ssh_amp=0.1))
+            at, step0 = init_atmos_state(model, init="rbal"), 0
+        nstr = cfg.nstr
+        cycles, warm = task["cycles"], task["warm"]
+        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        run = make_coupled_runner(model, mesh=mesh, halo_variant="overlap",
+                                  spectral_variant="a2a")
+        ob, atb = run(shard_tree(oc, mesh), at, warm * nstr, step0=step0)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        mesh.counts.clear()
+        mesh.staged_bytes = 0
+        n = cycles - warm
+        t0 = time.perf_counter()
+        ob, atb = run(ob, atb, n * nstr, step0=step0 + warm * nstr)
+        torch.cuda.synchronize()
+        res.update(
+            launches=dict(qgstep.mode_launches),
+            launches_per_cycle={k: v / n for k, v in
+                                qgstep.mode_launches.items()},
+            counts={k: v / n for k, v in mesh.counts.items()},
+            staged_mb=mesh.staged_bytes / n / 1e6,
+            host_ms=(time.perf_counter() - t0) * 1e3 / n,
+            atmos_fp={k: fingerprint(v) for k, v in atb._asdict().items()})
+        full = gather_tree(ob, mesh)
+        if rank == 0:
+            ref_o, ref_a = make_coupled_runner(model)(oc, at, cycles * nstr,
+                                                      step0=step0)
+            res["errors"] = {**field_errors(ref_o, full, task["ocean"]),
+                             **field_errors(ref_a, atb, task["atmos"])}
+            res["finite"] = all(bool(torch.isfinite(t).all())
+                                for t in (*full, *atb))
+            if cfg.cyclic_ocean:
+                res["duplicate_column"] = torch.equal(full.po[..., -1],
+                                                      full.po[..., 0])
+            del ref_o, ref_a
+        out.append(res)
+        del model, oc, at, ob, atb, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def torchrun_cli(argv, backend, ranks=MESH_RANKS):
+    """`torchrun --standalone --nproc-per-node ranks -m qgcm_torch.cli
+    ARGV --dist-backend backend` from the repository's root, as a user
+    starts a decomposed run (torchrun gives the ranks their process
+    group's address, size and ranks on this host). Returns its standard
+    output; raises if any rank fails."""
+    import os
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks), "-m", "qgcm_torch.cli", *argv,
+           "--dist-backend", backend]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode:
+        print(run.stdout[-4000:] + run.stderr[-8000:], file=sys.stderr)
+        raise AssertionError(f"torchrun qgcm_torch.cli {argv[0]} exited "
+                             f"{run.returncode}")
+    return run.stdout
+
+
+def phase_coupled_mesh(card, states, members):
+    """The decomposed coupled model, the Driver and the commands on rows
+    meshes in MESH_RANKS ranks (mesh_backend): the golden coupled box in
+    float64 on 4 rows and double_gyre_coupled (20 cycles) and
+    southern_ocean_coupled (5 cycles) in float32 at full width from
+    phases 7 and 8's final states, each against the single-device coupled
+    runner from the same state, every rank's atmosphere the same bits;
+    phase 15's 8 members again on a member mesh of the ranks, bit for bit
+    phase 15's run of the same blocks of members; then through torchrun,
+    `run --mesh rows` on phase 10's case for half a day and `run
+    --resume` for another, against phase 10's single-device day, and
+    `ensemble --shard-members` in float64 against the same command
+    without it. Returns (the kernels line's launch counts by mode, the
+    row-window paths' entries, the member mode's)."""
+    import shutil
+    from pathlib import Path
+    from qgcm_torch.config import (OceanConfig, double_gyre_coupled,
+                                   southern_ocean_coupled)
+    from qgcm_torch.io.ncdf import read_vars
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parent
+    work = root / MESH18_WORKDIR / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ocean = ("po", "qo", "sst", "dpioc")
+    atmos = ("pa", "qa", "ast", "hmixa")
+    golden = double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8,
+                                 ndxr=4, dta=180.0, tau_udiff=True,
+                                 ocean=OceanConfig(dxo=20.0e3))
+    tasks = [dict(kind="runner", label="golden coupled box float64",
+                  cfg=golden, cycles=GOLDEN_MESH_CYCLES, warm=1,
+                  ocean=ocean, atmos=atmos, tol=MESH_F64_TOL)]
+    for preset in (double_gyre_coupled, southern_ocean_coupled):
+        cycles, warm = COUPLED_MESH_CYCLES[preset.__name__]
+        tasks.append(dict(kind="runner", label=f"{preset.__name__} float32",
+                          cfg=preset(dtype="float32"),
+                          state=states[preset.__name__], cycles=cycles,
+                          warm=warm, ocean=ocean, atmos=atmos,
+                          tol=MESH_F32_TOL))
+    tasks.append(dict(kind="members", label=f"{ENSEMBLE_MEMBERS} members of "
+                      "double_gyre_ocean_only on a member mesh",
+                      file=members["file"], members=ENSEMBLE_MEMBERS,
+                      fields=("po", "pom", "qo", "qom", "sst", "dpioc")))
+    backend, label = mesh_backend()
+    t0 = time.perf_counter()
+    results = spawn_ranks(_coupled_mesh_rank, MESH_RANKS, tasks,
+                          backend=backend, workdir=work, timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths, member_paths = [], []
+    for i, task in enumerate(tasks):
+        per_rank = [r[i] for r in results]
+        r0 = per_rank[0]
+        launches = {m: sum(pr["launches"].get(m, 0) for pr in per_rank)
+                    for m in totals}
+        if task["kind"] == "members":
+            same = r0["fp"] == members["fp"]
+            stepped = [pr["members_stepped"] for pr in per_rank]
+            print(f"  {task['label']}: {MESH_RANKS} ranks of "
+                  f"{ENSEMBLE_MEMBERS // MESH_RANKS} members, member-substeps "
+                  f"stepped per rank {stepped}, collectives of rank 0 "
+                  f"{r0['counts']}; every member bit for bit phase 15's "
+                  f"unsharded run of the same blocks: {same}")
+            if not same:
+                bad = [j for j, (a, b) in enumerate(zip(r0["fp"],
+                                                        members["fp"]))
+                       if a != b]
+                raise AssertionError(f"members {bad} on the member mesh are "
+                                     "not phase 15's bits")
+            # the member mode's path, not the row window's
+            member_paths.append(dict(path=task["label"],
+                                     launches=launches["full"],
+                                     members=sum(stepped), rel_err=0.0))
+            continue
+        for m in totals:
+            totals[m] += launches[m]
+        worst = max(r0["errors"].values())
+        same_atmos = all(pr["atmos_fp"] == r0["atmos_fp"]
+                         for pr in per_rank[1:])
+        print(f"  {task['label']}, overlap + a2a, {MESH_RANKS} ranks, "
+              f"{task['cycles']} cycles: errors vs the single-device coupled "
+              f"runner (max|diff|/max) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r0["errors"].items())
+              + f" (bar {task['tol']:g}); finite {r0['finite']}"
+              + (f"; duplicate column {r0['duplicate_column']}"
+                 if "duplicate_column" in r0 else "")
+              + f"; every rank's atmosphere the same bits: {same_atmos}")
+        print(f"    per rank per cycle: qgstep launches "
+              f"{r0['launches_per_cycle']}; collectives {r0['counts']}; "
+              f"{r0['staged_mb']:.3f} MB staged through the host; host "
+              f"{r0['host_ms']:.2f} ms/cycle (rank 0; max over ranks "
+              f"{max(p['host_ms'] for p in per_rank):.2f}) -- {label} "
+              f"[{card}]")
+        if not (r0["finite"] and r0.get("duplicate_column", True)
+                and same_atmos and worst <= task["tol"]):
+            raise AssertionError(f"{task['label']} misses the single-device "
+                                 "coupled runner")
+        if any(p["launches_per_cycle"].get("rows") != 3 for p in per_rank):
+            raise AssertionError(f"{task['label']}: expected 3 row-window "
+                                 "launches per rank per cycle")
+        paths.append(dict(path=f"coupled mesh {task['label']}",
+                          launches=launches, rel_err=worst,
+                          host_ms_per_rank_cycle=r0["host_ms"],
+                          staged_mb_per_cycle=r0["staged_mb"]))
+
+    # the CLI through torchrun: half a day, then --resume for another
+    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
+    single = root / CASES / "double_gyre_coupled_resume"
+    case = new_case("double_gyre_coupled_mesh",
+                    "examples/double_gyre_coupled/input.params",
+                    trun=MESH_DRIVER_SEGMENT_DAYS / 365.0,
+                    **MESH_DRIVER_CADENCES)
+    shutil.copy(single / "restart.nc", case / "restart.nc")
+    t0 = time.perf_counter()
+    logs = [torchrun_cli(["run", str(case), "--mesh", "rows"] + grid,
+                         backend)]
+    logs.append(torchrun_cli(["run", str(case), "--mesh", "rows",
+                              "--resume"] + grid, backend))
+    cli_s = time.perf_counter() - t0
+    for log in logs:
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith(("mesh:", "done:"))]
+        print("    " + "\n    ".join(lines))
+        if not any(ln.startswith("mesh: {'y': 4, 'x': 1}") for ln in lines):
+            raise AssertionError("run --mesh rows printed no mesh line")
+    want = lastday(single)
+    got = lastday(case, "outdata_r2")
+    errs = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
+            for k, v in want.items()}
+    m_want, dims = monit_series(single / "outdata" / "monit.nc")
+    m_got = [monit_series(case / seg / "monit.nc")[0]
+             for seg in ("outdata", "outdata_r2")]
+    monit = {}
+    for name, w in m_want.items():
+        if name == "time" or not dims[name] or dims[name][0] != "time":
+            continue
+        g = np.concatenate([m[name] for m in m_got])
+        monit[name] = float(np.abs(g - w).max()
+                            / max(np.abs(w).max(), 1e-30))
+    held = {k: monit[k] for k in MESH_MONIT_HELD}
+    rest = sorted(((v, k) for k, v in monit.items()
+                   if k not in MESH_MONIT_HELD), reverse=True)
+    print(f"  run --mesh rows, {MESH_DRIVER_SEGMENT_DAYS} + "
+          f"{MESH_DRIVER_SEGMENT_DAYS} days resumed, against phase 10's "
+          f"single-device day: lastday "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; monit.nc " + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
+          + f" (bar {RESUME_TOL:g}); {cli_s:.1f} s of torchrun [{card}]")
+    print("    largest monit.nc differences not held: "
+          + ", ".join(f"{k} {v:.3e}" for v, k in rest[:6]))
+    if not max(*errs.values(), *held.values()) <= RESUME_TOL:
+        raise AssertionError("the mesh CLI run parts from the single-device "
+                             "day")
+    files = sorted(p.name for p in (case / "outdata_r2").iterdir())
+    print(f"    files of the resumed segment (primary rank): "
+          f"{' '.join(files)}")
+
+    # ensemble --shard-members against the same command unsharded, in
+    # float64: the sharded members take other launches' sums than the
+    # unsharded ones (phase 15), and a spread is a small difference of
+    # large fields
+    case10 = root / CASES / "double_gyre_coupled"
+    ens = ["ensemble", str(case10), "--members", str(SHARD_MEMBERS),
+           "--days", str(SHARD_DAYS), "--sample-days",
+           str(SHARD_SAMPLE_DAYS), "--quiet", "--preset",
+           "double_gyre_coupled", "--dtype", "float64"]
+    t0 = time.perf_counter()
+    run_cli(ens + ["--outdir", str(case10 / "ens_single")])
+    log = torchrun_cli(ens + ["--outdir", str(case10 / "ens_sharded"),
+                              "--shard-members"], backend)
+    names = ["tyrs", "spread_po", "spread_sst", "po_rms", "spread_pa"]
+    a = read_vars(str(case10 / "ens_single" / "ensemble.nc"), names)
+    b = read_vars(str(case10 / "ens_sharded" / "ensemble.nc"), names)
+    errs = {k: float(np.abs(a[k] - b[k]).max() / np.abs(a[k]).max())
+            for k in names}
+    print(f"  ensemble --shard-members, {SHARD_MEMBERS} members of the "
+          f"coupled double gyre in float64 over {MESH_RANKS} ranks: "
+          f"'{log.strip().splitlines()[0]}'; ensemble.nc against the "
+          f"unsharded command, max|diff|/max: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bar {SHARD_TOL:g}); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    if not max(errs.values()) <= SHARD_TOL:
+        raise AssertionError("ensemble --shard-members leaves the unsharded "
+                             "ensemble")
+    return totals, paths, member_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -2545,11 +2949,13 @@ def main() -> int:
         phase_kernel_timing(card)
     with phase("[6] golden coupled box, float64, 30 steps on the card"):
         phase_golden_coupled(device)
+    states = {}       # phases 7 and 8's final states, for phase 18
     with phase("[7] coupled double gyre: double_gyre_coupled, float32"):
-        paths = [phase_coupled(device, card, double_gyre_coupled)]
+        paths = [phase_coupled(device, card, double_gyre_coupled, states)]
     with phase("[8] coupled southern-ocean channel: "
                "southern_ocean_coupled, float32"):
-        paths.append(phase_coupled(device, card, southern_ocean_coupled))
+        paths.append(phase_coupled(device, card, southern_ocean_coupled,
+                                   states))
     with phase("[9] ocean-only channels: southern_ocean_ocean_only, "
                "k247_default, float32"):
         # paths: [7] double gyre, [8] channel, [9] the two presets
@@ -2573,7 +2979,8 @@ def main() -> int:
     with phase(f"[15] ensembles at full width: {ENSEMBLE_MEMBERS} members "
                "of double_gyre_ocean_only, the golden box in float64, "
                f"{COUPLED_MEMBERS} of double_gyre_coupled"):
-        ens_paths = phase_ensemble(card, main_path, device)
+        kept = {}
+        ens_paths = phase_ensemble(card, main_path, device, kept)
     del main_path
     torch.cuda.empty_cache()
     with phase("[16] the adjoint at full width, float64, the kernel in its "
@@ -2581,6 +2988,13 @@ def main() -> int:
         adj_paths = phase_adjoint(card, device)
     with phase("[17] the commands: ensemble, analyze, sense, run --profile"):
         phase_commands(card)
+    with phase(f"[18] the decomposed coupled model, the Driver and the "
+               f"commands on rows meshes: {mesh_backend()[1]}"):
+        totals18, mesh_paths18, member_paths = phase_coupled_mesh(
+            card, states, kept["members"])
+    for mode in totals:
+        totals[mode] += totals18[mode]
+    mesh_paths += mesh_paths18
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
@@ -2589,7 +3003,7 @@ def main() -> int:
                        *adj_paths]
     # the member mode's launches: the ensemble path's (phase 15)
     members["launches"] = ens_paths[0]["launches"]
-    members["paths"] = ens_paths
+    members["paths"] = ens_paths + member_paths
     for mode in ("rows", "x_ext"):
         modes[mode]["launches"] = totals[mode]
         modes[mode]["paths"] = [

@@ -14,9 +14,10 @@ atmosphere, the air-sea coupling and the ocean-only, coupled and
 atmosphere-only runners (config, grids, modes, radiation, topography,
 both PV inversions, coupling, models/), ensembles and adjoint
 sensitivities (models/ensemble.py, adjoint.py), the experiment driver
-with its diagnostics, I/O, analysis and CLI, and the ocean-only runner
-on row blocks of a process group (parallel/). Importing this package
-never imports JAX.
+with its diagnostics, I/O, analysis and CLI, and, on row blocks of a
+process group (parallel/), the ocean-only and coupled runners, the
+Driver and the `run --mesh` and `ensemble --shard-members` commands.
+Importing this package never imports JAX.
 """
 
 from .config import (ModelConfig, OceanConfig, AtmosConfig,  # noqa: F401

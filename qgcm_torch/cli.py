@@ -20,15 +20,26 @@ compile-time parameters_data.F presets. The commands that build a
 model run on the card (--device cuda, the default) and raise without
 CUDA; pass --device cpu for the CPU. The configuration's dtype is kept
 as given on every device: the H100 runs complex128 FFTs, so unlike
-qgcm_tpu nothing turns float64 into float32. Not ported: qgcm_tpu's
---mesh and --ckpt-format, and ensemble --shard-members, which shards
-members over devices and waits for the multi-GPU runners
-(ROADMAP.md).
+qgcm_tpu nothing turns float64 into float32.
+
+`run --mesh auto|rows|hybrid|NYxNX` and `ensemble --shard-members` run
+in the ranks of a torch.distributed group, one process each, started by
+torchrun:
+
+    torchrun --nproc-per-node 4 -m qgcm_torch.cli run CASE --mesh rows
+    torchrun --nproc-per-node 2 -m qgcm_torch.cli run CASE --mesh rows \
+        --dist-backend gloo --device cpu
+
+--dist-backend names the group's backend: nccl (the default; each rank
+takes the card of its local rank) or gloo (the CPU, or ranks that share
+a card; the ranks run on --device). Only rows meshes are ported: NX > 1,
+and 'hybrid' on a box, raise. Not ported: --ckpt-format.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -63,6 +74,32 @@ def _base_config(args):
     return cfg.validate()
 
 
+@contextlib.contextmanager
+def _ranks(args, wanted: bool):
+    """The process group of a torchrun launch, when `wanted` (--mesh,
+    --shard-members): parallel/launch.distributed_session under the
+    named --dist-backend, never another. Under NCCL each rank runs on
+    its own card, cuda:LOCAL_RANK; under gloo on --device. Outside
+    torchrun there is one rank and no group."""
+    if not wanted:
+        yield
+        return
+    import torch
+    import torch.distributed as dist
+    from .parallel.launch import distributed_session
+    with distributed_session(args.dist_backend):
+        if dist.is_initialized() and args.dist_backend == "nccl":
+            args.device = f"cuda:{torch.cuda.current_device()}"
+        yield
+
+
+def _say(*a, **kw):
+    """print, on the primary rank only."""
+    from .parallel.launch import is_primary
+    if is_primary():
+        print(*a, **kw)
+
+
 def _segnum(d):
     try:
         return int(os.path.basename(d).split("outdata_r")[1])
@@ -71,6 +108,11 @@ def _segnum(d):
 
 
 def cmd_run(args):
+    with _ranks(args, args.mesh is not None):
+        return _run(args)
+
+
+def _run(args):
     from .params import parse_input_params, RunParams
     from .run import run_case
     from .io import read_mean_forcing, read_mean_sst
@@ -118,7 +160,7 @@ def cmd_run(args):
                 f"--resume: --outdir {outdir} is the segment being "
                 f"resumed from; pick a fresh directory (or omit "
                 f"--outdir for automatic outdata_rK segments)")
-        print(f"resuming from {params.name} -> {outdir}")
+        _say(f"resuming from {params.name} -> {outdir}")
 
     mean_forcing = None
     sst_mean = None
@@ -128,10 +170,20 @@ def cmd_run(args):
             mean_forcing = read_mean_forcing(avpath)
         else:
             from .generators import zero_forcing
-            print("no avges.nc in case dir; using zero mean forcing")
+            _say("no avges.nc in case dir; using zero mean forcing")
             mean_forcing = zero_forcing(cfg)
     if cfg.atmos_only:
         sst_mean = read_mean_sst(avpath)
+
+    mesh = None
+    if args.mesh:
+        from .params import params_to_config
+        from .parallel.mesh import mesh_from_spec
+        grid = params_to_config(params, cfg)
+        mesh = mesh_from_spec(args.mesh, grid.cyclic_ocean,
+                              (grid.nypo, grid.nxpo))
+        _say(f"mesh: {{'y': {mesh.my}, 'x': {mesh.mx}}} over {mesh.size} "
+             "devices (a2a spectral solvers)")
 
     res = run_case(params, cfg, outdir, sst_mean=sst_mean,
                    mean_forcing=mean_forcing, verbose=not args.quiet,
@@ -139,8 +191,8 @@ def cmd_run(args):
                    ocavg_days=args.ocavg_days,
                    cadence_rounding="exact" if args.exact_cadences
                    else "cycles", avges_sampling=args.avges_sampling,
-                   profile_dir=args.profile)
-    print(f"done: {res.steps_done} steps, t={res.tyrs:.4f} years; "
+                   profile_dir=args.profile, mesh=mesh)
+    _say(f"done: {res.steps_done} steps, t={res.tyrs:.4f} years; "
           f"{res.seconds['steps']:.4f} s stepping, "
           f"{res.seconds['events']:.4f} s in cadence events"
           + (" [ABORTED ON VALIDITY FAILURE]" if res.aborted else ""))
@@ -222,18 +274,26 @@ def _case_forcing(case, cfg):
 
 
 def cmd_ensemble(args):
+    with _ranks(args, args.shard_members):
+        return _ensemble(args)
+
+
+def _ensemble(args):
     """Perturbed-IC ensemble run (models/ensemble.py, beyond the
     reference, which runs one trajectory per job): the members ride a
     leading axis of one run, each substep's vorticity kernel one launch
     for all of them; the spread series goes to ensemble.nc in the case's
-    outdata_ens directory (qgcm_tpu's schema)."""
+    outdata_ens directory (qgcm_tpu's schema). --shard-members deals the
+    members out over the ranks (qgcm_tpu's gcd rule, cli.py:300-315),
+    each stepping its block; the primary rank writes."""
+    import math
     import torch
-    from .io.ncdf import NcWriter
+    import torch.distributed as dist
     from .io.restart import load_restart
     from .models.atmos import init_atmos_state
-    from .models.ensemble import (make_ensemble_runner,
+    from .models.ensemble import (ensemble_mesh, make_ensemble_runner,
                                   perturbed_atmos_members,
-                                  perturbed_ocean_members, spread_rms)
+                                  perturbed_ocean_members)
     from .models.ocean import init_ocean_state, ocean_forcing_from_mean
 
     params, cfg, model = _case_model(args)
@@ -241,7 +301,6 @@ def cmd_ensemble(args):
         raise SystemExit("qgcm-torch ensemble supports ocean-only and "
                          "coupled configurations")
     outdir = args.outdir or os.path.join(args.case, "outdata_ens")
-    os.makedirs(outdir, exist_ok=True)
     tini = 0.0
     at0 = None
     if params.name in ("zero", "rbal"):
@@ -259,7 +318,23 @@ def cmd_ensemble(args):
     if kind == "coupled":
         atm = perturbed_atmos_members(model, at0, gen, m,
                                       amp=10.0 * args.amp)
-    run = make_ensemble_runner(model, kind=kind)
+    mesh = None
+    if args.shard_members:
+        ndev = dist.get_world_size() if dist.is_initialized() else 1
+        nd = math.gcd(m, ndev)
+        if nd == 1 and ndev > 1:
+            raise SystemExit(
+                f"--shard-members: {m} members share no factor with "
+                f"{ndev} devices -- pick a member count that is a "
+                f"multiple of the device count")
+        if nd < ndev:
+            _say(f"warning: {m} members is not a multiple of {ndev} "
+                 f"devices; sharding over only {nd} device(s)")
+        mesh = ensemble_mesh(nd)
+        _say(f"sharding {m} members over {nd} device(s)")
+        if mesh is None:
+            return 0            # a rank outside the member mesh
+    run = make_ensemble_runner(model, kind=kind, mesh=mesh)
     forcing = None
     if cfg.ocean_only:
         forcing = ocean_forcing_from_mean(model,
@@ -276,6 +351,34 @@ def cmd_ensemble(args):
     # otherwise compile again for a short last chunk)
     total = max(sample, round(args.days * day / dt / sample) * sample)
 
+    record, close = _spread_writer(args, kind, m, outdir, tini, dt, day)
+    record(ocm, atm, 0, 0)
+    n_done, rec = 0, 1
+    while n_done < total:
+        n = min(sample, total - n_done)
+        if kind == "ocean":
+            ocm = run(ocm, forcing, n, n_done)
+        else:
+            ocm, atm = run(ocm, atm, n, n_done)
+        n_done += n
+        record(ocm, atm, rec, n_done)
+        rec += 1
+    close()
+    _say(f"wrote {outdir}/ensemble.nc ({rec} records, {m} members)")
+    return 0
+
+
+def _spread_writer(args, kind, m, outdir, tini, dt, day):
+    """(record, close): record(ocm, atm, rec, n_done) writes one record
+    of the spread series of the whole ensemble to ensemble.nc (qgcm_tpu's
+    schema) on the primary rank, and does nothing on the others."""
+    import torch
+    from .io.ncdf import NcWriter
+    from .models.ensemble import spread_rms
+    from .parallel.launch import is_primary
+    if not is_primary():
+        return (lambda *a: None), (lambda: None)
+    os.makedirs(outdir, exist_ok=True)
     w = NcWriter(os.path.join(outdir, "ensemble.nc"))
     w.dim("time", None)
     w.dim("member", m)
@@ -290,7 +393,7 @@ def cmd_ensemble(args):
         w.var("spread_pa", "d", ("time",), units="m^2/s^2",
               long_name="RMS ensemble spread of atmos pressure")
 
-    def record(rec, n_done):
+    def record(ocm, atm, rec, n_done):
         t = tini + n_done * dt / (day * 365.0)
         sp = spread_rms(ocm, "po")
         sst_sp = spread_rms(ocm, "sst")
@@ -307,20 +410,7 @@ def cmd_ensemble(args):
                   f"spread_sst={sst_sp:.3e}")
         w.flush()
 
-    record(0, 0)
-    n_done, rec = 0, 1
-    while n_done < total:
-        n = min(sample, total - n_done)
-        if kind == "ocean":
-            ocm = run(ocm, forcing, n, n_done)
-        else:
-            ocm, atm = run(ocm, atm, n, n_done)
-        n_done += n
-        record(rec, n_done)
-        rec += 1
-    w.close()
-    print(f"wrote {outdir}/ensemble.nc ({rec} records, {m} members)")
-    return 0
+    return record, w.close
 
 
 def _remat_arg(text: str):
@@ -537,6 +627,14 @@ def main(argv=None):
                        help="torch device to run on: 'cuda' (default; "
                        "raises without CUDA), 'cuda:N' or 'cpu'")
 
+    def add_dist(p):
+        p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                       default="nccl", dest="dist_backend",
+                       help="the process group's backend under torchrun: "
+                       "nccl (default; each rank on the card of its local "
+                       "rank) or gloo (the CPU, or ranks sharing a card, "
+                       "on --device)")
+
     pr = sub.add_parser("run", help="run an experiment case")
     pr.add_argument("case")
     pr.add_argument("--outdir")
@@ -569,6 +667,13 @@ def main(argv=None):
                     help="trace the third chunk with torch.profiler into "
                     "DIR (trace.json) and print the time by kernel (card) "
                     "or operator (CPU) per coupling cycle")
+    pr.add_argument("--mesh", default=None, metavar="auto|rows|hybrid|NYxNX",
+                    help="run decomposed over the ranks of a torchrun "
+                    "launch: 'auto'/'rows' (row blocks, the ported "
+                    "layout), 'hybrid' (hosts on y, a host's ranks on x: "
+                    "rows in a channel), or NYxNX; NX > 1 needs the 2-D "
+                    "runner, not ported yet, and raises")
+    add_dist(pr)
     add_grid(pr)
     pr.set_defaults(fn=cmd_run)
 
@@ -605,8 +710,14 @@ def main(argv=None):
     pe.add_argument("--sample-days", type=float, default=1.0,
                     dest="sample_days",
                     help="spread-series sampling interval (days)")
+    pe.add_argument("--shard-members", action="store_true",
+                    dest="shard_members",
+                    help="deal the members out over the ranks of a "
+                    "torchrun launch, each stepping its block with no "
+                    "collective (members a multiple of the ranks)")
     pe.add_argument("--outdir")
     pe.add_argument("--quiet", action="store_true")
+    add_dist(pe)
     add_grid(pe)
     pe.set_defaults(fn=cmd_ensemble)
 

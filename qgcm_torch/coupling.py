@@ -1,5 +1,5 @@
 """Air-sea coupling: the xforc forcing computation (port of
-qgcm_tpu/coupling.py, single-device form).
+qgcm_tpu/coupling.py), on one device or on the ocean's row blocks.
 
 Replaces reference src/xfosubs.F. From the lagged model states xforc
 computes the windstress on the ocean-resolution atmospheric grid by
@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .grids import Grids
@@ -279,39 +280,65 @@ def _band_refine(taps_rows: torch.Tensor, factors) -> torch.Tensor:
 
 
 def bicubic_refine_uv(coup: Coupling, u1at: torch.Tensor,
-                      v1at: torch.Tensor, ndxr: int):
+                      v1at: torch.Tensor, ndxr: int, lo: int = 0,
+                      hi: int = None):
     """Refine coarse p-grid velocities (nypa, nxpa) to the
-    ocean-resolution atmospheric p grid (nypaor, nxpaor): x-refine the
-    coarse rows first, then contract the y taps band-wise. The east
-    column repeats the west one."""
+    ocean-resolution atmospheric p grid (nypaor, nxpaor), or to its rows
+    [lo, hi) only: x-refine the coarse rows that those rows' bands read,
+    then contract the y taps band-wise. Band b holds the fine rows
+    [b*ndxr, (b+1)*ndxr); the south band (b = 0) and the north band (b =
+    nyta-1, one row taller) take the wall weights, every band between
+    them reads coarse rows b-1 .. b+2. A row is the same arithmetic
+    whatever [lo, hi). The east column repeats the west one."""
     nypa = u1at.shape[0]
     nyta = nypa - 1
+    hi = nyta * ndxr + 1 if hi is None else hi
     U = _xtaps(u1at[:, :-1])                   # (nypa, nxta, 4)
     V = _xtaps(v1at[:, :-1])
     wy_b, wx_b = coup.w_bbb                    # rank 1
     wyv = wy_b[:, :, 0]
+    parts = []      # (first fine row, u rows, v rows) of each band range
+    if lo < ndxr:
+        # south band (jc0 = 0): u pads jd=-1 with zeros, v pads with wall u
+        parts.append((0, _band_refine(torch.cat([torch.zeros_like(U[:1]),
+                                                 U[0:3]]), coup.w_us),
+                      _band_refine(torch.cat([U[0:1], V[0:3]]), coup.w_vs)))
+    b0, b1 = max(1, lo // ndxr), min(nyta - 2, (hi - 1) // ndxr)
+    if b0 <= b1:
+        def general(T):
+            # the d-th y-tap of band b: x-refined coarse row b-1+d
+            X = _xrefine(T[b0 - 1:b1 + 3], wx_b[0])
+            S = torch.stack([X[d:d + b1 - b0 + 1] for d in range(4)], dim=0)
+            g = torch.einsum("dzm,dj->zjm", S, wyv)
+            return g.reshape(-1, g.shape[-1])
 
-    def general(T):
-        # d-th y-tap of interior bands 1..nyta-2: x-refined rows band-1+d
-        X = torch.nn.functional.pad(_xrefine(T, wx_b[0]), (0, 0, 1, 1))
-        S = torch.stack([X[d + 1:d + nyta - 1] for d in range(4)], dim=0)
-        g = torch.einsum("dzm,dj->zjm", S, wyv)
-        return g.reshape(-1, g.shape[-1])
+        parts.append((b0 * ndxr, general(U), general(V)))
+    if hi > (nyta - 1) * ndxr:
+        # north band (jc0 = nyta-1): jd=+2 slot: zeros for u, wall u for v
+        parts.append(((nyta - 1) * ndxr,
+                      _band_refine(torch.cat([U[nyta - 2:nyta + 1],
+                                              torch.zeros_like(U[:1])]),
+                                   coup.w_un),
+                      _band_refine(torch.cat([V[nyta - 2:nyta + 1],
+                                              U[nypa - 1:nypa]]), coup.w_vn)))
+    start = parts[0][0]
+    out = []
+    for k in (1, 2):
+        f = torch.cat([p[k] for p in parts])[lo - start:hi - start]
+        out.append(torch.cat([f, f[:, :1]], dim=1))
+    return tuple(out)
 
-    # south band (jc0 = 0): u pads jd=-1 with zeros, v pads with wall u
-    sou_u = _band_refine(torch.cat([torch.zeros_like(U[:1]), U[0:3]]),
-                         coup.w_us)
-    sou_v = _band_refine(torch.cat([U[0:1], V[0:3]]), coup.w_vs)
-    # north band (jc0 = nyta-1): jd=+2 slot: zeros for u, wall u for v
-    nor_u = _band_refine(torch.cat([U[nyta - 2:nyta + 1],
-                                    torch.zeros_like(U[:1])]), coup.w_un)
-    nor_v = _band_refine(torch.cat([V[nyta - 2:nyta + 1],
-                                    U[nypa - 1:nypa]]), coup.w_vn)
 
-    ufin = torch.cat([sou_u, general(U), nor_u])
-    vfin = torch.cat([sou_v, general(V), nor_v])
-    return (torch.cat([ufin, ufin[:, :1]], dim=1),
-            torch.cat([vfin, vfin[:, :1]], dim=1))
+def bicubic_refine_window(coup: Coupling, u1at: torch.Tensor,
+                          v1at: torch.Tensor, cfg):
+    """The refinement on the ocean's window of the fine grid only,
+    (nypo, nxpo) (qgcm_tpu's bicubic_refine_window, whose mesh xforc
+    recomputes the ocean's windstress so because GSPMD would gather a
+    slice of its sharded fine grid). The port's decomposed xforc slices
+    its own row block instead (make_xforc)."""
+    r0, c0 = (cfg.ny1 - 1) * cfg.ndxr, (cfg.nx1 - 1) * cfg.ndxr
+    return tuple(f[:, c0:c0 + cfg.nxpo] for f in bicubic_refine_uv(
+        coup, u1at, v1at, cfg.ndxr, r0, r0 + cfg.nypo))
 
 
 # ----------------------------------------------------------------------
@@ -334,29 +361,43 @@ def _block_sums(x: torch.Tensor, k: int, ny: int, nx: int) -> torch.Tensor:
     return x[:ny * k, :nx * k].reshape(ny, k, nx, k).sum((1, 3))
 
 
-def _box_sums(f: torch.Tensor, ndxr: int, nypa: int,
-              nxpa: int) -> torch.Tensor:
+def _box_sums(f: torch.Tensor, ndxr: int, nypa: int, nxpa: int,
+              t0: int = 0) -> torch.Tensor:
     """Weighted box sums of a fine T-grid field around each coarse p
     point (xfosubs.F:440-470): even ndxr, the ndxr x ndxr block around
     the point; odd, the mean of the four blocks offset by one fine cell,
     which is the half-weighted (ndxr+1)-wide box. Cyclic in x; rows
-    beyond the N/S walls count as zero."""
+    beyond the N/S walls count as zero. `f` holds the fine T rows t0,
+    t0+1, ... and every other row counts as zero, so that the sums of
+    row blocks add up to those of the whole; only the coarse rows whose
+    boxes meet f's rows are summed, each from the same rows in the same
+    order whatever the block."""
     half = (ndxr - 1) // 2 + 1
+    odd = ndxr % 2
+    t1 = t0 + f.shape[0]
+    jlo = (t0 + half - odd) // ndxr
+    jhi = min(nypa - 1, (t1 + half - 1) // ndxr)
     f = torch.cat([f[:, -half:], f, f[:, :half]], dim=1)
-    f = torch.nn.functional.pad(f, (0, 0, half, half))
-    if ndxr % 2 == 0:
-        return _block_sums(f, ndxr, nypa, nxpa)
-    return 0.25 * (_block_sums(f, ndxr, nypa, nxpa)
-                   + _block_sums(f[:, 1:], ndxr, nypa, nxpa)
-                   + _block_sums(f[1:], ndxr, nypa, nxpa)
-                   + _block_sums(f[1:, 1:], ndxr, nypa, nxpa))
+    f = F.pad(f, (0, 0, t0 + half - jlo * ndxr,
+                  (jhi + 1) * ndxr + odd - t1 - half))
+    ny = jhi - jlo + 1
+    if odd:
+        s = 0.25 * (_block_sums(f, ndxr, ny, nxpa)
+                    + _block_sums(f[:, 1:], ndxr, ny, nxpa)
+                    + _block_sums(f[1:], ndxr, ny, nxpa)
+                    + _block_sums(f[1:, 1:], ndxr, ny, nxpa))
+    else:
+        s = _block_sums(f, ndxr, ny, nxpa)
+    return F.pad(s, (0, 0, jlo, nypa - 1 - jhi))
 
 
-def _bilint_ast(coup: Coupling, astm: torch.Tensor) -> torch.Tensor:
-    """Bilinear astm (nyta, nxta) -> ocean T grid (nyto, nxto)."""
+def _bilint_ast(coup: Coupling, astm: torch.Tensor, t0: int = 0,
+                t1: int = None) -> torch.Tensor:
+    """Bilinear astm (nyta, nxta) -> ocean T grid (nyto, nxto), or its
+    rows [t0, t1)."""
     wpx = coup.bil_wx_p[None, :]
-    wpy = coup.bil_wy_p[:, None]
-    rows_m, rows_p = astm[coup.bil_jy_m], astm[coup.bil_jy_p]
+    wpy = coup.bil_wy_p[t0:t1, None]
+    rows_m, rows_p = astm[coup.bil_jy_m[t0:t1]], astm[coup.bil_jy_p[t0:t1]]
     a_mm = rows_m[:, coup.bil_ix_m]
     a_mp = rows_m[:, coup.bil_ix_p]
     a_pm = rows_p[:, coup.bil_ix_m]
@@ -369,7 +410,12 @@ def _bilint_ast(coup: Coupling, astm: torch.Tensor) -> torch.Tensor:
 # xforc proper
 # ----------------------------------------------------------------------
 
-def make_xforc(model):
+# collective call sites of the decomposed xforc (Mesh.counts)
+XFORC_ROWS = "coupling.rows"
+XFORC_SUMS = "coupling.sums"
+
+
+def make_xforc(model, mesh=None):
     """Build xforc(pam, pom, sstm, astm, hmixam)
     -> (OceanForcing | None, AtmosForcing, XforcDiags).
 
@@ -377,9 +423,42 @@ def make_xforc(model):
     mean SST field; pam/astm/hmixam may not. With tau_udiff the ocean's
     geostrophic velocity is subtracted from the wind inside the ocean
     footprint of the fine grid before the drag is taken. The fine-grid
-    fields live only inside one call."""
-    from .models.ocean import ekman_forcing
-    from .ops.stencils import _col_mask, _row_mask
+    fields live only inside one call.
+
+    With `mesh` (parallel/mesh.py: a rows mesh made for the ocean's
+    p-grid, as the decomposed ocean step takes it) pom and sstm are this
+    rank's row blocks and so is the ocean forcing (mesh.shard_tree's
+    layout); pam, astm and hmixam are whole on every rank, and so are the
+    atmospheric forcing and the diagnostics, the same bits on every
+    rank. No collective is larger than the coarse atmospheric grid, as
+    in qgcm_tpu (coupling.py:600-604, 731-736):
+      * every rank computes the coarse velocities from the whole pam;
+      * the fine grid is cut into the ocean's row blocks: a rank refines
+        the fine rows of its ocean rows (rank 0 also those south of the
+        ocean, the rank with the ocean's north wall those north of it)
+        and one more each side. Its ocean windstress, with the row each
+        side that the Ekman curl and its average onto p points read, is
+        a slice of that block; qgcm_tpu recomputes it instead
+        (bicubic_refine_window) because GSPMD would gather a slice of
+        its sharded fine grid;
+      * tau_udiff's ocean velocity reads two ghost rows of pom[0] (one
+        exchange);
+      * a rank sums what its own fine rows give the coarse outputs
+        (tauxa, tauya, vekat, uekat, the wekpa box sums, the
+        atmosphere's stress integrals) and what its own ocean rows give
+        the heat-flux blocks over the ocean and the diagnostics' sums;
+        one all_reduce of coarse size adds the ranks' shares;
+      * in the channel the ranks that hold the wall rows form txisoc and
+        txinoc, which an all_reduce hands to every rank (ekman_forcing).
+    A coarse value that one rank's rows form whole comes out bit for bit
+    the single-device one; a sum split across a block boundary differs
+    from it by roundoff, as qgcm_tpu's own does (:733-735). A footprint
+    that reaches the atmosphere's wall bands (qgcm_tpu's
+    _footprint_interior false, where its mesh path slices the sharded
+    fine grid and GSPMD gathers it) needs nothing else here: the wall
+    bands are rows of a block like any other."""
+    from .models.ocean import _Rows, ekman_forcing
+    from .ops.stencils import _col_mask
 
     cfg: ModelConfig = model.cfg
     g: Grids = model.grids
@@ -441,8 +520,28 @@ def make_xforc(model):
         qu2fac[joc0:joc0 + nypo, ioc0:ioc0 + nxpo] = qu2fab
     else:
         cdrfac, qu2fac = cdrfaa, qu2faa
-    # the ocean footprint's offsets as F.pad widths
-    widths = (ioc0, cfg.nxpaor - ioc0 - nxpo, joc0, cfg.nypaor - joc0 - nypo)
+
+    if mesh is not None:
+        if cfg.atmos_only:
+            raise NotImplementedError(
+                "a decomposed xforc cuts the ocean's rows; the atmosphere "
+                "on row blocks is not ported yet (ROADMAP.md)")
+        if mesh.mx != 1 or mesh.grid != (nypo, nxpo):
+            raise ValueError("the decomposed xforc takes a rows mesh made "
+                             f"for the ocean's grid {(nypo, nxpo)}")
+        rows = _Rows(mesh, cfg, dev)
+        if rows.r0 >= nypo:
+            raise ValueError(f"rank {mesh.rank} of {mesh.size} holds no "
+                             f"ocean row of {nypo}: use fewer ranks")
+        r0, n = rows.r0, rows.n
+        o1 = min(r0 + n, nypo)             # past the rank's last true row
+        nt = max(0, min(r0 + n, cfg.nyto) - r0)   # its true T rows
+        # the fine rows the rank owns, [f0, f1), and those it refines
+        f0 = 0 if r0 == 0 else joc0 + r0
+        f1 = cfg.nypaor if o1 == nypo else joc0 + o1
+        e0, e1 = max(f0 - 1, 0), min(f1 + 1, cfg.nypaor)
+        if cfg.tau_udiff:
+            cdrfac, qu2fac = (c[e0:e1].contiguous() for c in (cdrfac, qu2fac))
 
     def quad_drag(u, v, cdr, qu2):
         """Quadratic-drag windstress (7.1-7.4) from velocities."""
@@ -452,12 +551,12 @@ def make_xforc(model):
         cdochi = cdr * scashr / (1.0 + scasqd)
         return cdochi * (u - scashr * v), cdochi * (v + scashr * u)
 
-    def ocean_velocity(po1):
-        """Geostrophic velocity of the ocean's top layer at p points,
-        with the mixed-BC wall rows (and box columns)."""
-        ppy = torch.cat([po1[:1], po1, po1[-1:]])
-        ps, pn = ppy[:-2], ppy[2:]
-        south, north = _row_mask(po1, 0), _row_mask(po1, -1)
+    def ocean_velocity(ext, gy):
+        """Geostrophic velocity of the ocean's top layer at the p rows of
+        global indices gy ((n, 1)) from `ext`, those rows and one more
+        each side, with the mixed-BC wall rows (and box columns)."""
+        po1, ps, pn = ext[1:-1], ext[:-2], ext[2:]
+        south, north = gy == 0, gy == nypo - 1
         u = torch.where(south, -zbfcoc * (pn - po1),
                         torch.where(north, -zbfcoc * (po1 - ps),
                                     -hxofac * (pn - ps)))
@@ -476,8 +575,8 @@ def make_xforc(model):
         # zonal walls: v = 0 there (p constant along the wall)
         return u, torch.where(south | north, 0.0, v)
 
-    def xforc(pam, pom, sstm, astm, hmixam):
-        # --- atmospheric geostrophic velocity at p points ---
+    def coarse_velocity(pam):
+        """The atmosphere's geostrophic velocity at its p points."""
         pa1 = pam[0]
         u1at = torch.cat([-zbfcat * (pa1[1:2] - pa1[0:1]),
                           -hxafac * (pa1[2:] - pa1[:-2]),
@@ -487,75 +586,37 @@ def make_xforc(model):
         v1at = hxafac * (pe - pw)
         v1at[0] = 0.0
         v1at[-1] = 0.0
+        return u1at, v1at
 
-        u1ator, v1ator = bicubic_refine_uv(coup, u1at, v1at, ndxr)
+    def wekt(tx, ty):
+        """The fine-grid Ekman velocity on the T rows between the rows of
+        the stresses (7.6)."""
+        return hxofac * (ty[:-1, 1:] + ty[1:, 1:] - ty[:-1, :-1]
+                         - ty[1:, :-1] + tx[:-1, :-1] + tx[:-1, 1:]
+                         - tx[1:, :-1] - tx[1:, 1:])
 
-        # --- subtract the ocean's geostrophic velocity (tau_udiff) ---
-        if cfg.tau_udiff and pom is not None:
-            u1oc, v1oc = ocean_velocity(pom[0])
-            u1ator = u1ator - torch.nn.functional.pad(u1oc, widths)
-            v1ator = v1ator - torch.nn.functional.pad(v1oc, widths)
+    def stress_integral(tx, j, inward):
+        """The atmosphere's momentum-constraint stress integral along the
+        fine row j of tx (with its neighbour `inward` when ndxr is
+        odd)."""
+        if ndxodd:
+            return 0.5 * g.dxo * line_sum(tx[j, :] + tx[j + inward, :])
+        return g.dxo * line_sum(tx[j, :])
 
-        # --- quadratic-drag windstress on the fine grid (7.1-7.4) ---
-        tauxaor, tauyaor = quad_drag(u1ator, v1ator, cdrfac, qu2fac)
-
-        # --- tau on the coarse atmospheric p grid (copies: a view would
-        # keep the fine grid alive as long as the forcing) ---
-        tauxa = tauxaor[::ndxr, ::ndxr].contiguous()
-        tauya = tauyaor[::ndxr, ::ndxr].contiguous()
-
-        # --- Ekman components for amladf (cell-edge integrals) ---
-        vekat = uvekfc * _edge_integrals(tauxaor[::ndxr, :], ndxr)
-        # uekat: integrate tauy along meridional cell sides
-        ucol = _edge_integrals(tauyaor[:, ::ndxr].T, ndxr).T
-        uekat = -uvekfc * ucol                      # (nyta, nxpa)
+    def atmos_tail(pam, astm, hmixam, tauxa, tauya, uekat, vekat, wekpa,
+                   txisat, txinat, blocks, sums):
+        """The atmospheric forcing and the diagnostics from the coarse
+        outputs, `blocks` (the over-ocean heat flux summed to atmosphere
+        cells) and `sums` (the ocean's slhf, ocnrad and atmrad_oc
+        sums)."""
         wekta = -hmrdxa * (uekat[:, 1:] - uekat[:, :-1]
                            + vekat[1:, :] - vekat[:-1, :])
-
-        # --- fine-grid Ekman velocity and wekpa box means (7.6) ---
-        wektaor = hxofac * (
-            tauyaor[:-1, 1:] + tauyaor[1:, 1:]
-            - tauyaor[:-1, :-1] - tauyaor[1:, :-1]
-            + tauxaor[:-1, :-1] + tauxaor[:-1, 1:]
-            - tauxaor[1:, :-1] - tauxaor[1:, 1:])
-        wekpa = _box_sums(wektaor, ndxr, nypa, nxpa) / coup.wekpa_count
-
-        # --- atmospheric momentum-constraint stress integrals ---
-        if ndxodd:
-            txisat = 0.5 * g.dxo * line_sum(
-                tauxaor[jsou, :] + tauxaor[jsou + 1, :])
-            txinat = 0.5 * g.dxo * line_sum(
-                tauxaor[jnor, :] + tauxaor[jnor - 1, :])
-        else:
-            txisat = g.dxo * line_sum(tauxaor[jsou, :])
-            txinat = g.dxo * line_sum(tauxaor[jnor, :])
-
-        # --- oceanic stresses and Ekman velocities ---
-        ocean_forcing = None
-        asto = _bilint_ast(coup, astm)
-        ocnrad = rad.D0up * sstm
-        slhf = xlamda * (sstm - asto)
-        if not cfg.atmos_only:
-            tauxo = raoro * tauxaor[joc0:joc0 + nypo, ioc0:ioc0 + nxpo]
-            tauyo = raoro * tauyaor[joc0:joc0 + nypo, ioc0:ioc0 + nxpo]
-            atmrad_oc = rad.Dmdown * asto
-            fnetoc = -coup.fsp_oc[:, None] - atmrad_oc - ocnrad - slhf
-            ocean_forcing = ekman_forcing(model, tauxo, tauyo, fnetoc)
-            arocav = atmrad_oc.sum() * cfg.ocnorm
-        else:
-            arocav = torch.zeros((), dtype=dtype, device=dev)
-
         # --- atmospheric diabatic forcing (7.8-7.9) ---
         fnetat = -coup.fsp_at[:, None] - rad.Dmup * astm
         arlasm = astm.sum() - astm[oc_rows, oc_cols].sum()
         natlan = nxta * nyta - cfg.nxaooc * cfg.nyaooc
         arlaav = (rad.Dmup * arlasm / natlan if natlan > 0
                   else torch.zeros((), dtype=dtype, device=dev))
-
-        # over-ocean contribution, aggregated to atmos cells
-        contrib = ocnrad + (rad.Dmdown - rad.Dmup) * asto + slhf
-        blocks = contrib.reshape(cfg.nyaooc, ndxr,
-                                 cfg.nxaooc, ndxr).sum((1, 3))
         fnetat[oc_rows, oc_cols] = ocfrac * blocks
 
         # eta / topography / thickness terms (7.8 first three terms)
@@ -572,9 +633,157 @@ def make_xforc(model):
             tauxa=tauxa, tauya=tauya, fnetat=fnetat,
             wekta=wekta, wekpa=wekpa, uekat=uekat, vekat=vekat,
             txisat=txisat, txinat=txinat)
-        diags = XforcDiags(arlaav=arlaav, slhfav=slhf.sum() * cfg.ocnorm,
-                           oradav=ocnrad.sum() * cfg.ocnorm, arocav=arocav)
-        return ocean_forcing, atmos_forcing, diags
+        slhf_sum, ocnrad_sum, atmrad_sum = sums
+        arocav = (atmrad_sum * cfg.ocnorm if not cfg.atmos_only
+                  else torch.zeros((), dtype=dtype, device=dev))
+        diags = XforcDiags(arlaav=arlaav, slhfav=slhf_sum * cfg.ocnorm,
+                           oradav=ocnrad_sum * cfg.ocnorm, arocav=arocav)
+        return atmos_forcing, diags
 
-    return xforc
+    def xforc(pam, pom, sstm, astm, hmixam):
+        u1ator, v1ator = bicubic_refine_uv(coup, *coarse_velocity(pam),
+                                           ndxr)
 
+        # --- subtract the ocean's geostrophic velocity (tau_udiff) ---
+        if cfg.tau_udiff and pom is not None:
+            po1 = pom[0]
+            u1oc, v1oc = ocean_velocity(
+                torch.cat([po1[:1], po1, po1[-1:]]),
+                torch.arange(nypo, device=dev)[:, None])
+            widths = (ioc0, cfg.nxpaor - ioc0 - nxpo,
+                      joc0, cfg.nypaor - joc0 - nypo)
+            u1ator = u1ator - F.pad(u1oc, widths)
+            v1ator = v1ator - F.pad(v1oc, widths)
+
+        # --- quadratic-drag windstress on the fine grid (7.1-7.4) ---
+        tauxaor, tauyaor = quad_drag(u1ator, v1ator, cdrfac, qu2fac)
+
+        # --- tau on the coarse atmospheric p grid (copies: a view would
+        # keep the fine grid alive as long as the forcing) ---
+        tauxa = tauxaor[::ndxr, ::ndxr].contiguous()
+        tauya = tauyaor[::ndxr, ::ndxr].contiguous()
+
+        # --- Ekman components for amladf (cell-edge integrals) ---
+        vekat = uvekfc * _edge_integrals(tauxaor[::ndxr, :], ndxr)
+        # uekat: integrate tauy along meridional cell sides
+        ucol = _edge_integrals(tauyaor[:, ::ndxr].T, ndxr).T
+        uekat = -uvekfc * ucol                      # (nyta, nxpa)
+
+        # --- fine-grid Ekman velocity and wekpa box means (7.6) ---
+        wekpa = (_box_sums(wekt(tauxaor, tauyaor), ndxr, nypa, nxpa)
+                 / coup.wekpa_count)
+
+        # --- atmospheric momentum-constraint stress integrals ---
+        txisat = stress_integral(tauxaor, jsou, 1)
+        txinat = stress_integral(tauxaor, jnor, -1)
+
+        # --- oceanic stresses and Ekman velocities ---
+        ocean_forcing = None
+        asto = _bilint_ast(coup, astm)
+        ocnrad = rad.D0up * sstm
+        slhf = xlamda * (sstm - asto)
+        atmrad_oc = rad.Dmdown * asto
+        if not cfg.atmos_only:
+            tauxo = raoro * tauxaor[joc0:joc0 + nypo, ioc0:ioc0 + nxpo]
+            tauyo = raoro * tauyaor[joc0:joc0 + nypo, ioc0:ioc0 + nxpo]
+            fnetoc = -coup.fsp_oc[:, None] - atmrad_oc - ocnrad - slhf
+            ocean_forcing = ekman_forcing(model, tauxo, tauyo, fnetoc)
+        # over-ocean contribution, aggregated to atmos cells
+        contrib = ocnrad + (rad.Dmdown - rad.Dmup) * asto + slhf
+        blocks = contrib.reshape(cfg.nyaooc, ndxr,
+                                 cfg.nxaooc, ndxr).sum((1, 3))
+        return (ocean_forcing, *atmos_tail(
+            pam, astm, hmixam, tauxa, tauya, uekat, vekat, wekpa, txisat,
+            txinat, blocks, (slhf.sum(), ocnrad.sum(), atmrad_oc.sum())))
+
+    if mesh is None:
+        return xforc
+
+    def xforc_rows(pam, pom, sstm, astm, hmixam):
+        # the fine rows [e0, e1): the rank's own and one more each side
+        u1ator, v1ator = bicubic_refine_uv(coup, *coarse_velocity(pam),
+                                           ndxr, e0, e1)
+        if cfg.tau_udiff:
+            # the velocity on ocean rows r0-1 .. r0+n, of which the
+            # footprint rows [a, b) of the fine block are subtracted
+            south, north = mesh.start_exchange(pom[0], 2, "y",
+                                               XFORC_ROWS).wait()
+            u1oc, v1oc = ocean_velocity(
+                torch.cat([south, pom[0], north]),
+                r0 - 1 + torch.arange(n + 2, device=dev)[:, None])
+            a, b = max(e0 - joc0, 0), min(e1 - joc0, nypo)
+            i = a - (r0 - 1)
+            widths = (ioc0, cfg.nxpaor - ioc0 - nxpo, joc0 + a - e0,
+                      e1 - joc0 - b)
+            u1ator = u1ator - F.pad(u1oc[i:i + b - a], widths)
+            v1ator = v1ator - F.pad(v1oc[i:i + b - a], widths)
+        tauxaor, tauyaor = quad_drag(u1ator, v1ator, cdrfac, qu2fac)
+
+        # the shares of the fine rows [f0, f1) in the coarse outputs
+        j0, j1 = -(-f0 // ndxr), -(-f1 // ndxr)    # p rows j*ndxr in them
+        sampled = slice(j0 * ndxr - e0, f1 - e0, ndxr)
+        coarse_rows = (0, 0, j0, nypa - j1)
+        tauxa = F.pad(tauxaor[sampled, ::ndxr], coarse_rows)
+        tauya = F.pad(tauyaor[sampled, ::ndxr], coarse_rows)
+        vekat = uvekfc * F.pad(_edge_integrals(tauxaor[sampled], ndxr),
+                               coarse_rows)
+        # the T cells whose sides [c*ndxr, (c+1)*ndxr] meet the rows
+        c0, c1 = max(0, -(-f0 // ndxr) - 1), min(nyta - 1, (f1 - 1) // ndxr)
+        sides = F.pad(tauyaor[f0 - e0:f1 - e0, ::ndxr],
+                      (0, 0, f0 - c0 * ndxr, (c1 + 1) * ndxr + 1 - f1))
+        uekat = -uvekfc * F.pad(_edge_integrals(sides.T, ndxr).T,
+                                (0, 0, c0, nyta - 1 - c1))
+        # the fine T rows [f0, t1) between the rank's p rows
+        t1 = min(f1, cfg.nypaor - 1) + 1 - e0
+        wekpa = _box_sums(wekt(tauxaor[f0 - e0:t1], tauyaor[f0 - e0:t1]),
+                          ndxr, nypa, nxpa, t0=f0)
+        zero = tauxa.new_zeros(())
+        txisat = (stress_integral(tauxaor, jsou - e0, 1)
+                  if f0 <= jsou < f1 else zero)
+        txinat = (stress_integral(tauxaor, jnor - e0, -1)
+                  if f0 <= jnor < f1 else zero)
+
+        # the ocean's rows: the stress on rows r0-1 .. r0+n (zero off the
+        # grid), the heat flux on the rank's T rows
+        lo, hi = max(r0 - 1, 0), min(r0 + n + 1, nypo)
+
+        def ocean_rows(t):
+            return F.pad(raoro * t[joc0 + lo - e0:joc0 + hi - e0,
+                                   ioc0:ioc0 + nxpo],
+                         (0, 0, lo - r0 + 1, r0 + n + 1 - hi))
+
+        asto = F.pad(_bilint_ast(coup, astm, r0, r0 + nt),
+                     (0, 0, 0, n - nt))
+        ocnrad = rad.D0up * sstm
+        slhf = xlamda * (sstm - asto)
+        atmrad_oc = rad.Dmdown * asto
+        fsp = F.pad(coup.fsp_oc[r0:r0 + nt], (0, n - nt))[:, None]
+        fnetoc = torch.where(rows.t_true,
+                             -fsp - atmrad_oc - ocnrad - slhf, 0.0)
+        ocean_forcing = ekman_forcing(model, ocean_rows(tauxaor),
+                                      ocean_rows(tauyaor), fnetoc,
+                                      rows=rows)
+        # the T rows' share of the atmosphere cells over the ocean
+        contrib = ocnrad + (rad.Dmdown - rad.Dmup) * asto + slhf
+        blocks = contrib.new_zeros(cfg.nyaooc, cfg.nxaooc)
+        if nt:
+            k0, k1 = r0 // ndxr, (r0 + nt - 1) // ndxr
+            cells = F.pad(contrib[:nt], (0, 0, r0 - k0 * ndxr,
+                                         (k1 + 1) * ndxr - r0 - nt))
+            blocks = F.pad(cells.reshape(k1 - k0 + 1, ndxr, cfg.nxaooc,
+                                         ndxr).sum((1, 3)),
+                           (0, 0, k0, cfg.nyaooc - 1 - k1))
+
+        shares = [tauxa, tauya, vekat, uekat, wekpa, blocks,
+                  torch.stack([txisat, txinat, slhf.sum(), ocnrad.sum(),
+                               atmrad_oc.sum()])]
+        tot = mesh.all_reduce(torch.cat([s.reshape(-1) for s in shares]),
+                              XFORC_SUMS)
+        (tauxa, tauya, vekat, uekat, wekpa, blocks, sums) = (
+            t.reshape(s.shape) for t, s in zip(
+                tot.split([s.numel() for s in shares]), shares))
+        return (ocean_forcing, *atmos_tail(
+            pam, astm, hmixam, tauxa, tauya, uekat, vekat,
+            wekpa / coup.wekpa_count, sums[0], sums[1], blocks, sums[2:]))
+
+    return xforc_rows

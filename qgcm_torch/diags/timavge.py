@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..io.ncdf import host
 
@@ -156,11 +157,70 @@ def _atmos_faces(model, ast, pa1, tauxa, tauya):
     return uuf, tuf, vvf, tvf
 
 
-def accumulate_ocean(acc: OceanAverages, state, forcing, model
-                     ) -> OceanAverages:
-    uuf, tuf, vvf, tvf = _ocean_faces(
-        model, state.sst, state.po[0], forcing.tauxo, forcing.tauyo,
-        model.rad.tsbdy, model.rad.tnbdy)
+# the collective call site of the face fields on row blocks (Mesh.counts)
+FACE_ROWS = "timavge.rows"
+
+
+def _ocean_faces_rows(model, rows, sst, po1, tauxo, tauyo):
+    """_ocean_faces on this rank's row blocks of a decomposed run (`rows`,
+    models/ocean._Rows): the W/E faces of its T rows read the p row north
+    of the block, the S/N faces of its p rows the T row south of it (one
+    exchange); the walls and padding by global row."""
+    cfg = model.cfg
+    g = model.grids
+    uvgfac = cfg.ycexp / (g.dxo * cfg.fnot)
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
+    tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
+    stack = torch.stack([po1, tauyo, F.pad(sst, (0, 1))])
+    south, north = rows.mesh.start_exchange(stack, 1, "y",
+                                            FACE_ROWS).wait()
+    pn, tyn = (torch.cat([stack[k], north[k]]) for k in (0, 1))
+    uuf = -uvgfac * (pn[1:] - pn[:-1]) + rhf0hm * (tyn[1:] + tyn[:-1])
+    if cfg.cyclic_ocean:
+        twrap = 0.5 * (sst[:, :1] + sst[:, -1:])
+        tuf = torch.cat([twrap, 0.5 * (sst[:, :-1] + sst[:, 1:]), twrap],
+                        dim=1)
+    else:
+        tuf = torch.cat([sst[:, :1], 0.5 * (sst[:, :-1] + sst[:, 1:]),
+                         sst[:, -1:]], dim=1)
+        uuf[:, 0] = 0.0
+        uuf[:, -1] = 0.0
+
+    vvf = (uvgfac * (po1[:, 1:] - po1[:, :-1])
+           - rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1]))
+    vwall = -rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1])
+    # the T rows south and north of each p row
+    ts = torch.cat([south[2, :, :cfg.nxto], sst])
+    below, above = ts[:-1], ts[1:]
+    tvf = 0.5 * (below + above)
+    gp = rows.gy
+    vvf = torch.where(gp == 0, vwall if cfg.sb_hflux else 0.0,
+                      torch.where(gp == rows.nyp - 1,
+                                  vwall if cfg.nb_hflux else 0.0, vvf))
+    tvf = torch.where(gp == 0, 0.5 * (above + tsbdy) if cfg.sb_hflux
+                      else above,
+                      torch.where(gp == rows.nyp - 1,
+                                  0.5 * (below + tnbdy) if cfg.nb_hflux
+                                  else below, tvf))
+    t, p = rows.t_true, rows.p_true
+    return (torch.where(t, uuf, 0.0), torch.where(t, tuf, 0.0),
+            torch.where(p, vvf, 0.0), torch.where(p, tvf, 0.0))
+
+
+def accumulate_ocean(acc: OceanAverages, state, forcing, model,
+                     rows=None) -> OceanAverages:
+    """acc plus one (sub)step's state and forcing; with `rows` (a
+    decomposed run's models/ocean._Rows) all of them are this rank's row
+    blocks (parallel/mesh.shard_tree's layout, the face fields with the
+    T-grid's rows)."""
+    if rows is None:
+        uuf, tuf, vvf, tvf = _ocean_faces(
+            model, state.sst, state.po[0], forcing.tauxo, forcing.tauyo,
+            model.rad.tsbdy, model.rad.tnbdy)
+    else:
+        uuf, tuf, vvf, tvf = _ocean_faces_rows(
+            model, rows, state.sst, state.po[0], forcing.tauxo,
+            forcing.tauyo)
     return OceanAverages(
         n=acc.n + 1.0,
         sst=acc.sst + state.sst,

@@ -202,6 +202,55 @@ def strict_vmap():
         yield
 
 
+def ensemble_mesh(size: int = None):
+    """The 1-D member mesh (qgcm_tpu's ensemble_mesh over devices): the
+    first `size` ranks of the process group (all of them by default),
+    each stepping its block of the members. Every rank calls it (a
+    smaller mesh makes a process group of its ranks); a rank outside the
+    mesh gets None."""
+    import torch.distributed as dist
+    from ..parallel.mesh import Mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    size = world if size is None else size
+    if not 1 <= size <= world:
+        raise ValueError(f"a member mesh of {size} ranks in a group of "
+                         f"{world}")
+    if size == world:
+        return Mesh((size, 1))
+    group = dist.new_group(list(range(size)))
+    return Mesh((size, 1), group=group) if dist.get_rank() < size else None
+
+
+def _check_divisible(members, mesh):
+    m = n_members(members)
+    nd = mesh.size
+    if m % nd:
+        raise ValueError(
+            f"n_members ({m}) must be a multiple of the member-mesh "
+            f"device count ({nd})")
+
+
+def shard_members(members, mesh):
+    """This rank's block of a stacked ensemble on a member mesh: members
+    [r*b, (r+1)*b) of b = M / ranks. Every rank must hold the same whole
+    ensemble, as perturbed_*_members make it from the same generator
+    seed (qgcm_tpu asks the same of every process)."""
+    _check_divisible(members, mesh)
+    b = n_members(members) // mesh.size
+    return type(members)(*(x[mesh.rank * b:(mesh.rank + 1) * b].clone()
+                           for x in members))
+
+
+def gather_members(block, mesh):
+    """The whole ensemble on every rank of a member mesh from each rank's
+    block (shard_members' inverse), in one all_gather."""
+    flat = torch.cat([x.reshape(-1) for x in block])
+    parts = [p.split([x.numel() for x in block])
+             for p in mesh.all_gather(flat, "ensemble.gather")]
+    return type(block)(*(torch.cat([p[k].reshape(x.shape) for p in parts])
+                         for k, x in enumerate(block)))
+
+
 def make_ensemble_runner(model: Model, kind: str = None, mesh=None):
     """The single-trajectory runners of models/stepper.py mapped over a
     leading member axis with torch.func.vmap; the forcing is shared.
@@ -210,30 +259,43 @@ def make_ensemble_runner(model: Model, kind: str = None, mesh=None):
     "coupled". Returns run(members, forcing, n_steps, step0=0) for
     "ocean", run(ocean_members, atmos_members, n_steps, step0=0) ->
     (ocean, atmos) for "coupled", with the runners' step units. An
-    operator without a batching rule raises (strict_vmap). qgcm_tpu's
-    member meshes (`mesh`, --shard-members) are not ported: they wait
-    with the rest of the multi-GPU work in ROADMAP.md."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "member meshes are not ported; see the multi-GPU items of "
-            "ROADMAP.md")
+    operator without a batching rule raises (strict_vmap).
+
+    mesh: a member mesh (ensemble_mesh; the member count a multiple of
+    its ranks). Each call then takes the whole ensemble on every rank,
+    steps this rank's block of members (shard_members) with no
+    collective, and returns the whole ensemble again, gathered in one
+    all_gather at its end (gather_members)."""
     if kind is None:
         kind = "ocean" if model.cfg.ocean_only else "coupled"
     if kind == "ocean":
         run1 = make_ocean_only_runner(model)
 
-        def run(members, forcing, n_steps: int, step0: int = 0):
+        def body(members, forcing, n_steps, step0):
             with strict_vmap():
-                return torch.func.vmap(
-                    lambda s: run1(s, forcing, n_steps, step0))(members)
+                return (torch.func.vmap(
+                    lambda s: run1(s, forcing, n_steps, step0))(members),)
     elif kind == "coupled":
         run1 = make_coupled_runner(model)
 
-        def run(oc_members, at_members, n_steps: int, step0: int = 0):
+        def body(oc_members, at_members, n_steps, step0):
             with strict_vmap():
                 return torch.func.vmap(
                     lambda o, a: run1(o, a, n_steps, step0))(oc_members,
                                                              at_members)
     else:
         raise ValueError(f"unknown ensemble kind {kind!r}")
+
+    def run(members, other, n_steps: int, step0: int = 0):
+        # `other`: the shared forcing ("ocean") or the atmosphere's
+        # members ("coupled")
+        if mesh is None:
+            out = body(members, other, n_steps, step0)
+        else:
+            if kind == "coupled":
+                other = shard_members(other, mesh)
+            out = body(shard_members(members, mesh), other, n_steps, step0)
+            out = tuple(gather_members(o, mesh) for o in out)
+        return out[0] if kind == "ocean" else out
+
     return run

@@ -549,6 +549,7 @@ OML_SUMS = "ocean.oml.sums"
 WALLS = "ocean.walls"
 INV_SUMS = "ocean.inversion.sums"
 BDY_ROWS = "ocean.ocqbdy.rows"
+FORCING_WALLS = "ocean.forcing.walls"
 # the global rows of the wall strips the channel's constraint terms read
 # (_edge_d2d4 and _cyclic_boundary_terms: 5 rows at each wall)
 _STRIP = 5
@@ -870,11 +871,19 @@ def init_ocean_state(model: Model, init: str = "zero",
 
 
 def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
-                  fnetoc: torch.Tensor) -> OceanForcing:
+                  fnetoc: torch.Tensor, rows=None) -> OceanForcing:
     """OceanForcing of the model's dtype and device from the windstress
     and heat flux: the Ekman velocities and, in the channel, the
     boundary stress integrals, as the ocean section of xforc derives
-    them (src/xfosubs.F:568-707)."""
+    them (src/xfosubs.F:568-707).
+
+    With `rows` (a _Rows of a decomposed run) the forcing is this rank's
+    row blocks: tauxo and tauyo hold its p rows and one more each side
+    (global rows r0-1 .. r0+n; rows off the grid are not read), fnetoc
+    its T rows. The T rows beyond the walls take the walls' copies, as
+    _entrain_to_p's edge rows do; padding rows come out zero. In the
+    channel the ranks that hold the wall rows form txisoc and txinoc,
+    and an all_reduce gives them to every rank."""
     cfg = model.cfg
     g = model.grids
     hxofac = 0.5 / (g.dxo * cfg.fnot)
@@ -882,6 +891,8 @@ def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
     wekto = hxofac * (
         tauyo[:-1, 1:] + tauyo[1:, 1:] - tauyo[:-1, :-1] - tauyo[1:, :-1]
         + tauxo[:-1, :-1] + tauxo[:-1, 1:] - tauxo[1:, :-1] - tauxo[1:, 1:])
+    if rows is not None:
+        return _ekman_rows(model, rows, tauxo, tauyo, fnetoc, wekto)
     # wekpo by averaging wekto (xfosubs.F:589-646)
     wekpo = _entrain_to_p(wekto, cfg.cyclic_ocean)
     if cfg.cyclic_ocean:
@@ -893,9 +904,39 @@ def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
                         wekto=wekto, wekpo=wekpo, txisoc=txis, txinoc=txin)
 
 
-def ocean_forcing_from_mean(model: Model, tauxo, tauyo,
-                            fnetoc) -> OceanForcing:
+def _ekman_rows(model: Model, rows, tauxo, tauyo, fnetoc, wekto):
+    """ekman_forcing's row-block half: `wekto` is on the T rows r0-1 ..
+    r0+n-1 of the stresses' rows."""
+    cfg = model.cfg
+    dxo = model.grids.dxo
+    wekpo = _wrap_x(_ghost_rows(rows, wekto, 1), cfg.cyclic_ocean)
+    wekpo = 0.25 * (wekpo[:-1, :-1] + wekpo[:-1, 1:] + wekpo[1:, :-1]
+                    + wekpo[1:, 1:])
+    zero = tauxo.new_zeros(())
+    txis = txin = zero
+    if cfg.cyclic_ocean:
+        # the stresses' row i is global row r0 - 1 + i
+        s, nth = rows.local(0), rows.local(rows.nyp - 1)
+        walls = torch.stack([
+            0.5 * dxo * line_sum(tauxo[1, :] + tauxo[2, :])
+            if s is not None else zero,
+            0.5 * dxo * line_sum(tauxo[nth, :] + tauxo[nth + 1, :])
+            if nth is not None else zero])
+        txis, txin = rows.mesh.all_reduce(walls, FORCING_WALLS)
+    return OceanForcing(
+        tauxo=torch.where(rows.p_true, tauxo[1:-1], 0.0),
+        tauyo=torch.where(rows.p_true, tauyo[1:-1], 0.0),
+        fnetoc=torch.where(rows.t_true, fnetoc, 0.0),
+        wekto=torch.where(rows.t_true, wekto[1:], 0.0),
+        wekpo=torch.where(rows.p_true, wekpo, 0.0),
+        txisoc=txis, txinoc=txin)
+
+
+def ocean_forcing_from_mean(model: Model, tauxo, tauyo, fnetoc,
+                            rows=None) -> OceanForcing:
     """Static OceanForcing for ocean_only runs from mean windstress and
-    heat flux (arrays or tensors), through ekman_forcing."""
+    heat flux (arrays or tensors), through ekman_forcing (whose `rows`
+    takes a rank's row blocks)."""
     return ekman_forcing(model, *(_as_field(model, a)
-                                  for a in (tauxo, tauyo, fnetoc)))
+                                  for a in (tauxo, tauyo, fnetoc)),
+                         rows=rows)

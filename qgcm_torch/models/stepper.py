@@ -121,7 +121,27 @@ def average_atmos_levels(st: AtmosState) -> AtmosState:
     )
 
 
-def make_cycle_head(model: Model):
+def _check_mesh(mesh, halo_variant, spectral_variant, remat=False):
+    """A mesh run's two variants, as the port takes them: halo_variant
+    'staged', 'deep' or 'overlap' (parallel/halo.py) and
+    spectral_variant 'a2a' (parallel/spectral.py). Without them a mesh
+    run is qgcm_tpu's automatic GSPMD partitioning, which has no
+    PyTorch counterpart: it raises, and so does a mesh runner's remat
+    (the distributed adjoint is not ported)."""
+    if mesh is None:
+        return
+    if remat:
+        raise ValueError("a mesh runner takes no remat: the distributed "
+                         "adjoint is not ported")
+    if halo_variant is None or spectral_variant != "a2a":
+        raise ValueError(
+            "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
+            "and spectral_variant='a2a': qgcm_tpu's GSPMD partitioning of "
+            "the rest has no PyTorch counterpart")
+
+
+def make_cycle_head(model: Model, mesh=None, halo_variant=None,
+                    spectral_variant=None):
     """The head of a coupling cycle (the reference's mod(nt,nstr)==1
     block, q-gcm.F:1222-1249), shared by the runners and the Driver.
 
@@ -134,13 +154,21 @@ def make_cycle_head(model: Model):
     dtype on its device).
     `on_substep(ocean, ofor)` sees the state right after the substep;
     then the ocean's time levels are averaged when the cycle index
-    n // nstr is a multiple of OCEAN_AVG_PERIOD."""
+    n // nstr is a multiple of OCEAN_AVG_PERIOD.
+
+    With `mesh` (a rows mesh made for the ocean's p-grid) the ocean's
+    state and forcing are this rank's row blocks (parallel/mesh.py): the
+    substep is the decomposed one (make_ocean_step's halo path) and
+    xforc the decomposed one (coupling.make_xforc); the atmosphere stays
+    whole on every rank. The mesh needs both variants (_check_mesh)."""
     from ..coupling import make_xforc
     cfg = model.cfg
     has_oc, has_at = not cfg.atmos_only, not cfg.ocean_only
     nstr = cfg.nstr
-    xforc = make_xforc(model) if has_at else None
-    ostep = make_ocean_step(model) if has_oc else None
+    _check_mesh(mesh, halo_variant, spectral_variant)
+    xforc = make_xforc(model, mesh=mesh) if has_at else None
+    halo = None if mesh is None else (mesh, halo_variant)
+    ostep = make_ocean_step(model, halo=halo) if has_oc else None
 
     def head(ocean, atmos, ofor, afor, n: int, on_substep=None,
              sst_mean=None):
@@ -206,48 +234,28 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
     remat (remat_loop): False stores every step for a backward pass;
     True, "dots" or an int checkpoints pairs of substeps, as qgcm_tpu's
     scan body is a pair. A mesh runner takes no remat."""
-    if mesh is None:
-        head = make_cycle_head(model)
-        nstr = model.cfg.nstr
+    _check_mesh(mesh, halo_variant, spectral_variant, remat)
+    head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
+    nstr = model.cfg.nstr
 
-        def run(state: OceanState, forcing: OceanForcing, n_steps: int,
-                step0: int = 0) -> OceanState:
-            def one(state, n):
-                return head(state, None, forcing, None, n * nstr)[0]
+    def run(state: OceanState, forcing: OceanForcing, n_steps: int,
+            step0: int = 0) -> OceanState:
+        def one(state, n):
+            return head(state, None, forcing, None, n * nstr)[0]
 
-            def pair(carry):
-                state, n = carry
-                return one(one(state, n), n + 1), n + 2
+        def pair(carry):
+            state, n = carry
+            return one(one(state, n), n + 1), n + 2
 
-            if not remat:
-                for n in range(step0, step0 + n_steps):
-                    state = one(state, n)
-                return state
-            pairs, rem = divmod(n_steps, 2)
-            state, n = remat_loop(pair, (state, step0), pairs, remat)
-            return one(state, n) if rem else state
+        if not remat:
+            for n in range(step0, step0 + n_steps):
+                state = one(state, n)
+            return state
+        pairs, rem = divmod(n_steps, 2)
+        state, n = remat_loop(pair, (state, step0), pairs, remat)
+        return one(state, n) if rem else state
 
-        return run
-
-    if remat:
-        raise ValueError("a mesh runner takes no remat: the distributed "
-                         "adjoint is not ported")
-    if halo_variant is None or spectral_variant != "a2a":
-        raise ValueError(
-            "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
-            "and spectral_variant='a2a': qgcm_tpu's GSPMD partitioning of "
-            "the rest has no PyTorch counterpart")
-    step = make_ocean_step(model, halo=(mesh, halo_variant))
-
-    def run_rows(state: OceanState, forcing: OceanForcing, n_steps: int,
-                 step0: int = 0) -> OceanState:
-        for n in range(step0, step0 + n_steps):
-            state, _ = step(state, forcing)
-            if n % OCEAN_AVG_PERIOD == 0:
-                state = average_ocean_levels(state)
-        return state
-
-    return run_rows
+    return run
 
 
 def _split_cycles(n_steps: int, step0: int, nstr: int) -> range:
@@ -288,7 +296,8 @@ def make_atmos_only_runner(model: Model):
     return run
 
 
-def make_coupled_runner(model: Model, remat=False):
+def make_coupled_runner(model: Model, remat=False, mesh=None,
+                        halo_variant=None, spectral_variant=None):
     """Fully coupled ocean-atmosphere stepping (main loop
     q-gcm.F:1220-1491), one coupling cycle at a time: xforc from the
     lagged states, one ocean substep with dto = nstr*dta, then nstr
@@ -297,8 +306,19 @@ def make_coupled_runner(model: Model, remat=False):
     Returns run(ocean, atmos, n_steps, step0=0) -> (ocean, atmos).
     `n_steps` counts ATMOSPHERIC steps; step0 keeps the coupling and
     averaging cadences aligned across chunks. Both are multiples of
-    nstr. remat (remat_loop) checkpoints whole coupling cycles."""
-    head = make_cycle_head(model)
+    nstr. remat (remat_loop) checkpoints whole coupling cycles.
+
+    With `mesh` (a rows mesh made for the ocean's p-grid;
+    qgcm_tpu/models/stepper.py:255-329) the ocean is this rank's row
+    blocks in and out (parallel/mesh.shard_tree), stepped by the
+    decomposed substep under the decomposed xforc (make_cycle_head),
+    and the atmosphere is whole on every rank: its forcing comes out of
+    xforc's all_reduce the same bits on every rank, so every rank's
+    atmosphere stays the same bits. halo_variant and
+    spectral_variant='a2a' are the ocean-only mesh runner's; a mesh
+    runner takes no remat."""
+    _check_mesh(mesh, halo_variant, spectral_variant, remat)
+    head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
     segment = make_atmos_segment(model)
     nstr = model.cfg.nstr
 

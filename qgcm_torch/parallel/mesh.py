@@ -30,6 +30,7 @@ counterpart here; these counts take its place.
 from __future__ import annotations
 
 import math
+import os
 from collections import Counter
 from typing import NamedTuple
 
@@ -46,16 +47,17 @@ def _ceil_div(n: int, d: int) -> int:
 
 class Mesh:
     """A (my, mx) layout of the ranks of the default process group (one
-    rank when none is initialised), this rank's (iy, ix), and, when made
-    for a grid (ny, nx) -- the ocean's p-grid -- its block sizes
-    (by, bx)."""
+    rank when none is initialised), or of `group`, a group of it that
+    holds this rank; this rank's (iy, ix), and, when made for a grid
+    (ny, nx) -- the ocean's p-grid -- its block sizes (by, bx)."""
 
-    def __init__(self, shape, grid=None):
+    def __init__(self, shape, grid=None, group=None):
         self.my, self.mx = shape
+        self.group = group
         if dist.is_initialized():
-            self.size = dist.get_world_size()
-            self.rank = dist.get_rank()
-            self.backend = dist.get_backend()
+            self.size = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+            self.backend = dist.get_backend(group)
         else:
             self.size, self.rank, self.backend = 1, 0, None
         if self.my * self.mx != self.size:
@@ -75,11 +77,14 @@ class Mesh:
         return _ceil_div(n, self.my if axis == "y" else self.mx)
 
     def _peer(self, dy: int, dx: int):
-        """The rank of the neighbour (iy + dy, ix + dx), or None."""
+        """The global rank of the neighbour (iy + dy, ix + dx), or
+        None."""
         iy, ix = self.iy + dy, self.ix + dx
         if not (0 <= iy < self.my and 0 <= ix < self.mx):
             return None
-        return iy * self.mx + ix
+        peer = iy * self.mx + ix
+        return (peer if self.group is None
+                else dist.get_global_rank(self.group, peer))
 
     # -- staging ------------------------------------------------------
     @property
@@ -123,7 +128,7 @@ class Mesh:
         else:
             h = h.clone()
         self._sync(t)
-        dist.all_reduce(h)
+        dist.all_reduce(h, group=self.group)
         return self._back(h, t) if h.device != t.device else h
 
     def all_to_all(self, t: torch.Tensor, site: str) -> torch.Tensor:
@@ -136,7 +141,7 @@ class Mesh:
         h = self._host(t)
         out = self._recv_buffer(t, t.shape)
         self._sync(t)
-        dist.all_to_all_single(out, h)
+        dist.all_to_all_single(out, h, group=self.group)
         return self._back(out, t) if out.device != t.device else out
 
     def all_gather(self, t: torch.Tensor, site: str) -> list:
@@ -147,7 +152,7 @@ class Mesh:
         h = self._host(t)
         outs = [self._recv_buffer(t, t.shape) for _ in range(self.size)]
         self._sync(t)
-        dist.all_gather(outs, h)
+        dist.all_gather(outs, h, group=self.group)
         return [self._back(o, t) if o.device != t.device else o
                 for o in outs]
 
@@ -176,8 +181,8 @@ class Mesh:
             s = self._host(part)
             sends.append(s)
             recvs[name] = self._recv_buffer(f, shape)
-            ops += [dist.P2POp(dist.isend, s, peer),
-                    dist.P2POp(dist.irecv, recvs[name], peer)]
+            ops += [dist.P2POp(dist.isend, s, peer, self.group),
+                    dist.P2POp(dist.irecv, recvs[name], peer, self.group)]
         if ops:
             self._sync(f)
         works = dist.batch_isend_irecv(ops) if ops else []
@@ -222,6 +227,51 @@ def make_mesh(rows_only: bool = False, grid=None) -> Mesh:
     return Mesh((my, n // my), grid=grid)
 
 
+def _not_ported_2d(what: str):
+    return NotImplementedError(
+        f"{what} needs the 2-D runner (the 2-D pencil transposes, and the "
+        "mixed layer and ocqbdy on 2-D blocks), which is not ported yet: "
+        "ROADMAP.md section 1, the 2-D runner; take a rows mesh "
+        "(--mesh rows)")
+
+
+def make_hybrid_mesh(rows_only: bool = False, grid=None) -> Mesh:
+    """qgcm_tpu's mesh for runs over several hosts
+    (qgcm_tpu/parallel/mesh.py:60): the hosts split 'y' and each host's
+    ranks (LOCAL_WORLD_SIZE, torchrun's count of a node's ranks) fill
+    'x'; rows_only=True puts every rank on 'y', in node order (torchrun
+    numbers the ranks node by node). A mesh with x > 1 raises: the port
+    runs rows meshes only."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    if rows_only or local == 1:
+        return Mesh((n, 1), grid=grid)
+    if n % local:
+        raise ValueError(f"{n} ranks are not whole hosts of {local}")
+    raise _not_ported_2d(f"a hybrid mesh of {n // local}x{local}")
+
+
+def mesh_from_spec(spec: str, cyclic: bool, grid) -> Mesh:
+    """The mesh of the CLI's --mesh (qgcm_tpu/cli.py:152-181) for the
+    ocean's p-grid `grid`: 'auto' and 'rows' every rank on 'y';
+    'hybrid' make_hybrid_mesh, rows only for a channel; 'NYxNX' that
+    shape. A mesh with NX > 1 raises (the 2-D runner is not ported;
+    qgcm_tpu runs a channel's stencils through GSPMD there, which has
+    no PyTorch counterpart)."""
+    if spec in ("auto", "rows"):
+        return make_mesh(rows_only=True, grid=grid)
+    if spec == "hybrid":
+        return make_hybrid_mesh(rows_only=cyclic, grid=grid)
+    try:
+        ny, nx = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes auto, rows, hybrid or NYxNX, not "
+                         f"{spec!r}") from None
+    if nx > 1:
+        raise _not_ported_2d(f"--mesh {spec}")
+    return Mesh((ny, nx), grid=grid)
+
+
 class Block(NamedTuple):
     """Where this rank's block of a field lies: rows [r0, r0 + nr) and
     columns [c0, c0 + nc) of the global field, of which `rows` and
@@ -241,11 +291,12 @@ def block_of(mesh: Mesh, ny: int, nx: int, t_grid: bool = False) -> Block:
         raise ValueError("the mesh was made without a grid")
     r0, c0 = mesh.iy * mesh.by, mesh.ix * mesh.bx
     rows = max(0, min(mesh.by, ny - r0))
-    if t_grid:
-        if mesh.mx > 1:
-            raise NotImplementedError("T-grid fields are decomposed over "
-                                      "rows only")
+    if mesh.mx == 1:
+        # a rows mesh keeps every field's own columns
         return Block(r0, mesh.by, rows, 0, nx, nx)
+    if t_grid:
+        raise NotImplementedError("T-grid fields are decomposed over rows "
+                                  "only")
     cols = max(0, min(mesh.bx, nx - c0))
     return Block(r0, mesh.by, rows, c0, mesh.bx, cols)
 
@@ -254,8 +305,9 @@ def shard(x: torch.Tensor, mesh: Mesh, t_grid: bool = False):
     """This rank's block of a full field (..., ny, nx), zero-padded to
     (..., by, bx); contiguous. Tensors of fewer than two dimensions (the
     state's scalars and mode vectors) are replicated: returned as they
-    are."""
-    if x.dim() < 2:
+    are, and so are values that are not tensors (a running mean's
+    count)."""
+    if not torch.is_tensor(x) or x.dim() < 2:
         return x
     ny, nx = x.shape[-2:]
     b = block_of(mesh, ny, nx, t_grid)
@@ -266,8 +318,9 @@ def shard(x: torch.Tensor, mesh: Mesh, t_grid: bool = False):
 def gather(x: torch.Tensor, mesh: Mesh, t_grid: bool = False,
            site: str = "gather"):
     """The full field from every rank's block (the inverse of shard), on
-    every rank; replicated tensors are returned as they are."""
-    if x.dim() < 2:
+    every rank; replicated tensors and values that are not tensors are
+    returned as they are."""
+    if not torch.is_tensor(x) or x.dim() < 2:
         return x
     nyp, nxp = mesh.grid
     ny = nyp - 1 if t_grid else nyp

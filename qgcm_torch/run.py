@@ -34,8 +34,19 @@ operator (on the CPU) per atmosphere step, from the profiler's
 key_averages; qgcm_tpu's summary of JAX traces (profiling.py) is not
 ported.
 
-Not ported: qgcm_tpu's device meshes and Orbax checkpoints; the
-constructor takes no such options.
+With a `mesh` (a rows mesh of the process group, parallel/mesh.py) the
+run is decomposed as qgcm_tpu's Driver(mesh) is (qgcm_tpu/run.py:93-180,
+318-345): the ocean's state, forcing and running means are this rank's
+row blocks, the atmosphere is whole on every rank, and the cycle head is
+the decomposed one (models/stepper.make_cycle_head). qgcm_tpu's rule for
+I/O holds: the writers see fields gathered whole at cadence boundaries
+only; every rank gathers and checks validity, and only the primary rank
+(parallel/launch.is_primary) writes, prints and profiles. A fail-fast
+stop is decided by an all_reduce of every rank's verdict, so that no
+rank stops while another waits in a collective. A resumed run reads
+restart.nc on every rank and takes its blocks.
+
+Not ported: Orbax checkpoints, and meshes with x > 1 (the 2-D runner).
 """
 
 from __future__ import annotations
@@ -47,12 +58,13 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .model import Model, build_model
 from .params import RunParams, params_to_config, write_matlab_params, \
     SECDAY, SECSYR
 from .state import OceanState, AtmosState
-from .models.ocean import (_as_field, init_ocean_state,
+from .models.ocean import (_Rows, _as_field, init_ocean_state,
                            ocean_forcing_from_mean)
 from .models.atmos import init_atmos_state
 from .models.stepper import make_atmos_segment, make_cycle_head
@@ -68,6 +80,11 @@ from .diags.qocdiag import qocdiag_terms, QocdiagWriter
 from .io import (save_restart, load_restart, load_restart_forcing,
                  OceanSnapshots, AtmosSnapshots, read_mean_forcing)
 from .io.ncdf import host
+from .parallel.launch import is_primary
+from .parallel.mesh import gather_tree, shard, shard_tree
+
+# the collective call site of the fail-fast verdict (Mesh.counts)
+VERDICT = "run.verdict"
 
 
 def _gcd_all(vals):
@@ -121,8 +138,19 @@ class Driver:
                  areas_limits: str = None, qoc_diag: bool = False,
                  ocavg_days: float = 0.0, nscvoc: int = 4,
                  nscvat: int = 2, cadence_rounding: str = "cycles",
-                 avges_sampling: str = "mean", profile_dir: str = None):
-        """cadence_rounding: "cycles" (default) rounds every cadence to a
+                 avges_sampling: str = "mean", profile_dir: str = None,
+                 mesh=None, spectral_variant: str = "a2a",
+                 halo_variant: str = "auto"):
+        """mesh: a rows mesh of the process group made for the ocean's
+        p-grid (parallel/mesh.py), for a decomposed run; qgcm_tpu's
+        arguments and rule (run.py:93-180): spectral_variant 'a2a' (the
+        only one ported), halo_variant 'auto' takes 'overlap' on a mesh
+        of more than one rank and leaves a one-rank mesh to the
+        single-device path, as qgcm_tpu leaves a one-device mesh to
+        GSPMD. An atmosphere-only model takes no mesh (the atmosphere on
+        row blocks is not ported).
+
+        cadence_rounding: "cycles" (default) rounds every cadence to a
         whole number of coupling cycles exactly like the reference
         (nint(days*secday/dto)*nstr, q-gcm.F:656-698); "exact" honours
         any whole atmospheric step (chunk boundaries then fall
@@ -136,11 +164,24 @@ class Driver:
         ntdone grid (q-gcm.F:674-694, :1477-1482); it needs an even
         number of steps per interval."""
         cfg = model.cfg
+        if mesh is not None:
+            if cfg.atmos_only:
+                raise NotImplementedError(
+                    "a decomposed run cuts the ocean's rows; the atmosphere "
+                    "on row blocks is not ported yet (ROADMAP.md)")
+            if halo_variant == "auto":
+                halo_variant = "overlap" if mesh.size > 1 else None
+                mesh = mesh if mesh.size > 1 else None
+        self.mesh = mesh
+        self.rows = None if mesh is None else _Rows(mesh, cfg, model.device)
         self.model = model
         self.p = params
         self.outdir = outdir
-        self.verbose = verbose
-        os.makedirs(outdir, exist_ok=True)
+        # the primary rank writes, prints and profiles
+        self.primary = is_primary()
+        self.verbose = verbose and self.primary
+        if self.primary:
+            os.makedirs(outdir, exist_ok=True)
 
         self.has_oc = not cfg.atmos_only
         self.has_at = not cfg.ocean_only
@@ -223,11 +264,12 @@ class Driver:
         self.sst_mean = (_as_field(model, sst_mean)
                          if sst_mean is not None else None)
         self.mean_forcing = mean_forcing   # (tauxo, tauyo, fnetoc)
-        self._head = make_cycle_head(model)
+        self._head = make_cycle_head(model, mesh, halo_variant,
+                                     spectral_variant)
         self._segment = make_atmos_segment(model) if self.has_at else None
         if self.has_at:
             from .coupling import make_xforc
-            self._xforc = make_xforc(model)
+            self._xforc = make_xforc(model, mesh=mesh)
         self._step0 = 0
         # host seconds in the chunks (the device drained at each chunk
         # end) and in the cadence events, filled by run()
@@ -275,17 +317,38 @@ class Driver:
         if self.mean_forcing is None:
             raise ValueError("ocean_only run needs mean forcing "
                              "(tauxo, tauyo, fnetoc)")
-        return ocean_forcing_from_mean(self.model, *self.mean_forcing), None
+        if self.mesh is None:
+            return ocean_forcing_from_mean(self.model,
+                                           *self.mean_forcing), None
+        # the rank's rows of the wind, with one more each side (zero off
+        # the grid), and of the heat flux
+        rows, mesh = self.rows, self.mesh
+        taux, tauy, fnet = (_as_field(self.model, a)
+                            for a in self.mean_forcing)
+
+        def ext(f):
+            f = F.pad(f, (0, 0, 1, mesh.size * mesh.by + 1 - f.shape[0]))
+            return f[rows.r0:rows.r0 + rows.n + 2]
+
+        return ocean_forcing_from_mean(
+            self.model, ext(taux), ext(tauy), shard(fnet, mesh, t_grid=True),
+            rows=rows), None
 
     def initial_carry(self) -> tuple:
         """(Carry at the run's start, tini in years): the initial states
         and forcing on the model's device, zero running means, and
         n = nsteps0, the absolute step of the start."""
         oc, at, tini = self._initial_state()
+        oacc = zero_ocean_averages(self.model)
+        if self.mesh is not None:
+            oc, oacc = shard_tree(oc, self.mesh), shard_tree(oacc, self.mesh)
+            sofor, safor = self._stored_forcing
+            if sofor is not None:
+                self._stored_forcing = (shard_tree(sofor, self.mesh), safor)
         ofor, afor = self._initial_forcing(oc, at)
         step0 = _nint(tini * SECSYR / self.model.cfg.dta)  # q-gcm.F:649
         self._step0 = step0
-        return Carry(oc, at, ofor, afor, zero_ocean_averages(self.model),
+        return Carry(oc, at, ofor, afor, oacc,
                      zero_atmos_averages(self.model), step0), tini
 
     def advance(self, carry: Carry, n_steps: int) -> Carry:
@@ -313,7 +376,8 @@ class Driver:
             if midpoint and self.ntavoc and \
                     ((n - step0 + nstr) - nmidoc) % self.ntavoc >= nstr:
                 return
-            oacc = accumulate_ocean(oacc, oc_new, ofor_new, model)
+            oacc = accumulate_ocean(oacc, oc_new, ofor_new, model,
+                                    rows=self.rows)
 
         def acc_at(at_new, i):
             # after atmosphere step i (absolute, 0-based): ntdone is
@@ -353,56 +417,87 @@ class Driver:
         model, p, out = self.model, self.p, self.outdir
         cfg = model.cfg
         has_oc, has_at = self.has_oc, self.has_at
+        mesh, writes = self.mesh, self.primary
         carry, tini = self.initial_carry()
 
-        write_matlab_params(f"{out}/input_parameters.m", p, cfg, model,
-                            tini=tini, nscvoc=self.nscvoc,
-                            nscvat=self.nscvat)
-        if model.topo.dtopoc.any() or model.topo.dtopat.any():
-            from .topo import write_topog
-            write_topog(f"{out}/topog.nc", model)
+        if writes:
+            write_matlab_params(f"{out}/input_parameters.m", p, cfg, model,
+                                tini=tini, nscvoc=self.nscvoc,
+                                nscvat=self.nscvat)
+            if model.topo.dtopoc.any() or model.topo.dtopat.any():
+                from .topo import write_topog
+                write_topog(f"{out}/topog.nc", model)
         from .report import startup_report, sample_report, memory_report
         self._log(startup_report(model))
         self._log(memory_report(model))
 
+        # the writers (and the covariance accumulators) live on the
+        # primary rank only
         osnap = (OceanSnapshots(out, model, flags=p.outfloc,
                                 stride=p.nsko)
-                 if has_oc and self.noutoc else None)
+                 if writes and has_oc and self.noutoc else None)
         asnap = (AtmosSnapshots(out, model, flags=p.outflat,
                                 stride=p.nska)
-                 if has_at and self.noutat else None)
+                 if writes and has_at and self.noutat else None)
         monw = MonitorWriter(f"{out}/monit.nc", model) \
-            if self.nmonit else None
+            if writes and self.nmonit else None
         boxes = areasw = None
-        if self.areas_limits and self.nmonit:
+        if writes and self.areas_limits and self.nmonit:
             boxes = build_area_boxes(model, self.areas_limits)
             areasw = AreasWriter(f"{out}/areas.nc", boxes)
         qocw = (QocdiagWriter(f"{out}/qocdiag.nc", model, stride=p.nsko)
-                if self.qoc_diag and has_oc and self.noutoc else None)
+                if writes and self.qoc_diag and has_oc and self.noutoc
+                else None)
         covs = {}
-        if self.ncovoc and has_oc:
+        if writes and self.ncovoc and has_oc:
             covs["po"] = zero_cov(cov_size(cfg.nypo, cfg.nxpo,
                                            self.nscvoc, grid="p"))
             covs["to"] = zero_cov(cov_size(cfg.nyto, cfg.nxto,
                                            self.nscvoc))
-        if self.ncovat and has_at:
+        if writes and self.ncovat and has_at:
             covs["pa"] = zero_cov(cov_size(cfg.nypa, cfg.nxpa,
                                            self.nscvat, grid="p"))
             covs["ta"] = zero_cov(cov_size(cfg.nyta, cfg.nxta,
                                            self.nscvat))
-        if self.nocavg:
+        if writes and self.nocavg:
             os.makedirs(f"{out}/avg", exist_ok=True)
         n_ocavg = 0
         oacc_mark = None
+        cadences = (self.nvalid, self.noutoc, self.noutat, self.nmonit,
+                    self.nprint, self.nrestart, self.ntavoc, self.ntavat,
+                    self.ncovoc, self.ncovat, self.nocavg)
 
         def fluids(oc, at):
             return (oc if has_oc else None), (at if has_at else None)
 
+        def whole(carry, means):
+            """(ocean, ocean forcing, ocean means) of the carry, gathered
+            whole on every rank in a decomposed run (the means only when
+            `means`)."""
+            oc, ofor, oacc = carry.oc, carry.ofor, carry.oacc
+            if mesh is None or not has_oc:
+                return oc, ofor, oacc
+            return (gather_tree(oc, mesh), gather_tree(ofor, mesh),
+                    gather_tree(oacc, mesh) if means else None)
+
+        def valid(ocf, atf, ofor, afor):
+            """(verdict, report) of valids, the verdict the same on every
+            rank: in a decomposed run every rank's goes through one
+            all_reduce."""
+            rep = valids(model, ocf, atf, ofor, afor)
+            ok = bool(rep.ok)
+            if mesh is not None:
+                bad = torch.tensor(0.0 if ok else 1.0, device=model.device)
+                ok = float(mesh.all_reduce(bad, VERDICT)) == 0.0
+            return ok, rep
+
         aborted = False
         n_done = 0
-        # --profile: the third chunk, or the last of fewer
+        # --profile: the third chunk, or the last of fewer; the primary
+        # rank's
         n_chunks = -(-self.nsteps // self.chunk)
-        prof_chunk = min(2, n_chunks - 1) if self.profile_dir else -1
+        prof_chunk = (min(2, n_chunks - 1) if self.profile_dir and writes
+                      else -1)
         prof = None
         t0 = time.time()
         while n_done < self.nsteps:
@@ -417,52 +512,60 @@ class Driver:
             te = time.perf_counter()
             self.seconds["steps"] += te - ts
             n_done += n
-            oc, at, ofor, afor, oacc, aacc, _ = carry
-            ocf, atf = fluids(oc, at)
             tyrs = tini + n_done * cfg.dta / SECSYR
 
             def due(cad):
                 return cad and n_done % cad == 0
 
-            if due(self.nvalid):
-                rep = valids(model, ocf, atf, ofor, afor)
-                if not bool(rep.ok):
-                    # fail-fast with post-mortem artifacts
-                    if osnap:
-                        osnap.append(oc, ofor, tyrs)
-                    if asnap:
-                        asnap.append(at, afor, tyrs)
-                    if monw:
-                        monw.append(compute_monitor(
-                            model, ocf, atf, ofor, afor), tyrs)
-                    self._log(f"VALIDITY FAILURE at step {n_done}: "
-                              f"{rep}")
+            if not any(due(c) for c in cadences):
+                continue
+            at, afor, aacc = carry.at, carry.afor, carry.aacc
+            oc, ofor, oacc = whole(carry, due(self.ntavoc)
+                                   or due(self.ntavat) or due(self.nocavg))
+            ocf, atf = fluids(oc, at)
+
+            ok, rep = (valid(ocf, atf, ofor, afor) if due(self.nvalid)
+                       else (True, None))
+            if not ok:
+                # fail-fast with post-mortem artifacts
+                if osnap:
+                    osnap.append(oc, ofor, tyrs)
+                if asnap:
+                    asnap.append(at, afor, tyrs)
+                if monw:
+                    monw.append(compute_monitor(
+                        model, ocf, atf, ofor, afor), tyrs)
+                self._log(f"VALIDITY FAILURE at step {n_done}: {rep}")
+                if self.verbose:
                     from .diags.valids import post_mortem
                     self._log(post_mortem(model, ocf, atf, ofor, afor))
-                    aborted = True
-                    self.seconds["events"] += time.perf_counter() - te
-                    break
-            if due(self.nmonit) and monw:
+                aborted = True
+                self.seconds["events"] += time.perf_counter() - te
+                break
+            if due(self.nmonit):
                 xdiags = None
                 if has_at and has_oc:
+                    # the decomposed xforc is a collective of every rank
+                    ocb = carry.oc
                     _, _, xdiags = self._xforc(
-                        at.pam, oc.pom, oc.sstm, at.astm, at.hmixam)
-                monw.append(compute_monitor(model, ocf, atf, ofor, afor,
-                                            xdiags=xdiags), tyrs)
+                        at.pam, ocb.pom, ocb.sstm, at.astm, at.hmixam)
+                if monw:
+                    monw.append(compute_monitor(model, ocf, atf, ofor, afor,
+                                                xdiags=xdiags), tyrs)
             if due(self.noutoc) and osnap:
                 osnap.append(oc, ofor, tyrs)
             if due(self.noutat) and asnap:
                 asnap.append(at, afor, tyrs)
-            if due(self.ntavoc) or due(self.ntavat):
+            if (due(self.ntavoc) or due(self.ntavat)) and writes:
                 write_avges(f"{out}/avges.nc", model,
                             oacc if has_oc else None,
                             aacc if has_at else None)
-            if due(self.ncovoc):
+            if due(self.ncovoc) and covs:
                 covs["po"] = accumulate_cov(covs["po"], oc.po[0],
                                             nsi=self.nscvoc, grid="p")
                 covs["to"] = accumulate_cov(covs["to"], oc.sst,
                                             nsi=self.nscvoc)
-            if due(self.ncovat):
+            if due(self.ncovat) and covs:
                 covs["pa"] = accumulate_cov(covs["pa"], at.pa[0],
                                             nsi=self.nscvat, grid="p")
                 covs["ta"] = accumulate_cov(covs["ta"], at.ast,
@@ -477,7 +580,7 @@ class Driver:
                 entoc = (_oml(model, oc, ofor)[2] if not cfg.no_oml
                          else torch.zeros_like(oc.po[0]))
                 qocw.append(qocdiag_terms(model, oc, ofor, entoc), tyrs)
-            if due(self.nocavg):
+            if due(self.nocavg) and writes:
                 # k247 daily-mean po stream: window means by
                 # differencing the cumulative accumulator
                 from .io.ncdf import make_writer as NcWriter
@@ -495,12 +598,12 @@ class Driver:
                 wnc.close()
                 n_ocavg += 1
             if due(self.nrestart):
-                rep = valids(model, ocf, atf, ofor, afor)
-                if bool(rep.ok):      # last-good checkpoint only
+                # last-good checkpoint only
+                if valid(ocf, atf, ofor, afor)[0] and writes:
                     save_restart(f"{out}/restart.nc", model, oc, at, tyrs,
                                  **self._midcycle_forcing(n_done, ofor,
                                                           afor))
-            if due(self.nprint):
+            if due(self.nprint) and self.verbose:
                 wall = time.time() - t0
                 cflr = cfl_numbers(model, ocf, atf, ofor, afor)
                 self._log(f"step {n_done}/{self.nsteps} t={tyrs:.4f}y "
@@ -510,21 +613,23 @@ class Driver:
                 self._log(sample_report(model, ocf, atf))
             self.seconds["events"] += time.perf_counter() - te
 
-        oc, at, ofor, afor, oacc, aacc, _ = carry
-        tyrs = tini + n_done * cfg.dta / SECSYR
         te = time.perf_counter()
-        if not aborted:
-            # the reference writes its final resave only at normal
-            # termination (q-gcm.F:1528-1539); an aborted run must NOT
-            # leave the invalid state as the newest checkpoint (the
-            # post-mortem snapshots carry it, and restart.nc remains
-            # the last state that PASSED valids)
-            save_restart(f"{out}/lastday.nc", model, oc, at, tyrs,
-                         **self._midcycle_forcing(n_done, ofor, afor))
-        write_avges(f"{out}/avges.nc", model,
-                    oacc if has_oc else None, aacc if has_at else None)
-        if covs:
-            write_covar(f"{out}/covar.nc", covs)
+        at, afor, aacc = carry.at, carry.afor, carry.aacc
+        oc, ofor, oacc = whole(carry, True)
+        tyrs = tini + n_done * cfg.dta / SECSYR
+        if writes:
+            if not aborted:
+                # the reference writes its final resave only at normal
+                # termination (q-gcm.F:1528-1539); an aborted run must
+                # NOT leave the invalid state as the newest checkpoint
+                # (the post-mortem snapshots carry it, and restart.nc
+                # remains the last state that PASSED valids)
+                save_restart(f"{out}/lastday.nc", model, oc, at, tyrs,
+                             **self._midcycle_forcing(n_done, ofor, afor))
+            write_avges(f"{out}/avges.nc", model,
+                        oacc if has_oc else None, aacc if has_at else None)
+            if covs:
+                write_covar(f"{out}/covar.nc", covs)
         for wtr in (osnap, asnap, monw, areasw, qocw):
             if wtr:
                 wtr.close()

@@ -11,11 +11,14 @@ from typing import NamedTuple
 
 import torch
 
-# Fields of the ocean's T-grid (nyto, nxto): a decomposed run gives them
-# the p-grid's row blocks (parallel/mesh.py). Every other field of two or
-# more dimensions is on the p-grid; scalars and mode vectors are
-# replicated, as on the TPU.
-T_GRID_FIELDS = frozenset({"sst", "sstm", "fnetoc", "wekto"})
+# Fields with the rows of the ocean's T-grid (nyto rows): a decomposed run
+# gives them the p-grid's row blocks (parallel/mesh.py). They are the
+# T-grid fields and, of the running means (diags/timavge.py), the fields
+# on the T cells' W/E faces. Every other field of two or more dimensions
+# has the p-grid's rows; scalars and mode vectors are replicated, as on
+# the TPU.
+T_GRID_FIELDS = frozenset({"sst", "sstm", "fnetoc", "wekto", "uufo",
+                           "tufo", "utufo"})
 
 
 class OceanState(NamedTuple):

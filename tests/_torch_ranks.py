@@ -4,12 +4,16 @@ the tests build. The ranks are started with the "spawn" method
 (qgcm_torch.parallel.launch.spawn_ranks), so this module imports only
 torch, numpy and qgcm_torch: never JAX, never qgcm_tpu."""
 
+import importlib
+import os
+
 import numpy as np
 import torch
 
 import qgcm_torch.config
 from qgcm_torch.generators import double_gyre_windstress, eddy_pressure
 from qgcm_torch.model import build_model
+from qgcm_torch.models.atmos import init_atmos_state
 from qgcm_torch.models.ocean import (_oml, init_ocean_state,
                                      ocean_forcing_from_mean, qgstep_consts)
 from qgcm_torch.parallel.mesh import (Mesh, gather, gather_tree, make_mesh,
@@ -174,3 +178,214 @@ def runner_rank(cases):
                             == 0).all()) for k in ("po", "qo", "pom", "qom"))))
     return out if torch.distributed.get_rank() == 0 else None
 
+
+
+def coupled_cfg(cfgmod, kind="box", dtype="float64", **over):
+    """The small coupled configurations of the JAX tests, in `cfgmod`:
+    'box' is the double gyre of tests/test_golden.py:67 and
+    tests/test_coupling.py:15, 'channel' the miniature southern-ocean
+    channel of tests/test_southern_ocean.py:22."""
+    if kind == "box":
+        return cfgmod.double_gyre_coupled(
+            nxta=24, nyta=12, nxaooc=8, nyaooc=8, ndxr=4, dta=180.0,
+            ocean=cfgmod.OceanConfig(dxo=20.0e3),
+            dtype=dtype).replace(**over).validate()
+    assert kind == "channel", kind
+    return cfgmod.ModelConfig(
+        nxta=24, nyta=18, nxaooc=24, nyaooc=6, ndxr=4,
+        fnot=-1.19467e-4, beta=1.31301e-11, dta=180.0,
+        ocean=cfgmod.OceanConfig(dxo=20.0e3), cyclic_ocean=True,
+        nb_hflux=True, dtype=dtype).replace(**over).validate()
+
+
+def seeded_coupled(kind, **over):
+    """Model (CPU, float64) and a seeded coupled state (ocean, atmos): a
+    noisy atmosphere over an eddying ocean with a noisy SST, so that
+    every term of xforc is exercised, tau_udiff's ocean velocities
+    included (the state of tests/test_torch_coupling.py)."""
+    cfg = coupled_cfg(qgcm_torch.config, kind, **over)
+    model = build_model(cfg, "cpu")
+    rng = np.random.default_rng(1)
+    pam = 500.0 * rng.standard_normal((cfg.nla, cfg.nypa, cfg.nxta))
+    pam = np.concatenate([pam, pam[:, :, :1]], axis=2)
+    at = init_atmos_state(model, pa=pam)
+
+    def noise(t, amp):
+        return t + amp * torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)))
+
+    at = at._replace(astm=noise(at.astm, 1.0),
+                     hmixam=noise(at.hmixam, 20.0))
+    oc = init_ocean_state(model, init="rbal",
+                          po=eddy_pressure(cfg, ssh_amp=0.3))
+    return model, oc._replace(sstm=noise(oc.sstm, 1.0)), at
+
+
+def numpy_fields(nt) -> dict:
+    """{field: NumPy array} of a NamedTuple of tensors."""
+    return {k: v.numpy() if torch.is_tensor(v) else v
+            for k, v in nt._asdict().items()}
+
+
+def padding_zero(tree, mesh, nyp) -> bool:
+    """Whether every row of this rank's blocks at or beyond the grid's
+    end (nyp p rows, nyp - 1 T rows) is zero."""
+    from qgcm_torch.state import T_GRID_FIELDS
+    ok = True
+    for k, v in tree._asdict().items():
+        if torch.is_tensor(v) and v.dim() >= 2:
+            end = (nyp - 1 if k in T_GRID_FIELDS else nyp) - mesh.iy * mesh.by
+            ok &= bool((v[..., max(0, end):, :] == 0).all())
+    return ok
+
+
+def xforc_rank(cases):
+    """For each case (kind, config overrides): the decomposed xforc of
+    the seeded coupled state on a rows mesh of the ranks: the ocean
+    forcing gathered whole, this rank's atmospheric forcing and
+    diagnostics (the same bits on every rank), the collective counts and
+    whether the forcing's padding rows are zero."""
+    from qgcm_torch.coupling import make_xforc
+    torch.set_num_threads(1)
+    out = []
+    for kind, over in cases:
+        model, oc, at = seeded_coupled(kind, **over)
+        cfg = model.cfg
+        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        ob = shard_tree(oc, mesh)
+        ofor, afor, xd = make_xforc(model, mesh=mesh)(
+            at.pam, ob.pom, ob.sstm, at.astm, at.hmixam)
+        counts = dict(mesh.counts)
+        out.append(dict(ofor=numpy_fields(gather_tree(ofor, mesh)),
+                        afor=numpy_fields(afor), diags=numpy_fields(xd),
+                        counts=counts,
+                        pad_zero=padding_zero(ofor, mesh, cfg.nypo)))
+    return out
+
+
+def coupled_runner_rank(cases):
+    """For each case (kind, config overrides, halo variant, cycles): the
+    seeded coupled state run that many coupling cycles by the decomposed
+    coupled runner: the ocean gathered whole, this rank's atmosphere,
+    the collectives per cycle, qgstep's launches and whether the ocean's
+    padding rows stayed zero."""
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep
+    torch.set_num_threads(1)
+    out = []
+    for kind, over, variant, cycles in cases:
+        model, oc, at = seeded_coupled(kind, **over)
+        cfg = model.cfg
+        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        run = make_coupled_runner(model, mesh=mesh, halo_variant=variant,
+                                  spectral_variant="a2a")
+        n0 = qgstep.launches
+        ob, at = run(shard_tree(oc, mesh), at, cycles * cfg.nstr)
+        out.append(dict(ocean=numpy_fields(gather_tree(ob, mesh)),
+                        atmos=numpy_fields(at),
+                        counts={k: v / cycles for k, v in
+                                mesh.counts.items() if k != "gather"},
+                        launches=qgstep.launches - n0,
+                        pad_zero=padding_zero(ob, mesh, cfg.nypo)))
+    return out
+
+
+def mesh_specs(specs, cyclic=False):
+    """For each --mesh spec: the (my, mx) of the mesh it makes on the
+    ranks, or the type and message of what it raised."""
+    from qgcm_torch.parallel.mesh import mesh_from_spec
+    out = []
+    for spec in specs:
+        try:
+            m = mesh_from_spec(spec, cyclic, (33, 33))
+            out.append((m.my, m.mx))
+        except (NotImplementedError, ValueError) as e:
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def coupled_rank(xforc_cases, runner_cases, specs):
+    """xforc_rank, coupled_runner_rank and mesh_specs (box, then
+    channel) in one spawn."""
+    return dict(xforc=xforc_rank(xforc_cases),
+                runner=coupled_runner_rank(runner_cases),
+                specs=(mesh_specs(specs), mesh_specs(specs, cyclic=True)))
+
+
+def float64_files(mp, pkg, declared):
+    """Make every writer of the package `pkg` ('qgcm_torch', or in a test
+    process 'qgcm_tpu') store float64 where it declares float32 ('f'),
+    and record the declared types in `declared`, while the MonkeyPatch
+    `mp` lasts: a comparison then sees the full values, and the types
+    are compared separately."""
+    nc = importlib.import_module(pkg + ".io.ncdf")
+
+    class Writer(nc.NcWriter):
+        def var(self, name, dtype, dims, **kw):
+            declared[(os.path.basename(self.f.filename), name)] = dtype
+            return super().var(name, "d" if dtype == "f" else dtype, dims,
+                               **kw)
+
+    def make(path, backend=None):
+        return Writer(path)
+
+    mp.setattr(nc, "make_writer", make)
+    for mod in ("snapshots", "restart", "forcing"):
+        mp.setattr(importlib.import_module(f"{pkg}.io.{mod}"), "NcWriter",
+                   make)
+
+
+def driver_rank(runs, argvs, fail_rank=None):
+    """What each rank of tests/test_torch_parallel_driver.py runs, with
+    float64 files: `runs`, each (config, RunParams, outdir, Driver
+    keywords) through the port's Driver on a rows mesh of the ranks
+    (returning steps done, whether it aborted and the collective
+    counts); then `argvs` through qgcm_torch.cli.main (returning the exit
+    code, or the message of a SystemExit, and what the rank printed).
+    On rank `fail_rank` valids fails, as a blow-up seen by one rank
+    alone would."""
+    import contextlib
+    import io
+    import pytest
+    import qgcm_torch.run
+    from qgcm_torch.cli import main
+    from qgcm_torch.run import Driver
+    torch.set_num_threads(1)
+    out = dict(runs=[], cli=[])
+    with pytest.MonkeyPatch.context() as mp:
+        float64_files(mp, "qgcm_torch", {})
+        if fail_rank == torch.distributed.get_rank():
+            real = qgcm_torch.run.valids
+
+            def failing(*a, **kw):
+                return real(*a, **kw)._replace(ok=torch.tensor(False))
+
+            mp.setattr(qgcm_torch.run, "valids", failing)
+        for cfg, params, outdir, kw in runs:
+            model = build_model(cfg, "cpu")
+            mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+            res = Driver(model, params, outdir, mesh=mesh, verbose=False,
+                         **kw).run()
+            out["runs"].append(dict(steps=res.steps_done,
+                                    aborted=res.aborted,
+                                    counts=dict(mesh.counts)))
+        for argv in argvs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    code = main(argv)
+                except SystemExit as e:
+                    code = str(e.code)
+            out["cli"].append((code, buf.getvalue()))
+    return out
+
+
+def raising_rank(n_steps):
+    """Rank 1 raises after the ranks' first collective, while the others
+    go on into the next one."""
+    mesh = make_mesh(rows_only=True)
+    mesh.all_reduce(torch.ones(1), "test")
+    if torch.distributed.get_rank() == 1:
+        raise RuntimeError("this rank fails")
+    for _ in range(n_steps):
+        mesh.all_reduce(torch.ones(1), "test")

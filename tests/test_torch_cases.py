@@ -29,6 +29,8 @@ from qgcm_torch.models.atmos import init_atmos_state as t_init_atmos
 from qgcm_torch.models.ocean import init_ocean_state as t_init_ocean
 from qgcm_torch.models.ocean import ocean_forcing_from_mean as t_mf
 
+from _torch_ranks import coupled_cfg  # noqa: F401 (re-exported)
+
 TOL = 1e-12
 StepDiags = namedtuple("StepDiags", "ermaso emfroc ermasa emfrat")
 
@@ -113,24 +115,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def coupled_cfg(cfgmod, kind="box", dtype="float64", **over):
-    """The small coupled configurations of the JAX tests, in `cfgmod`:
-    'box' is the double gyre of tests/test_golden.py:67 and
-    tests/test_coupling.py:15, 'channel' the miniature southern-ocean
-    channel of tests/test_southern_ocean.py:22."""
-    if kind == "box":
-        return cfgmod.double_gyre_coupled(
-            nxta=24, nyta=12, nxaooc=8, nyaooc=8, ndxr=4, dta=180.0,
-            ocean=cfgmod.OceanConfig(dxo=20.0e3),
-            dtype=dtype).replace(**over).validate()
-    assert kind == "channel", kind
-    return cfgmod.ModelConfig(
-        nxta=24, nyta=18, nxaooc=24, nyaooc=6, ndxr=4,
-        fnot=-1.19467e-4, beta=1.31301e-11, dta=180.0,
-        ocean=cfgmod.OceanConfig(dxo=20.0e3), cyclic_ocean=True,
-        nb_hflux=True, dtype=dtype).replace(**over).validate()
 
 
 def coupled_pair(*args, **kw):

@@ -6,7 +6,6 @@ restarts), writes the same file set with every variable within rel 1e-9
 (the golden bar). The port's own Driver cases are
 tests/test_torch_run.py."""
 
-import importlib
 import os
 
 import numpy as np
@@ -23,6 +22,7 @@ from qgcm_torch.models.ocean import init_ocean_state
 from qgcm_torch.params import RunParams, params_to_config
 from qgcm_torch.run import Driver
 
+from _torch_ranks import float64_files as _float64_files
 from test_torch_cases import one_torch_thread, quick_jit
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
@@ -50,27 +50,6 @@ def _coupled_base(cfgmod):
     return cfgmod.double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8,
                                       ndxr=4, ocean=cfgmod.OceanConfig(
                                           dxo=20.0e3))
-
-
-def _float64_files(mp, pkg, declared):
-    """Make every writer of `pkg` store float64 where it declares float32
-    ('f'), and record the declared types: the comparison then sees the
-    full values, and the types are compared separately."""
-    nc = importlib.import_module(pkg + ".io.ncdf")
-
-    class Writer(nc.NcWriter):
-        def var(self, name, dtype, dims, **kw):
-            declared[(os.path.basename(self.f.filename), name)] = dtype
-            return super().var(name, "d" if dtype == "f" else dtype, dims,
-                               **kw)
-
-    def make(path, backend=None):
-        return Writer(path)
-
-    mp.setattr(nc, "make_writer", make)
-    for mod in ("snapshots", "restart", "forcing"):
-        mp.setattr(importlib.import_module(f"{pkg}.io.{mod}"), "NcWriter",
-                   make)
 
 
 @pytest.fixture(scope="module")
@@ -149,12 +128,13 @@ def test_driver_output_matches_jax(pair, name):
     assert_same_file(pair[0], name)
 
 
-def assert_same_file(d, name, rtol=1e-9):
-    """d/jax/name and d/port/name hold the same variables, dimensions
-    and units, every variable within rtol of its largest magnitude in
-    the jax file (entmoc: of enamoc's)."""
-    with netcdf_file(str(d / "jax" / name), "r", mmap=False) as fj, \
-            netcdf_file(str(d / "port" / name), "r", mmap=False) as ft:
+def assert_same_file(d, name, rtol=1e-9, got="port", want="jax",
+                     rtols=None):
+    """d/want/name and d/got/name hold the same variables, dimensions
+    and units, every variable within rtol (or rtols[variable]) of its
+    largest magnitude in the `want` file (entmoc: of enamoc's)."""
+    with netcdf_file(str(d / want / name), "r", mmap=False) as fj, \
+            netcdf_file(str(d / got / name), "r", mmap=False) as ft:
         assert set(ft.variables) == set(fj.variables)
         assert dict(ft.dimensions) == dict(fj.dimensions)
         for v in fj.variables:
@@ -167,4 +147,5 @@ def assert_same_file(d, name, rtol=1e-9):
             scale = np.abs(b).max(initial=0.0)
             if v == "entmoc":
                 scale = np.abs(fj.variables["enamoc"][:]).max()
-            assert np.abs(a - b).max(initial=0.0) <= rtol * scale, v
+            tol = (rtols or {}).get(v, rtol)
+            assert np.abs(a - b).max(initial=0.0) <= tol * scale, v

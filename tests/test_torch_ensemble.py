@@ -295,5 +295,18 @@ def test_operator_without_batching_rule_raises(ocean_pair, monkeypatch):
 
 
 def test_member_meshes_are_not_ported(ocean_pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ens.make_ensemble_runner(ocean_pair[0], mesh=object())
+    """Member meshes are ported now: without a process group the member
+    mesh is one rank, whose runner steps every member bit for bit as the
+    runner without a mesh; qgcm_tpu's divisibility check is kept (the
+    multi-rank meshes: tests/test_torch_parallel_driver.py)."""
+    model, members, f, _ = ocean_pair
+    mesh = ens.ensemble_mesh()
+    assert mesh.size == 1
+    got = ens.make_ensemble_runner(model, mesh=mesh)(members, f, 2)
+    want = ens.make_ensemble_runner(model)(members, f, 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    mesh.size = 2
+    with pytest.raises(ValueError, match="must be a multiple of the "
+                       "member-mesh device count"):
+        ens.shard_members(members, mesh)

@@ -222,12 +222,16 @@ def test_spawn_refuses_a_used_rendezvous(tmp_path):
 
 
 def test_parallel_modules_import_no_jax():
-    """The port's parallel modules and the ranks' module load no JAX and
-    no qgcm_tpu (the spawned ranks import only these)."""
+    """The port's parallel modules, the modules the decomposed coupled
+    model, Driver and commands run in the ranks, and the ranks' module
+    load no JAX and no qgcm_tpu (the spawned ranks import only these)."""
     code = ("import sys\n"
             "sys.path.insert(0, 'tests')\n"
             "import qgcm_torch.parallel.launch, qgcm_torch.parallel.mesh\n"
             "import qgcm_torch.parallel.halo, qgcm_torch.parallel.spectral\n"
+            "import qgcm_torch.coupling, qgcm_torch.models.stepper\n"
+            "import qgcm_torch.models.ensemble, qgcm_torch.run\n"
+            "import qgcm_torch.cli, qgcm_torch.diags.timavge\n"
             "import _torch_ranks\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"

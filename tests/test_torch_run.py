@@ -204,8 +204,9 @@ def test_cadence_rounding(tmp_path):
     """Fortran NINT rounds half away from zero; a cadence that is not a
     whole number of coupling cycles warns with its rounded value, and an
     exact one stays silent; an odd midpoint interval is refused; the
-    options the port does not have are refused, and profile_dir (the
-    CLI's --profile) is taken."""
+    option the port does not have (ckpt_format) is refused, and
+    profile_dir (the CLI's --profile) and mesh (None: one device) are
+    taken."""
     assert [_nint(x) for x in (0.5, 1.5, 2.5, 2.4999)] == [1, 2, 3, 2]
     model = build_model(_coupled_base(torch_config), "cpu")
     kw = dict(trun=0.01 / 365.0, dta=180.0, nstr=3, dxo=20.0e3, odiday=0.0,
@@ -222,17 +223,20 @@ def test_cadence_rounding(tmp_path):
     with pytest.raises(ValueError, match="midpoint"):
         Driver(model, RunParams(**{**kw, "dtavat": 540.0 / DAY}),
                str(tmp_path / "c"), verbose=False, avges_sampling="midpoint")
-    for opt in ("mesh", "ckpt_format"):
-        with pytest.raises(TypeError):
-            Driver(model, RunParams(**kw), str(tmp_path / "d"), **{opt: None})
+    with pytest.raises(TypeError):
+        Driver(model, RunParams(**kw), str(tmp_path / "d"), ckpt_format=None)
     assert Driver(model, RunParams(**kw), str(tmp_path / "e"),
                   profile_dir=None).profile_dir is None
+    assert Driver(model, RunParams(**kw), str(tmp_path / "f"),
+                  mesh=None).mesh is None
 
 
 def test_cli_prepare_run_resume(tmp_path, capsys):
     """prepare -> run -> run --resume through qgcm_torch.cli.main on the
     CPU: the second segment continues the clock in outdata_r2, and
-    --resume into the segment it reads from is refused."""
+    --resume into the segment it reads from is refused, and so are the
+    option the port does not have (--ckpt-format) and a mesh with NX > 1
+    (multi-rank runs: tests/test_torch_parallel_driver.py)."""
     case = tmp_path / "case"
     case.mkdir()
     params = (
@@ -279,5 +283,7 @@ def test_cli_prepare_run_resume(tmp_path, capsys):
         main(["run", str(case), "--quiet", "--resume", "--outdir",
               str(case / "outdata_r2")] + flags)
     with pytest.raises(SystemExit):
-        main(["run", str(case), "--mesh", "auto"] + flags)
+        main(["run", str(case), "--ckpt-format", "orbax"] + flags)
+    with pytest.raises(NotImplementedError, match="2-D runner"):
+        main(["run", str(case), "--mesh", "1x2"] + flags)
     assert "done: 12 steps" in capsys.readouterr().out
