@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --windows CHECKOUT [CHECKOUT ...]
 
 Builds the port's CUDA kernel from qgcm_torch/csrc with nvcc, holds it
 against its plain PyTorch version on the card (model states, and seeded
@@ -30,7 +31,9 @@ and the forced southern-ocean channel for ten days against the first
 ten days of its committed production record. Last, the multi-process
 path: the kernel's row-window and x_ext modes (the blocks of a
 decomposed run) against its full-field mode, bit for bit, and timed
-alone; and the ocean-only runner decomposed into row blocks over 4
+alone at a rank's window, a band, NAtl's rank window and a 2x2 block,
+with their design (the window tile, or the march where it fills the
+card); and the ocean-only runner decomposed into row blocks over 4
 ranks (qgcm_torch.parallel) against the single-device runner, the
 ranks sharing the one card over gloo (or, where the host has a card for
 each, over NCCL). Then ensembles and adjoints: the kernel's member mode
@@ -50,7 +53,9 @@ error against the plain version, its times and its bound.
 With --main-path it runs only phase 4, once for each checkout named
 (a directory holding chip_smoke.py and qgcm_torch, such as a parent
 commit unpacked under build/), each in a process of its own and in the
-order given, and prints their ms/substep side by side.
+order given, and prints their ms/substep side by side. With --windows
+it times, the same way, phase 12's window launches (and the full-field
+and member launches at 961^2) of each checkout, side by side.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -132,8 +137,8 @@ def card_line() -> str:
 
 
 def sass_census(path) -> list[str]:
-    """Per kernel function of the built library (each type, one member or
-    several), its machine instructions
+    """Per kernel function of the built library (each type: the march for
+    one member or several, and the window tile), its machine instructions
     as cuobjdump -sass lists them: the total, the floating-point ones
     (FADD/FMUL/FFMA and the D forms), shared-memory loads (LDS, of which
     ptxas adds never-executed @!PT ones beside each cp.async) and the
@@ -150,9 +155,14 @@ def sass_census(path) -> list[str]:
         ops = [m.split()[-1].split(".")[0] for m in re.findall(
             r"/\*[0-9a-f]{4}\*/\s+((?:@!?U?P\w+\s+)?[A-Z0-9]+)", func)]
         # the mangled name carries the instance: qgstep_kernelI<d|f>Lb<0|1>E
-        inst = re.search(r"qgstep_kernelI([df])Lb([01])E", func.split()[0])
-        kind = ("double" if inst and inst.group(1) == "d" else "float") + (
-            ", members" if inst and inst.group(2) == "1" else "")
+        # (the march, one member or several), qgstep_tile_kernelI<d|f>E
+        name = func.split()[0]
+        inst = re.search(r"qgstep_kernelI([df])Lb([01])E", name)
+        tile = re.search(r"qgstep_tile_kernelI([df])E", name)
+        found = inst or tile
+        kind = ("double" if found and found.group(1) == "d" else "float") + (
+            ", members" if inst and inst.group(2) == "1" else
+            ", window tile" if tile else "")
         fp = sum(op in ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA")
                  for op in ops)
         lines.append(f"{kind}: {len(ops)} instructions, {fp} floating-point, "
@@ -1416,10 +1426,10 @@ def phase_shard_modes(card):
     timed alone beside their bounds. Returns the two modes' entries of
     the kernels line."""
     from qgcm_torch.config import (double_gyre_ocean_only, k247_default,
-                                   natl_1km, southern_ocean_ocean_only)
+                                   southern_ocean_ocean_only)
     from qgcm_torch.grids import build_grids
     from qgcm_torch.models.ocean import qgstep_consts
-    from qgcm_torch.ops.qgstep import qgstep, window_reference
+    from qgcm_torch.ops.qgstep import qgstep
     entries = {}
     # worst (relative, absolute) error against the plain version by mode
     # and type
@@ -1445,13 +1455,18 @@ def phase_shard_modes(card):
         label = (f"{preset.__name__} {nl}x{ny}x{nx} {str(dtype)[6:]}"
                  f"{' cyclic' if cyclic else ''}{' sponge' if sponge else ''}")
         blocks, by = row_blocks(ny, my)
+        # and the whole grid as one rank's window, where the march fills
+        # the card and keeps the window
+        blocks.append((0, ny, None, None))
         n, worst, worst_abs, worst_full = check_windows(
             label, args, full, cyclic, sponge, blocks, tol)
         note("rows", dtype, worst, worst_abs, worst_full)
+        designs = {b[1]: window_design(nl, b[1], nx, dtype) for b in blocks}
         print(f"  rows {label}: {n} windows over {my} blocks of {by} rows "
-              f"(the last {ny - (my - 1) * by} true) and their 9-row bands "
-              f"bit-equal to the full-field kernel; vs plain "
-              f"{worst:.3e} max|q| (bar {tol:g})")
+              f"(the last {ny - (my - 1) * by} true), their 9-row bands "
+              f"and the whole grid bit-equal to the full-field kernel; vs "
+              f"plain {worst:.3e} max|q| (bar {tol:g}); designs by rows: "
+              + "; ".join(f"{r}: {d}" for r, d in sorted(designs.items())))
         for py, px in splits2d:
             by2, bx2 = -(-ny // py), -(-nx // px)
             blocks2 = [(iy * by2, by2, ix * bx2, bx2)
@@ -1462,25 +1477,98 @@ def phase_shard_modes(card):
             note("x_ext", dtype, worst, worst_abs, worst_full)
             print(f"  x_ext {label}, {py}x{px} split: {n} windows of "
                   f"{by2}x{bx2} bit-equal to the full-field kernel; vs "
-                  f"plain {worst:.3e} max|q| (bar {tol:g})")
+                  f"plain {worst:.3e} max|q| (bar {tol:g}); "
+                  f"{window_design(nl, by2, bx2, dtype)}")
         del args, full
         torch.cuda.empty_cache()
 
-    # each mode alone, float32, at the shapes the decomposed paths give it
+    # each mode alone at the shapes the decomposed paths give it
+    times = window_timings(card)
+    for key in ("rows", "x_ext"):
+        t = times[key]
+        entries[key] = dict(
+            name=f"qgstep[{key}]", route="cuda",
+            source="qgcm_torch/csrc/qgstep.cu",
+            replaces="qgcm_tpu/ops/pallas_qg.py:277",
+            mode=("row window (row0/ny_total)" if key == "rows"
+                  else "x_ext/col0/nx_total"),
+            design=t["design"], shape=t["shape"], ms=t["hot"],
+            cold_ms=t["cold"], ms_method="cuda_graph_replay",
+            plain_ms=t["plain"], bound_ms=t["bound"], bound_by=t["by"],
+            library_ms=None, share_of_bound=t["bound"] / t["hot"],
+            max_abs_err=err[(key, torch.float32)][1],
+            rel_err_f32=err[(key, torch.float32)][0],
+            rel_err_f64=err[(key, torch.float64)][0],
+            max_abs_err_vs_full_field=max(err[(key, torch.float32)][2],
+                                          err[(key, torch.float64)][2]),
+            others={k: {f: v[f] for f in ("design", "shape", "hot", "cold",
+                                          "bound")}
+                    for k, v in times.items() if k.startswith(key + " ")})
+    torch.cuda.empty_cache()
+    return entries
+
+
+# the window launches timed alone (phase 12, and --windows): label, the
+# configuration whose constants they take, output rows and columns,
+# x_ext, type. A rank's row window of the 961^2 box on 4 ranks, the
+# 9-row bands of the overlap schedule (3 output rows), a rank's row
+# window of NAtl 1 km, a 2x2 split's x_ext block, and the row window in
+# float64.
+WINDOW_SHAPES = (
+    ("rows", "double_gyre_ocean_only", 241, 961, False, torch.float32),
+    ("rows band", "double_gyre_ocean_only", 3, 961, False, torch.float32),
+    ("rows NAtl", "natl_1km", 1201, 4801, False, torch.float32),
+    ("x_ext", "double_gyre_ocean_only", 481, 481, True, torch.float32),
+    ("rows float64", "double_gyre_ocean_only", 241, 961, False,
+     torch.float64))
+
+
+def window_design(nl, rows, cols, dtype) -> str:
+    """The design and geometry the wrapper gives a window launch. Reads a
+    checkout whose wrapper predates the window tile (no window_geometry)
+    as the march."""
+    from qgcm_torch.ops import qgstep as mod
+    dev = torch.device("cuda")
+    resident = mod.resident_blocks(dev, dtype, False)
+    if hasattr(mod, "window_geometry"):
+        g = mod.window_geometry(nl, rows, cols, resident,
+                                mod.resident_blocks(dev, dtype, False,
+                                                    tiled=True))
+        tile_resident = mod.resident_blocks(dev, dtype, False, tiled=True)
+    else:
+        g, tile_resident = mod.launch_geometry(nl, rows, cols, resident), 0
+    tiled = getattr(g, "tiled", False)
+    return (f"{'tile' if tiled else 'march'} {g.strip_h}x{g.strip_w}, "
+            f"{nl * g.strips_x * g.strips_y} blocks "
+            f"({tile_resident if tiled else resident} resident)")
+
+
+def window_timings(card, compare=False) -> dict:
+    """Each of WINDOW_SHAPES alone on seeded random fields: hot and cold
+    L2 (CUDA-graph replays), the bound, the design, and the plain version
+    (CUDA events). With `compare` (compare_windows), not the plain
+    version but the full-field launch at 3x961^2 float32 and the member
+    mode's at 8x3x961^2 (the wind shared), to hold them against another
+    checkout's. Uses only qgcm_torch's public API, so that it runs
+    against any checkout of the port. Returns {label: numbers}."""
+    from qgcm_torch import config
+    from qgcm_torch.grids import build_grids
+    from qgcm_torch.models.ocean import qgstep_consts
+    from qgcm_torch.ops.qgstep import qgstep, window_reference
     g = torch.Generator(device="cuda").manual_seed(7)
-    for mode, (cfg, rows, cols, xext) in (
-            ("rows", (double_gyre_ocean_only(), 241, 961, False)),
-            ("band", (double_gyre_ocean_only(), 3, 961, False)),
-            ("rows NAtl", (natl_1km(), 1201, 4801, False)),
-            ("x_ext", (double_gyre_ocean_only(), 481, 481, True))):
+    out = {}
+    for label, preset, rows, cols, xext, dtype in WINDOW_SHAPES:
+        cfg = getattr(config, preset)()
         nl = cfg.nlo
         wc = cols + 6 if xext else cols
-        wins = [torch.randn(nl, rows + 6, wc, generator=g, device="cuda")
-                for _ in range(3)]
-        qom = torch.randn(nl, rows, cols, generator=g, device="cuda")
-        wek, ent = (torch.randn(rows, cols, generator=g, device="cuda")
-                    for _ in range(2))
-        wargs = (*wins, qom, wek, ent, None,
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device="cuda",
+                               dtype=dtype)
+
+        wins = [rnd(nl, rows + 6, wc) for _ in range(3)]
+        wargs = (*wins, rnd(nl, rows, cols), rnd(rows, cols),
+                 rnd(rows, cols), None,
                  qgstep_consts(cfg, build_grids(cfg)), cfg.ocean.ah2oc,
                  cfg.ocean.ah4oc)
         kw = dict(row0=241 - 3, ny_total=cfg.nypo)
@@ -1491,35 +1579,93 @@ def phase_shard_modes(card):
             qgstep(*wargs, cyclic=False, sponge=False, **kw)
 
         hot, cold = kernel_ms(run, 50)
-        plain = cuda_ms(lambda: window_reference(*wargs, cyclic=False,
-                                                 sponge=False, **kw), 5)
-        bound, by_ = window_bound(nl, rows, cols, rows + 6, wc,
-                                  torch.float32, False)
-        print(f"  {mode} window ({nl}, {rows + 6}, {wc}) -> ({nl}, {rows}, "
-              f"{cols}) float32: kernel {hot:.4f} ms hot L2, {cold:.4f} ms "
-              f"cold L2; plain {plain:.4f} ms; bound {bound:.4f} ms ({by_}); "
-              f"share of bound {bound / hot:.3f} hot [{card}]")
-        key = {"rows": "rows", "x_ext": "x_ext"}.get(mode)
-        if key:
-            entries[key] = dict(
-                name=f"qgstep[{key}]", route="cuda",
-                source="qgcm_torch/csrc/qgstep.cu",
-                replaces="qgcm_tpu/ops/pallas_qg.py:277",
-                mode=("row window (row0/ny_total)" if key == "rows"
-                      else "x_ext/col0/nx_total"),
-                shape=[nl, rows + 6, wc], ms=hot, cold_ms=cold,
-                ms_method="cuda_graph_replay", plain_ms=plain,
-                bound_ms=bound, bound_by=by_, library_ms=None,
-                share_of_bound=bound / hot,
-                max_abs_err=err[(key, torch.float32)][1],
-                rel_err_f32=err[(key, torch.float32)][0],
-                rel_err_f64=err[(key, torch.float64)][0],
-                max_abs_err_vs_full_field=max(
-                    err[(key, torch.float32)][2],
-                    err[(key, torch.float64)][2]))
-        del wins, qom
+        plain_ms = None if compare else cuda_ms(lambda: window_reference(
+            *wargs, cyclic=False, sponge=False, **kw), 5)
+        bound, by = window_bound(nl, rows, cols, rows + 6, wc, dtype, False)
+        design = window_design(nl, rows, cols, dtype)
+        out[label] = dict(hot=hot, cold=cold, plain=plain_ms, bound=bound,
+                          by=by, design=design, shape=[nl, rows + 6, wc])
+        print(f"  {label} window ({nl}, {rows + 6}, {wc}) -> ({nl}, {rows}, "
+              f"{cols}) {str(dtype)[6:]}, {design}: kernel {hot:.4f} ms "
+              f"hot L2, {cold:.4f} ms cold L2; "
+              + ("" if compare else f"plain {plain_ms:.4f} ms; ")
+              + f"bound {bound:.4f} ms ({by}); share of bound "
+              f"{bound / hot:.3f} hot, {bound / cold:.3f} cold [{card}]")
+        del wins, wargs
+    if compare:
+        cfg = config.double_gyre_ocean_only()
+        nl, ny, nx = cfg.nlo, cfg.nypo, cfg.nxpo
+        rest = (qgstep_consts(cfg, build_grids(cfg)), cfg.ocean.ah2oc,
+                cfg.ocean.ah4oc)
+        for label, m in (("full", 1), ("members", ENSEMBLE_MEMBERS)):
+            lead = () if m == 1 else (m,)
+            fields = [torch.randn(*lead, nl, ny, nx, generator=g,
+                                  device="cuda") for _ in range(4)]
+            wek = torch.randn(ny, nx, generator=g, device="cuda")
+            ent = torch.randn(*lead, ny, nx, generator=g, device="cuda")
+            hot, cold = kernel_ms(lambda: qgstep(
+                *fields, wek, ent, None, *rest, cyclic=False,
+                sponge=False), 50 if m == 1 else 20)
+            bound, by = kernel_bound(nl, ny, nx, torch.float32, False,
+                                     members=m, shared_planes=int(m > 1))
+            out[label] = dict(hot=hot, cold=cold, plain=None, bound=bound,
+                              by=by, design="march",
+                              shape=[*lead, nl, ny, nx])
+            print(f"  {label} {m}x{nl}x{ny}x{nx} float32: kernel {hot:.4f} "
+                  f"ms hot L2, {cold:.4f} ms cold L2; bound {bound:.4f} ms "
+                  f"[{card}]")
+            del fields
     torch.cuda.empty_cache()
-    return entries
+    return out
+
+
+def run_in_checkouts(checkouts, child, pattern, what):
+    """Run the Python code `child` in a process of its own in each
+    checkout in turn (its qgcm_torch imported from there) and match
+    `pattern` in its output. Returns [(checkout, match)], or None after
+    printing the output of the first run that failed."""
+    runs = []
+    for where in checkouts:
+        run = subprocess.run([sys.executable, "-c", child], cwd=where,
+                             capture_output=True, text=True, timeout=900)
+        got = re.search(pattern, run.stdout, re.S | re.M)
+        if run.returncode or not got:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            print(f"chip_smoke: {what} of {where} failed", file=sys.stderr)
+            return None
+        runs.append((where, got))
+    return runs
+
+
+def compare_windows(checkouts) -> int:
+    """window_timings(compare=True) of each checkout in turn, this file's
+    timing code against that checkout's qgcm_torch (for instance a
+    parent commit unpacked under build/, and this one, in the order
+    parent, this, this, parent). Prints each launch's hot and cold ms by
+    checkout, side by side."""
+    from pathlib import Path
+    child = ("import importlib.util, json, sys; "
+             "spec = importlib.util.spec_from_file_location('smoke', "
+             f"{str(Path(__file__).resolve())!r}); "
+             "m = importlib.util.module_from_spec(spec); "
+             "spec.loader.exec_module(m); "
+             "t = m.window_timings(m.card_line(), compare=True); "
+             "print('WINDOW_TIMES ' + json.dumps(t))")
+    card = card_line()
+    got = run_in_checkouts(checkouts, child, r"^WINDOW_TIMES ([^\n]*)$",
+                           "the window timings")
+    if got is None:
+        return 1
+    runs = [(where, json.loads(m.group(1))) for where, m in got]
+    print(f"window and full-field launches by checkout, in the order run, "
+          f"ms hot / cold L2 (CUDA-graph replays) [{card}]:")
+    for label in runs[0][1]:
+        print(f"  {label}, bound {runs[0][1][label]['bound']:.4f} ms:")
+        for where, t in runs:
+            print(f"    {where}: {t[label]['hot']:.4f} / {t[label]['cold']:.4f}"
+                  f" ms, share {t[label]['bound'] / t[label]['hot']:.3f}; "
+                  f"{t[label]['design']}")
+    return 0
 
 
 def golden_cfg(dtype="float64"):
@@ -3031,16 +3177,10 @@ def compare_main_path(checkouts) -> int:
                r"ms/substep \(host clock\).*qgstep kernel ([\d.]+) ms "
                r"\(CUDA-graph replay\), ([\d.]+) ms \(events around eager")
     card = card_line()
-    rows = []
-    for where in checkouts:
-        run = subprocess.run([sys.executable, "-c", child], cwd=where,
-                             capture_output=True, text=True, timeout=900)
-        got = re.search(pattern, run.stdout, re.S)
-        if run.returncode or not got:
-            print(run.stdout + run.stderr, file=sys.stderr)
-            print(f"chip_smoke: phase 4 of {where} failed", file=sys.stderr)
-            return 1
-        rows.append((where, *map(float, got.groups())))
+    got = run_in_checkouts(checkouts, child, pattern, "phase 4")
+    if got is None:
+        return 1
+    rows = [(where, *map(float, m.groups())) for where, m in got]
     print(f"phase 4 by checkout, in the order run [{card}]:")
     for where, dev, host, kernel, eager in rows:
         print(f"  {where}: {dev:.4f} ms/substep (CUDA events), {host:.4f} "
@@ -3055,8 +3195,9 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 2 and sys.argv[1] == "--main-path":
-        # python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
-        sys.exit(compare_main_path(sys.argv[2:]) if torch.cuda.is_available()
-                 else 1)
+    if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows"):
+        # python3 chip_smoke.py --main-path|--windows CHECKOUT [...]
+        compare = (compare_main_path if sys.argv[1] == "--main-path"
+                   else compare_windows)
+        sys.exit(compare(sys.argv[2:]) if torch.cuda.is_available() else 1)
     sys.exit(main())

@@ -54,7 +54,8 @@
 // come in as element-sized cp.async copies (4 B, 8 B in float64), which
 // need only element alignment.
 //
-// The design. A block owns a strip kStripW outputs wide and strip_h rows
+// The full-field design (also the member mode's). A block owns a strip
+// kStripW outputs wide and strip_h rows
 // tall, for one layer of one member (blockIdx.z), and marches down it
 // one row per iteration with one __syncthreads per row. Thread t owns the window
 // columns 2t and 2t+1 (global columns c0 - 3 + 2t and the next) for the
@@ -98,6 +99,49 @@
 // element-wise copies and their addresses, the row and wall tests and the
 // register rotation (chip_smoke.py prints the census).
 //
+// The window design (row window and x_ext). A rank's window is small: a
+// quarter of the 961^2 box is 241 rows, 2.3 MB a field, and the whole
+// launch reads about 16 MB, which the 50 MB L2 holds. The march fits it
+// badly: at its shortest strip (MIN_STRIP_H = 16) 241 rows x 8 strips x
+// 3 layers are 384 blocks of 2 warps where the card holds 1056, and a
+// 16-row strip spends 6 of its 22 serial iterations filling its pipeline,
+// so the launch waits on latency at a quarter of its byte bound. Here a
+// block owns a 2-D tile instead, kTileH output rows by kTileW columns of
+// one layer, on kGroups row groups of kPairs threads:
+//   * thread t owns window columns 2t and 2t+1 (global columns
+//     c0 - 3 + 2t and the next), as in the march, with their wall, wrap
+//     and padding tests made once; its row group walks its share of each
+//     stage's rows down the pair, keeping the rows a stencil still needs
+//     in registers;
+//   * all copies are issued up front, element-sized cp.async into shared
+//     memory: pom over kTileH+6 rows, po and qo over kTileH+2; the
+//     pointwise fields (qom, wek, ent, r_spl) of the thread's own output
+//     rows go straight into registers with plain loads, which complete
+//     while the stencils run;
+//   * then three barrier-separated stages: del2 over kTileH+4 rows, del4
+//     over kTileH+2 (into pom's space, dead by then), the output over
+//     kTileH, each stage's rows rounded up to a whole share a group so
+//     that every loop unrolls whole (the extra del2/del4 rows reach no
+//     output);
+//   * a tile whose stencils meet no wall row, W/E wall or padding row --
+//     most of them -- takes the interior forms (lap5 for lap_bc, no
+//     zonal or wall tests), a block-uniform branch.
+// Three barriers a tile and no pipeline to fill; the halo rows and columns
+// of neighbouring tiles are read again, from L2. On an H100 SXM at 700 W
+// this reaches about half the byte bound at a rank's 241-row window and
+// at a 481^2 x_ext block, twice the march's speed there, and halves a
+// 3-row band's time (PERF.md); what is left is instruction issue and the
+// launch's fixed cost. Which design a window
+// gets is the wrapper's pure function of its shape and the two designs'
+// resident blocks (ops/qgstep.py::window_geometry): the tile unless the
+// march already fills a wave of the card, as at a 961-row window.
+// The tile forms every output with the march's per-point arithmetic:
+// lap_bc and jacobian are shared, and lap5 and leapfrog copy the march's
+// expressions operand for operand, so a window's outputs are the
+// full-field kernel's bit for bit (chip_smoke.py, phase 12). (Calling
+// shared functions from the march too cost it 16 instructions and 2-3% at
+// 3x961^2 and NAtl's window; the march's source is kept as it was.)
+//
 // Ghosts outside the input arrays are zeros (box) or the x-wrap (cyclic:
 // west of column 0 is column nx-2, east of nx-1 is column 1); every
 // output a ghost reaches is overwritten by a wall mask, as in the Pallas
@@ -122,6 +166,14 @@ constexpr int kAhead = 6;        // rows of copies in flight
 constexpr int kLagPQ = 2;        // po/qo row copied at iteration i: i - 2
 constexpr int kLagOut = 3;       // output row of iteration s: s - 3
 constexpr int kMaxLayers = 8;
+// the window design's tile: window columns (two a thread), output rows,
+// and row groups of threads
+constexpr int kLanes = 64;
+constexpr int kPairs = kLanes / 2;
+constexpr int kTileW = kLanes - 2 * kHalo;     // output columns per tile
+constexpr int kTileH = 8;
+constexpr int kGroups = 4;
+static_assert(kTileH % kGroups == 0, "the row groups share the output rows");
 // input fields, in ring order; r_spl's ring exists only with the sponge
 enum { kPom, kPo, kQo, kQom, kWek, kEnt, kRspl, kStreams };
 
@@ -137,8 +189,9 @@ struct QgParams {
   // ny, nx: the output's rows and columns (the whole grid in the
   // full-field mode)
   int nl, ny, nx, cyclic, sponge;
-  // launch geometry: output columns and rows per strip, strip counts
-  int strip_w, strip_h, strips_x, strips_y, pad;
+  // launch geometry: output columns and rows per strip (or tile), strip
+  // (tile) counts, and the design: 0 the march, 1 the window tile
+  int strip_w, strip_h, strips_x, strips_y, tiled;
   // the input window of pom/po/qo: its rows and columns, and the input
   // row and column of output (0, 0): (ny, nx, 0, 0) in the full-field
   // mode, (ny + 6, nx, 3, 0) for a row window, (ny + 6, nx + 6, 3, 3) in
@@ -491,6 +544,348 @@ qgstep_kernel(const T* __restrict__ pom, const T* __restrict__ po,
   }
 }
 
+// The window design's per-point arithmetic is the march's above, written
+// out operand for operand, so that a window's outputs are the full-field
+// kernel's bit for bit.
+
+// The 5-point Laplacian of one point from its centre, south, north,
+// west and east values: del6 of del4, as the march forms it.
+template <typename T>
+__device__ __forceinline__ T lap5(T c, T s, T n, T w, T e, T dxm2) {
+  return dxm2 * (s + n + w + e - T(4) * c);
+}
+
+// The new PV of one interior point of layer k from its Jacobian, del2,
+// del4 and del6 and its pointwise inputs (wk is read in layer 0 only, en
+// in layers 0 and 1, rs with the sponge only): dq/dt (zero on a box's
+// W/E wall), the layer forcing, the leapfrog and the sponge.
+template <typename T>
+__device__ __forceinline__ T leapfrog(T jac, T d2, T d4, T d6, T qm, T wk,
+                                      T en, T rs, T betay, bool we_wall,
+                                      int k, int nl, bool sponge, T ah2f,
+                                      T ah4f, const Coef<T>& cf) {
+  T dqdt = T(0);
+  if (!we_wall) dqdt = cf.adfac * jac + ah2f * d4 - ah4f * d6;
+  if (k == 0) dqdt = dqdt + cf.fohfac0 * (wk - en);
+  if (k == 1) dqdt = dqdt + cf.fohfac1 * en;
+  if (k == nl - 1) dqdt = dqdt - cf.bdrfac * d2;
+  T qnew = qm + cf.tdt * dqdt;
+  if (sponge) qnew = qnew + cf.tdt_c1spl * rs * (qm - betay);
+  return qnew;
+}
+
+// The layer's viscosities, selected without indexing the parameter block
+// (which would copy it to local memory).
+template <typename T>
+__device__ __forceinline__ void layer_visc(const Coef<T>& cf, int k, T& ah2f,
+                                           T& ah4f) {
+  ah2f = cf.ah2f[0];
+  ah4f = cf.ah4f[0];
+#pragma unroll
+  for (int j = 1; j < kMaxLayers; ++j) {
+    if (k == j) {
+      ah2f = cf.ah2f[j];
+      ah4f = cf.ah4f[j];
+    }
+  }
+}
+
+// Where window column gc (an output column; negative and beyond nx in
+// the halo) is read from and what it is: its input column, its cyclic
+// wrap of period nx_in - 1 (the east column duplicates the west one) or
+// nowhere (ok = false: a zero ghost of the box), and its walls and
+// padding by global column.
+struct Column {
+  int cin;
+  bool ok, wall_w, wall_e, pad;
+};
+
+__device__ __forceinline__ Column window_column(const QgParams& prm, int gc) {
+  const bool cyclic = prm.cyclic != 0;
+  const int nx_in = prm.nx_in;
+  int src = gc + prm.gx;
+  if (cyclic && (src < 0 || src >= nx_in))
+    src = (src % (nx_in - 1) + nx_in - 1) % (nx_in - 1);
+  Column col;
+  col.ok = src >= 0 && src < nx_in;
+  col.cin = col.ok ? src : 0;
+  const int g = prm.col0 + gc;                     // global column
+  col.wall_w = !cyclic && g == 0;
+  col.wall_e = !cyclic && g == prm.nx_total - 1;
+  col.pad = g >= prm.nx_total;
+  return col;
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// A stage's rows, rounded up to a whole number a row group: each group
+// walks the same number of rows, so the stages' loops are unrolled whole.
+__host__ __device__ constexpr int group_share(int rows) {
+  return (rows + kGroups - 1) / kGroups;
+}
+
+// The window design (see the head of the file): block (bx, by, k) steps
+// output rows [by*kTileH, +kTileH) and columns [bx*kTileW, +kTileW) of
+// layer k. Tile row i (0 .. kTileH+5) is output row by*kTileH - 3 + i,
+// and window column x (0 .. kLanes-1) output column bx*kTileW - 3 + x,
+// in every shared array. Thread (t, g) owns window columns 2t and 2t+1,
+// as a thread of the march does, and row group g's share of each
+// stage's rows.
+template <typename T>
+__global__ void __launch_bounds__(kPairs * kGroups)
+qgstep_tile_kernel(const T* __restrict__ pom, const T* __restrict__ po,
+                   const T* __restrict__ qo, const T* __restrict__ qom,
+                   const T* __restrict__ wek, const T* __restrict__ ent,
+                   const T* __restrict__ rspl, T* __restrict__ out,
+                   const QgParams prm, const Coef<T> cf) {
+  using V = typename Vec2<T>::type;
+  // Rows a group walks in each stage: del2 at tile rows 1 .., del4 at 2
+  // .., the output at 3 ..; del2 and del4 are formed over whole shares,
+  // beyond the kTileH+4 and kTileH+2 rows the outputs need, and the rows
+  // beyond (read from rows never written) reach no output.
+  constexpr int kD2Share = group_share(kTileH + 4);
+  constexpr int kD4Share = group_share(kTileH + 2);
+  constexpr int kOut = kTileH / kGroups;
+  constexpr int kPomRows = kTileH + 2 * kHalo;   // pom: tile rows 0..
+  constexpr int kPQRows = kTileH + 2;            // po, qo: rows 2..
+  constexpr int kD2Rows = kGroups * kD4Share + 2;   // del2 read: rows 1..
+  constexpr int kPomAlloc =                      // pom, then del4 rows 2..
+      kPomRows > kGroups * kD4Share ? kPomRows : kGroups * kD4Share;
+  static_assert(kGroups * kD2Share + 2 <= kPomRows
+                    && kGroups * kD2Share <= kD2Rows,
+                "the del2 stage reads copied pom rows and fits its array");
+  __shared__ __align__(16) T pom_s[kPomAlloc * kLanes];  // then del4
+  __shared__ __align__(16) T po_s[kPQRows * kLanes];
+  __shared__ __align__(16) T qo_s[kPQRows * kLanes];
+  __shared__ __align__(16) T d2_s[kD2Rows * kLanes];
+  T* d4_s = pom_s;
+
+  const int ny = prm.ny, nx = prm.nx, nl = prm.nl;
+  const int ny_in = prm.ny_in, nx_in = prm.nx_in, gy = prm.gy;
+  const int row0 = prm.row0, ny_total = prm.ny_total;
+  const bool sponge = prm.sponge != 0;
+  const T dxm2 = cf.dxm2, bcfac = cf.bcfac;
+  const int k = blockIdx.z;                        // layer
+  T ah2f, ah4f;
+  layer_visc(cf, k, ah2f, ah4f);
+  const int t = threadIdx.x, grp = threadIdx.y;
+  const int x0 = 2 * t;                            // window column of pair
+  const int r0 = blockIdx.y * kTileH;              // first output row
+  const int gt = row0 + r0 - kHalo;                // global row of tile row 0
+  const int gc0 = blockIdx.x * kTileW - kHalo + x0;  // output column
+  int cin[2];
+  bool col_ok[2], wall_w[2], wall_e[2], writer[2], pad_col[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const Column col = window_column(prm, gc0 + c);
+    cin[c] = col.cin;
+    col_ok[c] = col.ok;
+    wall_w[c] = col.wall_w;
+    wall_e[c] = col.wall_e;
+    pad_col[c] = col.pad;
+    writer[c] = x0 + c >= kHalo && x0 + c < kLanes - kHalo && gc0 + c < nx;
+  }
+  const int wo = t > 0 ? -1 : 0, eo = t < kPairs - 1 ? 2 : 1;
+
+  const int kin = k * ny_in * nx_in, koff = k * ny * nx;
+  const T* pom_k = pom + kin;
+  const T* po_k = po + kin;
+  const T* qo_k = qo + kin;
+  constexpr unsigned kRowB = kLanes * sizeof(T);
+  constexpr unsigned kE = sizeof(T);
+
+  // The pair's columns of pom over tile rows 0..kTileH+5 and of po/qo
+  // over rows 2..kTileH+3, the row groups taking every kGroups-th row;
+  // rows outside the window and columns nowhere load zeros.
+  {
+    const unsigned shm = static_cast<unsigned>(__cvta_generic_to_shared(
+        pom_s + x0));
+#pragma unroll
+    for (int j = 0; j < group_share(kPomRows); ++j) {
+      const int i = grp + j * kGroups;
+      if (i >= kPomRows) break;
+      const int ri = r0 - kHalo + i + gy;          // input row
+      const bool in = ri >= 0 && ri < ny_in;
+      const int off = in ? ri * nx_in : 0;
+      cp_async(shm + i * kRowB, pom_k + off + cin[0], in && col_ok[0]);
+      cp_async(shm + i * kRowB + kE, pom_k + off + cin[1], in && col_ok[1]);
+    }
+    const unsigned shp = static_cast<unsigned>(__cvta_generic_to_shared(
+        po_s + x0));
+    const unsigned shq = static_cast<unsigned>(__cvta_generic_to_shared(
+        qo_s + x0));
+#pragma unroll
+    for (int j = 0; j < group_share(kPQRows); ++j) {
+      const int i = grp + j * kGroups;
+      if (i >= kPQRows) break;
+      const int ri = r0 - 1 + i + gy;
+      const bool in = ri >= 0 && ri < ny_in;
+      const int off = in ? ri * nx_in : 0;
+      const bool ok0 = in && col_ok[0], ok1 = in && col_ok[1];
+      cp_async(shp + i * kRowB, po_k + off + cin[0], ok0);
+      cp_async(shp + i * kRowB + kE, po_k + off + cin[1], ok1);
+      cp_async(shq + i * kRowB, qo_k + off + cin[0], ok0);
+      cp_async(shq + i * kRowB + kE, qo_k + off + cin[1], ok1);
+    }
+    cp_async_commit();
+  }
+
+  // The pointwise inputs of the group's output rows, into registers
+  // (zero where nothing is written).
+  const int out_lo = 3 + grp * kOut;               // the group's first row
+  T qm[kOut][2], wk[kOut][2], en[kOut][2], rs[kOut][2];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int r = r0 + out_lo + j - kHalo;         // output row
+    const bool row_ok = r < ny;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const bool ok = row_ok && writer[c];
+      const int off = ok ? r * nx + gc0 + c : 0;
+      qm[j][c] = ok ? qom[koff + off] : T(0);
+      wk[j][c] = ok && k == 0 ? wek[off] : T(0);
+      en[j][c] = ok && k <= 1 ? ent[off] : T(0);
+      rs[j][c] = ok && sponge ? rspl[off] : T(0);
+    }
+  }
+
+  // A tile whose stencils meet no wall row, no W/E wall column and no
+  // padding row (most tiles) takes the interior forms: lap5 for lap_bc,
+  // no zonal, padding or wall tests. Its values are lap_bc's and
+  // leapfrog's in those cases, bit for bit. Uniform across the block.
+  const int gl = prm.col0 + blockIdx.x * kTileW - kHalo;  // lane 0's column
+  const bool interior =
+      gt >= 0 && gt + kTileH + 5 < ny_total
+      && (prm.cyclic != 0 || (gl > 0 && gl + kLanes <= prm.nx_total - 1));
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  auto stages = [&](auto kind) {
+    constexpr bool kInterior = decltype(kind)::value;
+    auto lap = [&](T c, T s, T n, T w, T e, int g, int col) {
+      if constexpr (kInterior) return lap5(c, s, n, w, e, dxm2);
+      else return lap_bc(c, s, n, w, e, g, ny_total, wall_w[col],
+                         wall_e[col], dxm2, bcfac);
+    };
+
+    // del2 at tile rows 1 .. kTileH+4 (d2_s row i-1), as the march forms
+    // it: the pair's own values are each other's neighbours
+    {
+      const int lo = 1 + grp * kD2Share;
+      const T* P = pom_s + x0;
+      const V s0 = *reinterpret_cast<const V*>(P + (lo - 1) * kLanes);
+      const V c0 = *reinterpret_cast<const V*>(P + lo * kLanes);
+      T pS[2] = {s0.x, s0.y}, pC[2] = {c0.x, c0.y};
+#pragma unroll
+      for (int j = 0; j < kD2Share; ++j) {
+        const int i = lo + j;
+        const T* R = P + i * kLanes;
+        const V n = *reinterpret_cast<const V*>(R + kLanes);
+        const T w = R[wo], e = R[eo];
+        const int g = gt + i;                      // global row
+        store_pair(d2_s + (i - 1) * kLanes + x0,
+                   lap(pC[0], pS[0], n.x, w, pC[1], g, 0),
+                   lap(pC[1], pS[1], n.y, pC[0], e, g, 1));
+        pS[0] = pC[0]; pS[1] = pC[1];
+        pC[0] = n.x; pC[1] = n.y;
+      }
+    }
+    __syncthreads();
+
+    // del4 at tile rows 2 .. kTileH+3 (d4_s row i-2)
+    {
+      const int lo = 2 + grp * kD4Share;
+      const T* D = d2_s + x0;                      // D[(i-1)*kLanes]: row i
+      const V s0 = *reinterpret_cast<const V*>(D + (lo - 2) * kLanes);
+      const V c0 = *reinterpret_cast<const V*>(D + (lo - 1) * kLanes);
+      T dS[2] = {s0.x, s0.y}, dC[2] = {c0.x, c0.y};
+#pragma unroll
+      for (int j = 0; j < kD4Share; ++j) {
+        const int i = lo + j;
+        const T* R = D + (i - 1) * kLanes;
+        const V n = *reinterpret_cast<const V*>(R + kLanes);
+        const T w = R[wo], e = R[eo];
+        const int g = gt + i;
+        store_pair(d4_s + (i - 2) * kLanes + x0,
+                   lap(dC[0], dS[0], n.x, w, dC[1], g, 0),
+                   lap(dC[1], dS[1], n.y, dC[0], e, g, 1));
+        dS[0] = dC[0]; dS[1] = dC[1];
+        dC[0] = n.x; dC[1] = n.y;
+      }
+    }
+    __syncthreads();
+
+    // the output at tile rows 3 .. kTileH+2, as the march forms it
+    {
+      const T* D4 = d4_s + x0;                     // D4[(i-2)*kLanes]: row i
+      const T* D2 = d2_s + x0;                     // D2[(i-1)*kLanes]: row i
+      const T* Q = qo_s + x0;                      // Q[(i-2)*kLanes]: row i
+      const T* O = po_s + x0;
+      const V s4 = *reinterpret_cast<const V*>(D4 + (out_lo - 3) * kLanes);
+      const V c4 = *reinterpret_cast<const V*>(D4 + (out_lo - 2) * kLanes);
+      T d4S[2] = {s4.x, s4.y}, d4C[2] = {c4.x, c4.y};
+      Quad<T> qS = load_quad(Q + (out_lo - 3) * kLanes, wo, eo);
+      Quad<T> qC = load_quad(Q + (out_lo - 2) * kLanes, wo, eo);
+      Quad<T> oS = load_quad(O + (out_lo - 3) * kLanes, wo, eo);
+      Quad<T> oC = load_quad(O + (out_lo - 2) * kLanes, wo, eo);
+      T* out_k = out + koff;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) {
+        const int i = out_lo + j;
+        const int r = r0 + i - kHalo;              // output row
+        const V n4 = *reinterpret_cast<const V*>(D4 + (i - 1) * kLanes);
+        const T v4[2] = {n4.x, n4.y};
+        const Quad<T> qN = load_quad(Q + (i - 1) * kLanes, wo, eo);
+        const Quad<T> oN = load_quad(O + (i - 1) * kLanes, wo, eo);
+        const int gr = row0 + r;                   // global row
+        T qnew[2];
+        if (!kInterior && gr >= ny_total) {        // padding
+          qnew[0] = T(0);
+          qnew[1] = T(0);
+        } else if (!kInterior && (gr == 0 || gr == ny_total - 1)) {
+          qnew[0] = qC.a;                          // keep the old qo
+          qnew[1] = qC.b;
+        } else {
+          const T* D = D4 + (i - 2) * kLanes;
+          const T dw = D[wo], de = D[eo];
+          const T d6[2] = {lap5(d4C[0], d4S[0], v4[0], dw, d4C[1], dxm2),
+                           lap5(d4C[1], d4S[1], v4[1], d4C[0], de, dxm2)};
+          const T jac[2] = {
+              jacobian(qS.w, qS.a, qS.b, qC.w, qC.b, qN.w, qN.a, qN.b,
+                       oS.w, oS.a, oS.b, oC.w, oC.b, oN.w, oN.a, oN.b),
+              jacobian(qS.a, qS.b, qS.e, qC.a, qC.e, qN.a, qN.b, qN.e,
+                       oS.a, oS.b, oS.e, oC.a, oC.e, oN.a, oN.b, oN.e)};
+          const V d2 = *reinterpret_cast<const V*>(D2 + (i - 1) * kLanes);
+          const T d2v[2] = {d2.x, d2.y};
+          const T betay = cf.beta_y0 + cf.beta_dy * T(gr);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            qnew[c] = leapfrog(jac[c], d2v[c], d4C[c], d6[c], qm[j][c],
+                               wk[j][c], en[j][c], rs[j][c], betay,
+                               !kInterior && (wall_w[c] || wall_e[c]), k,
+                               nl, sponge, ah2f, ah4f, cf);
+        }
+        if (writer[0] && r < ny)
+          out_k[r * nx + gc0] = pad_col[0] ? T(0) : qnew[0];
+        if (writer[1] && r < ny)
+          out_k[r * nx + gc0 + 1] = pad_col[1] ? T(0) : qnew[1];
+        d4S[0] = d4C[0]; d4S[1] = d4C[1];
+        d4C[0] = v4[0]; d4C[1] = v4[1];
+        qS = qC; qC = qN;
+        oS = oC; oC = oN;
+      }
+    }
+  };
+  if (interior)
+    stages(Flag<true>{});
+  else
+    stages(Flag<false>{});
+}
+
 template <typename T>
 int smem_bytes(int sponge) {
   const int fields = sponge ? kStreams : kStreams - 1;
@@ -519,19 +914,32 @@ cudaError_t allow_smem(int smem) {
 
 // Blocks of the kernel that the current device holds at once: its SMs
 // times the blocks one SM fits (the occupancy calculator).
-template <typename T, bool kBatched>
-int resident_blocks(int sponge, int* blocks) {
-  const int smem = smem_bytes<T>(sponge);
+template <typename Kernel>
+int sm_blocks(Kernel kernel, int threads, int smem, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = allow_smem<T, kBatched>(smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, qgstep_kernel<T, kBatched>, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   *blocks = sms * per_sm;
   return (int)e;
+}
+
+template <typename T, bool kBatched>
+int resident_blocks(int sponge, int* blocks) {
+  const int smem = smem_bytes<T>(sponge);
+  const cudaError_t e = allow_smem<T, kBatched>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return sm_blocks(qgstep_kernel<T, kBatched>, kThreads, smem, blocks);
+}
+
+// The window tile's shared memory is static and the same with or without
+// the sponge.
+template <typename T>
+int tile_resident_blocks(int* blocks) {
+  return sm_blocks(qgstep_tile_kernel<T>, kPairs * kGroups, 0, blocks);
 }
 
 template <typename T>
@@ -542,7 +950,9 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
   const bool full = p.gy == 0 && p.gx == 0;
   const bool rows = p.gy == kHalo && p.gx == 0;
   const bool x_ext = p.gy == kHalo && p.gx == kHalo;
+  const bool tiled = p.tiled == 1;
   if (p.nl < 2 || p.nl > kMaxLayers || p.ny < 1 || p.nx < 1
+      || (p.tiled != 0 && !tiled) || (tiled && full)
       || !(full || rows || (x_ext && !p.cyclic))
       || p.ny_in != p.ny + 2 * p.gy || p.nx_in != p.nx + 2 * p.gx
       || (full && (p.ny < 3 || p.nx < 3 || p.row0 != 0 || p.col0 != 0
@@ -550,8 +960,9 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
       || (!x_ext && (p.col0 != 0 || p.nx_total != p.nx))
       || p.ny_total < 3 || p.nx_total < 3 || (p.cyclic && p.nx < 3)
       || (long long)p.nl * p.ny_in * p.nx_in >= (1LL << 31)
-      || p.strip_w != kStripW || p.strip_h < 1
-      || p.strips_x != (p.nx + kStripW - 1) / kStripW
+      || p.strip_w != (tiled ? kTileW : kStripW) || p.strip_h < 1
+      || (tiled && p.strip_h != kTileH)
+      || p.strips_x != (p.nx + p.strip_w - 1) / p.strip_w
       || p.strips_y != (p.ny + p.strip_h - 1) / p.strip_h
       || p.strips_y > 65535
       || p.members < 1 || (!full && p.members != 1)
@@ -576,8 +987,14 @@ int launch(const T* pom, const T* po, const T* qo, const T* qom,
     cf.ah2f[k] = T(p.ah2[k]) * rfnot;
     cf.ah4f[k] = T(p.ah4[k]) * rfnot;
   }
-  const int smem = smem_bytes<T>(p.sponge);
   const dim3 grid(p.strips_x, p.strips_y, p.members * p.nl);
+  if (tiled) {
+    qgstep_tile_kernel<T><<<grid, dim3(kPairs, kGroups), 0,
+                            (cudaStream_t)stream>>>(
+        pom, po, qo, qom, wek, ent, rspl, out, p, cf);
+    return (int)cudaGetLastError();
+  }
+  const int smem = smem_bytes<T>(p.sponge);
   const cudaError_t e = p.members > 1 ? allow_smem<T, true>(smem)
                                       : allow_smem<T, false>(smem);
   if (e != cudaSuccess) return (int)e;
@@ -608,12 +1025,18 @@ int qgstep_f64(const double* pom, const double* po, const double* qo,
   return launch<double>(pom, po, qo, qom, wek, ent, rspl, out, prm, stream);
 }
 
-int qgstep_resident_blocks(int f64, int sponge, int batched, int* blocks) {
+// Blocks of one instance that the current device holds at once: the
+// march for one member (instance 0) or several (1), or the window tile
+// (2).
+int qgstep_resident_blocks(int f64, int sponge, int instance, int* blocks) {
+  if (instance == 2)
+    return f64 ? tile_resident_blocks<double>(blocks)
+               : tile_resident_blocks<float>(blocks);
   if (f64)
-    return batched ? resident_blocks<double, true>(sponge, blocks)
-                   : resident_blocks<double, false>(sponge, blocks);
-  return batched ? resident_blocks<float, true>(sponge, blocks)
-                 : resident_blocks<float, false>(sponge, blocks);
+    return instance ? resident_blocks<double, true>(sponge, blocks)
+                    : resident_blocks<double, false>(sponge, blocks);
+  return instance ? resident_blocks<float, true>(sponge, blocks)
+                  : resident_blocks<float, false>(sponge, blocks);
 }
 
 }  // extern "C"

@@ -42,6 +42,10 @@ STRIP_W = 122       # kStripW in csrc/qgstep.cu: output columns per strip
 # second, partial wave costs 15-30% (chip_smoke.py phase 5, PERF.md).
 MIN_STRIP_H = 16
 MAX_STRIP_H = 64
+# The window design's tile (kTileW, kTileH in csrc/qgstep.cu): output
+# columns and rows of one block.
+TILE_W = 58
+TILE_H = 8
 # ghost rows (and, in x_ext mode, columns) on each side of a window:
 # del6 is three nested 5-point stencils (kHalo in csrc/qgstep.cu)
 HALO = 3
@@ -309,11 +313,13 @@ class Geometry(NamedTuple):
     """The kernel's launch geometry. Block (bx, by, z) of the grid
     (strips_x, strips_y, members * nl) owns member z // nl, layer z % nl,
     rows [by*strip_h, min((by+1)*strip_h, ny)) and columns [bx*strip_w,
-    min((bx+1)*strip_w, nx)), as csrc/qgstep.cu computes them."""
+    min((bx+1)*strip_w, nx)), as csrc/qgstep.cu computes them; a strip
+    of the march, or with `tiled` a tile of the window design."""
     strip_w: int
     strip_h: int
     strips_x: int
     strips_y: int
+    tiled: bool = False
 
 
 def launch_geometry(nl: int, ny: int, nx: int, resident: int) -> Geometry:
@@ -329,13 +335,28 @@ def launch_geometry(nl: int, ny: int, nx: int, resident: int) -> Geometry:
     return Geometry(STRIP_W, h, strips_x, -(-ny // h))
 
 
+def window_geometry(nl: int, rows: int, cols: int, resident: int,
+                    resident_tile: int) -> Geometry:
+    """The geometry of a window launch of (nl, rows, cols) outputs: the
+    march (launch_geometry) where it fills a wave of the `resident` march
+    blocks the card holds at once, as at a full-width window of 961
+    rows; else tiles of TILE_H x TILE_W, of which the card holds
+    `resident_tile` at once (a rank's 241-row window, the 3-row bands,
+    2-D blocks)."""
+    march = launch_geometry(nl, rows, cols, resident)
+    if nl * march.strips_x * march.strips_y >= resident:
+        return march
+    return Geometry(TILE_W, TILE_H, -(-cols // TILE_W), -(-rows // TILE_H),
+                    True)
+
+
 class _QgParams(ctypes.Structure):
     # Mirrors struct QgParams in csrc/qgstep.cu.
     _fields_ = [("nl", ctypes.c_int), ("ny", ctypes.c_int),
                 ("nx", ctypes.c_int), ("cyclic", ctypes.c_int),
                 ("sponge", ctypes.c_int), ("strip_w", ctypes.c_int),
                 ("strip_h", ctypes.c_int), ("strips_x", ctypes.c_int),
-                ("strips_y", ctypes.c_int), ("pad", ctypes.c_int),
+                ("strips_y", ctypes.c_int), ("tiled", ctypes.c_int),
                 ("ny_in", ctypes.c_int), ("nx_in", ctypes.c_int),
                 ("gy", ctypes.c_int), ("gx", ctypes.c_int),
                 ("row0", ctypes.c_int), ("col0", ctypes.c_int),
@@ -366,15 +387,17 @@ def build_kernel():
 
 @functools.cache
 def resident_blocks(device: torch.device, dtype: torch.dtype,
-                    sponge: bool, batched: bool = False) -> int:
+                    sponge: bool, batched: bool = False,
+                    tiled: bool = False) -> int:
     """Blocks of the kernel that the card holds at once, for this type,
-    sponge setting (the sponge's ring takes shared memory) and instance
-    (one member, or several)."""
+    sponge setting (the sponge's ring takes the march's shared memory)
+    and instance (the march for one member or several, or the window
+    tile)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = build_kernel().cdll.qgstep_resident_blocks(
-            int(dtype == torch.float64), int(sponge), int(batched),
-            ctypes.byref(n))
+            int(dtype == torch.float64), int(sponge),
+            2 if tiled else int(batched), ctypes.byref(n))
     if err != 0 or n.value < 1:
         raise RuntimeError(f"qgstep occupancy query failed: CUDA error {err}, "
                            f"{n.value} blocks")
@@ -449,16 +472,17 @@ def _launch(inputs, consts, ah2, ah4, cyclic, sponge, mode, window=None,
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, "
                          f"got {nl}")
     lib = build_kernel().cdll
-    geom = launch_geometry(members * nl, ny, nx,
-                           resident_blocks(pom.device, pom.dtype, sponge,
-                                           members > 1))
+    resident = resident_blocks(pom.device, pom.dtype, sponge, members > 1)
+    geom = (launch_geometry(members * nl, ny, nx, resident) if window is None
+            else window_geometry(nl, ny, nx, resident, resident_blocks(
+                pom.device, pom.dtype, sponge, tiled=True)))
     gy = 0 if window is None else HALO
     gx = HALO if x_ext else 0
     prm = _QgParams(nl=nl, ny=ny, nx=nx, cyclic=int(cyclic),
                     sponge=int(sponge), strip_w=geom.strip_w,
                     strip_h=geom.strip_h, strips_x=geom.strips_x,
-                    strips_y=geom.strips_y, pad=0, ny_in=ny_in,
-                    nx_in=nx_in, gy=gy, gx=gx,
+                    strips_y=geom.strips_y, tiled=int(geom.tiled),
+                    ny_in=ny_in, nx_in=nx_in, gy=gy, gx=gx,
                     row0=0 if window is None else int(row0) + HALO,
                     col0=int(col0),
                     ny_total=ny if window is None else int(ny_total),

@@ -22,8 +22,9 @@ from qgcm_torch.model import _sponge_ramp, build_model
 from qgcm_torch.models.ocean import _qgostep, qgstep_consts
 from qgcm_torch.ops import qgstep as qgstep_mod
 from qgcm_torch.ops.qgstep import (MAX_STRIP_H, MIN_STRIP_H, STRIP_W,
-                                   launch_geometry, qgstep,
-                                   qgstep_reference)
+                                   TILE_H, TILE_W, launch_geometry, qgstep,
+                                   qgstep_reference, window_geometry,
+                                   window_reference)
 
 from test_torch_cases import cfg_pair, jax_case, rel_err, to_port
 
@@ -159,13 +160,25 @@ def test_launch_geometry_tiles_every_point_once(nl, ny, nx, resident):
     stays within one wave of resident blocks unless the height is at its
     upper bound."""
     g = launch_geometry(nl, ny, nx, resident)
-    assert g.strip_w == STRIP_W
-    assert MIN_STRIP_H <= g.strip_h <= MAX_STRIP_H
-    assert g.strips_x == -(-nx // g.strip_w)
-    assert g.strips_y == -(-ny // g.strip_h)
+    assert not g.tiled
     if g.strip_h > MIN_STRIP_H:
         assert (nl * g.strips_x * g.strips_y <= resident
                 or g.strip_h == MAX_STRIP_H)
+    _assert_tiles_once(g, nl, ny, nx)
+
+
+def _assert_tiles_once(g, nl, ny, nx):
+    """The counts are those the kernel's launch accepts for the design
+    (csrc/qgstep.cu::launch), no block starts past the output, and every
+    (k, row, col) of it belongs to exactly one block (bx, by, k): a
+    strip of the march, or a tile of the window design."""
+    if g.tiled:
+        assert (g.strip_w, g.strip_h) == (TILE_W, TILE_H)
+    else:
+        assert g.strip_w == STRIP_W
+        assert MIN_STRIP_H <= g.strip_h <= MAX_STRIP_H
+    assert g.strips_x == -(-nx // g.strip_w)
+    assert g.strips_y == -(-ny // g.strip_h) <= 65535
     owned = np.zeros((nl, ny, nx), np.uint8)
     for k in range(nl):
         for by in range(g.strips_y):
@@ -179,14 +192,54 @@ def test_launch_geometry_tiles_every_point_once(nl, ny, nx, resident):
     assert (owned == 1).all()
 
 
+# Window outputs (nl, rows, cols): phase 12's rank window of the 961^2 box
+# on 4 ranks, its 3-row bands, NAtl 1 km's rank window and a 2x2 split's
+# x_ext block; the test grids' windows (tests/_torch_ranks.small_cfg:
+# 25x49 on 2 and 4 ranks, a 2x2 split) and 1-row cores; a whole grid as
+# one rank's window.
+WINDOW_CASES = [(3, 241, 961), (3, 3, 961), (3, 1201, 4801), (3, 481, 481),
+                (2, 13, 49), (2, 7, 49), (2, 3, 49), (2, 13, 25),
+                (2, 1, 49), (3, 1, 1), (2, 1, TILE_W + 1),
+                (2, TILE_H + 1, TILE_W), (2, 145, 4609), (3, 961, 961)]
+# (march, tile) blocks an H100 SXM holds at once, float64 and float32:
+# 132 SMs times 4 or 8 blocks of the march and 4 or 8 of the window
+# tile (qgstep_resident_blocks, read in chip_smoke.py phase 12: the
+# tile's 126 and 64 registers a thread of 128 set them)
+RESIDENT_PAIRS = ((528, 528), (1056, 1056))
+
+
+@pytest.mark.parametrize("resident,resident_tile", RESIDENT_PAIRS)
+@pytest.mark.parametrize("nl,rows,cols", WINDOW_CASES,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in WINDOW_CASES])
+def test_window_geometry_tiles_every_point_once(nl, rows, cols, resident,
+                                                resident_tile):
+    """The window launch's geometry (ops.qgstep.window_geometry): the
+    march where it fills a wave of resident blocks, else tiles; every
+    point of the core in exactly one block, no block past the core, the
+    counts the launch accepts; a rank's 241x961x3 window is tiled and
+    fills at least one wave of the tile's resident blocks."""
+    g = window_geometry(nl, rows, cols, resident, resident_tile)
+    march = launch_geometry(nl, rows, cols, resident)
+    blocks = nl * g.strips_x * g.strips_y
+    assert g.tiled == (nl * march.strips_x * march.strips_y < resident)
+    if not g.tiled:
+        assert g == march and blocks >= resident
+    if (nl, rows, cols) == (3, 241, 961):
+        assert g.tiled and blocks >= resident_tile
+    _assert_tiles_once(g, nl, ny=rows, nx=cols)
+
+
 def test_wrapper_constants_match_the_kernel_source():
-    """STRIP_W, MAX_LAYERS and the _QgParams layout mirror
-    csrc/qgstep.cu; a mismatch would launch the kernel on a wrong
+    """STRIP_W, TILE_W, TILE_H, HALO, MAX_LAYERS and the _QgParams layout
+    mirror csrc/qgstep.cu; a mismatch would launch the kernel on a wrong
     geometry or a garbled parameter block."""
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              KERNEL_SRC).group(1))
     assert STRIP_W == const("kWindow") - 2 * const("kHalo")
+    assert TILE_W == const("kLanes") - 2 * const("kHalo")
+    assert TILE_H == const("kTileH")
+    assert qgstep_mod.HALO == const("kHalo")
     assert qgstep_mod.MAX_LAYERS == const("kMaxLayers")
     body = re.search(r"struct QgParams \{(.*?)\};", KERNEL_SRC,
                      re.S).group(1)
@@ -197,3 +250,68 @@ def test_wrapper_constants_match_the_kernel_source():
         fields += [re.sub(r"\[.*\]", "", f).strip()
                    for f in decl.split(",") if f.strip()]
     assert fields == [f[0] for f in qgstep_mod._QgParams._fields_]
+
+
+# The window's plain version against the TPU kernel itself, in float64:
+# (cyclic, sponge, x_ext) of the row windows (box, channel, channel with
+# the sponge) and the box's x_ext window
+WINDOW_PALLAS_CASES = [(False, False, False), (True, False, False),
+                       (True, True, False), (False, True, True)]
+
+
+@pytest.mark.parametrize("cyclic,sponge,x_ext", WINDOW_PALLAS_CASES,
+                         ids=["box", "cyclic", "sponge", "x_ext"])
+def test_window_reference_matches_pallas_interpret(cyclic, sponge, x_ext):
+    """ops.qgstep.window_reference (what the window kernel is held to on
+    the card) against qgcm_tpu's qgstep_pallas in interpret mode with
+    row0/ny_total (and col0/nx_total), on the same numpy-seeded float64
+    windows: within 1e-12 max|q|. The windows have 137 rows, more than
+    the Pallas kernel's TILE_Y = 128, so its grid ends in a ragged tile;
+    they sit at the south wall, at the north wall and over it (padding
+    rows, and in x_ext mode padding columns, where the port writes zeros
+    and the Pallas kernel's output is dropped by its callers)."""
+    from qgcm_tpu.ops.pallas_qg import TILE_Y, qgstep_pallas
+    nl, ny, nx, rows = 3, 150, 20, 131
+    assert rows + 6 > TILE_Y
+    rng = np.random.default_rng(8)
+    fields = rng.standard_normal((4, nl, ny, nx))
+    planes = rng.standard_normal((3, ny, nx))
+    if cyclic:
+        fields[..., -1] = fields[..., 0]
+        planes[..., -1] = planes[..., 0]
+    consts = tuple(float(c) for c in 0.2 + 0.8 * rng.random(11))
+    ah2, ah4 = (tuple(float(a) for a in 0.2 + 0.8 * rng.random(nl))
+                for _ in range(2))
+    cols, c0s = (13, (0, nx - 13, 11)) if x_ext else (nx, (0, 0, 0))
+    gh = 3 if x_ext else 0
+    for r0, c0 in zip((0, ny - rows, ny - rows + 6), c0s):
+        # global (r, c) at [r + 3, c + gh] of the zero-padded fields
+        big = np.pad(fields, ((0, 0), (0, 0), (3, 3 + rows), (gh, gh + cols)))
+        bigp = np.pad(planes, ((0, 0), (0, rows), (0, cols)))
+        win = big[:3, :, r0:r0 + rows + 6, c0:c0 + cols + 2 * gh]
+        qom = big[3, :, r0 + 3:r0 + 3 + rows, c0 + gh:c0 + gh + cols]
+        wek, ent, rspl = bigp[:, r0:r0 + rows, c0:c0 + cols]
+        kw = dict(row0=r0 - 3, ny_total=ny)
+        if x_ext:
+            kw.update(col0=c0, nx_total=nx, x_ext=True)
+        got = window_reference(
+            *(torch.from_numpy(np.ascontiguousarray(f))
+              for f in (*win, qom, wek, ent)),
+            torch.from_numpy(np.ascontiguousarray(rspl)) if sponge else None,
+            consts, ah2, ah4, cyclic=cyclic, sponge=sponge, **kw)
+
+        def gpad(f):         # the core's rows into the window's rows
+            return np.pad(f, [(0, 0)] * (f.ndim - 2) + [(3, 3), (0, 0)])
+
+        want = qgstep_pallas(*win, gpad(qom), gpad(wek), gpad(ent),
+                             gpad(rspl), consts, ah2, ah4, cyclic=cyclic,
+                             sponge=sponge, interpret=True, **kw)
+        want = np.asarray(want)[:, 3:-3]
+        assert got.shape == want.shape == (nl, rows, cols)
+        # the Pallas kernel leaves garbage on padding rows and columns,
+        # which its callers drop (qgcm_tpu/parallel/halo.py:647 keeps
+        # [:ny, :nx]); the port writes zeros there
+        tr, tc = min(rows, ny - r0), min(cols, nx - c0)
+        assert rel_err(got[:, :tr, :tc], want[:, :tr, :tc]) <= TOL, (r0, c0)
+        assert not got[:, tr:].count_nonzero()
+        assert not got[..., tc:].count_nonzero()
