@@ -43,7 +43,14 @@ each, over NCCL). Then ensembles and adjoints: the kernel's member mode
 its single-trajectory run; the float64 adjoint of the double gyre and
 the channel at full width, with the kernel in its forward, against
 finite differences and across remat policies; and the ensemble,
-analyze, sense and run --profile commands in this process. Every
+analyze, sense and run --profile commands in this process. Then the
+decomposed coupled model, the Driver and the commands on rows meshes
+(phase 18); and last the 2-D runner (phase 19): the box ocean on 2x2
+and 1x4 meshes of 4 ranks (the golden box in float64, the main path's
+box and the coupled double gyre at full width in float32) against the
+single-device runner, one rank's five x_ext launches of a substep
+against their plain version, and `run --mesh 2x2` under torchrun with
+a resume. Every
 phase raises on a failure; nothing runs on the CPU. The last line of
 standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
@@ -54,8 +61,9 @@ With --main-path it runs only phase 4, once for each checkout named
 (a directory holding chip_smoke.py and qgcm_torch, such as a parent
 commit unpacked under build/), each in a process of its own and in the
 order given, and prints their ms/substep side by side. With --windows
-it times, the same way, phase 12's window launches (and the full-field
-and member launches at 961^2) of each checkout, side by side.
+it times, the same way, phase 12's window launches (among them the 2-D
+runner's bands; and the full-field and member launches at 961^2) of
+each checkout, side by side.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -1510,17 +1518,27 @@ def phase_shard_modes(card):
 
 # the window launches timed alone (phase 12, and --windows): label, the
 # configuration whose constants they take, output rows and columns,
-# x_ext, type. A rank's row window of the 961^2 box on 4 ranks, the
-# 9-row bands of the overlap schedule (3 output rows), a rank's row
-# window of NAtl 1 km, a 2x2 split's x_ext block, and the row window in
-# float64.
+# x_ext, type, and optionally the window's first global output row and
+# column (else 241 and 481). A rank's row window of the 961^2 box on 4
+# ranks, the 9-row bands of the overlap schedule (3 output rows), a
+# rank's row window of NAtl 1 km, a 2x2 split's x_ext block, the row
+# window in float64; and the 2-D runner's x_ext bands of the 961^2 box:
+# on 2x2 rank (1, 1)'s south row band (9 x 487 -> 3 x 481) and west
+# column band (487 x 9 -> 481 x 3), on 1x4 rank 1's interior block
+# (967 x 247 -> 961 x 241).
 WINDOW_SHAPES = (
     ("rows", "double_gyre_ocean_only", 241, 961, False, torch.float32),
     ("rows band", "double_gyre_ocean_only", 3, 961, False, torch.float32),
     ("rows NAtl", "natl_1km", 1201, 4801, False, torch.float32),
     ("x_ext", "double_gyre_ocean_only", 481, 481, True, torch.float32),
     ("rows float64", "double_gyre_ocean_only", 241, 961, False,
-     torch.float64))
+     torch.float64),
+    ("x_ext row band 2x2", "double_gyre_ocean_only", 3, 481, True,
+     torch.float32, 481, 481),
+    ("x_ext column band 2x2", "double_gyre_ocean_only", 481, 3, True,
+     torch.float32, 481, 481),
+    ("x_ext 1x4", "double_gyre_ocean_only", 961, 241, True, torch.float32,
+     0, 241))
 
 
 def window_design(nl, rows, cols, dtype) -> str:
@@ -1557,7 +1575,8 @@ def window_timings(card, compare=False) -> dict:
     from qgcm_torch.ops.qgstep import qgstep, window_reference
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
-    for label, preset, rows, cols, xext, dtype in WINDOW_SHAPES:
+    for label, preset, rows, cols, xext, dtype, *at in WINDOW_SHAPES:
+        r0, c0 = at or (241, 481)
         cfg = getattr(config, preset)()
         nl = cfg.nlo
         wc = cols + 6 if xext else cols
@@ -1571,9 +1590,9 @@ def window_timings(card, compare=False) -> dict:
                  rnd(rows, cols), None,
                  qgstep_consts(cfg, build_grids(cfg)), cfg.ocean.ah2oc,
                  cfg.ocean.ah4oc)
-        kw = dict(row0=241 - 3, ny_total=cfg.nypo)
+        kw = dict(row0=r0 - 3, ny_total=cfg.nypo)
         if xext:
-            kw.update(col0=481, nx_total=cfg.nxpo, x_ext=True)
+            kw.update(col0=c0, nx_total=cfg.nxpo, x_ext=True)
 
         def run():
             qgstep(*wargs, cyclic=False, sponge=False, **kw)
@@ -2867,6 +2886,67 @@ def torchrun_cli(argv, backend, ranks=MESH_RANKS):
     return run.stdout
 
 
+def mesh_cli_resume(spec, mesh_line, backend, card):
+    """Through torchrun, `run --mesh SPEC` on phase 10's case for
+    MESH_DRIVER_SEGMENT_DAYS and `run --resume` for as long again, from
+    phase 10's restart, against phase 10's single-device day: lastday.nc
+    and the MESH_MONIT_HELD series of monit.nc within RESUME_TOL. Raises
+    on a miss, or if a run does not print `mesh: MESH_LINE`."""
+    import shutil
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
+    single = root / CASES / "double_gyre_coupled_resume"
+    case = new_case(f"double_gyre_coupled_mesh_{spec}",
+                    "examples/double_gyre_coupled/input.params",
+                    trun=MESH_DRIVER_SEGMENT_DAYS / 365.0,
+                    **MESH_DRIVER_CADENCES)
+    shutil.copy(single / "restart.nc", case / "restart.nc")
+    t0 = time.perf_counter()
+    logs = [torchrun_cli(["run", str(case), "--mesh", spec] + grid,
+                         backend)]
+    logs.append(torchrun_cli(["run", str(case), "--mesh", spec,
+                              "--resume"] + grid, backend))
+    cli_s = time.perf_counter() - t0
+    for log in logs:
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith(("mesh:", "done:"))]
+        print("    " + "\n    ".join(lines))
+        if not any(ln.startswith(f"mesh: {mesh_line}") for ln in lines):
+            raise AssertionError(f"run --mesh {spec} printed no mesh line")
+    want = lastday(single)
+    got = lastday(case, "outdata_r2")
+    errs = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
+            for k, v in want.items()}
+    m_want, dims = monit_series(single / "outdata" / "monit.nc")
+    m_got = [monit_series(case / seg / "monit.nc")[0]
+             for seg in ("outdata", "outdata_r2")]
+    monit = {}
+    for name, w in m_want.items():
+        if name == "time" or not dims[name] or dims[name][0] != "time":
+            continue
+        g = np.concatenate([m[name] for m in m_got])
+        monit[name] = float(np.abs(g - w).max()
+                            / max(np.abs(w).max(), 1e-30))
+    held = {k: monit[k] for k in MESH_MONIT_HELD}
+    rest = sorted(((v, k) for k, v in monit.items()
+                   if k not in MESH_MONIT_HELD), reverse=True)
+    print(f"  run --mesh {spec}, {MESH_DRIVER_SEGMENT_DAYS} + "
+          f"{MESH_DRIVER_SEGMENT_DAYS} days resumed, against phase 10's "
+          f"single-device day: lastday "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; monit.nc " + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
+          + f" (bar {RESUME_TOL:g}); {cli_s:.1f} s of torchrun [{card}]")
+    print("    largest monit.nc differences not held: "
+          + ", ".join(f"{k} {v:.3e}" for v, k in rest[:6]))
+    if not max(*errs.values(), *held.values()) <= RESUME_TOL:
+        raise AssertionError(f"the CLI's run on --mesh {spec} parts from "
+                             "the single-device day")
+    files = sorted(p.name for p in (case / "outdata_r2").iterdir())
+    print(f"    files of the resumed segment (primary rank): "
+          f"{' '.join(files)}")
+
+
 def phase_coupled_mesh(card, states, members):
     """The decomposed coupled model, the Driver and the commands on rows
     meshes in MESH_RANKS ranks (mesh_backend): the golden coupled box in
@@ -2975,56 +3055,7 @@ def phase_coupled_mesh(card, states, members):
                           staged_mb_per_cycle=r0["staged_mb"]))
 
     # the CLI through torchrun: half a day, then --resume for another
-    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
-    single = root / CASES / "double_gyre_coupled_resume"
-    case = new_case("double_gyre_coupled_mesh",
-                    "examples/double_gyre_coupled/input.params",
-                    trun=MESH_DRIVER_SEGMENT_DAYS / 365.0,
-                    **MESH_DRIVER_CADENCES)
-    shutil.copy(single / "restart.nc", case / "restart.nc")
-    t0 = time.perf_counter()
-    logs = [torchrun_cli(["run", str(case), "--mesh", "rows"] + grid,
-                         backend)]
-    logs.append(torchrun_cli(["run", str(case), "--mesh", "rows",
-                              "--resume"] + grid, backend))
-    cli_s = time.perf_counter() - t0
-    for log in logs:
-        lines = [ln for ln in log.splitlines()
-                 if ln.startswith(("mesh:", "done:"))]
-        print("    " + "\n    ".join(lines))
-        if not any(ln.startswith("mesh: {'y': 4, 'x': 1}") for ln in lines):
-            raise AssertionError("run --mesh rows printed no mesh line")
-    want = lastday(single)
-    got = lastday(case, "outdata_r2")
-    errs = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
-            for k, v in want.items()}
-    m_want, dims = monit_series(single / "outdata" / "monit.nc")
-    m_got = [monit_series(case / seg / "monit.nc")[0]
-             for seg in ("outdata", "outdata_r2")]
-    monit = {}
-    for name, w in m_want.items():
-        if name == "time" or not dims[name] or dims[name][0] != "time":
-            continue
-        g = np.concatenate([m[name] for m in m_got])
-        monit[name] = float(np.abs(g - w).max()
-                            / max(np.abs(w).max(), 1e-30))
-    held = {k: monit[k] for k in MESH_MONIT_HELD}
-    rest = sorted(((v, k) for k, v in monit.items()
-                   if k not in MESH_MONIT_HELD), reverse=True)
-    print(f"  run --mesh rows, {MESH_DRIVER_SEGMENT_DAYS} + "
-          f"{MESH_DRIVER_SEGMENT_DAYS} days resumed, against phase 10's "
-          f"single-device day: lastday "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + "; monit.nc " + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
-          + f" (bar {RESUME_TOL:g}); {cli_s:.1f} s of torchrun [{card}]")
-    print("    largest monit.nc differences not held: "
-          + ", ".join(f"{k} {v:.3e}" for v, k in rest[:6]))
-    if not max(*errs.values(), *held.values()) <= RESUME_TOL:
-        raise AssertionError("the mesh CLI run parts from the single-device "
-                             "day")
-    files = sorted(p.name for p in (case / "outdata_r2").iterdir())
-    print(f"    files of the resumed segment (primary rank): "
-          f"{' '.join(files)}")
+    mesh_cli_resume("rows", "{'y': 4, 'x': 1}", backend, card)
 
     # ensemble --shard-members against the same command unsharded, in
     # float64: the sharded members take other launches' sums than the
@@ -3055,6 +3086,296 @@ def phase_coupled_mesh(card, states, members):
         raise AssertionError("ensemble --shard-members leaves the unsharded "
                              "ensemble")
     return totals, paths, member_paths
+
+
+# ----------------------------------------------------------------------
+# Phase 19: the 2-D runner: the box ocean on (y, x) meshes, in MESH_RANKS
+# ranks (mesh_backend)
+# ----------------------------------------------------------------------
+
+# where the ranks meet and phase 4's final state waits for them (listed in
+# .gitignore)
+MESH19_WORKDIR = "build/qgcm_torch/mesh2d"
+# the 2-D meshes of the full-width ocean-only runs
+MESH2D_SHAPES = ((2, 2), (1, 4))
+# cycles of the coupled 2x2 run from phase 7's final state, and warm-up
+MESH2D_COUPLED_CYCLES = (20, 2)
+
+
+def _window_recorder(calls):
+    """A stand-in for parallel/halo.py's qgstep that launches the kernel
+    and keeps each launch's arguments and result (the x_ext launches a
+    2-D substep makes on the runner's own fields)."""
+    from qgcm_torch.ops.qgstep import qgstep
+
+    def record(*args, **kw):
+        out = qgstep(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    return record
+
+
+def _mesh2d_rank(tasks):
+    """What each rank of phase 19 runs, in order over the world group:
+    'ocean' tasks step an ocean-only box on each of their (my, mx)
+    meshes, 'coupled' tasks a coupled box (rank 0 also runs the
+    single-device runner from the same state and compares); a task with
+    `windows` then takes one more 'overlap' substep with parallel/halo.py's
+    kernel calls recorded, and holds each of the rank's x_ext launches
+    against window_reference on the card (launches that are not counted:
+    the counts are read before). Returns per run the rank's launches by
+    mode, collectives, staged MB and host ms per substep or cycle; rank 0
+    adds the errors."""
+    import torch.distributed as dist
+    import qgcm_torch.parallel.halo as halo
+    from qgcm_torch.generators import double_gyre_windstress, eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import (init_ocean_state,
+                                         ocean_forcing_from_mean)
+    from qgcm_torch.models.stepper import (make_coupled_runner,
+                                           make_ocean_only_runner)
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches, \
+        window_reference
+    from qgcm_torch.parallel.mesh import Mesh, gather_tree, shard_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()          # NCCL sets up its communicator here
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for task in tasks:
+        cfg = task["cfg"]
+        model = build_model(cfg, dev)
+        coupled = task["kind"] == "coupled"
+        if "file" in task:
+            saved = torch.load(task["file"], weights_only=False)
+            st = type(saved["state"])(*(t.to(dev) for t in saved["state"]))
+            f = type(saved["forcing"])(*(t.to(dev) for t in
+                                         saved["forcing"]))
+            step0 = saved["step0"]
+        elif coupled:
+            oc, at, step0 = task["state"]
+            st = type(oc)(*(t.to(dev) for t in oc))
+            at = type(at)(*(t.to(dev) for t in at))
+        else:
+            st = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.1))
+            f = ocean_forcing_from_mean(model, *double_gyre_windstress(
+                cfg, model.grids, tau0=2e-5))
+            step0 = 0
+        unit = cfg.nstr if coupled else 1
+        for shape in task["meshes"]:
+            res = dict(task=task["label"], mesh=list(shape))
+            mesh = Mesh(shape, grid=(cfg.nypo, cfg.nxpo))
+            kw = dict(mesh=mesh, halo_variant="overlap",
+                      spectral_variant="a2a")
+            sb = shard_tree(st, mesh)
+            if coupled:
+                run = make_coupled_runner(model, **kw)
+
+                def go(state, atmos, n, k0):
+                    return run(state, atmos, n * unit, step0=k0 * unit)
+            else:
+                run = make_ocean_only_runner(model, **kw)
+                fb = shard_tree(f, mesh)
+
+                def go(state, atmos, n, k0):
+                    return run(state, fb, n, step0=k0), None
+            k0 = step0 // unit
+            steps, warm = task["steps"], task["warm"]
+            sb, ab = go(sb, at if coupled else None, warm, k0)
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            mesh.counts.clear()
+            mesh.staged_bytes = 0
+            n = steps - warm
+            t0 = time.perf_counter()
+            sb, ab = go(sb, ab, n, k0 + warm)
+            torch.cuda.synchronize()
+            res.update(launches=dict(qgstep.mode_launches),
+                       launches_per_unit={k: v / n for k, v in
+                                          qgstep.mode_launches.items()},
+                       counts={k: v / n for k, v in mesh.counts.items()},
+                       staged_mb=mesh.staged_bytes / n / 1e6,
+                       host_ms=(time.perf_counter() - t0) * 1e3 / n)
+            full = gather_tree(sb, mesh)
+            res["pad_zero"] = all(
+                bool((v[..., max(0, cfg.nypo - mesh.iy * mesh.by):, :] == 0
+                      ).all()) and bool((v[..., max(0, cfg.nxpo - mesh.ix
+                                                     * mesh.bx):] == 0).all())
+                for v in (sb.po, sb.pom, sb.qo, sb.qom))
+            if rank == 0:
+                if coupled:
+                    ref_o, ref_a = make_coupled_runner(model)(
+                        st, at, steps * unit, step0=step0)
+                    res["errors"] = {
+                        **field_errors(ref_o, full, task["ocean"]),
+                        **field_errors(ref_a, ab, task["atmos"])}
+                    res["finite"] = all(bool(torch.isfinite(t).all())
+                                        for t in (*full, *ab))
+                    del ref_a
+                else:
+                    ref_o = make_ocean_only_runner(model)(st, f, steps,
+                                                          step0=step0)
+                    res["errors"] = field_errors(ref_o, full, task["ocean"])
+                    res["finite"] = all(bool(torch.isfinite(t).all())
+                                        for t in full)
+                del ref_o
+            if coupled:
+                res["atmos_fp"] = {k: fingerprint(v)
+                                   for k, v in ab._asdict().items()}
+            if task.get("windows") and shape == task["windows"]:
+                # one more substep, its x_ext launches recorded
+                calls = []
+                real = halo.qgstep
+                halo.qgstep = _window_recorder(calls)
+                try:
+                    go(sb, ab, 1, k0 + steps)
+                finally:
+                    halo.qgstep = real
+                torch.cuda.synchronize()
+                checks = []
+                for args, kwargs, got in calls:
+                    ref = window_reference(*args, **kwargs)
+                    err = (got - ref).abs().max().item()
+                    checks.append(dict(
+                        shape=list(args[0].shape), out=list(got.shape),
+                        row0=kwargs["row0"], col0=kwargs["col0"],
+                        x_ext=kwargs.get("x_ext", False), err=err,
+                        scale=ref.abs().max().item()))
+                res["windows"] = checks
+            out.append(res)
+            del sb, full
+        del model, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def save_main_state(main):
+    """Phase 4's final state and forcing, on the host, in a file under
+    MESH19_WORKDIR; returns its path."""
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / MESH19_WORKDIR / "main.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(state=to_host(main["state"]),
+                    forcing=to_host(main["forcing"]),
+                    step0=main["step0"]), path)
+    return str(path)
+
+
+def phase_mesh_2d(card, states, main_file):
+    """The 2-D runner in MESH_RANKS ranks (mesh_backend): the float64
+    golden box on 2x2 against the single-device runner (MESH_F64_TOL);
+    double_gyre_ocean_only at full width in float32 from phase 4's state,
+    'overlap' for MESH_STEPS substeps on 2x2 and 1x4, against the
+    single-device runner (MESH_F32_TOL), with one rank's five x_ext
+    launches of a further substep on 2x2 held against window_reference
+    on the card (F32_TOL of the window's max|q|); double_gyre_coupled on
+    2x2 from phase 7's final state, 20 cycles, at phase 18's bar; then
+    through torchrun `run --mesh 2x2` on phase 10's case, half a day and
+    half a day resumed, against phase 10's single-device day. Returns
+    (the kernels line's launch counts by mode, the paths' entries)."""
+    import shutil
+    from pathlib import Path
+    from qgcm_torch.config import double_gyre_coupled, double_gyre_ocean_only
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parent
+    work = root / MESH19_WORKDIR / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ocean = ("po", "qo", "sst", "dpioc")
+    atmos = ("pa", "qa", "ast", "hmixa")
+    cycles, warm = MESH2D_COUPLED_CYCLES
+    tasks = [
+        dict(kind="ocean", label="golden box float64", cfg=golden_cfg(),
+             meshes=[(2, 2)], steps=GOLDEN_STEPS, warm=MESH_WARMUP,
+             ocean=ocean, tol=MESH_F64_TOL),
+        dict(kind="ocean", label="double_gyre_ocean_only float32",
+             cfg=double_gyre_ocean_only(dtype="float32"), file=main_file,
+             meshes=list(MESH2D_SHAPES), steps=MESH_STEPS,
+             warm=MESH_WARMUP, ocean=ocean, tol=MESH_F32_TOL,
+             windows=(2, 2)),
+        dict(kind="coupled", label="double_gyre_coupled float32",
+             cfg=double_gyre_coupled(dtype="float32"),
+             state=states["double_gyre_coupled"], meshes=[(2, 2)],
+             steps=cycles, warm=warm, ocean=ocean, atmos=atmos,
+             tol=MESH_F32_TOL)]
+    backend, label = mesh_backend()
+    t0 = time.perf_counter()
+    results = spawn_ranks(_mesh2d_rank, MESH_RANKS, tasks, backend=backend,
+                          workdir=work, timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths = []
+    runs = [(t, sh) for t in tasks for sh in t["meshes"]]
+    for i, (task, shape) in enumerate(runs):
+        per_rank = [r[i] for r in results]
+        r0 = per_rank[0]
+        launches = {m: sum(pr["launches"].get(m, 0) for pr in per_rank)
+                    for m in totals}
+        for m in totals:
+            totals[m] += launches[m]
+        coupled = task["kind"] == "coupled"
+        unit = "cycle" if coupled else "substep"
+        mesh_s = f"{shape[0]}x{shape[1]}"
+        worst = max(r0["errors"].values())
+        same_atmos = (not coupled or all(pr["atmos_fp"] == r0["atmos_fp"]
+                                         for pr in per_rank[1:]))
+        pad = all(pr["pad_zero"] for pr in per_rank)
+        print(f"  {task['label']}, overlap + a2a, {mesh_s} mesh, "
+              f"{task['steps']} {unit}s: errors vs the single-device runner "
+              f"(max|diff|/max) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r0["errors"].items())
+              + f" (bar {task['tol']:g}); finite {r0['finite']}; padding "
+              f"rows and columns zero {pad}"
+              + (f"; every rank's atmosphere the same bits: {same_atmos}"
+                 if coupled else ""))
+        print(f"    per rank per {unit}: qgstep launches "
+              f"{r0['launches_per_unit']}; collectives {r0['counts']}; "
+              f"{r0['staged_mb']:.3f} MB staged through the host; host "
+              f"{r0['host_ms']:.2f} ms/rank-{unit} (rank 0; max over ranks "
+              f"{max(p['host_ms'] for p in per_rank):.2f}) -- {label} "
+              f"[{card}]")
+        if not (r0["finite"] and pad and same_atmos
+                and worst <= task["tol"]):
+            raise AssertionError(f"{task['label']} on {mesh_s} misses the "
+                                 "single-device runner")
+        # 'overlap' on a 2-D block: the interior, two row bands and two
+        # column bands
+        if any(p["launches_per_unit"].get("x_ext") != 5
+               or p["launches_per_unit"].get("rows")
+               or p["launches_per_unit"].get("full") for p in per_rank):
+            raise AssertionError(f"{task['label']} on {mesh_s}: expected 5 "
+                                 f"x_ext launches per rank per {unit}, and "
+                                 "no other")
+        for w in r0.get("windows", []):
+            rel = w["err"] / max(w["scale"], 1e-300)
+            print(f"    rank 0's x_ext launch {w['shape']} -> {w['out']} at "
+                  f"row0 {w['row0']}, col0 {w['col0']}: kernel vs "
+                  f"window_reference {w['err']:.3e} = {rel:.3e} of the "
+                  f"window's max|q| (bar {F32_TOL:g})")
+            if not rel <= F32_TOL:
+                raise AssertionError("an x_ext launch of the 2-D runner "
+                                     "disagrees with window_reference")
+        if "windows" in r0 and len(r0["windows"]) != 5:
+            raise AssertionError("a 2-D overlap substep made "
+                                 f"{len(r0['windows'])} x_ext launches, not 5")
+        entry = dict(path=f"2-D mesh {mesh_s} {task['label']}",
+                     launches=launches, rel_err=worst,
+                     **{f"host_ms_per_rank_{unit}": r0["host_ms"],
+                        f"staged_mb_per_{unit}": r0["staged_mb"]})
+        if "windows" in r0:
+            entry["windows_max_abs_err"] = max(w["err"]
+                                               for w in r0["windows"])
+        paths.append(entry)
+
+    mesh_cli_resume("2x2", "{'y': 2, 'x': 2}", backend, card)
+    if totals["full"] or totals["rows"]:
+        raise AssertionError("a 2-D run launched another mode than x_ext")
+    return totals, paths
 
 
 def main() -> int:
@@ -3091,6 +3412,8 @@ def main() -> int:
         phase_golden(device)
     with phase("[4] main path: double_gyre_ocean_only, float32"):
         kernel, main_path = phase_main(device, card)
+        # its final state, for phase 19's ranks
+        main_file = save_main_state(main_path)
     with phase("[5] the kernel alone against its bound"):
         phase_kernel_timing(card)
     with phase("[6] golden coupled box, float64, 30 steps on the card"):
@@ -3141,6 +3464,12 @@ def main() -> int:
     for mode in totals:
         totals[mode] += totals18[mode]
     mesh_paths += mesh_paths18
+    with phase(f"[19] the 2-D runner: the box on (y, x) meshes, "
+               f"{mesh_backend()[1]}"):
+        totals19, mesh_paths19 = phase_mesh_2d(card, states, main_file)
+    for mode in totals:
+        totals[mode] += totals19[mode]
+    mesh_paths += mesh_paths19
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",

@@ -15,8 +15,9 @@ atmosphere-only runners (config, grids, modes, radiation, topography,
 both PV inversions, coupling, models/), ensembles and adjoint
 sensitivities (models/ensemble.py, adjoint.py), the experiment driver
 with its diagnostics, I/O, analysis and CLI, and, on row blocks of a
-process group (parallel/), the ocean-only and coupled runners, the
-Driver and the `run --mesh` and `ensemble --shard-members` commands.
+process group (and, for a box, on 2-D blocks of any (y, x) mesh;
+parallel/), the ocean-only and coupled runners, the Driver and the
+`run --mesh` and `ensemble --shard-members` commands.
 Importing this package never imports JAX.
 """
 

@@ -27,13 +27,16 @@ in the ranks of a torch.distributed group, one process each, started by
 torchrun:
 
     torchrun --nproc-per-node 4 -m qgcm_torch.cli run CASE --mesh rows
+    torchrun --nproc-per-node 4 -m qgcm_torch.cli run CASE --mesh 2x2
     torchrun --nproc-per-node 2 -m qgcm_torch.cli run CASE --mesh rows \
         --dist-backend gloo --device cpu
 
 --dist-backend names the group's backend: nccl (the default; each rank
 takes the card of its local rank) or gloo (the CPU, or ranks that share
-a card; the ranks run on --device). Only rows meshes are ported: NX > 1,
-and 'hybrid' on a box, raise. Not ported: --ckpt-format.
+a card; the ranks run on --device). A box takes any NYxNX and 'hybrid'
+(the hosts on y, a host's ranks on x); a channel takes rows meshes only
+(NX > 1 raises, with qgcm_tpu's reason: the duplicated column's
+wraparound), and 'hybrid' puts its ranks on y. Not ported: --ckpt-format.
 """
 
 from __future__ import annotations
@@ -669,10 +672,9 @@ def main(argv=None):
                     "or operator (CPU) per coupling cycle")
     pr.add_argument("--mesh", default=None, metavar="auto|rows|hybrid|NYxNX",
                     help="run decomposed over the ranks of a torchrun "
-                    "launch: 'auto'/'rows' (row blocks, the ported "
-                    "layout), 'hybrid' (hosts on y, a host's ranks on x: "
-                    "rows in a channel), or NYxNX; NX > 1 needs the 2-D "
-                    "runner, not ported yet, and raises")
+                    "launch: 'auto'/'rows' (row blocks), 'hybrid' (hosts "
+                    "on y, a host's ranks on x: rows in a channel), or "
+                    "NYxNX (NX > 1 for a box only)")
     add_dist(pr)
     add_grid(pr)
     pr.set_defaults(fn=cmd_run)

@@ -1,5 +1,5 @@
 """Air-sea coupling: the xforc forcing computation (port of
-qgcm_tpu/coupling.py), on one device or on the ocean's row blocks.
+qgcm_tpu/coupling.py), on one device or on the ocean's blocks.
 
 Replaces reference src/xfosubs.F. From the lagged model states xforc
 computes the windstress on the ocean-resolution atmospheric grid by
@@ -281,20 +281,30 @@ def _band_refine(taps_rows: torch.Tensor, factors) -> torch.Tensor:
 
 def bicubic_refine_uv(coup: Coupling, u1at: torch.Tensor,
                       v1at: torch.Tensor, ndxr: int, lo: int = 0,
-                      hi: int = None):
+                      hi: int = None, clo: int = 0, chi: int = None):
     """Refine coarse p-grid velocities (nypa, nxpa) to the
     ocean-resolution atmospheric p grid (nypaor, nxpaor), or to its rows
-    [lo, hi) only: x-refine the coarse rows that those rows' bands read,
-    then contract the y taps band-wise. Band b holds the fine rows
+    [lo, hi) and columns [clo, chi) only: x-refine the coarse cells that
+    those columns lie in, of the coarse rows that those rows' bands
+    read, then contract the y taps band-wise. Band b holds the fine rows
     [b*ndxr, (b+1)*ndxr); the south band (b = 0) and the north band (b =
     nyta-1, one row taller) take the wall weights, every band between
-    them reads coarse rows b-1 .. b+2. A row is the same arithmetic
-    whatever [lo, hi). The east column repeats the west one."""
-    nypa = u1at.shape[0]
-    nyta = nypa - 1
+    them reads coarse rows b-1 .. b+2. A point is the same arithmetic
+    whatever the ranges. The east column repeats the west one."""
+    nypa, nxpa = u1at.shape
+    nyta, nxta = nypa - 1, nxpa - 1
     hi = nyta * ndxr + 1 if hi is None else hi
+    chi = nxta * ndxr + 1 if chi is None else chi
     U = _xtaps(u1at[:, :-1])                   # (nypa, nxta, 4)
     V = _xtaps(v1at[:, :-1])
+    # the coarse cells of the columns, and cell 0 again for the
+    # duplicate east column
+    q0, q1 = clo // ndxr, min(chi - 1, nxta * ndxr - 1) // ndxr
+    whole = q0 == 0 and q1 == nxta - 1
+    dup = chi == nxta * ndxr + 1
+    if not whole:
+        cells = list(range(q0, q1 + 1)) + ([0] if dup else [])
+        U, V = U[:, cells], V[:, cells]
     wy_b, wx_b = coup.w_bbb                    # rank 1
     wyv = wy_b[:, :, 0]
     parts = []      # (first fine row, u rows, v rows) of each band range
@@ -325,7 +335,13 @@ def bicubic_refine_uv(coup: Coupling, u1at: torch.Tensor,
     out = []
     for k in (1, 2):
         f = torch.cat([p[k] for p in parts])[lo - start:hi - start]
-        out.append(torch.cat([f, f[:, :1]], dim=1))
+        if whole:
+            f = torch.cat([f, f[:, :1]], dim=1)[:, clo:chi]
+        else:
+            w = (q1 - q0 + 1) * ndxr
+            f = torch.cat([f[:, :w], f[:, w:w + 1]], dim=1)[
+                :, clo - q0 * ndxr:chi - q0 * ndxr]
+        out.append(f)
     return tuple(out)
 
 
@@ -392,16 +408,17 @@ def _box_sums(f: torch.Tensor, ndxr: int, nypa: int, nxpa: int,
 
 
 def _bilint_ast(coup: Coupling, astm: torch.Tensor, t0: int = 0,
-                t1: int = None) -> torch.Tensor:
+                t1: int = None, s0: int = 0, s1: int = None) -> torch.Tensor:
     """Bilinear astm (nyta, nxta) -> ocean T grid (nyto, nxto), or its
-    rows [t0, t1)."""
-    wpx = coup.bil_wx_p[None, :]
+    rows [t0, t1) and columns [s0, s1)."""
+    wpx = coup.bil_wx_p[None, s0:s1]
     wpy = coup.bil_wy_p[t0:t1, None]
     rows_m, rows_p = astm[coup.bil_jy_m[t0:t1]], astm[coup.bil_jy_p[t0:t1]]
-    a_mm = rows_m[:, coup.bil_ix_m]
-    a_mp = rows_m[:, coup.bil_ix_p]
-    a_pm = rows_p[:, coup.bil_ix_m]
-    a_pp = rows_p[:, coup.bil_ix_p]
+    ixm, ixp = coup.bil_ix_m[s0:s1], coup.bil_ix_p[s0:s1]
+    a_mm = rows_m[:, ixm]
+    a_mp = rows_m[:, ixp]
+    a_pm = rows_p[:, ixm]
+    a_pp = rows_p[:, ixp]
     return ((1 - wpx) * (1 - wpy) * a_mm + wpx * (1 - wpy) * a_mp
             + (1 - wpx) * wpy * a_pm + wpx * wpy * a_pp)
 
@@ -412,6 +429,7 @@ def _bilint_ast(coup: Coupling, astm: torch.Tensor, t0: int = 0,
 
 # collective call sites of the decomposed xforc (Mesh.counts)
 XFORC_ROWS = "coupling.rows"
+XFORC_COLS = "coupling.cols"
 XFORC_SUMS = "coupling.sums"
 
 
@@ -425,29 +443,35 @@ def make_xforc(model, mesh=None):
     footprint of the fine grid before the drag is taken. The fine-grid
     fields live only inside one call.
 
-    With `mesh` (parallel/mesh.py: a rows mesh made for the ocean's
-    p-grid, as the decomposed ocean step takes it) pom and sstm are this
-    rank's row blocks and so is the ocean forcing (mesh.shard_tree's
-    layout); pam, astm and hmixam are whole on every rank, and so are the
-    atmospheric forcing and the diagnostics, the same bits on every
-    rank. No collective is larger than the coarse atmospheric grid, as
-    in qgcm_tpu (coupling.py:600-604, 731-736):
+    With `mesh` (parallel/mesh.py: a mesh made for the ocean's p-grid,
+    as the decomposed ocean step takes it: rows, or for a box any (y, x)
+    shape) pom and sstm are this rank's blocks and so is the ocean
+    forcing (mesh.shard_tree's layout); pam, astm and hmixam are whole on
+    every rank, and so are the atmospheric forcing and the diagnostics,
+    the same bits on every rank. No collective is larger than the coarse
+    atmospheric grid, as in qgcm_tpu (coupling.py:600-604, 731-736):
       * every rank computes the coarse velocities from the whole pam;
-      * the fine grid is cut into the ocean's row blocks: a rank refines
-        the fine rows of its ocean rows (rank 0 also those south of the
+      * the fine grid is cut into the ocean's blocks: a rank refines the
+        fine rows of its ocean rows (rank 0 also those south of the
         ocean, the rank with the ocean's north wall those north of it)
-        and one more each side. Its ocean windstress, with the row each
-        side that the Ekman curl and its average onto p points read, is
-        a slice of that block; qgcm_tpu recomputes it instead
+        and one more each side, and on a 2-D mesh only the fine columns
+        of its ocean columns (the ranks of the west column also those
+        west of the ocean, those with the east wall those east of it,
+        the duplicated east column included) and one more each side.
+        Its ocean windstress, with the row and column each side that the
+        Ekman curl and its average onto p points read, is a slice of
+        that block; qgcm_tpu recomputes it instead
         (bicubic_refine_window) because GSPMD would gather a slice of
         its sharded fine grid;
-      * tau_udiff's ocean velocity reads two ghost rows of pom[0] (one
-        exchange);
-      * a rank sums what its own fine rows give the coarse outputs
+      * tau_udiff's ocean velocity reads two ghost rows (and columns) of
+        pom[0] (one exchange each);
+      * a rank sums what its own fine points give the coarse outputs
         (tauxa, tauya, vekat, uekat, the wekpa box sums, the
-        atmosphere's stress integrals) and what its own ocean rows give
-        the heat-flux blocks over the ocean and the diagnostics' sums;
-        one all_reduce of coarse size adds the ranks' shares;
+        atmosphere's stress integrals: its columns are put in zeros as
+        wide as the fine grid for those sums, which wrap in x) and what
+        its own ocean points give the heat-flux blocks over the ocean
+        and the diagnostics' sums; one all_reduce of coarse size adds
+        the ranks' shares;
       * in the channel the ranks that hold the wall rows form txisoc and
         txinoc, which an all_reduce hands to every rank (ekman_forcing).
     A coarse value that one rank's rows form whole comes out bit for bit
@@ -457,7 +481,7 @@ def make_xforc(model, mesh=None):
     _footprint_interior false, where its mesh path slices the sharded
     fine grid and GSPMD gathers it) needs nothing else here: the wall
     bands are rows of a block like any other."""
-    from .models.ocean import _Rows, ekman_forcing
+    from .models.ocean import _Rows, check_mesh_grid, ekman_forcing
     from .ops.stencils import _col_mask
 
     cfg: ModelConfig = model.cfg
@@ -524,24 +548,35 @@ def make_xforc(model, mesh=None):
     if mesh is not None:
         if cfg.atmos_only:
             raise NotImplementedError(
-                "a decomposed xforc cuts the ocean's rows; the atmosphere "
+                "a decomposed xforc cuts the ocean's blocks; the atmosphere "
                 "on row blocks is not ported yet (ROADMAP.md)")
-        if mesh.mx != 1 or mesh.grid != (nypo, nxpo):
-            raise ValueError("the decomposed xforc takes a rows mesh made "
-                             f"for the ocean's grid {(nypo, nxpo)}")
+        check_mesh_grid(cfg, mesh, "the decomposed xforc")
         rows = _Rows(mesh, cfg, dev)
-        if rows.r0 >= nypo:
+        if rows.r0 >= nypo or rows.c0 >= nxpo:
             raise ValueError(f"rank {mesh.rank} of {mesh.size} holds no "
-                             f"ocean row of {nypo}: use fewer ranks")
-        r0, n = rows.r0, rows.n
+                             f"ocean point of {(nypo, nxpo)}: use fewer "
+                             "ranks")
+        r0, n, c0, m = rows.r0, rows.n, rows.c0, rows.m
         o1 = min(r0 + n, nypo)             # past the rank's last true row
         nt = max(0, min(r0 + n, cfg.nyto) - r0)   # its true T rows
         # the fine rows the rank owns, [f0, f1), and those it refines
         f0 = 0 if r0 == 0 else joc0 + r0
         f1 = cfg.nypaor if o1 == nypo else joc0 + o1
         e0, e1 = max(f0 - 1, 0), min(f1 + 1, cfg.nypaor)
+        # the same for the fine columns on a 2-D mesh (rank ix = 0 also
+        # owns those west of the ocean, the rank with the ocean's east
+        # wall those east of it); on a rows mesh every column
+        ct = max(0, min(c0 + m, cfg.nxto) - c0)   # its true T columns
+        if rows.two_d:
+            o2 = min(c0 + m, nxpo)
+            g0 = 0 if c0 == 0 else ioc0 + c0
+            g1 = cfg.nxpaor if o2 == nxpo else ioc0 + o2
+            h0, h1 = max(g0 - 1, 0), min(g1 + 1, cfg.nxpaor)
+        else:
+            g0, g1 = h0, h1 = 0, cfg.nxpaor
         if cfg.tau_udiff:
-            cdrfac, qu2fac = (c[e0:e1].contiguous() for c in (cdrfac, qu2fac))
+            cdrfac, qu2fac = (c[e0:e1, h0:h1].contiguous()
+                              for c in (cdrfac, qu2fac))
 
     def quad_drag(u, v, cdr, qu2):
         """Quadratic-drag windstress (7.1-7.4) from velocities."""
@@ -551,10 +586,15 @@ def make_xforc(model, mesh=None):
         cdochi = cdr * scashr / (1.0 + scasqd)
         return cdochi * (u - scashr * v), cdochi * (v + scashr * u)
 
-    def ocean_velocity(ext, gy):
+    def ocean_velocity(ext, gy, gx=None):
         """Geostrophic velocity of the ocean's top layer at the p rows of
         global indices gy ((n, 1)) from `ext`, those rows and one more
-        each side, with the mixed-BC wall rows (and box columns)."""
+        each side, with the mixed-BC wall rows (and box columns). With
+        `gx` (the columns' global indices, (1, m)) ext has one more
+        column each side as well; without, it holds every column."""
+        if gx is not None:
+            pw, pe = ext[1:-1, :-2], ext[1:-1, 2:]
+            ext = ext[:, 1:-1]
         po1, ps, pn = ext[1:-1], ext[:-2], ext[2:]
         south, north = gy == 0, gy == nypo - 1
         u = torch.where(south, -zbfcoc * (pn - po1),
@@ -565,9 +605,12 @@ def make_xforc(model, mesh=None):
             pow_ = torch.cat([po1[:, -2:-1], po1[:, :-1]], dim=1)
             v = hxofac * (poe - pow_)
         else:
-            ppx = torch.cat([po1[:, :1], po1, po1[:, -1:]], dim=1)
-            pw, pe = ppx[:, :-2], ppx[:, 2:]
-            west, east = _col_mask(po1, 0), _col_mask(po1, -1)
+            if gx is None:
+                ppx = torch.cat([po1[:, :1], po1, po1[:, -1:]], dim=1)
+                pw, pe = ppx[:, :-2], ppx[:, 2:]
+                west, east = _col_mask(po1, 0), _col_mask(po1, -1)
+            else:
+                west, east = gx == 0, gx == nxpo - 1
             v = torch.where(west, zbfcoc * (pe - po1),
                             torch.where(east, zbfcoc * (po1 - pw),
                                         hxofac * (pe - pw)))
@@ -699,25 +742,43 @@ def make_xforc(model, mesh=None):
     if mesh is None:
         return xforc
 
+    def owned(t, cols):
+        """The rank's fine columns [g0, g1) of a block of the refined
+        columns [h0, h1), in zeros as wide as `cols`, the fine grid's p
+        (nxpaor) or T (nxpaor - 1) width: every other rank adds zeros
+        there, so the sums of the ranks' shares are those of the
+        whole."""
+        if not rows.two_d:
+            return t
+        hi = min(g1, cols)
+        return F.pad(t[:, g0 - h0:hi - h0], (g0, cols - hi))
+
     def xforc_rows(pam, pom, sstm, astm, hmixam):
-        # the fine rows [e0, e1): the rank's own and one more each side
+        # the fine rows [e0, e1) and columns [h0, h1): the rank's own and
+        # one more each side
         u1ator, v1ator = bicubic_refine_uv(coup, *coarse_velocity(pam),
-                                           ndxr, e0, e1)
+                                           ndxr, e0, e1, h0, h1)
         if cfg.tau_udiff:
-            # the velocity on ocean rows r0-1 .. r0+n, of which the
-            # footprint rows [a, b) of the fine block are subtracted
-            south, north = mesh.start_exchange(pom[0], 2, "y",
-                                               XFORC_ROWS).wait()
-            u1oc, v1oc = ocean_velocity(
-                torch.cat([south, pom[0], north]),
-                r0 - 1 + torch.arange(n + 2, device=dev)[:, None])
+            # the velocity on ocean rows r0-1 .. r0+n (and columns c0-1 ..
+            # c0+m), of which the footprint's points in the fine block
+            # are subtracted
+            ext = rows.with_ghosts(pom[0], 2, XFORC_ROWS, XFORC_COLS)
+            gy = r0 - 1 + torch.arange(n + 2, device=dev)[:, None]
+            if rows.two_d:
+                u1oc, v1oc = ocean_velocity(ext, gy, c0 - 1 + torch.arange(
+                    m + 2, device=dev)[None, :])
+            else:           # every column, without the zero ghost columns
+                u1oc, v1oc = ocean_velocity(ext[:, 2:-2], gy)
             a, b = max(e0 - joc0, 0), min(e1 - joc0, nypo)
-            i = a - (r0 - 1)
-            widths = (ioc0, cfg.nxpaor - ioc0 - nxpo, joc0 + a - e0,
+            ca, cb = max(h0 - ioc0, 0), min(h1 - ioc0, nxpo)
+            i, j = a - (r0 - 1), ca - (c0 - 1 if rows.two_d else 0)
+            widths = (ioc0 + ca - h0, h1 - ioc0 - cb, joc0 + a - e0,
                       e1 - joc0 - b)
-            u1ator = u1ator - F.pad(u1oc[i:i + b - a], widths)
-            v1ator = v1ator - F.pad(v1oc[i:i + b - a], widths)
-        tauxaor, tauyaor = quad_drag(u1ator, v1ator, cdrfac, qu2fac)
+            u1ator = u1ator - F.pad(u1oc[i:i + b - a, j:j + cb - ca], widths)
+            v1ator = v1ator - F.pad(v1oc[i:i + b - a, j:j + cb - ca], widths)
+        tau_x, tau_y = quad_drag(u1ator, v1ator, cdrfac, qu2fac)
+        # the rank's own columns, every other column zero
+        tauxaor, tauyaor = owned(tau_x, cfg.nxpaor), owned(tau_y, cfg.nxpaor)
 
         # the shares of the fine rows [f0, f1) in the coarse outputs
         j0, j1 = -(-f0 // ndxr), -(-f1 // ndxr)    # p rows j*ndxr in them
@@ -728,14 +789,16 @@ def make_xforc(model, mesh=None):
         vekat = uvekfc * F.pad(_edge_integrals(tauxaor[sampled], ndxr),
                                coarse_rows)
         # the T cells whose sides [c*ndxr, (c+1)*ndxr] meet the rows
-        c0, c1 = max(0, -(-f0 // ndxr) - 1), min(nyta - 1, (f1 - 1) // ndxr)
+        k0, k1 = max(0, -(-f0 // ndxr) - 1), min(nyta - 1, (f1 - 1) // ndxr)
         sides = F.pad(tauyaor[f0 - e0:f1 - e0, ::ndxr],
-                      (0, 0, f0 - c0 * ndxr, (c1 + 1) * ndxr + 1 - f1))
+                      (0, 0, f0 - k0 * ndxr, (k1 + 1) * ndxr + 1 - f1))
         uekat = -uvekfc * F.pad(_edge_integrals(sides.T, ndxr).T,
-                                (0, 0, c0, nyta - 1 - c1))
-        # the fine T rows [f0, t1) between the rank's p rows
+                                (0, 0, k0, nyta - 1 - k1))
+        # the fine T rows [f0, t1) between the rank's p rows, and its
+        # fine T columns (each between the rank's p column and the next)
         t1 = min(f1, cfg.nypaor - 1) + 1 - e0
-        wekpa = _box_sums(wekt(tauxaor[f0 - e0:t1], tauyaor[f0 - e0:t1]),
+        wekpa = _box_sums(owned(wekt(tau_x[f0 - e0:t1], tau_y[f0 - e0:t1]),
+                                cfg.nxpaor - 1),
                           ndxr, nypa, nxpa, t0=f0)
         zero = tauxa.new_zeros(())
         txisat = (stress_integral(tauxaor, jsou - e0, 1)
@@ -743,36 +806,44 @@ def make_xforc(model, mesh=None):
         txinat = (stress_integral(tauxaor, jnor - e0, -1)
                   if f0 <= jnor < f1 else zero)
 
-        # the ocean's rows: the stress on rows r0-1 .. r0+n (zero off the
-        # grid), the heat flux on the rank's T rows
+        # the ocean's points: the stress on rows r0-1 .. r0+n (and on a 2-D
+        # mesh columns c0-1 .. c0+m; zero off the grid), the heat flux on
+        # the rank's T points
         lo, hi = max(r0 - 1, 0), min(r0 + n + 1, nypo)
+        clo, chi = ((max(c0 - 1, 0), min(c0 + m + 1, nxpo)) if rows.two_d
+                    else (0, nxpo))
+        cpad = ((clo - c0 + 1, c0 + m + 1 - chi) if rows.two_d else (0, 0))
 
-        def ocean_rows(t):
+        def ocean_block(t):
             return F.pad(raoro * t[joc0 + lo - e0:joc0 + hi - e0,
-                                   ioc0:ioc0 + nxpo],
-                         (0, 0, lo - r0 + 1, r0 + n + 1 - hi))
+                                   ioc0 + clo - h0:ioc0 + chi - h0],
+                         cpad + (lo - r0 + 1, r0 + n + 1 - hi))
 
-        asto = F.pad(_bilint_ast(coup, astm, r0, r0 + nt),
-                     (0, 0, 0, n - nt))
+        wt = m if rows.two_d else cfg.nxto      # the T fields' width
+        asto = F.pad(_bilint_ast(coup, astm, r0, r0 + nt, c0, c0 + ct),
+                     (0, wt - ct, 0, n - nt))
         ocnrad = rad.D0up * sstm
         slhf = xlamda * (sstm - asto)
         atmrad_oc = rad.Dmdown * asto
         fsp = F.pad(coup.fsp_oc[r0:r0 + nt], (0, n - nt))[:, None]
         fnetoc = torch.where(rows.t_true,
                              -fsp - atmrad_oc - ocnrad - slhf, 0.0)
-        ocean_forcing = ekman_forcing(model, ocean_rows(tauxaor),
-                                      ocean_rows(tauyaor), fnetoc,
+        ocean_forcing = ekman_forcing(model, ocean_block(tau_x),
+                                      ocean_block(tau_y), fnetoc,
                                       rows=rows)
-        # the T rows' share of the atmosphere cells over the ocean
+        # the T points' share of the atmosphere cells over the ocean
         contrib = ocnrad + (rad.Dmdown - rad.Dmup) * asto + slhf
         blocks = contrib.new_zeros(cfg.nyaooc, cfg.nxaooc)
-        if nt:
+        if nt and ct:
             k0, k1 = r0 // ndxr, (r0 + nt - 1) // ndxr
-            cells = F.pad(contrib[:nt], (0, 0, r0 - k0 * ndxr,
-                                         (k1 + 1) * ndxr - r0 - nt))
-            blocks = F.pad(cells.reshape(k1 - k0 + 1, ndxr, cfg.nxaooc,
+            q0, q1 = c0 // ndxr, (c0 + ct - 1) // ndxr
+            cells = F.pad(contrib[:nt, :ct],
+                          (c0 - q0 * ndxr, (q1 + 1) * ndxr - c0 - ct,
+                           r0 - k0 * ndxr, (k1 + 1) * ndxr - r0 - nt))
+            blocks = F.pad(cells.reshape(k1 - k0 + 1, ndxr, q1 - q0 + 1,
                                          ndxr).sum((1, 3)),
-                           (0, 0, k0, cfg.nyaooc - 1 - k1))
+                           (q0, cfg.nxaooc - 1 - q1,
+                            k0, cfg.nyaooc - 1 - k1))
 
         shares = [tauxa, tauya, vekat, uekat, wekpa, blocks,
                   torch.stack([txisat, txinat, slhf.sum(), ocnrad.sum(),

@@ -157,40 +157,45 @@ def _atmos_faces(model, ast, pa1, tauxa, tauya):
     return uuf, tuf, vvf, tvf
 
 
-# the collective call site of the face fields on row blocks (Mesh.counts)
+# the collective call sites of the face fields on blocks (Mesh.counts)
 FACE_ROWS = "timavge.rows"
+FACE_COLS = "timavge.cols"
 
 
 def _ocean_faces_rows(model, rows, sst, po1, tauxo, tauyo):
-    """_ocean_faces on this rank's row blocks of a decomposed run (`rows`,
+    """_ocean_faces on this rank's blocks of a decomposed run (`rows`,
     models/ocean._Rows): the W/E faces of its T rows read the p row north
-    of the block, the S/N faces of its p rows the T row south of it (one
-    exchange); the walls and padding by global row."""
+    of the block and the T column west of it, the S/N faces of its p rows
+    the T row south of it and the p column east of it (one exchange of
+    rows, and on a 2-D mesh one of columns); the walls and padding by
+    global row and column."""
     cfg = model.cfg
     g = model.grids
     uvgfac = cfg.ycexp / (g.dxo * cfg.fnot)
     rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
     tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
-    stack = torch.stack([po1, tauyo, F.pad(sst, (0, 1))])
-    south, north = rows.mesh.start_exchange(stack, 1, "y",
-                                            FACE_ROWS).wait()
-    pn, tyn = (torch.cat([stack[k], north[k]]) for k in (0, 1))
+    stack = torch.stack([po1, tauyo, tauxo, rows.t_wide(sst)])
+    ext = rows.with_ghosts(stack, 1, FACE_ROWS, FACE_COLS)
+    # W/E faces: T rows r0 .. r0+n-1, p columns c0 .. c0+m-1
+    pn, tyn = (ext[k, 1:, 1:-1] for k in (0, 1))
     uuf = -uvgfac * (pn[1:] - pn[:-1]) + rhf0hm * (tyn[1:] + tyn[:-1])
-    if cfg.cyclic_ocean:
-        twrap = 0.5 * (sst[:, :1] + sst[:, -1:])
-        tuf = torch.cat([twrap, 0.5 * (sst[:, :-1] + sst[:, 1:]), twrap],
-                        dim=1)
-    else:
-        tuf = torch.cat([sst[:, :1], 0.5 * (sst[:, :-1] + sst[:, 1:]),
-                         sst[:, -1:]], dim=1)
-        uuf[:, 0] = 0.0
-        uuf[:, -1] = 0.0
+    tw = rows.ghost_cols(ext[3, 1:-1, :-1], 1)     # T columns c0-1 ..
+    tuf = 0.5 * (tw[:, :-1] + tw[:, 1:])
+    if not cfg.cyclic_ocean:
+        gx = rows.c0 + torch.arange(uuf.shape[-1], device=uuf.device)
+        wall = (gx == 0) | (gx == rows.nxp - 1)
+        uuf = torch.where(wall, 0.0, uuf)
+        # the wall faces take the wall cells' T
+        tuf = torch.where(gx == 0, tw[:, 1:], torch.where(
+            gx == rows.nxp - 1, tw[:, :-1], tuf))
 
-    vvf = (uvgfac * (po1[:, 1:] - po1[:, :-1])
-           - rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1]))
-    vwall = -rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1])
+    # S/N faces: p rows r0 .. r0+n-1, T columns c0 .. c0+m-1
+    pe, txe = (ext[k, 1:-1, 1:] for k in (0, 2))
+    vvf = rows.t_narrow(uvgfac * (pe[:, 1:] - pe[:, :-1])
+                        - rhf0hm * (txe[:, 1:] + txe[:, :-1]))
+    vwall = rows.t_narrow(-rhf0hm * (txe[:, 1:] + txe[:, :-1]))
     # the T rows south and north of each p row
-    ts = torch.cat([south[2, :, :cfg.nxto], sst])
+    ts = rows.t_narrow(ext[3, :-1, 1:-1])
     below, above = ts[:-1], ts[1:]
     tvf = 0.5 * (below + above)
     gp = rows.gy
@@ -202,17 +207,16 @@ def _ocean_faces_rows(model, rows, sst, po1, tauxo, tauyo):
                       torch.where(gp == rows.nyp - 1,
                                   0.5 * (below + tnbdy) if cfg.nb_hflux
                                   else below, tvf))
-    t, p = rows.t_true, rows.p_true
-    return (torch.where(t, uuf, 0.0), torch.where(t, tuf, 0.0),
-            torch.where(p, vvf, 0.0), torch.where(p, tvf, 0.0))
+    tp, pt = rows.tp_true, rows.pt_true
+    return (torch.where(tp, uuf, 0.0), torch.where(tp, tuf, 0.0),
+            torch.where(pt, vvf, 0.0), torch.where(pt, tvf, 0.0))
 
 
 def accumulate_ocean(acc: OceanAverages, state, forcing, model,
                      rows=None) -> OceanAverages:
     """acc plus one (sub)step's state and forcing; with `rows` (a
-    decomposed run's models/ocean._Rows) all of them are this rank's row
-    blocks (parallel/mesh.shard_tree's layout, the face fields with the
-    T-grid's rows)."""
+    decomposed run's models/ocean._Rows) all of them are this rank's
+    blocks (parallel/mesh.shard_tree's layout)."""
     if rows is None:
         uuf, tuf, vvf, tvf = _ocean_faces(
             model, state.sst, state.po[0], forcing.tauxo, forcing.tauyo,

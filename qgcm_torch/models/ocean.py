@@ -22,10 +22,10 @@ import torch.nn.functional as F
 from ..config import ModelConfig, ml_f64_enabled
 from ..grids import Grids
 from ..model import Model
-from ..ops.integrals import line_sum, xintp, xintp_rows
+from ..ops.integrals import edge_weights, line_sum, xintp, xintp_block
 from ..ops.qgstep import qgstep
 from ..ops.stencils import del2_bc, _col_mask, _eshift, _wshift
-from ..ops.vorticity import qcomp, ocqbdy, ocqbdy_rows
+from ..ops.vorticity import qcomp, ocqbdy, ocqbdy_block
 from ..state import OceanState, OceanForcing
 
 # threshold of the continuity monitors emfroc/emfrat (ocisubs.F:281,
@@ -489,8 +489,9 @@ def make_ocean_step(model: Model, halo=None, sharded: bool = False):
     (state, OceanStepDiags).
 
     halo: a (mesh, variant) pair (qgcm_tpu/models/ocean.py:666-677): the
-    step then takes and returns this rank's row blocks of a run
-    decomposed over `mesh` (parallel/mesh.py), the vorticity step
+    step then takes and returns this rank's blocks of a run decomposed
+    over `mesh` (parallel/mesh.py: rows, or for a box any (y, x)
+    shape), the vorticity step
     exchanging its ghosts by `variant` ('staged', 'deep' or 'overlap',
     parallel/halo.py) and the inversions transposing (parallel/
     spectral.py). sharded=True without a halo pair is qgcm_tpu's bare
@@ -540,15 +541,17 @@ def make_ocean_step(model: Model, halo=None, sharded: bool = False):
 
 
 # ----------------------------------------------------------------------
-# The substep on row blocks (a run decomposed over parallel/mesh.py)
+# The substep on blocks (a run decomposed over parallel/mesh.py)
 # ----------------------------------------------------------------------
 
 # collective call sites (Mesh.counts)
 OML_ROWS = "ocean.oml.rows"
+OML_COLS = "ocean.oml.cols"
 OML_SUMS = "ocean.oml.sums"
 WALLS = "ocean.walls"
 INV_SUMS = "ocean.inversion.sums"
 BDY_ROWS = "ocean.ocqbdy.rows"
+BDY_COLS = "ocean.ocqbdy.cols"
 FORCING_WALLS = "ocean.forcing.walls"
 # the global rows of the wall strips the channel's constraint terms read
 # (_edge_d2d4 and _cyclic_boundary_terms: 5 rows at each wall)
@@ -556,19 +559,35 @@ _STRIP = 5
 
 
 class _Rows:
-    """This rank's rows of the ocean's grids in a run decomposed over
-    `mesh`: p rows [r0, r0 + n) of nyp, and the T rows of the same
-    indices of nyt = nyp - 1; those at or beyond the grid's end are
-    padding."""
+    """This rank's block of the ocean's grids in a run decomposed over
+    `mesh`: p rows [r0, r0 + n) of nyp and the T rows of the same indices
+    of nyt = nyp - 1 and, on a mesh with x > 1 (`two_d`), p columns
+    [c0, c0 + m) of nxp and the T columns of the same indices of nxt =
+    nxp - 1; those at or beyond the grid's end are padding. On a rows
+    mesh every field keeps its own columns (m = nxp; a T field nxt)."""
 
     def __init__(self, mesh, cfg, device):
         self.mesh = mesh
+        self.cyclic = cfg.cyclic_ocean
         self.r0, self.n = mesh.iy * mesh.by, mesh.by
         self.nyp, self.nyt = cfg.nypo, cfg.nyto
+        self.nxp, self.nxt = cfg.nxpo, cfg.nxto
+        self.two_d = mesh.mx > 1
+        self.c0, self.m = ((mesh.ix * mesh.bx, mesh.bx) if self.two_d
+                           else (0, cfg.nxpo))
         g = self.r0 + torch.arange(self.n, device=device)
         self.gy = g[:, None]                      # global rows, (n, 1)
-        self.p_true = self.gy < self.nyp
-        self.t_true = self.gy < self.nyt
+        self.gx = (self.c0 + torch.arange(self.m, device=device))[None, :]
+        rows_p, rows_t = self.gy < self.nyp, self.gy < self.nyt
+        if self.two_d:
+            cols_p, cols_t = self.gx < self.nxp, self.gx < self.nxt
+            self.p_true, self.t_true = rows_p & cols_p, rows_t & cols_t
+            # the faces of the running means: T rows x p columns (W/E
+            # faces), p rows x T columns (S/N faces)
+            self.tp_true, self.pt_true = rows_t & cols_p, rows_p & cols_t
+        else:
+            self.p_true = self.tp_true = rows_p
+            self.t_true = self.pt_true = rows_t
 
     def local(self, g: int):
         """The block's index of global row g, or None."""
@@ -580,13 +599,86 @@ class _Rows:
         part = v[..., self.r0:self.r0 + self.n]
         return F.pad(part, (0, self.n - part.shape[-1]))
 
+    def ext(self, f: torch.Tensor) -> torch.Tensor:
+        """The block's p points of a whole (ny, nx) field with one more
+        row (and, on a 2-D mesh, column) each side, zero off the grid."""
+        if not self.two_d:
+            f = F.pad(f, (0, 0, 1, self.mesh.my * self.n + 1 - f.shape[0]))
+            return f[self.r0:self.r0 + self.n + 2]
+        f = F.pad(f, (1, self.mesh.mx * self.m + 1 - f.shape[1],
+                      1, self.mesh.my * self.n + 1 - f.shape[0]))
+        return f[self.r0:self.r0 + self.n + 2, self.c0:self.c0 + self.m + 2]
+
+    def inner(self, f: torch.Tensor, h: int = 1) -> torch.Tensor:
+        """f without its h ghost rows (and, on a 2-D mesh, columns) each
+        side."""
+        f = f[..., h:-h, :]
+        return f[..., h:-h] if self.two_d else f
+
+    def t_wide(self, f: torch.Tensor) -> torch.Tensor:
+        """A T field as wide as the p fields of the block: on a rows mesh
+        padded by the one column it lacks."""
+        return f if self.two_d else F.pad(f, (0, 1))
+
+    def t_narrow(self, f: torch.Tensor) -> torch.Tensor:
+        """The inverse of t_wide."""
+        return f if self.two_d else f[..., :self.nxt]
+
+    def with_ghosts(self, f: torch.Tensor, h: int, rows_site: str,
+                    cols_site: str) -> torch.Tensor:
+        """The block f (..., n, m) with h exchanged ghost rows each side
+        and then h ghost columns of the row-extended block (corners
+        included, as _qgstep_halo_2d's); zeros at the domain's ends. On a
+        rows mesh the ghost columns are zeros, with no exchange (the
+        walls' ghosts come from ghost_cols)."""
+        south, north = self.mesh.start_exchange(f, h, "y", rows_site).wait()
+        ys = torch.cat([south, f, north], dim=-2)
+        if not self.two_d:
+            return F.pad(ys, (h, h))
+        west, east = self.mesh.start_exchange(ys, h, "x", cols_site).wait()
+        return torch.cat([west, ys, east], dim=-1)
+
+    def ghost_cols(self, ext: torch.Tensor, lo: int) -> torch.Tensor:
+        """The T columns of `ext` (columns c0-lo, ...) outside the grid as
+        its walls have them (_wrap_x): column -1 and column nxt take
+        copies of columns 0 and nxt-1 in the box, of nxt-1 and 0 in the
+        channel (whose rows mesh holds every column). A block that holds
+        neither is returned as it is."""
+        w, e = -1 - (self.c0 - lo), self.nxt - (self.c0 - lo)
+        copies = [(i, j) for i, j in (
+            (w, lo + self.nxt - 1 if self.cyclic else w + 1),
+            (e, lo if self.cyclic else e - 1)) if 0 <= i < ext.shape[-1]]
+        if not copies:
+            return ext
+        out = ext.clone()
+        for i, j in copies:
+            out[..., i] = ext[..., j]
+        return out
+
+    def wx(self, dtype) -> torch.Tensor:
+        """The trapezoid's column weights of the block's p columns."""
+        return edge_weights(self.c0, self.m, self.nxp,
+                            self.gx.device).to(dtype)
+
+    def line_share(self, row: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The block's share of line_sum along a global p row."""
+        if not self.two_d:
+            return line_sum(row, dtype=dtype)
+        t = dtype or row.dtype
+        return (row.to(t) * self.wx(t)).sum(-1)
+
+    def xintp_share(self, f: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The block's share of xintp(f)."""
+        return xintp_block(f, self.r0, self.nyp, self.c0,
+                           self.nxp if self.two_d else None, dtype=dtype)
+
     def channel_sums(self, sol, dx, dy):
         """_channel_sums of the whole grid from the blocks of sol: the
         shares of the area integral and the wall-side line integrals
         (each held by one block), summed over the ranks in float64."""
         f64 = torch.float64
         nm = sol.shape[0]
-        parts = [xintp_rows(sol, self.r0, self.nyp, dtype=f64)]
+        parts = [self.xintp_share(sol, dtype=f64)]
         for g, sign in ((1, 1.0), (self.nyp - 2, -1.0)):
             i = self.local(g)
             parts.append(sign * line_sum(sol[:, i, :], dtype=f64)
@@ -622,27 +714,45 @@ def _ghost_rows(rows: _Rows, ext, lo: int, south=None, north=None):
     return torch.where(g == -1, below, torch.where(g == rows.nyt, above, ext))
 
 
+def _t_ghosts(rows: _Rows, ext, lo: int, south=None, north=None):
+    """_ghost_rows, then the ghost columns (_Rows.ghost_cols)."""
+    return rows.ghost_cols(_ghost_rows(rows, ext, lo, south, north), lo)
+
+
 def _omladf_rows(model: Model, rows: _Rows, ext):
-    """_omladf on a row block: `ext` is the exchanged stack of sstm, sst,
-    po[0], tauxo and tauyo with 2 ghost rows each side (T fields padded
-    to the p width). The walls' ghosts and the S/N flux rows apply where
-    the block holds them (global rows)."""
+    """_omladf on a block: `ext` is the stack of sstm, sst, po[0], tauxo
+    and tauyo with 2 ghost rows and columns each side (_Rows.with_ghosts;
+    the T fields as wide as the p fields, _Rows.t_wide). The walls'
+    ghosts and the S/N flux rows and W/E flux columns apply where the
+    block holds them (global rows and columns). Returns the RHS on the
+    block's T points, as wide as its p fields."""
     cfg = model.cfg
     g = model.grids
     cyclic = cfg.cyclic_ocean
-    nxt = cfg.nxto
+    uvgfac = cfg.ycexp / (g.dxo * cfg.fnot)
     rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmoc)
     hdxom1 = 0.5 / g.dxo
     d2tfac = cfg.mixed.st2d / g.dxo**2
     d4tfac = cfg.mixed.st4d / g.dxo**4
     tsbdy, tnbdy = model.rad.tsbdy, model.rad.tnbdy
-    sstm = ext[0, :, :nxt]                   # T rows r0-2 .. r0+n+1
-    sst = ext[1, 1:-1, :nxt]                 # T rows r0-1 .. r0+n
-    po1, tauxo, tauyo = (f[2:-1] for f in ext[2:])   # p rows r0 .. r0+n
+    sstm = ext[0]                            # T rows r0-2 .., cols c0-2 ..
+    sst = rows.ghost_cols(ext[1, 1:-1, 1:-1], 1)   # rows r0-1 .., cols c0-1 ..
+    # p rows r0 .. r0+n, columns c0 .. c0+m
+    po1, tauxo, tauyo = (f[2:-1, 2:-1] for f in ext[2:])
 
-    hxadv = _hxadv(model, sst[1:-1], po1, tauyo)
+    # W/E faces (p columns c0 .. c0+m) of the T rows r0 .. r0+n-1; no flux
+    # through the box walls
+    uface = (-uvgfac * (po1[1:] - po1[:-1])
+             + rhf0hm * (tauyo[1:] + tauyo[:-1]))
+    xflux = uface * (sst[1:-1, :-1] + sst[1:-1, 1:])
+    if not cyclic:
+        gx = rows.c0 + torch.arange(xflux.shape[-1], device=xflux.device)
+        xflux = torch.where((gx == 0) | (gx == rows.nxp - 1), 0.0, xflux)
+    hxadv = hdxom1 * (xflux[:, 1:] - xflux[:, :-1])
 
-    # S/N faces on p rows r0 .. r0+n, the walls' rows where held
+    # S/N faces on p rows r0 .. r0+n (T columns c0 .. c0+m-1), the walls'
+    # rows where held
+    sst = sst[:, 1:-1]
     yflux = _vface(model, po1, tauxo) * (sst[:-1, :] + sst[1:, :])
     gp = rows.r0 + torch.arange(po1.shape[0], device=po1.device)[:, None]
     vwall = -rhf0hm * (tauxo[:, 1:] + tauxo[:, :-1])
@@ -654,24 +764,24 @@ def _omladf_rows(model: Model, rows: _Rows, ext):
     rhs = -(hxadv + hyadv)
 
     full = torch.full_like
-    sstm_g = _ghost_rows(rows, sstm, 2,
-                         south=full(sstm, tsbdy) if cfg.sb_hflux else None,
-                         north=full(sstm, tnbdy) if cfg.nb_hflux else None)
-    del2t = _lap_padded(_wrap_x(sstm_g, cyclic))       # T rows r0-1 ..
-    del4t = _lap_padded(_wrap_x(_ghost_rows(rows, del2t, 1), cyclic))
-    return rhs + d2tfac * del2t[1:-1] - d4tfac * del4t
+    sstm_g = _t_ghosts(rows, sstm, 2,
+                       south=full(sstm, tsbdy) if cfg.sb_hflux else None,
+                       north=full(sstm, tnbdy) if cfg.nb_hflux else None)
+    del2t = _lap_padded(sstm_g)              # T rows r0-1 .., cols c0-1 ..
+    del4t = _lap_padded(_t_ghosts(rows, del2t, 1))
+    return rhs + d2tfac * del2t[1:-1, 1:-1] - d4tfac * del4t
 
 
 def _oml_rows(model: Model, rows: _Rows, state: OceanState,
               forcing: OceanForcing):
-    """_oml on this rank's row blocks; the sums go through all_reduce."""
+    """_oml on this rank's blocks; the sums go through all_reduce."""
     cfg = model.cfg
     mesh = rows.mesh
     dxo, dyo = model.grids.dxo, model.grids.dyo
-    stack = torch.stack([F.pad(state.sstm, (0, 1)), F.pad(state.sst, (0, 1)),
+    stack = torch.stack([rows.t_wide(state.sstm), rows.t_wide(state.sst),
                          state.po[0], forcing.tauxo, forcing.tauyo])
-    south, north = mesh.start_exchange(stack, 2, "y", OML_ROWS).wait()
-    rhs = _omladf_rows(model, rows, torch.cat([south, stack, north], dim=-2))
+    ext = rows.with_ghosts(stack, 2, OML_ROWS, OML_COLS)
+    rhs = rows.t_narrow(_omladf_rows(model, rows, ext))
     sstnew, dtonew, coneno, xfo = _oml_point(model, state, forcing, rhs)
     t = rows.t_true
     sstnew = torch.where(t, sstnew, 0.0)
@@ -684,16 +794,17 @@ def _oml_rows(model: Model, rows: _Rows, state: OceanState,
     centoc = -sums[2] * dxo * dyo
     xfo = torch.where(t, xfo - sums[0] * cfg.ocnorm, 0.0)
 
-    # _entrain_to_p on p rows r0 .. r0+n-1 from T rows r0-1 .. r0+n-1
-    below, _ = mesh.start_exchange(xfo, 1, "y", OML_ROWS).wait()
-    xp = _wrap_x(_ghost_rows(rows, torch.cat([below, xfo]), 1), cfg.cyclic_ocean)
+    # _entrain_to_p on the block's p points from the T rows and columns
+    # one south and west of them
+    xe = rows.with_ghosts(rows.t_wide(xfo), 1, OML_ROWS, OML_COLS)
+    xp = _t_ghosts(rows, xe, 1)[:-1, :-1]
     entoc = 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
     entoc = torch.where(rows.p_true, entoc, 0.0)
 
-    parts = [xintp_rows(entoc, rows.r0, rows.nyp)]
+    parts = [rows.xintp_share(entoc)]
     for g in (0, rows.nyp - 1):
         i = rows.local(g)
-        parts.append(dxo * line_sum(entoc[i, :]) if i is not None
+        parts.append(dxo * rows.line_share(entoc[i, :]) if i is not None
                      else entoc.new_zeros(()))
     xon1, enis1, enin1 = mesh.all_reduce(torch.stack(parts), OML_SUMS)
     return (sstnew, state.sst, entoc, xon1 * dxo * dyo, enis1, enin1,
@@ -702,7 +813,7 @@ def _oml_rows(model: Model, rows: _Rows, state: OceanState,
 
 def _qgostep_halo(model: Model, state: OceanState, forcing: OceanForcing,
                   entoc: torch.Tensor, mesh, variant: str):
-    """_qgostep on this rank's row blocks through parallel/halo.py
+    """_qgostep on this rank's blocks through parallel/halo.py
     (qgcm_tpu/models/ocean.py:463); `model` holds the block's r_spl.
     Returns (qo_new, qom_new)."""
     from ..parallel.halo import qgstep_halo
@@ -729,8 +840,8 @@ def _cyclic_terms_rows(model: Model, rows: _Rows, state: OceanState,
 
 def block_model(model: Model, mesh) -> Model:
     """The model as a rank of a run decomposed over `mesh` sees it: its
-    PV inversion on row blocks (parallel/spectral.py) and its y profiles
-    and fields (yporel, ddyn, r_spl) cut to the rank's rows."""
+    PV inversion on blocks (parallel/spectral.py) and its y profiles and
+    fields (yporel, ddyn, r_spl) cut to the rank's rows and columns."""
     import dataclasses
     from ..parallel.mesh import shard
     from ..parallel.spectral import wrap_inversions
@@ -742,27 +853,40 @@ def block_model(model: Model, mesh) -> Model:
         r_spl=None if model.r_spl is None else shard(model.r_spl, mesh))
 
 
-def _make_rows_step(model: Model, mesh, variant: str):
-    """make_ocean_step's substep on this rank's row blocks."""
-    cfg = model.cfg
+def check_mesh_grid(cfg, mesh, what: str = "the decomposed substep"):
+    """Refuse a mesh that the decomposed ocean cannot take: one made for
+    another grid, a channel's mesh with x > 1, blocks too thin for the
+    mixed layer's two ghost rows and columns (3 at least)."""
+    from ..parallel.mesh import cyclic_x_refusal
     if mesh.grid != (cfg.nypo, cfg.nxpo):
         raise ValueError(f"the mesh was made for the grid {mesh.grid}, the "
                          f"ocean's is {(cfg.nypo, cfg.nxpo)}")
-    if mesh.mx != 1:
-        raise NotImplementedError(
-            "the decomposed substep runs on rows meshes (x = 1); the 2-D "
-            "runner (2-D pencils, mixed layer and ocqbdy) is not ported yet")
+    if mesh.mx > 1 and cfg.cyclic_ocean:
+        raise cyclic_x_refusal(f"{what} on a {mesh.my}x{mesh.mx} mesh")
     if mesh.by < 3:
         raise ValueError(f"row blocks of {mesh.by} rows are too thin for "
                          "the mixed layer's ghost rows (3 at least)")
+    if mesh.mx > 1 and mesh.bx < 3:
+        raise ValueError(f"column blocks of {mesh.bx} columns are too thin "
+                         "for the mixed layer's ghost columns (3 at least)")
+
+
+def _make_rows_step(model: Model, mesh, variant: str):
+    """make_ocean_step's substep on this rank's blocks: row blocks, or in
+    the box 2-D blocks of a mesh with x > 1."""
+    cfg = model.cfg
+    check_mesh_grid(cfg, mesh)
     cyclic = cfg.cyclic_ocean
     bm = block_model(model, mesh)
     rows = _Rows(mesh, cfg, model.device)
     dxom2 = 1.0 / model.grids.dxo**2
     bcfaco = cfg.ocean.bccooc * dxom2 / (0.5 * cfg.ocean.bccooc + 1.0)
     # ocqbdy needs the row inside the north wall from the block below
-    # only when the wall row starts a block
-    bdy_exchange = rows.nyp - 1 > 0 and (rows.nyp - 1) % mesh.by == 0
+    # only when the wall row starts a block, and the column inside the
+    # east wall from the block west of it when the wall column starts one
+    bdy_rows = rows.nyp - 1 > 0 and (rows.nyp - 1) % mesh.by == 0
+    bdy_cols = rows.two_d and (rows.nxp - 1) % mesh.bx == 0
+    cols = dict(c0=rows.c0, nx=rows.nxp) if rows.two_d else {}
 
     def step(state: OceanState, forcing: OceanForcing):
         if cfg.no_oml:
@@ -781,14 +905,21 @@ def _make_rows_step(model: Model, mesh, variant: str):
         (po_new, pom_new, dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp,
          ermaso, emfroc) = _ocinvq(bm, state, qo_new, xon1, enis1, enin1,
                                    cyc, forcing, rows=rows)
-        south = north = None
-        if bdy_exchange:
+        ghosts = {}
+        if bdy_rows:
             south, north = mesh.start_exchange(po_new, 1, "y",
                                                BDY_ROWS).wait()
-            south, north = south[:, 0], north[:, 0]
-        qo_new = ocqbdy_rows(qo_new, po_new, bm.amat, bm.yporel, dxom2,
-                             cfg.fnot, cfg.beta, cfg.ocean.bccooc, bm.ddyn,
-                             cyclic, rows.r0, rows.nyp, south, north)
+            ghosts.update(south=south[:, 0], north=north[:, 0])
+        if bdy_cols:
+            west, east = mesh.start_exchange(po_new, 1, "x",
+                                             BDY_COLS).wait()
+            ghosts.update(west=west[..., 0], east=east[..., 0])
+        qo_new = ocqbdy_block(qo_new, po_new, bm.amat, bm.yporel, dxom2,
+                              cfg.fnot, cfg.beta, cfg.ocean.bccooc, bm.ddyn,
+                              cyclic, rows.r0, rows.nyp, **ghosts, **cols)
+        if rows.two_d:
+            # the zonal walls' rows are written over the padding columns
+            qo_new = torch.where(rows.p_true, qo_new, 0.0)
 
         new_state = OceanState(
             po=po_new, pom=pom_new, qo=qo_new, qom=qom_new,
@@ -878,12 +1009,13 @@ def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
     them (src/xfosubs.F:568-707).
 
     With `rows` (a _Rows of a decomposed run) the forcing is this rank's
-    row blocks: tauxo and tauyo hold its p rows and one more each side
-    (global rows r0-1 .. r0+n; rows off the grid are not read), fnetoc
-    its T rows. The T rows beyond the walls take the walls' copies, as
-    _entrain_to_p's edge rows do; padding rows come out zero. In the
-    channel the ranks that hold the wall rows form txisoc and txinoc,
-    and an all_reduce gives them to every rank."""
+    blocks: tauxo and tauyo hold its p points and one more row (and, on
+    a 2-D mesh, column) each side (_Rows.ext; points off the grid are
+    not read), fnetoc its T points. The T points beyond the walls take
+    the walls' copies, as _entrain_to_p's edge rows and columns do;
+    padding comes out zero. In the channel the ranks that hold the wall
+    rows form txisoc and txinoc, and an all_reduce gives them to every
+    rank."""
     cfg = model.cfg
     g = model.grids
     hxofac = 0.5 / (g.dxo * cfg.fnot)
@@ -905,13 +1037,15 @@ def ekman_forcing(model: Model, tauxo: torch.Tensor, tauyo: torch.Tensor,
 
 
 def _ekman_rows(model: Model, rows, tauxo, tauyo, fnetoc, wekto):
-    """ekman_forcing's row-block half: `wekto` is on the T rows r0-1 ..
-    r0+n-1 of the stresses' rows."""
+    """ekman_forcing's block half: `wekto` is on the T points between the
+    stresses' points (T rows r0-1 .. r0+n-1 and, on a 2-D mesh, T
+    columns c0-1 .. c0+m-1)."""
     cfg = model.cfg
     dxo = model.grids.dxo
-    wekpo = _wrap_x(_ghost_rows(rows, wekto, 1), cfg.cyclic_ocean)
-    wekpo = 0.25 * (wekpo[:-1, :-1] + wekpo[:-1, 1:] + wekpo[1:, :-1]
-                    + wekpo[1:, 1:])
+    if not rows.two_d:
+        wekto = F.pad(wekto, (1, 1))
+    xp = _t_ghosts(rows, wekto, 1)
+    wekpo = 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
     zero = tauxo.new_zeros(())
     txis = txin = zero
     if cfg.cyclic_ocean:
@@ -924,10 +1058,11 @@ def _ekman_rows(model: Model, rows, tauxo, tauyo, fnetoc, wekto):
             if nth is not None else zero])
         txis, txin = rows.mesh.all_reduce(walls, FORCING_WALLS)
     return OceanForcing(
-        tauxo=torch.where(rows.p_true, tauxo[1:-1], 0.0),
-        tauyo=torch.where(rows.p_true, tauyo[1:-1], 0.0),
+        tauxo=torch.where(rows.p_true, rows.inner(tauxo), 0.0),
+        tauyo=torch.where(rows.p_true, rows.inner(tauyo), 0.0),
         fnetoc=torch.where(rows.t_true, fnetoc, 0.0),
-        wekto=torch.where(rows.t_true, wekto[1:], 0.0),
+        wekto=torch.where(rows.t_true, rows.t_narrow(
+            wekto[1:, 1:-1] if not rows.two_d else wekto[1:, 1:]), 0.0),
         wekpo=torch.where(rows.p_true, wekpo, 0.0),
         txisoc=txis, txinoc=txin)
 
@@ -936,7 +1071,7 @@ def ocean_forcing_from_mean(model: Model, tauxo, tauyo, fnetoc,
                             rows=None) -> OceanForcing:
     """Static OceanForcing for ocean_only runs from mean windstress and
     heat flux (arrays or tensors), through ekman_forcing (whose `rows`
-    takes a rank's row blocks)."""
+    takes a rank's blocks)."""
     return ekman_forcing(model, *(_as_field(model, a)
                                   for a in (tauxo, tauyo, fnetoc)),
                          rows=rows)

@@ -156,8 +156,9 @@ def make_cycle_head(model: Model, mesh=None, halo_variant=None,
     then the ocean's time levels are averaged when the cycle index
     n // nstr is a multiple of OCEAN_AVG_PERIOD.
 
-    With `mesh` (a rows mesh made for the ocean's p-grid) the ocean's
-    state and forcing are this rank's row blocks (parallel/mesh.py): the
+    With `mesh` (a mesh made for the ocean's p-grid: rows, or for a box
+    any (y, x) shape) the ocean's state and forcing are this rank's
+    blocks (parallel/mesh.py): the
     substep is the decomposed one (make_ocean_step's halo path) and
     xforc the decomposed one (coupling.make_xforc); the atmosphere stays
     whole on every rank. The mesh needs both variants (_check_mesh)."""
@@ -220,8 +221,9 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
     ocean-only model); PyTorch runs each substep's operations eagerly on
     the model's device.
 
-    With `mesh` (parallel/mesh.py, a rows mesh made for the ocean's
-    p-grid) the state and forcing are this rank's row blocks
+    With `mesh` (parallel/mesh.py, a mesh made for the ocean's p-grid:
+    rows, or for a box any (y, x) shape) the state and forcing are this
+    rank's blocks
     (parallel/mesh.shard_tree) and so is the result: the vorticity step
     exchanges its ghosts by `halo_variant` ('staged', 'deep' or
     'overlap', parallel/halo.py) and the inversions transpose by
@@ -308,9 +310,9 @@ def make_coupled_runner(model: Model, remat=False, mesh=None,
     averaging cadences aligned across chunks. Both are multiples of
     nstr. remat (remat_loop) checkpoints whole coupling cycles.
 
-    With `mesh` (a rows mesh made for the ocean's p-grid;
-    qgcm_tpu/models/stepper.py:255-329) the ocean is this rank's row
-    blocks in and out (parallel/mesh.shard_tree), stepped by the
+    With `mesh` (a mesh made for the ocean's p-grid, as the ocean-only
+    runner takes it; qgcm_tpu/models/stepper.py:255-329) the ocean is
+    this rank's blocks in and out (parallel/mesh.shard_tree), stepped by the
     decomposed substep under the decomposed xforc (make_cycle_head),
     and the atmosphere is whole on every rank: its forcing comes out of
     xforc's all_reduce the same bits on every rank, so every rank's

@@ -4,10 +4,10 @@ qgcm_tpu/ops/integrals.py).
 xintp is the p-grid trapezoidal sum with 1/2 edge and 1/4 corner
 weights (reference src/intsubs.f); multiply by dx*dy for the physical
 area integral, as the reference's call sites do. line_sum is its
-one-dimensional form along a boundary row. xintp_rows is one row
-block's share of xintp in a decomposed run (parallel/mesh.py): the
-zonal rows' half weights fall on the blocks that hold them, and the
-W/E columns are in every block.
+one-dimensional form along a boundary row. xintp_block is one block's
+share of xintp in a decomposed run (parallel/mesh.py): the edges' half
+weights fall on the blocks that hold them, by global row and column; a
+row block holds every column, and its share keeps line_sum's form.
 """
 
 from __future__ import annotations
@@ -49,12 +49,23 @@ def xintp(field: torch.Tensor, dtype=None) -> torch.Tensor:
     return inner + edges + corners.to(dtype or field.dtype)
 
 
-def xintp_rows(field: torch.Tensor, r0: int, ny: int,
-               dtype=None) -> torch.Tensor:
-    """This row block's share of xintp(field): `field` holds rows r0,
-    r0+1, ... of a grid ny rows tall (rows at or beyond ny are padding
-    and weigh nothing); the shares of all blocks sum to xintp."""
-    n = field.shape[-2]
-    g = r0 + torch.arange(n, device=field.device)
-    w = torch.where((g == 0) | (g == ny - 1), 0.5, 1.0) * (g < ny)
-    return (line_sum(field, dtype=dtype) * w.to(dtype or field.dtype)).sum(-1)
+def edge_weights(g0: int, n: int, size: int, device) -> torch.Tensor:
+    """The trapezoid's weights of the indices g0 .. g0+n-1 of an axis of
+    `size` points: 1/2 at its two ends, 0 past them (padding)."""
+    g = g0 + torch.arange(n, device=device)
+    return torch.where((g == 0) | (g == size - 1), 0.5, 1.0) * (g < size)
+
+
+def xintp_block(field: torch.Tensor, r0: int, ny: int, c0: int = 0,
+                nx: int = None, dtype=None) -> torch.Tensor:
+    """This block's share of xintp(field): `field` holds rows r0, r0+1,
+    ... of a grid ny rows tall and, with `nx`, columns c0, c0+1, ... of
+    its nx (rows and columns past the grid's end are padding and weigh
+    nothing); without `nx` the block has every column. The shares of all
+    blocks sum to xintp."""
+    t = dtype or field.dtype
+    wy = edge_weights(r0, field.shape[-2], ny, field.device).to(t)
+    if nx is None:
+        return (line_sum(field, dtype=dtype) * wy).sum(-1)
+    wx = edge_weights(c0, field.shape[-1], nx, field.device).to(t)
+    return ((field.to(t) * wx).sum(-1) * wy).sum(-1)

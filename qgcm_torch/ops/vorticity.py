@@ -61,19 +61,22 @@ def _ddyn_col(ddyn, i):
 
 
 def _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, kbot, fnot,
-               cyclic, r0=0, ny=None, south=None, north=None):
+               cyclic, r0=0, ny=None, south=None, north=None, c0=0,
+               nx=None, west=None, east=None):
     """Write the mixed-BC PV bcfac_f*(p_in - p_wall) + base onto the
     wall rows (and, box case, wall columns) of a copy of q. Columns
     first so rows win the corners (the reference's loop order,
     vorsubs.F:245-388).
 
-    On a row block (r0, ny: the block's first global row and the grid's
-    height; yprel and ddyn the block's rows) only the zonal rows the
-    block holds are written; `south`/`north` are the (nl, nx) p rows
-    just outside it, read where a wall row's inner neighbour lies in the
-    next block."""
-    nl, nrows = p.shape[0], p.shape[1]
+    On a block (r0, ny: the block's first global row and the grid's
+    height; c0, nx the same for columns; yprel and ddyn the block's
+    rows and columns) only the walls the block holds are written;
+    `south`/`north` are the (nl, ncols) p rows just outside it and
+    `west`/`east` the (nl, nrows) p columns, read where a wall's inner
+    neighbour lies in the next block."""
+    nl, nrows, ncols = p.shape
     ny = nrows if ny is None else ny
+    nx = ncols if nx is None else nx
     kbv = (torch.arange(nl, device=p.device) == (kbot % nl)).to(
         p.dtype)[:, None]
 
@@ -87,8 +90,13 @@ def _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, kbot, fnot,
             ap = torch.einsum("kl,ly->ky", amat, p[:, :, i])
             return (-fnot * ap + (beta * yprel)[None, :]
                     + kbv * _ddyn_col(ddyn, i))
-        q[:, :, 0] = bcfac_f * (p[:, :, 1] - p[:, :, 0]) + base_col(0)
-        q[:, :, -1] = bcfac_f * (p[:, :, -2] - p[:, :, -1]) + base_col(-1)
+        lo, hi = -c0, nx - 1 - c0          # the walls' columns in the block
+        if 0 <= lo < ncols:
+            inner = p[:, :, lo + 1] if lo + 1 < ncols else east
+            q[:, :, lo] = bcfac_f * (inner - p[:, :, lo]) + base_col(lo)
+        if 0 <= hi < ncols:
+            inner = p[:, :, hi - 1] if hi >= 1 else west
+            q[:, :, hi] = bcfac_f * (inner - p[:, :, hi]) + base_col(hi)
     lo, hi = -r0, ny - 1 - r0              # the walls' rows in the block
     if 0 <= lo < nrows:
         inner = p[:, lo + 1, :] if lo + 1 < nrows else north
@@ -110,18 +118,22 @@ def ocqbdy(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,
                       p.shape[0] - 1, fnot, cyclic)
 
 
-def ocqbdy_rows(q, p, amat, yprel, dxm2, fnot, beta, bcco, ddyn, cyclic,
-                r0: int, ny: int, south=None, north=None):
-    """ocqbdy on a row block of a decomposed run: q and p hold rows r0,
-    r0+1, ... of a grid ny rows tall, yprel and ddyn the same rows. The
-    zonal rows exist on the end blocks only; in the box the W/E columns
-    are in every block. `south`/`north` are the p rows just outside the
-    block, needed only where a wall row is the block's first or last
-    row and its inner neighbour lies in the next block."""
+def ocqbdy_block(q, p, amat, yprel, dxm2, fnot, beta, bcco, ddyn, cyclic,
+                 r0: int, ny: int, south=None, north=None, c0: int = 0,
+                 nx: int = None, west=None, east=None):
+    """ocqbdy on a block of a decomposed run: q and p hold rows r0, r0+1,
+    ... of a grid ny rows tall and, with `nx`, columns c0, c0+1, ... of
+    its nx (without, every column); yprel and ddyn the same rows and
+    columns. The walls exist on the end blocks only; in the box the
+    corners belong to the zonal rows, as in ocqbdy. `south`/`north` are
+    the p rows just outside the block and `west`/`east` its columns,
+    needed only where a wall is the block's first or last row or column
+    and its inner neighbour lies in the next block."""
     bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
     return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn,
                       p.shape[0] - 1, fnot, cyclic, r0=r0, ny=ny,
-                      south=south, north=north)
+                      south=south, north=north, c0=c0, nx=nx, west=west,
+                      east=east)
 
 
 def atqzbd(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,

@@ -6,16 +6,26 @@ insert the halo exchanges and transposes. PyTorch has no partitioner, so
 here each rank of a torch.distributed process group holds one block of
 every grid field and calls the collectives itself: exchanges of ghost
 rows (y) and columns (x) with its neighbours, `all_reduce` of sums, and
-`all_to_all_single` for the spectral transposes (parallel/spectral.py).
+`all_to_all_single` for the spectral transposes (parallel/spectral.py),
+over the whole group or along one mesh axis.
 
 Ranks are laid out row-major over (my, mx): rank = iy * mx + ix, row
-block iy counting northwards. Blocks are ceil blocks, as qgcm_tpu's
-(spectral.py:33-50): rank (iy, ix) of a grid (ny, nx) holds rows
-[iy*by, iy*by + by) and columns [ix*bx, ix*bx + bx) with by = ceil(ny /
-my), bx = ceil(nx / mx); the rows and columns past the grid's end are
-padding, zero on input and kept zero by every stage. The ocean's T-grid
-(nyp - 1 rows) takes the p-grid's row blocks: T row j sits between p
-rows j and j + 1.
+block iy counting northwards, which is qgcm_tpu's ('y', 'x') chunk
+order. Blocks are ceil blocks, as qgcm_tpu's (spectral.py:33-50): rank
+(iy, ix) of a grid (ny, nx) holds rows [iy*by, iy*by + by) and columns
+[ix*bx, ix*bx + bx) with by = ceil(ny / my), bx = ceil(nx / mx); the
+rows and columns past the grid's end are padding, zero on input and kept
+zero by every stage. The ocean's T-grid (nyp - 1 rows, nxp - 1 columns)
+takes the p-grid's blocks: T row j sits between p rows j and j + 1, T
+column i between p columns i and i + 1. On a rows mesh (mx = 1) every
+field keeps its own columns.
+
+An all_to_all along one axis (the ranks of a mesh row, or of a mesh
+column) is one all_to_all_single over the whole group whose chunks for
+the ranks off that axis are empty: no group is made per mesh row, so a
+mesh costs no collective to make and a mesh of a subgroup needs nothing
+of the ranks outside it (torch.distributed.new_group is collective over
+the whole world). gloo and NCCL both take uneven split sizes.
 
 With the gloo backend and CUDA tensors every collective stages its
 tensors through pinned host memory (gloo moves host memory); with NCCL
@@ -38,7 +48,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..state import T_GRID_FIELDS
+from ..state import T_COL_FIELDS, T_GRID_FIELDS
 
 
 def _ceil_div(n: int, d: int) -> int:
@@ -131,17 +141,39 @@ class Mesh:
         dist.all_reduce(h, group=self.group)
         return self._back(h, t) if h.device != t.device else h
 
-    def all_to_all(self, t: torch.Tensor, site: str) -> torch.Tensor:
-        """all_to_all_single over dim 0 of t, whose extent is the mesh's
-        size: chunk i goes to rank i, and chunk i of the result came from
-        rank i."""
+    def axis_ranks(self, axis=None) -> list:
+        """The mesh ranks along `axis` through this rank, in order: 'x'
+        the ranks of its mesh row, 'y' those of its mesh column, None
+        all of them."""
+        if axis is None:
+            return list(range(self.size))
+        if axis == "x":
+            return [self.iy * self.mx + j for j in range(self.mx)]
+        return [i * self.mx + self.ix for i in range(self.my)]
+
+    def all_to_all(self, t: torch.Tensor, site: str,
+                   axis=None) -> torch.Tensor:
+        """all_to_all_single over dim 0 of t, whose extent is the number
+        of ranks along `axis` (axis_ranks): chunk k goes to the k-th of
+        them, and chunk k of the result came from it. Along an axis of
+        one rank it is no collective, and is not counted."""
+        peers = self.axis_ranks(axis)
+        if axis is not None and len(peers) == 1:
+            return t.clone()
         self.counts[site] += 1
-        if self.size == 1:
+        if len(peers) == 1:
             return t.clone()
         h = self._host(t)
         out = self._recv_buffer(t, t.shape)
         self._sync(t)
-        dist.all_to_all_single(out, h, group=self.group)
+        if len(peers) == self.size:
+            dist.all_to_all_single(out, h, group=self.group)
+        else:
+            # chunks of one dim-0 row for the axis' ranks, empty for the
+            # rest of the group
+            mine = set(peers)
+            splits = [int(r in mine) for r in range(self.size)]
+            dist.all_to_all_single(out, h, splits, splits, group=self.group)
         return self._back(out, t) if out.device != t.device else out
 
     def all_gather(self, t: torch.Tensor, site: str) -> list:
@@ -227,37 +259,36 @@ def make_mesh(rows_only: bool = False, grid=None) -> Mesh:
     return Mesh((my, n // my), grid=grid)
 
 
-def _not_ported_2d(what: str):
-    return NotImplementedError(
-        f"{what} needs the 2-D runner (the 2-D pencil transposes, and the "
-        "mixed layer and ocqbdy on 2-D blocks), which is not ported yet: "
-        "ROADMAP.md section 1, the 2-D runner; take a rows mesh "
-        "(--mesh rows)")
+def cyclic_x_refusal(what: str) -> ValueError:
+    """The refusal of a cyclic ocean on a mesh with x > 1, with
+    qgcm_tpu's reason (qgcm_tpu/parallel/halo.py:380-385)."""
+    return ValueError(
+        f"{what}: the port decomposes cyclic channels over rows only (the "
+        "wraparound of the duplicated east column would cross column "
+        "blocks): use make_mesh(rows_only=True) / --mesh rows")
 
 
 def make_hybrid_mesh(rows_only: bool = False, grid=None) -> Mesh:
     """qgcm_tpu's mesh for runs over several hosts
     (qgcm_tpu/parallel/mesh.py:60): the hosts split 'y' and each host's
     ranks (LOCAL_WORLD_SIZE, torchrun's count of a node's ranks) fill
-    'x'; rows_only=True puts every rank on 'y', in node order (torchrun
-    numbers the ranks node by node). A mesh with x > 1 raises: the port
-    runs rows meshes only."""
+    'x', so one node of 4 ranks gives 1 x 4; rows_only=True puts every
+    rank on 'y', in node order (torchrun numbers the ranks node by
+    node)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
     if rows_only or local == 1:
         return Mesh((n, 1), grid=grid)
     if n % local:
         raise ValueError(f"{n} ranks are not whole hosts of {local}")
-    raise _not_ported_2d(f"a hybrid mesh of {n // local}x{local}")
+    return Mesh((n // local, local), grid=grid)
 
 
 def mesh_from_spec(spec: str, cyclic: bool, grid) -> Mesh:
     """The mesh of the CLI's --mesh (qgcm_tpu/cli.py:152-181) for the
     ocean's p-grid `grid`: 'auto' and 'rows' every rank on 'y';
     'hybrid' make_hybrid_mesh, rows only for a channel; 'NYxNX' that
-    shape. A mesh with NX > 1 raises (the 2-D runner is not ported;
-    qgcm_tpu runs a channel's stencils through GSPMD there, which has
-    no PyTorch counterpart)."""
+    shape, which for a channel must have NX = 1 (cyclic_x_refusal)."""
     if spec in ("auto", "rows"):
         return make_mesh(rows_only=True, grid=grid)
     if spec == "hybrid":
@@ -267,8 +298,8 @@ def mesh_from_spec(spec: str, cyclic: bool, grid) -> Mesh:
     except ValueError:
         raise ValueError(f"--mesh takes auto, rows, hybrid or NYxNX, not "
                          f"{spec!r}") from None
-    if nx > 1:
-        raise _not_ported_2d(f"--mesh {spec}")
+    if nx > 1 and cyclic:
+        raise cyclic_x_refusal(f"--mesh {spec}")
     return Mesh((ny, nx), grid=grid)
 
 
@@ -284,24 +315,21 @@ class Block(NamedTuple):
     cols: int
 
 
-def block_of(mesh: Mesh, ny: int, nx: int, t_grid: bool = False) -> Block:
-    """This rank's block of a (ny, nx) field of the mesh's p-grid (or of
-    its T-grid, which has one row and, in the box, one column fewer)."""
+def block_of(mesh: Mesh, ny: int, nx: int) -> Block:
+    """This rank's block of a (ny, nx) field of the mesh's p-grid or of
+    its T-grid (one row and one column fewer), which takes the same
+    blocks; on a rows mesh the field keeps its own columns."""
     if mesh.grid is None:
         raise ValueError("the mesh was made without a grid")
     r0, c0 = mesh.iy * mesh.by, mesh.ix * mesh.bx
     rows = max(0, min(mesh.by, ny - r0))
     if mesh.mx == 1:
-        # a rows mesh keeps every field's own columns
         return Block(r0, mesh.by, rows, 0, nx, nx)
-    if t_grid:
-        raise NotImplementedError("T-grid fields are decomposed over rows "
-                                  "only")
     cols = max(0, min(mesh.bx, nx - c0))
     return Block(r0, mesh.by, rows, c0, mesh.bx, cols)
 
 
-def shard(x: torch.Tensor, mesh: Mesh, t_grid: bool = False):
+def shard(x: torch.Tensor, mesh: Mesh):
     """This rank's block of a full field (..., ny, nx), zero-padded to
     (..., by, bx); contiguous. Tensors of fewer than two dimensions (the
     state's scalars and mode vectors) are replicated: returned as they
@@ -310,21 +338,23 @@ def shard(x: torch.Tensor, mesh: Mesh, t_grid: bool = False):
     if not torch.is_tensor(x) or x.dim() < 2:
         return x
     ny, nx = x.shape[-2:]
-    b = block_of(mesh, ny, nx, t_grid)
+    b = block_of(mesh, ny, nx)
     part = x[..., b.r0:b.r0 + b.rows, b.c0:b.c0 + b.cols]
     return F.pad(part, (0, b.nc - b.cols, 0, b.nr - b.rows)).contiguous()
 
 
-def gather(x: torch.Tensor, mesh: Mesh, t_grid: bool = False,
-           site: str = "gather"):
+def gather(x: torch.Tensor, mesh: Mesh, t_rows: bool = False,
+           t_cols: bool = False, site: str = "gather"):
     """The full field from every rank's block (the inverse of shard), on
-    every rank; replicated tensors and values that are not tensors are
-    returned as they are."""
+    every rank: t_rows / t_cols say whether its rows / columns are the
+    T-grid's (one fewer than the p-grid's; on a rows mesh a block has
+    its field's own columns). Replicated tensors and values that are not
+    tensors are returned as they are."""
     if not torch.is_tensor(x) or x.dim() < 2:
         return x
     nyp, nxp = mesh.grid
-    ny = nyp - 1 if t_grid else nyp
-    nx = x.shape[-1] if mesh.mx == 1 else nxp
+    ny = nyp - 1 if t_rows else nyp
+    nx = x.shape[-1] if mesh.mx == 1 else nxp - 1 if t_cols else nxp
     parts = mesh.all_gather(x.contiguous(), site)
     rows = [torch.cat(parts[iy * mesh.mx:(iy + 1) * mesh.mx], dim=-1)
             for iy in range(mesh.my)]
@@ -332,15 +362,17 @@ def gather(x: torch.Tensor, mesh: Mesh, t_grid: bool = False,
 
 
 def shard_tree(tree, mesh: Mesh):
-    """This rank's blocks of a full OceanState or OceanForcing (a
-    NamedTuple of tensors); the T-grid fields (state.T_GRID_FIELDS) take
-    the p-grid's row blocks, scalars and mode vectors are replicated."""
-    return type(tree)(**{k: shard(v, mesh, k in T_GRID_FIELDS)
+    """This rank's blocks of a full OceanState, OceanForcing or
+    OceanAverages (a NamedTuple of tensors); scalars and mode vectors
+    are replicated."""
+    return type(tree)(**{k: shard(v, mesh)
                          for k, v in tree._asdict().items()})
 
 
 def gather_tree(tree, mesh: Mesh):
     """The full NamedTuple from its blocks (the inverse of shard_tree), on
-    every rank."""
-    return type(tree)(**{k: gather(v, mesh, k in T_GRID_FIELDS)
+    every rank; the fields of state.T_GRID_FIELDS have the T-grid's rows,
+    those of state.T_COL_FIELDS its columns."""
+    return type(tree)(**{k: gather(v, mesh, k in T_GRID_FIELDS,
+                                   k in T_COL_FIELDS)
                          for k, v in tree._asdict().items()})

@@ -34,10 +34,11 @@ operator (on the CPU) per atmosphere step, from the profiler's
 key_averages; qgcm_tpu's summary of JAX traces (profiling.py) is not
 ported.
 
-With a `mesh` (a rows mesh of the process group, parallel/mesh.py) the
-run is decomposed as qgcm_tpu's Driver(mesh) is (qgcm_tpu/run.py:93-180,
-318-345): the ocean's state, forcing and running means are this rank's
-row blocks, the atmosphere is whole on every rank, and the cycle head is
+With a `mesh` (a mesh of the process group, parallel/mesh.py: a rows
+mesh, or for a box any (y, x) shape) the run is decomposed as qgcm_tpu's
+Driver(mesh) is (qgcm_tpu/run.py:93-180, 318-345): the ocean's state,
+forcing and running means are this rank's blocks, the atmosphere is
+whole on every rank, and the cycle head is
 the decomposed one (models/stepper.make_cycle_head). qgcm_tpu's rule for
 I/O holds: the writers see fields gathered whole at cadence boundaries
 only; every rank gathers and checks validity, and only the primary rank
@@ -46,7 +47,11 @@ stop is decided by an all_reduce of every rank's verdict, so that no
 rank stops while another waits in a collective. A resumed run reads
 restart.nc on every rank and takes its blocks.
 
-Not ported: Orbax checkpoints, and meshes with x > 1 (the 2-D runner).
+A channel runs on rows meshes only: a mesh with x > 1 raises, with
+qgcm_tpu's reason (the duplicated column's wraparound), where qgcm_tpu
+falls back to GSPMD's partitioning, which has no PyTorch counterpart.
+
+Not ported: Orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ from .model import Model, build_model
 from .params import RunParams, params_to_config, write_matlab_params, \
     SECDAY, SECSYR
 from .state import OceanState, AtmosState
-from .models.ocean import (_Rows, _as_field, init_ocean_state,
+from .models.ocean import (_Rows, _as_field, check_mesh_grid,
+                           init_ocean_state,
                            ocean_forcing_from_mean)
 from .models.atmos import init_atmos_state
 from .models.stepper import make_atmos_segment, make_cycle_head
@@ -141,14 +147,15 @@ class Driver:
                  avges_sampling: str = "mean", profile_dir: str = None,
                  mesh=None, spectral_variant: str = "a2a",
                  halo_variant: str = "auto"):
-        """mesh: a rows mesh of the process group made for the ocean's
-        p-grid (parallel/mesh.py), for a decomposed run; qgcm_tpu's
-        arguments and rule (run.py:93-180): spectral_variant 'a2a' (the
-        only one ported), halo_variant 'auto' takes 'overlap' on a mesh
-        of more than one rank and leaves a one-rank mesh to the
+        """mesh: a mesh of the process group made for the ocean's p-grid
+        (parallel/mesh.py; x > 1 for a box only), for a decomposed run;
+        qgcm_tpu's arguments and rule (run.py:93-180): spectral_variant
+        'a2a' (the only one ported), halo_variant 'auto' takes 'overlap'
+        on a mesh of more than one rank and leaves a one-rank mesh to the
         single-device path, as qgcm_tpu leaves a one-device mesh to
         GSPMD. An atmosphere-only model takes no mesh (the atmosphere on
-        row blocks is not ported).
+        row blocks is not ported), nor a channel a mesh with x > 1; both
+        raise before any collective.
 
         cadence_rounding: "cycles" (default) rounds every cadence to a
         whole number of coupling cycles exactly like the reference
@@ -167,8 +174,10 @@ class Driver:
         if mesh is not None:
             if cfg.atmos_only:
                 raise NotImplementedError(
-                    "a decomposed run cuts the ocean's rows; the atmosphere "
-                    "on row blocks is not ported yet (ROADMAP.md)")
+                    "a decomposed run cuts the ocean's blocks; the "
+                    "atmosphere on row blocks is not ported yet "
+                    "(ROADMAP.md)")
+            check_mesh_grid(cfg, mesh, "a decomposed run")
             if halo_variant == "auto":
                 halo_variant = "overlap" if mesh.size > 1 else None
                 mesh = mesh if mesh.size > 1 else None
@@ -320,19 +329,14 @@ class Driver:
         if self.mesh is None:
             return ocean_forcing_from_mean(self.model,
                                            *self.mean_forcing), None
-        # the rank's rows of the wind, with one more each side (zero off
-        # the grid), and of the heat flux
-        rows, mesh = self.rows, self.mesh
+        # the rank's points of the wind, with one more row (and column)
+        # each side (zero off the grid), and of the heat flux
+        rows = self.rows
         taux, tauy, fnet = (_as_field(self.model, a)
                             for a in self.mean_forcing)
-
-        def ext(f):
-            f = F.pad(f, (0, 0, 1, mesh.size * mesh.by + 1 - f.shape[0]))
-            return f[rows.r0:rows.r0 + rows.n + 2]
-
         return ocean_forcing_from_mean(
-            self.model, ext(taux), ext(tauy), shard(fnet, mesh, t_grid=True),
-            rows=rows), None
+            self.model, rows.ext(taux), rows.ext(tauy),
+            shard(fnet, self.mesh), rows=rows), None
 
     def initial_carry(self) -> tuple:
         """(Carry at the run's start, tini in years): the initial states

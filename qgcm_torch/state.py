@@ -11,14 +11,18 @@ from typing import NamedTuple
 
 import torch
 
-# Fields with the rows of the ocean's T-grid (nyto rows): a decomposed run
-# gives them the p-grid's row blocks (parallel/mesh.py). They are the
-# T-grid fields and, of the running means (diags/timavge.py), the fields
-# on the T cells' W/E faces. Every other field of two or more dimensions
-# has the p-grid's rows; scalars and mode vectors are replicated, as on
-# the TPU.
+# Fields with the rows of the ocean's T-grid (nyto rows), and those with
+# its columns (nxto): a decomposed run gives them the p-grid's blocks
+# (parallel/mesh.py), and these sets say how far each is true when the
+# blocks are put back together. They are the T-grid fields and, of the
+# running means (diags/timavge.py), the fields on the T cells' W/E faces
+# (T rows, p columns) and S/N faces (p rows, T columns). Every other field
+# of two or more dimensions is on the p-grid; scalars and mode vectors
+# are replicated, as on the TPU.
 T_GRID_FIELDS = frozenset({"sst", "sstm", "fnetoc", "wekto", "uufo",
                            "tufo", "utufo"})
+T_COL_FIELDS = frozenset({"sst", "sstm", "fnetoc", "wekto", "vvfo",
+                          "tvfo", "vtvfo"})
 
 
 class OceanState(NamedTuple):

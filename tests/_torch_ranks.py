@@ -67,7 +67,9 @@ def halo_args(cfg, seed=0):
 
 
 def _grid_mesh(shape, grid):
-    if shape == "rows":
+    """A rows mesh of the ranks for shape 'rows' or None, else a mesh of
+    that (my, mx) shape."""
+    if shape in ("rows", None):
         return make_mesh(rows_only=True, grid=grid)
     return Mesh(shape, grid=grid)
 
@@ -121,17 +123,18 @@ def base_solver(kind, nyp, nxp, ytransform="fft"):
                                  ytransform=ytransform)
 
 
-def solver_rank(cases):
-    """For each case (kind, nyp, nxp, ytransform, seed): the row-blocked
-    sharded solve gathered whole, and for the box the spectrum (its
-    column chunks gathered) with its padded columns."""
+def solver_rank(cases, shape=None):
+    """For each case (kind, nyp, nxp, ytransform, seed): the sharded solve
+    on a rows mesh of the ranks (or on a mesh of `shape`) gathered whole,
+    and for the box the spectrum (its column chunks gathered) with its
+    padded columns."""
     from qgcm_torch.parallel.spectral import (ShardedBoxHelmholtz,
                                               ShardedCyclicHelmholtz)
     torch.set_num_threads(1)
     out = []
     for kind, nyp, nxp, ytransform, seed in cases:
         base = base_solver(kind, nyp, nxp, ytransform)
-        mesh = make_mesh(rows_only=True, grid=(nyp, nxp))
+        mesh = _grid_mesh(shape, (nyp, nxp))
         rhs = shard(torch.from_numpy(solver_rng_rhs(kind, nyp, nxp, seed)),
                     mesh)
         if kind == "box":
@@ -143,8 +146,7 @@ def solver_rank(cases):
             sh = ShardedCyclicHelmholtz(base, mesh)
             sol, spec = sh.solve(rhs), None
         res = dict(sol=gather(sol, mesh, site="test").numpy(),
-                   pad_zero=bool((sol[:, max(0, nyp - mesh.iy * mesh.by):]
-                                  == 0).all()),
+                   pad_zero=block_padding_zero(sol, mesh, nyp, nxp),
                    a2a=mesh.counts["spectral.a2a"])
         if spec is not None:
             res["spec"] = spec.numpy()
@@ -152,18 +154,19 @@ def solver_rank(cases):
     return out if torch.distributed.get_rank() == 0 else None
 
 
-def runner_rank(cases):
-    """For each case (cyclic, variant, n_steps, nyaooc): the seeded state
-    run n_steps substeps by the sharded runner, gathered whole, with the
+def runner_rank(cases, shape=None):
+    """For each case (cyclic, variant, n_steps, nyaooc[, nxaooc]): the
+    seeded state run n_steps substeps by the sharded runner on a rows
+    mesh of the ranks (or on a mesh of `shape`), gathered whole, with the
     collective counts per substep and qgstep's launches."""
     from qgcm_torch.models.stepper import make_ocean_only_runner
     from qgcm_torch.ops.qgstep import qgstep
     torch.set_num_threads(1)
     out = []
-    for cyclic, variant, n_steps, nyaooc in cases:
-        cfg = small_cfg(cyclic, nyaooc=nyaooc)
+    for cyclic, variant, n_steps, nyaooc, *nx in cases:
+        cfg = small_cfg(cyclic, nyaooc=nyaooc, nxaooc=nx[0] if nx else 24)
         model, st, f = seeded_state(cfg)
-        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
         run = make_ocean_only_runner(model, mesh=mesh, halo_variant=variant,
                                      spectral_variant="a2a")
         n0 = qgstep.launches
@@ -173,9 +176,8 @@ def runner_rank(cases):
         out.append(dict(state={k: v.numpy() for k, v in
                                full._asdict().items()},
                         counts=counts, launches=qgstep.launches - n0,
-                        pad_zero=all(bool((getattr(st_b, k)[
-                            ..., max(0, cfg.nypo - mesh.iy * mesh.by):, :]
-                            == 0).all()) for k in ("po", "qo", "pom", "qom"))))
+                        pad_zero=padding_zero(st_b, mesh, cfg.nypo,
+                                              cfg.nxpo)))
     return out if torch.distributed.get_rank() == 0 else None
 
 
@@ -227,31 +229,43 @@ def numpy_fields(nt) -> dict:
             for k, v in nt._asdict().items()}
 
 
-def padding_zero(tree, mesh, nyp) -> bool:
-    """Whether every row of this rank's blocks at or beyond the grid's
-    end (nyp p rows, nyp - 1 T rows) is zero."""
-    from qgcm_torch.state import T_GRID_FIELDS
-    ok = True
-    for k, v in tree._asdict().items():
-        if torch.is_tensor(v) and v.dim() >= 2:
-            end = (nyp - 1 if k in T_GRID_FIELDS else nyp) - mesh.iy * mesh.by
-            ok &= bool((v[..., max(0, end):, :] == 0).all())
+def block_padding_zero(v, mesh, ny, nx) -> bool:
+    """Whether every row (and, on a mesh with x > 1, column) of this
+    rank's block v at or beyond the grid's end (ny, nx) is zero."""
+    rows = ny - mesh.iy * mesh.by
+    ok = bool((v[..., max(0, rows):, :] == 0).all())
+    if mesh.mx > 1:
+        ok &= bool((v[..., max(0, nx - mesh.ix * mesh.bx):] == 0).all())
     return ok
 
 
-def xforc_rank(cases):
+def padding_zero(tree, mesh, nyp, nxp) -> bool:
+    """Whether every row (and, on a mesh with x > 1, column) of this
+    rank's blocks at or beyond the grid's end (nyp p rows, nyp - 1 T
+    rows; nxp p columns, nxp - 1 T columns) is zero."""
+    from qgcm_torch.state import T_COL_FIELDS, T_GRID_FIELDS
+    ok = True
+    for k, v in tree._asdict().items():
+        if torch.is_tensor(v) and v.dim() >= 2:
+            ok &= block_padding_zero(
+                v, mesh, nyp - 1 if k in T_GRID_FIELDS else nyp,
+                nxp - 1 if k in T_COL_FIELDS else nxp)
+    return ok
+
+
+def xforc_rank(cases, shape=None):
     """For each case (kind, config overrides): the decomposed xforc of
-    the seeded coupled state on a rows mesh of the ranks: the ocean
-    forcing gathered whole, this rank's atmospheric forcing and
-    diagnostics (the same bits on every rank), the collective counts and
-    whether the forcing's padding rows are zero."""
+    the seeded coupled state on a rows mesh of the ranks (or a mesh of
+    `shape`): the ocean forcing gathered whole, this rank's atmospheric
+    forcing and diagnostics (the same bits on every rank), the
+    collective counts and whether the forcing's padding is zero."""
     from qgcm_torch.coupling import make_xforc
     torch.set_num_threads(1)
     out = []
     for kind, over in cases:
         model, oc, at = seeded_coupled(kind, **over)
         cfg = model.cfg
-        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
         ob = shard_tree(oc, mesh)
         ofor, afor, xd = make_xforc(model, mesh=mesh)(
             at.pam, ob.pom, ob.sstm, at.astm, at.hmixam)
@@ -259,16 +273,18 @@ def xforc_rank(cases):
         out.append(dict(ofor=numpy_fields(gather_tree(ofor, mesh)),
                         afor=numpy_fields(afor), diags=numpy_fields(xd),
                         counts=counts,
-                        pad_zero=padding_zero(ofor, mesh, cfg.nypo)))
+                        pad_zero=padding_zero(ofor, mesh, cfg.nypo,
+                                              cfg.nxpo)))
     return out
 
 
-def coupled_runner_rank(cases):
+def coupled_runner_rank(cases, shape=None):
     """For each case (kind, config overrides, halo variant, cycles): the
     seeded coupled state run that many coupling cycles by the decomposed
-    coupled runner: the ocean gathered whole, this rank's atmosphere,
-    the collectives per cycle, qgstep's launches and whether the ocean's
-    padding rows stayed zero."""
+    coupled runner on a rows mesh of the ranks (or a mesh of `shape`):
+    the ocean gathered whole, this rank's atmosphere, the collectives
+    per cycle, qgstep's launches and whether the ocean's padding stayed
+    zero."""
     from qgcm_torch.models.stepper import make_coupled_runner
     from qgcm_torch.ops.qgstep import qgstep
     torch.set_num_threads(1)
@@ -276,7 +292,7 @@ def coupled_runner_rank(cases):
     for kind, over, variant, cycles in cases:
         model, oc, at = seeded_coupled(kind, **over)
         cfg = model.cfg
-        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
         run = make_coupled_runner(model, mesh=mesh, halo_variant=variant,
                                   spectral_variant="a2a")
         n0 = qgstep.launches
@@ -286,13 +302,15 @@ def coupled_runner_rank(cases):
                         counts={k: v / cycles for k, v in
                                 mesh.counts.items() if k != "gather"},
                         launches=qgstep.launches - n0,
-                        pad_zero=padding_zero(ob, mesh, cfg.nypo)))
+                        pad_zero=padding_zero(ob, mesh, cfg.nypo,
+                                              cfg.nxpo)))
     return out
 
 
 def mesh_specs(specs, cyclic=False):
     """For each --mesh spec: the (my, mx) of the mesh it makes on the
-    ranks, or the type and message of what it raised."""
+    ranks (for a 33 x 33 grid), or the type and message of what it
+    raised."""
     from qgcm_torch.parallel.mesh import mesh_from_spec
     out = []
     for spec in specs:
@@ -304,11 +322,11 @@ def mesh_specs(specs, cyclic=False):
     return out
 
 
-def coupled_rank(xforc_cases, runner_cases, specs):
-    """xforc_rank, coupled_runner_rank and mesh_specs (box, then
-    channel) in one spawn."""
-    return dict(xforc=xforc_rank(xforc_cases),
-                runner=coupled_runner_rank(runner_cases),
+def coupled_rank(xforc_cases, runner_cases, specs, shape=None):
+    """xforc_rank, coupled_runner_rank (on a rows mesh, or a mesh of
+    `shape`) and mesh_specs (box, then channel) in one spawn."""
+    return dict(xforc=xforc_rank(xforc_cases, shape),
+                runner=coupled_runner_rank(runner_cases, shape),
                 specs=(mesh_specs(specs), mesh_specs(specs, cyclic=True)))
 
 
@@ -335,13 +353,14 @@ def float64_files(mp, pkg, declared):
                    make)
 
 
-def driver_rank(runs, argvs, fail_rank=None):
+def driver_rank(runs, argvs, fail_rank=None, shape=None):
     """What each rank of tests/test_torch_parallel_driver.py runs, with
     float64 files: `runs`, each (config, RunParams, outdir, Driver
-    keywords) through the port's Driver on a rows mesh of the ranks
-    (returning steps done, whether it aborted and the collective
-    counts); then `argvs` through qgcm_torch.cli.main (returning the exit
-    code, or the message of a SystemExit, and what the rank printed).
+    keywords) through the port's Driver on a rows mesh of the ranks, or
+    on a mesh of `shape` (returning steps done, whether it aborted and
+    the collective counts); then `argvs` through qgcm_torch.cli.main
+    (returning the exit code, or the message of a SystemExit, and what
+    the rank printed).
     On rank `fail_rank` valids fails, as a blow-up seen by one rank
     alone would."""
     import contextlib
@@ -363,7 +382,7 @@ def driver_rank(runs, argvs, fail_rank=None):
             mp.setattr(qgcm_torch.run, "valids", failing)
         for cfg, params, outdir, kw in runs:
             model = build_model(cfg, "cpu")
-            mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+            mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
             res = Driver(model, params, outdir, mesh=mesh, verbose=False,
                          **kw).run()
             out["runs"].append(dict(steps=res.steps_done,

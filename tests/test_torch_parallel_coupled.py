@@ -4,9 +4,10 @@ qgcm_tpu's make_xforc(model, mesh) on a mesh of the same shape at 1e-12
 of each output's maximum, with tau_udiff off and on, in the box and the
 channel and over a footprint that reaches the atmosphere's wall bands;
 the decomposed coupled runner against qgcm_tpu's mesh runner over 2
-coupling cycles at 1e-11 (tests/test_sharding.py:41-58); every rank's
-atmosphere the same bits; bicubic_refine_window against qgcm_tpu's; and
-what the mesh paths refuse."""
+coupling cycles at 1e-11 (tests/test_sharding.py:41-58); the box's
+xforc and runner on a 2x2 mesh the same way; every rank's atmosphere
+the same bits; bicubic_refine_window against qgcm_tpu's, and the
+refinement by row and column range; and what the mesh paths refuse."""
 
 import jax
 import numpy as np
@@ -40,15 +41,26 @@ XFORC_IDS = ["box", "box-tau_udiff", "channel", "channel-tau_udiff",
 RUNNER_CASES = [("box", dict(tau_udiff=True), "overlap", CYCLES),
                 ("channel", {}, "overlap", CYCLES)]
 SPECS = ("auto", "rows", "hybrid", "2x1", "1x2", "2x2", "rows2")
+# the box on a 2x2 mesh: xforc with tau_udiff off and on, the runner with
+# tau_udiff (the ocean's 17 x 17 p grid: ragged last blocks of 8 rows and
+# columns)
+MESH_2D = (2, 2)
+XFORC_2D = [0, 1]
+RUNNER_2D = [0]
 
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    return {n: spawn_ranks(ranks.coupled_rank, n, XFORC_CASES, RUNNER_CASES,
-                           SPECS, backend="gloo",
-                           workdir=tmp_path_factory.mktemp(f"coupled{n}"),
-                           timeout=120)
-            for n in RANKS}
+    out = {n: spawn_ranks(ranks.coupled_rank, n, XFORC_CASES, RUNNER_CASES,
+                          SPECS, backend="gloo",
+                          workdir=tmp_path_factory.mktemp(f"coupled{n}"),
+                          timeout=120)
+           for n in RANKS}
+    out[MESH_2D] = spawn_ranks(
+        ranks.coupled_rank, 4, [XFORC_CASES[i] for i in XFORC_2D],
+        [RUNNER_CASES[i] for i in RUNNER_2D], (), MESH_2D, backend="gloo",
+        workdir=tmp_path_factory.mktemp("coupled2x2"), timeout=120)
+    return out
 
 
 def _jax_model(kind, over):
@@ -63,7 +75,10 @@ def _jax_states(oc, at):
 
 
 def _jax_mesh(n):
-    return JaxMesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("y", "x"))
+    """n x 1 devices, or a mesh of n = (my, mx)."""
+    my, mx = n if isinstance(n, tuple) else (n, 1)
+    return JaxMesh(np.asarray(jax.devices()[:my * mx]).reshape(my, mx),
+                   ("y", "x"))
 
 
 @pytest.mark.parametrize("kind", ["box", "channel"])
@@ -92,6 +107,18 @@ def test_refine_window_matches_qgcm_tpu(kind):
                                  torch.from_numpy(v), cfg.ndxr, lo, hi)
         for p, w in zip(part, whole):
             assert torch.equal(p, w[lo:hi]), (lo, hi)
+    # column ranges (a 2-D mesh's): the same arithmetic on fewer coarse
+    # cells, within roundoff of the whole (the products' order may
+    # differ); the duplicated east column is the west one's
+    n = cfg.nxpaor
+    for lo, hi, clo, chi in ((0, 3, 0, 5), (2, 9, 3, 17), (5, 30, 40, n),
+                             (3, 11, 1, n), (0, 10, n - 1, n)):
+        part = bicubic_refine_uv(model.coupling, torch.from_numpy(u),
+                                 torch.from_numpy(v), cfg.ndxr, lo, hi, clo,
+                                 chi)
+        for p, w in zip(part, whole):
+            assert p.shape == (hi - lo, chi - clo)
+            assert rel_err(p, w[lo:hi, clo:chi]) <= 1e-15, (clo, chi)
 
 
 @pytest.mark.parametrize("n", RANKS)
@@ -196,8 +223,10 @@ def test_coupled_mesh_runner_matches_single_device(spawned, n):
 
 def test_mesh_specs(spawned):
     """--mesh on 2 and 4 ranks: auto and rows put every rank on y, so
-    does hybrid in a channel; a box's hybrid mesh and NX > 1 raise,
-    naming the 2-D runner of ROADMAP.md; a misspelt spec raises."""
+    does hybrid in a channel, where a box's hybrid mesh puts the host's
+    ranks on x (one host: 1 x n); a box takes NYxNX of as many ranks as
+    the group has; a channel's NX > 1 raises with qgcm_tpu's reason (the
+    duplicated column's wraparound); a misspelt spec raises."""
     for n in RANKS:
         box, channel = spawned[n][0]["specs"]
         for got in (box, channel):
@@ -205,21 +234,95 @@ def test_mesh_specs(spawned):
             assert got[3] == ((2, 1) if n == 2 else
                               ("ValueError", "a 2x1 mesh needs 2 ranks, the "
                                f"group has {n}"))
-            for err in got[4:6]:
-                assert err[0] == "NotImplementedError"
-                assert "2-D runner" in err[1] and "ROADMAP" in err[1]
             assert got[6][0] == "ValueError"
         assert channel[2] == (n, 1)
-        assert box[2][0] == "NotImplementedError"
-        assert "ROADMAP" in box[2][1]
+        assert box[2] == (1, n)
+        assert box[4] == ((1, 2) if n == 2 else
+                          ("ValueError", "a 1x2 mesh needs 2 ranks, the "
+                           f"group has {n}"))
+        assert box[5] == ((2, 2) if n == 4 else
+                          ("ValueError", "a 2x2 mesh needs 4 ranks, the "
+                           f"group has {n}"))
+        for err in channel[4:6]:
+            assert err[0] == "ValueError"
+            assert "duplicated east column" in err[1]
+
+
+@pytest.mark.parametrize("case", XFORC_2D,
+                         ids=[XFORC_IDS[i] for i in XFORC_2D])
+def test_2d_xforc_matches_qgcm_tpu_mesh_xforc(spawned, case):
+    """The box's decomposed xforc on a 2x2 mesh (the fine grid cut by
+    rows and columns) against qgcm_tpu's mesh xforc on 2x2 devices: every
+    output within 1e-12 of its maximum; the atmospheric forcing and the
+    diagnostics the same bits on every rank; padding zero; one
+    all_reduce, and in tau_udiff one exchange of ghost rows and one of
+    ghost columns."""
+    from qgcm_tpu.coupling import make_xforc as jax_make_xforc
+    kind, over = XFORC_CASES[case]
+    _, oc, at = ranks.seeded_coupled(kind, **over)
+    ocj, atj = _jax_states(oc, at)
+    fn = jax.jit(jax_make_xforc(_jax_model(kind, over),
+                                mesh=_jax_mesh(MESH_2D)))
+    args = (atj.pam, ocj.pom, ocj.sstm, atj.astm, atj.hmixam)
+    want = quick_compile(fn, *args)(*args)
+    res = [r["xforc"][XFORC_2D.index(case)] for r in spawned[MESH_2D]]
+    for key, w_nt in zip(("ofor", "afor", "diags"), want):
+        for name, w in w_nt._asdict().items():
+            assert rel_err(res[0][key][name], np.asarray(w)) <= XFORC_TOL, \
+                (key, name)
+            if key != "ofor":
+                assert all(np.array_equal(r[key][name], res[0][key][name])
+                           for r in res[1:]), (key, name)
+    assert all(r["pad_zero"] for r in res)
+    want_counts = {"coupling.sums": 1}
+    if over.get("tau_udiff"):
+        want_counts.update({"coupling.rows": 2, "coupling.cols": 2})
+    assert res[0]["counts"] == want_counts
+
+
+def test_2d_coupled_runner_matches_qgcm_tpu_and_single_device(spawned):
+    """2 coupling cycles of the box with tau_udiff on a 2x2 mesh against
+    qgcm_tpu's mesh runner on 2x2 devices (every field of both fluids
+    within 1e-11 of its maximum, the integrals against area x max|p|) and
+    against the port's single-device runner at 1e-11; every rank's
+    atmosphere the same bits; padding zero; the cycle's collectives."""
+    kind, over, _, cycles = RUNNER_CASES[RUNNER_2D[0]]
+    model, oc, at = ranks.seeded_coupled(kind, **over)
+    cfg, g = model.cfg, model.grids
+    want_o, want_a = _jax_mesh_runner(kind, over, MESH_2D, cycles * cfg.nstr)
+    res = [r["runner"][0] for r in spawned[MESH_2D]]
+    scale = {"dpioc": g.dxo * g.dyo * np.abs(want_o["po"]).max(),
+             "dpiocp": g.dxo * g.dyo * np.abs(want_o["pom"]).max(),
+             "dpiat": g.dxa * g.dya * np.abs(want_a["pa"]).max(),
+             "dpiatp": g.dxa * g.dya * np.abs(want_a["pam"]).max()}
+    for got, want in ((res[0]["ocean"], want_o), (res[0]["atmos"], want_a)):
+        for name, w in want.items():
+            s = scale.get(name, np.abs(w).max() + 1e-300)
+            assert np.abs(got[name] - w).max() <= RUNNER_TOL * s, name
+    ro, ra = make_coupled_runner(model)(oc, at, cycles * cfg.nstr)
+    for name in ("po", "qo", "sst"):
+        assert rel_err(res[0]["ocean"][name], getattr(ro, name)) <= \
+            RUNNER_TOL, name
+    for name in ("pa", "qa", "ast", "hmixa"):
+        assert rel_err(res[0]["atmos"][name], getattr(ra, name)) <= \
+            RUNNER_TOL, name
+    for r in res[1:]:
+        for name, a in res[0]["atmos"].items():
+            assert np.array_equal(r["atmos"][name], a), name
+    assert all(r["pad_zero"] for r in res)
+    counts = res[0]["counts"]
+    assert counts["coupling.sums"] == 1
+    assert counts["coupling.rows"] == counts["coupling.cols"] == 2
+    assert counts["halo.rows"] == counts["halo.cols"] == 2
+    assert counts["spectral.a2a"] == 4
 
 
 def test_mesh_refusals():
     """What the coupled mesh paths refuse: qgcm_tpu's GSPMD choices
     (halo_variant None, spectral_variant other than 'a2a'), remat with a
     mesh (the distributed adjoint is not ported), an atmosphere-only
-    model (the atmosphere on row blocks is not ported) and a mesh made
-    for another grid."""
+    model (the atmosphere on row blocks is not ported), a mesh made for
+    another grid and a channel's mesh with x > 1."""
     model, _, _ = ranks.seeded_coupled("box")
     cfg = model.cfg
     mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
@@ -236,3 +339,9 @@ def test_mesh_refusals():
     at_only = build_model(cfg.replace(atmos_only=True).validate(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_xforc(at_only, mesh=mesh)
+    from types import SimpleNamespace
+    channel, _, _ = ranks.seeded_coupled("channel")
+    c = channel.cfg
+    fake = SimpleNamespace(grid=(c.nypo, c.nxpo), my=1, mx=2)
+    with pytest.raises(ValueError, match="duplicated east column"):
+        make_xforc(channel, mesh=fake)

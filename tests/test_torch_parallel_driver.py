@@ -1,15 +1,17 @@
-"""qgcm_torch's Driver and CLI on rows meshes, in float64 on the CPU in
-2 real gloo ranks (4 for the member mesh's gcd rule): the small coupled
+"""qgcm_torch's Driver and CLI on rows meshes and, for the box, on a 2x2
+mesh, in float64 on the CPU in real gloo ranks (2 for the rows mesh, 4
+for the 2x2 mesh and the member mesh's gcd rule): the small coupled
 double gyre of tests/test_torch_driver.py and the forced channel of
 tests/test_torch_driver_channel.py through Driver(mesh) with every
 cadence on, against the port's single-device Driver at 1e-11 (every
-file) and qgcm_tpu's Driver(mesh=Mesh(2 x 1)) at 1e-9 (monit.nc and the
-final restart), and a run resumed mid-way from the restart.nc the
-primary rank wrote against the straight one; `run --mesh rows
---dist-backend gloo` and `ensemble --shard-members` through cli.main in
-the ranks (the gcd messages are qgcm_tpu's); a validity failure that one
-rank alone sees stops every rank, and a rank that raises ends the
-spawn."""
+file) and qgcm_tpu's Driver(mesh) on a mesh of the same shape at 1e-9
+(monit.nc and the final restart), and a run resumed mid-way from the
+restart.nc the primary rank wrote against the straight one; `run --mesh
+rows --dist-backend gloo` and `ensemble --shard-members` through
+cli.main in the ranks (the gcd messages are qgcm_tpu's), and `run --mesh
+2x2` on a cut double-gyre box in 4 processes under torchrun; a validity
+failure that one rank alone sees stops every rank, and a rank that
+raises ends the spawn."""
 
 import time
 from pathlib import Path
@@ -50,11 +52,37 @@ JAX_TOL = 1e-9          # against qgcm_tpu's Driver(mesh)
 # over a step, 1e-5 of it, and so 1.1e-10 apart at worst (the resumed
 # run). They are held at qgcm_tpu's bar instead.
 TENDENCY_TOL = {"ddtkeat": JAX_TOL, "ddtpeat": JAX_TOL}
+# The same holds for the ocean's energy tendencies of the ocean-only box
+# on a 2x2 mesh (its split sums differ from one device's by roundoff):
+# ddtkeoc read 6.2e-15 apart at a largest magnitude of 1.35e-4. Its mean
+# Ekman velocity wetmoc, the mean curl of the antisymmetric double-gyre
+# wind, is zero but for roundoff (4.2e-22 m/s against Ekman velocities of
+# order 1e-6 m/s), so two roundings of it differ by their own size.
+OCEAN_TENDENCY_TOL = {"ddtkeoc": JAX_TOL, "ddtpeoc": JAX_TOL, "wetmoc": 1.0}
 RANKS = 2
 CLI_GRID = ["--preset", "southern_ocean_ocean_only", "--nxta", "12",
             "--nxaooc", "12", "--nyta", "6", "--nyaooc", "4", "--ndxr", "4",
             "--dtype", "float64", "--device", "cpu"]
 GLOO = ["--dist-backend", "gloo", "--quiet"]
+MESH_2D = (2, 2)
+# the cut ocean-only double gyre of tests/test_torch_analysis.py (a 33 x
+# 33 ocean) for half a day, for `run --mesh 2x2` under torchrun
+BOX_GRID = ["--preset", "double_gyre_ocean_only", "--nxaooc", "8",
+            "--nyaooc", "8", "--ndxr", "4", "--nxta", "16", "--nyta", "16",
+            "--dtype", "float64", "--device", "cpu"]
+BOX_PARAMS = dict(trun="0.001369863D0", dgnday="0.125d0", odiday="0.25d0",
+                  prtday="0.25d0", resday="0.25d0", dtavoc="0.25d0",
+                  name="restart.nc")
+# the command each torchrun rank runs: the CLI with float64 files
+TORCHRUN_CLI = """import sys
+sys.path[:0] = [{repo!r}, {tests!r}]
+import pytest
+import _torch_ranks
+from qgcm_torch.cli import main
+with pytest.MonkeyPatch.context() as mp:
+    _torch_ranks.float64_files(mp, "qgcm_torch", {{}})
+    sys.exit(main(sys.argv[1:]))
+"""
 
 
 def _coupled_case(d):
@@ -126,6 +154,18 @@ def _cli_case(d):
     return case
 
 
+def _box_cli_case(d):
+    """The cut double-gyre box of tests/test_torch_analysis.py, prepared
+    in this process, for the CLI's 2x2 mesh."""
+    from test_torch_analysis import write_params
+    case = d / "box_cli"
+    case.mkdir()
+    write_params(case / "input.params", **BOX_PARAMS)
+    assert main(["prepare", str(case), "--eddy-amp", "0.1", "--forcing",
+                 "double-gyre"] + BOX_GRID) == 0
+    return case
+
+
 def _ensemble(case, outdir, members, *extra):
     return ["ensemble", str(case), "--members", str(members), "--days",
             "0.0625", "--sample-days", "0.03125", "--outdir", str(outdir),
@@ -145,13 +185,30 @@ def runs(tmp_path_factory):
     from qgcm_tpu.run import Driver as JaxDriver
 
     d = tmp_path_factory.mktemp("mesh_driver")
+    import subprocess
+    import sys
+    # `run --mesh 2x2` in 4 processes under torchrun, while the rest runs
+    with pytest.MonkeyPatch.context() as mp:
+        ranks.float64_files(mp, "qgcm_torch", {})
+        box = _box_cli_case(d)
+    script = d / "torchrun_cli.py"
+    here = Path(__file__).resolve().parent
+    script.write_text(TORCHRUN_CLI.format(repo=str(here.parent),
+                                          tests=str(here)))
+    torchrun = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", str(script), "run", str(box), "--mesh",
+         "2x2", "--outdir", str(box / "mesh"), "--dist-backend", "gloo"]
+        + BOX_GRID, cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
     dirs = {"coupled": d / "coupled", "channel": d / "channel"}
     for v in dirs.values():
         v.mkdir()
     cases = {"coupled": _coupled_case(dirs["coupled"]),
              "channel": _channel_case(dirs["channel"])}
-    jax_mesh = JaxMesh(np.asarray(jax.devices()[:RANKS]).reshape(RANKS, 1),
-                       ("y", "x"))
+    jax_meshes = {"jax_": JaxMesh(np.asarray(jax.devices()[:RANKS]).reshape(
+        RANKS, 1), ("y", "x")), "jax2d_": JaxMesh(np.asarray(
+            jax.devices()[:4]).reshape(MESH_2D), ("y", "x"))}
     with pytest.MonkeyPatch.context() as mp:
         ranks.float64_files(mp, "qgcm_tpu", {})
         ranks.float64_files(mp, "qgcm_torch", {})
@@ -161,20 +218,26 @@ def runs(tmp_path_factory):
             for cfg, p, out, kw in _halves(*case, dirs[kind], "single_"):
                 Driver(build_model(cfg, "cpu"), p, out, verbose=False,
                        **kw).run()
-            for cfg, p, out, kw in _halves(*case, dirs[kind], "jax_")[1:]:
-                if kind == "coupled":
-                    pj = JaxRunParams(**vars(p))
-                    base = coupled._coupled_base(jax_config)
-                else:
-                    pj = channel._params(jax_parse, p.name)
-                    pj.trun = p.trun
-                    base = channel._base(jax_config)
-                JaxDriver(jax_build_model(jax_params_to_config(pj, base)),
-                          pj, out, mesh=jax_mesh, verbose=False,
-                          **kw).run()
+            for prefix, jax_mesh in jax_meshes.items():
+                if prefix == "jax2d_" and kind != "coupled":
+                    continue        # a channel's mesh has x = 1
+                for cfg, p, out, kw in _halves(*case, dirs[kind],
+                                               prefix)[1:]:
+                    if kind == "coupled":
+                        pj = JaxRunParams(**vars(p))
+                        base = coupled._coupled_base(jax_config)
+                    else:
+                        pj = channel._params(jax_parse, p.name)
+                        pj.trun = p.trun
+                        base = channel._base(jax_config)
+                    JaxDriver(jax_build_model(jax_params_to_config(pj, base)),
+                              pj, out, mesh=jax_mesh, verbose=False,
+                              **kw).run()
         cli = _cli_case(d)
         assert main(["run", str(cli), "--outdir", str(cli / "single"),
                      "--quiet"] + CLI_GRID) == 0
+        assert main(["run", str(box), "--outdir", str(box / "single"),
+                     "--quiet"] + BOX_GRID) == 0
         for m in (4, 6):
             assert main(_ensemble(cli, cli / f"ens{m}", m, "--quiet")) == 0
     mesh_runs = [r for kind in cases
@@ -187,10 +250,16 @@ def runs(tmp_path_factory):
         (d / w).mkdir()
     two = spawn_ranks(ranks.driver_rank, RANKS, mesh_runs, argvs,
                       backend="gloo", workdir=d / "ranks2", timeout=120)
-    four = spawn_ranks(ranks.driver_rank, 4, [], [_ensemble(
-        cli, cli / "ens6_mesh", 6, "--shard-members", *GLOO)],
-        backend="gloo", workdir=d / "ranks4", timeout=120)
-    return dict(dirs=dirs, cli=cli, two=two, four=four, cases=cases)
+    four = spawn_ranks(ranks.driver_rank, 4, _halves(
+        *cases["coupled"], dirs["coupled"], "mesh2d_"), [_ensemble(
+            cli, cli / "ens6_mesh", 6, "--shard-members", *GLOO)], None,
+        MESH_2D, backend="gloo", workdir=d / "ranks4", timeout=120)
+    try:
+        out, err = torchrun.communicate(timeout=300)
+    finally:
+        torchrun.kill()
+    return dict(dirs=dirs, cli=cli, two=two, four=four, cases=cases,
+                box=box, torchrun=(torchrun.returncode, out, err))
 
 
 SEGMENTS = ["mesh", "seg1", "seg2"]
@@ -220,6 +289,59 @@ def test_mesh_driver_matches_single_device(runs, kind, seg):
                 (d / want / name).read_text().replace("single_seg1", "seg1")
     assert all(not r["runs"][i]["aborted"] for r in runs["two"]
                for i in range(6))
+
+
+@pytest.mark.parametrize("seg", SEGMENTS,
+                         ids=["straight", "first-half", "resumed"])
+def test_2d_mesh_driver_matches_single_device(runs, seg):
+    """The coupled box's Driver on a 2x2 mesh of 4 ranks (blocks of rows
+    and columns in the carry and the running means, the T fields gathered
+    over columns at the cadence boundaries, the restart written by the
+    primary rank and resumed on every rank): every file within 1e-11 of
+    the port's single-device Driver (the tendencies: TENDENCY_TOL), the
+    same file set and input_parameters.m, no rank aborted."""
+    d = runs["dirs"]["coupled"]
+    got, want = f"mesh2d_{seg}", f"single_{seg}"
+    assert coupled._files(d / got) == coupled._files(d / want)
+    for name in coupled._files(d / want):
+        if name.endswith(".nc"):
+            coupled.assert_same_file(d, name, SINGLE_TOL, got=got,
+                                     want=want, rtols=TENDENCY_TOL)
+        else:
+            assert (d / got / name).read_text() == \
+                (d / want / name).read_text().replace("single_seg1",
+                                                      "mesh2d_seg1")
+    assert all(not r["runs"][i]["aborted"] for r in runs["four"]
+               for i in range(3))
+
+
+@pytest.mark.parametrize("name", ["monit.nc", "restart.nc"])
+@pytest.mark.parametrize("seg", SEGMENTS[1:], ids=["first-half", "resumed"])
+def test_2d_mesh_driver_matches_qgcm_tpu_mesh_driver(runs, seg, name):
+    """monit.nc and the restart of the coupled box's Driver on a 2x2 mesh
+    within 1e-9 of qgcm_tpu's Driver on 2x2 devices, over the first half
+    and the resumed second half (there also lastday.nc)."""
+    d = runs["dirs"]["coupled"]
+    coupled.assert_same_file(d, name, JAX_TOL, got=f"mesh2d_{seg}",
+                             want=f"jax2d_{seg}")
+    if seg == "seg2":
+        coupled.assert_same_file(d, "lastday.nc", JAX_TOL,
+                                 got=f"mesh2d_{seg}", want=f"jax2d_{seg}")
+
+
+def test_cli_run_mesh_2x2_under_torchrun(runs):
+    """`run --mesh 2x2 --dist-backend gloo` on the cut double-gyre box in
+    4 processes under torchrun: exit 0, the mesh line (qgcm_tpu's)
+    printed once, and monit.nc and lastday.nc within 1e-11 of the
+    single-process run (the ocean's energy tendencies within 1e-9, and
+    its roundoff-sized mean Ekman velocity: OCEAN_TENDENCY_TOL)."""
+    code, out, err = runs["torchrun"]
+    assert code == 0, err[-3000:]
+    assert out.count("mesh: {'y': 2, 'x': 2} over 4 devices "
+                     "(a2a spectral solvers)") == 1
+    for name in ("monit.nc", "lastday.nc"):
+        coupled.assert_same_file(runs["box"], name, SINGLE_TOL, got="mesh",
+                                 want="single", rtols=OCEAN_TENDENCY_TOL)
 
 
 @pytest.mark.parametrize("name", ["monit.nc", "restart.nc"])

@@ -1,9 +1,10 @@
 """qgcm_torch.parallel: the decomposed ocean-only runner, in float64 on
-the CPU in real gloo ranks (rows meshes of 2 and 4 ranks), against
-qgcm_tpu's make_ocean_only_runner(mesh, halo_variant, 'a2a') over 20
-substeps on a mesh of the same shape, at 1e-11 of each field's maximum
-(the bar of tests/test_sharding.py:41-58); and what the runner refuses,
-what it counts, and that the port's parallel modules load no JAX."""
+the CPU in real gloo ranks (rows meshes of 2 and 4 ranks, and the box on
+2x2 and 1x4 meshes), against qgcm_tpu's make_ocean_only_runner(mesh,
+halo_variant, 'a2a') over 20 substeps on a mesh of the same shape, at
+1e-11 of each field's maximum (the bar of tests/test_sharding.py:41-58);
+and what the runner refuses, what it counts, and that the port's
+parallel modules load no JAX."""
 
 import subprocess
 import sys
@@ -39,25 +40,47 @@ FIELDS = {False: ("po", "qo", "sst", "dpioc"),
           True: ("po", "qo", "sst", "dpioc", "ocncs", "ocncn")}
 
 
+# the box on 2-D meshes: (cyclic, variant, n_steps, nyaooc, nxaooc). The
+# 25 x 49 grid leaves ragged last row and column blocks on both meshes;
+# the 13 x 13 grid on 1x4 leaves the last column block with the east wall
+# column alone (its inner neighbour comes from the block west of it)
+CASES_2D = [(False, "overlap", STEPS, 12, 24), (False, "deep", 2, 6, 6)]
+IDS_2D = ["overlap-25x49", "deep-13x13"]
+MESHES = ((2, 2), (1, 4))
+MESH_IDS = ["2x2", "1x4"]
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    return {n: spawn_ranks(ranks.runner_rank, n, CASES, backend="gloo",
-                           workdir=tmp_path_factory.mktemp(f"run{n}"),
-                           timeout=120)[0]
-            for n in RANKS}
+    out = {n: spawn_ranks(ranks.runner_rank, n, CASES, backend="gloo",
+                          workdir=tmp_path_factory.mktemp(f"run{n}"),
+                          timeout=120)[0]
+           for n in RANKS}
+    for my, mx in MESHES:
+        out[(my, mx)] = spawn_ranks(
+            ranks.runner_rank, my * mx, CASES_2D, (my, mx), backend="gloo",
+            workdir=tmp_path_factory.mktemp(f"run{my}x{mx}"),
+            timeout=120)[0]
+    return out
 
 
-def _jax_run(cyclic, nyaooc, n, variant, steps):
+def _jax_run(cyclic, nyaooc, n, variant, steps, nxaooc=24):
+    """qgcm_tpu's mesh runner on n x 1 devices, or on a mesh of n = (my,
+    mx), from the seeded state."""
     import qgcm_tpu.config
     from test_torch_cases import to_jax
     from qgcm_tpu.model import build_model as jax_build
     from qgcm_tpu.models.stepper import make_ocean_only_runner as jax_runner
     from qgcm_tpu.parallel.mesh import shard_tree as jax_shard
     from qgcm_tpu.state import OceanForcing, OceanState
-    cfg = ranks.small_cfg(cyclic, nyaooc=nyaooc, cfgmod=qgcm_tpu.config)
+    cfg = ranks.small_cfg(cyclic, nyaooc=nyaooc, nxaooc=nxaooc,
+                          cfgmod=qgcm_tpu.config)
     jm = jax_build(cfg.replace(solver_transform="fft"))
-    _, st, f = ranks.seeded_state(ranks.small_cfg(cyclic, nyaooc=nyaooc))
-    mesh = JaxMesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("y", "x"))
+    _, st, f = ranks.seeded_state(ranks.small_cfg(cyclic, nyaooc=nyaooc,
+                                                  nxaooc=nxaooc))
+    my, mx = n if isinstance(n, tuple) else (n, 1)
+    mesh = JaxMesh(np.asarray(jax.devices()[:my * mx]).reshape(my, mx),
+                   ("y", "x"))
     run = jax_runner(jm, mesh=mesh, halo_variant=variant,
                      spectral_variant="a2a")
     out = run(jax_shard(to_jax(OceanState, st), mesh),
@@ -134,6 +157,49 @@ def test_runner_collectives_per_substep(spawned, case, n):
     assert got == want
 
 
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("case", range(len(CASES_2D)), ids=IDS_2D)
+def test_2d_runner_matches_qgcm_tpu_mesh_runner(spawned, case, mesh):
+    """The box on a 2-D mesh: 20 'overlap' substeps (25 x 49) and 2
+    'deep' ones (13 x 13, the east wall column alone in a block on 1x4)
+    against qgcm_tpu's mesh runner on a mesh of the same shape, each
+    field within 1e-11 of its maximum; the padding rows and columns stay
+    zero; no launch of the kernel path on CPU tensors."""
+    cyclic, variant, steps, nyaooc, nxaooc = CASES_2D[case]
+    res = spawned[mesh][case]
+    want = _jax_run(cyclic, nyaooc, mesh, variant, steps, nxaooc)
+    for name in FIELDS[cyclic]:
+        assert rel_err(res["state"][name], want[name]) <= TOL, name
+    assert res["pad_zero"]
+    assert res["launches"] == 0
+
+
+# collectives per substep on a 2-D mesh: the rows of COUNTS, each
+# exchange of ghost rows followed by one of ghost columns (the mixed
+# layer's two, the vorticity step's), the box's four transposes, and
+# ocqbdy's column exchange where the east wall column starts a block
+COUNTS_2D = {"ocean.oml.rows": 4, "ocean.oml.cols": 4, "ocean.oml.sums": 2,
+             "halo.rows": 2, "halo.cols": 2, "spectral.a2a": 4,
+             "ocean.inversion.sums": 1}
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("case", range(len(CASES_2D)), ids=IDS_2D)
+def test_2d_runner_collectives_per_substep(spawned, case, mesh):
+    """The 2-D substep's collectives, pinned as the rows ones are."""
+    _, _, _, nyaooc, nxaooc = CASES_2D[case]
+    nyp, nxp = 2 * nyaooc + 1, 2 * nxaooc + 1
+    by, bx = -(-nyp // mesh[0]), -(-nxp // mesh[1])
+    want = dict(COUNTS_2D)
+    if (nyp - 1) % by == 0:
+        want["ocean.ocqbdy.rows"] = 2
+    if (nxp - 1) % bx == 0:
+        want["ocean.ocqbdy.cols"] = 2
+    got = {k: v for k, v in spawned[mesh][case]["counts"].items()
+           if k != "gather"}
+    assert got == want
+
+
 def test_mesh_run_refuses_gspmd_choices():
     """halo_variant=None, or a spectral_variant other than 'a2a', on a
     mesh is qgcm_tpu's GSPMD partitioning: refused; so is a bare
@@ -171,8 +237,11 @@ def test_one_rank_mesh_runner_matches_single_device(cyclic):
 
 
 def test_mesh_refusals():
-    """The decomposed step takes a rows mesh of the model's grid with
-    blocks of 3 rows at least."""
+    """The decomposed step takes a mesh of the model's grid, with blocks
+    of 3 rows (and columns) at least, of as many ranks as the group has;
+    a channel's mesh has x = 1 (the duplicated column's wraparound,
+    qgcm_tpu's reason)."""
+    from types import SimpleNamespace
     from qgcm_torch.parallel.mesh import Mesh
     cfg = ranks.small_cfg()
     model, _, _ = ranks.seeded_state(cfg)
@@ -180,6 +249,18 @@ def test_mesh_refusals():
         make_ocean_step(model, halo=(make_mesh(grid=(9, 9)), "deep"))
     with pytest.raises(ValueError, match="ranks"):
         Mesh((2, 1), grid=(cfg.nypo, cfg.nxpo))
+    with pytest.raises(ValueError, match="ranks"):
+        Mesh((2, 2), grid=(cfg.nypo, cfg.nxpo))
+    channel = ranks.small_cfg(cyclic=True)
+    model_c, _, _ = ranks.seeded_state(channel)
+    fake = SimpleNamespace(grid=(channel.nypo, channel.nxpo), my=1, mx=2,
+                           by=channel.nypo, bx=channel.nxpo // 2 + 1)
+    with pytest.raises(ValueError, match="duplicated east column"):
+        make_ocean_step(model_c, halo=(fake, "overlap"))
+    thin = SimpleNamespace(grid=(cfg.nypo, cfg.nxpo), my=1, mx=25, by=cfg.nypo,
+                           bx=2)
+    with pytest.raises(ValueError, match="too thin"):
+        make_ocean_step(model, halo=(thin, "overlap"))
 
 
 def test_launch_without_a_process_group():
@@ -232,6 +313,8 @@ def test_parallel_modules_import_no_jax():
             "import qgcm_torch.coupling, qgcm_torch.models.stepper\n"
             "import qgcm_torch.models.ensemble, qgcm_torch.run\n"
             "import qgcm_torch.cli, qgcm_torch.diags.timavge\n"
+            "import qgcm_torch.models.ocean, qgcm_torch.ops.integrals\n"
+            "import qgcm_torch.ops.vorticity, qgcm_torch.state\n"
             "import _torch_ranks\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'qgcm_tpu'))\n"

@@ -1,11 +1,13 @@
-"""qgcm_torch.parallel.spectral: the Helmholtz solves on row blocks by
-all_to_all pencil transposes, in float64 on the CPU in real gloo ranks
-(2x1 and 4x1 rows meshes), against the port's single-device solvers at
-1e-13 of the solution's maximum (the bar of tests/test_spectral.py:
-46-56) and against qgcm_tpu's sharded solvers on meshes of the same
-shape at 1e-12 (the bar the single-device solvers meet against qgcm_tpu,
-tests/test_torch_helmholtz.py:40); box and channel, even and uneven
-shapes, among them the aspects of tests/test_spectral.py:222,252."""
+"""qgcm_torch.parallel.spectral: the Helmholtz solves on row blocks and
+on 2-D blocks by all_to_all pencil transposes, in float64 on the CPU in
+real gloo ranks (2x1 and 4x1 rows meshes; 2x2, 1x4 and 1x2 meshes),
+against the port's single-device solvers at 1e-13 of the solution's
+maximum on rows meshes (the bar of tests/test_spectral.py:46-56) and
+1e-12 on 2-D meshes, and against qgcm_tpu's sharded solvers on meshes of
+the same shape at 1e-12 (the bar the single-device solvers meet against
+qgcm_tpu, tests/test_torch_helmholtz.py:40); box and channel, even and
+uneven shapes, among them the aspects of tests/test_spectral.py:222,
+252."""
 
 import dataclasses
 import functools
@@ -36,14 +38,26 @@ CASES = [("box", 15, 19, "fft", 0), ("cyclic", 15, 17, "fft", 1),
          ("box", 577, 577, "fft", 4), ("cyclic", 145, 1153, "fft", 5)]
 IDS = [f"{k}-{ny}x{nx}-{t}" for k, ny, nx, t, _ in CASES]
 RANKS = (2, 4)
+# the 2-D meshes (my, mx) of tests/test_spectral.py:36's kind, on 4 and 2
+# ranks; TOL_2D is their bar against either reference (the bar the
+# single-device solvers meet against qgcm_tpu)
+MESHES = ((2, 2), (1, 4), (1, 2))
+MESH_IDS = [f"{my}x{mx}" for my, mx in MESHES]
+TOL_2D = 1e-12
 
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    return {n: spawn_ranks(ranks.solver_rank, n, CASES, backend="gloo",
-                           workdir=tmp_path_factory.mktemp(f"solve{n}"),
-                           timeout=120)[0]
-            for n in RANKS}
+    out = {n: spawn_ranks(ranks.solver_rank, n, CASES, backend="gloo",
+                          workdir=tmp_path_factory.mktemp(f"solve{n}"),
+                          timeout=120)[0]
+           for n in RANKS}
+    for my, mx in MESHES:
+        out[(my, mx)] = spawn_ranks(
+            ranks.solver_rank, my * mx, CASES, (my, mx), backend="gloo",
+            workdir=tmp_path_factory.mktemp(f"solve{my}x{mx}"),
+            timeout=120)[0]
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,11 +71,15 @@ def single_device(i):
 
 @functools.lru_cache(maxsize=None)
 def qgcm_tpu_sharded(i, n):
+    """qgcm_tpu's sharded solve of case i on n x 1 devices, or on a mesh
+    of n = (my, mx)."""
     from qgcm_tpu.parallel import spectral as jsp
     from qgcm_tpu.solver.helmholtz import (make_box_helmholtz,
                                            make_cyclic_helmholtz)
     kind, nyp, nxp, yt, seed = CASES[i]
-    mesh = JaxMesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("y", "x"))
+    my, mx = n if isinstance(n, tuple) else (n, 1)
+    mesh = JaxMesh(np.asarray(jax.devices()[:my * mx]).reshape(my, mx),
+                   ("y", "x"))
     rhs = jax.numpy.asarray(ranks.solver_rng_rhs(kind, nyp, nxp, seed))
     if kind == "box":
         sh = jsp.ShardedBoxHelmholtz(
@@ -111,6 +129,42 @@ def test_box_spectrum_padding_is_inert(spawned, i, n):
     assert np.all(spec[..., nxi:] == 0.0)
 
 
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_2d_solve_matches_single_device_and_qgcm_tpu(spawned, i, mesh):
+    """The 2-D pencils: the gathered blocks within 1e-12 of the
+    single-device solution's maximum and of qgcm_tpu's sharded solve on
+    a mesh of the same shape; walls and padding rows and columns zero; a
+    solve is four transposes, of which the channel's two along 'y' are no
+    collective on a mesh of one row; in the channel the duplicate column
+    bit for bit."""
+    res = spawned[mesh][i]
+    want, _ = single_device(i)
+    assert rel_err(res["sol"], want) <= TOL_2D
+    assert rel_err(res["sol"], qgcm_tpu_sharded(i, mesh)) <= TOL_2D
+    assert res["pad_zero"]
+    assert res["a2a"] == (2 if CASES[i][0] == "cyclic" and mesh[0] == 1
+                          else 4)
+    if CASES[i][0] == "cyclic":
+        assert np.array_equal(res["sol"][..., -1], res["sol"][..., 0])
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
+@pytest.mark.parametrize("i", [i for i, c in enumerate(CASES)
+                               if c[0] == "box"],
+                         ids=[IDS[i] for i, c in enumerate(CASES)
+                              if c[0] == "box"])
+def test_2d_box_spectrum_padding_is_inert(spawned, i, mesh):
+    """On a 2-D mesh the spectrum keeps the rows mesh's layout: its
+    y-pencil chunks, put together in rank order, are the single-device
+    spectrum over its nxi columns, and zero beyond."""
+    spec = spawned[mesh][i]["spec"]
+    _, want = single_device(i)
+    nxi = want.shape[-1]
+    assert rel_err(spec[..., :nxi], want.numpy()) <= 1e-13
+    assert np.all(spec[..., nxi:] == 0.0)
+
+
 def test_one_rank_mesh_solves_on_its_own():
     """Without a process group a mesh is one rank, and the sharded
     solvers are the single-device ones to roundoff, with no collective
@@ -125,18 +179,41 @@ def test_one_rank_mesh_solves_on_its_own():
         assert rel_err(got, single_device(i)[0]) <= 1e-13
 
 
+def _fake_mesh(my, mx, rank, grid=None):
+    """A Mesh of (my, mx) as rank `rank` sees it, made without a process
+    group (no collective is called on it)."""
+    from qgcm_torch.parallel.mesh import Mesh
+    fake = Mesh.__new__(Mesh)
+    fake.my, fake.mx, fake.size, fake.rank = my, mx, my * mx, rank
+    fake.iy, fake.ix = divmod(rank, mx)
+    fake.grid, fake.group = grid, None
+    if grid is not None:
+        fake.by, fake.bx = fake.block(grid[0], "y"), fake.block(grid[1], "x")
+    return fake
+
+
 def test_wrap_inversions_and_2d_refusal():
     """wrap_inversions swaps the ocean's solver for its sharded form and
-    leaves the rest of the inversion; an x > 1 mesh is refused until the
-    2-D pencils are ported."""
+    leaves the rest of the inversion, on a rows mesh and on an x > 1
+    mesh; what stays refused on an x > 1 mesh is a channel's ocean (the
+    duplicated column's wraparound, qgcm_tpu's reason), in the substep
+    and in --mesh, and blocks too thin for the mixed layer."""
     from qgcm_torch.model import build_model
-    from qgcm_torch.parallel.mesh import Mesh
+    from qgcm_torch.models.ocean import check_mesh_grid
+    from qgcm_torch.parallel.mesh import mesh_from_spec
     model = build_model(ranks.small_cfg(cyclic=False), "cpu")
-    wrapped = wrap_inversions(model, make_mesh(rows_only=True))
-    assert isinstance(wrapped.inv_oc.helm, ShardedBoxHelmholtz)
-    assert wrapped.inv_oc.cdhinv is model.inv_oc.cdhinv
-    assert dataclasses.replace(wrapped, inv_oc=model.inv_oc) == model
-    fake = Mesh.__new__(Mesh)
-    fake.my, fake.mx, fake.size, fake.rank = 1, 2, 2, 0
-    with pytest.raises(NotImplementedError, match="2-D"):
-        ShardedBoxHelmholtz(model.inv_oc.helm, fake)
+    for mesh in (make_mesh(rows_only=True), _fake_mesh(1, 2, 1)):
+        wrapped = wrap_inversions(model, mesh)
+        assert isinstance(wrapped.inv_oc.helm, ShardedBoxHelmholtz)
+        assert wrapped.inv_oc.cdhinv is model.inv_oc.cdhinv
+        assert dataclasses.replace(wrapped, inv_oc=model.inv_oc) == model
+    cfg = ranks.small_cfg(cyclic=True)
+    grid = (cfg.nypo, cfg.nxpo)
+    with pytest.raises(ValueError, match="duplicated east column"):
+        check_mesh_grid(cfg, _fake_mesh(1, 2, 0, grid))
+    with pytest.raises(ValueError, match="duplicated east column"):
+        mesh_from_spec("1x2", True, grid)
+    box = ranks.small_cfg(cyclic=False)
+    with pytest.raises(ValueError, match="too thin"):
+        check_mesh_grid(box, _fake_mesh(1, 30, 0, (box.nypo, box.nxpo)))
+    check_mesh_grid(box, _fake_mesh(2, 2, 3, (box.nypo, box.nxpo)))

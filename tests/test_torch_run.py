@@ -235,8 +235,10 @@ def test_cli_prepare_run_resume(tmp_path, capsys):
     """prepare -> run -> run --resume through qgcm_torch.cli.main on the
     CPU: the second segment continues the clock in outdata_r2, and
     --resume into the segment it reads from is refused, and so are the
-    option the port does not have (--ckpt-format) and a mesh with NX > 1
-    (multi-rank runs: tests/test_torch_parallel_driver.py)."""
+    option the port does not have (--ckpt-format) and, this case being a
+    channel, a mesh with NX > 1 (qgcm_tpu's reason: the duplicated
+    column's wraparound; multi-rank runs:
+    tests/test_torch_parallel_driver.py)."""
     case = tmp_path / "case"
     case.mkdir()
     params = (
@@ -284,6 +286,6 @@ def test_cli_prepare_run_resume(tmp_path, capsys):
               str(case / "outdata_r2")] + flags)
     with pytest.raises(SystemExit):
         main(["run", str(case), "--ckpt-format", "orbax"] + flags)
-    with pytest.raises(NotImplementedError, match="2-D runner"):
+    with pytest.raises(ValueError, match="duplicated east column"):
         main(["run", str(case), "--mesh", "1x2"] + flags)
     assert "done: 12 steps" in capsys.readouterr().out
