@@ -50,8 +50,12 @@ and 1x4 meshes of 4 ranks (the golden box in float64, the main path's
 box and the coupled double gyre at full width in float32) against the
 single-device runner, one rank's five x_ext launches of a substep
 against their plain version, and `run --mesh 2x2` under torchrun with
-a resume. Every
-phase raises on a failure; nothing runs on the CPU. The last line of
+a resume; then the distributed adjoint (phase 20): the float64 adjoint
+of the main path's box on 4x1 and 2x2 meshes of 4 ranks with remat,
+against the single-device adjoint on the card and a finite
+difference, and every rank's window launches' gradients through the
+kernel's autograd rule against autograd through their plain version.
+Every phase raises on a failure; nothing runs on the CPU. The last line of
 standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
 with its launch count on the main path and on each other path, its
@@ -3378,6 +3382,319 @@ def phase_mesh_2d(card, states, main_file):
     return totals, paths
 
 
+# ----------------------------------------------------------------------
+# Phase 20: the distributed adjoint, in MESH_RANKS ranks (mesh_backend)
+# ----------------------------------------------------------------------
+
+# where the ranks meet and the initial state and wind wait for them
+# (listed in .gitignore)
+MESH20_WORKDIR = "build/qgcm_torch/mesh_adjoint"
+# the meshes of the distributed adjoint, each against the single-device
+# adjoint on the card from the same state
+ADJOINT_MESHES = ((MESH_RANKS, 1), (2, 2))
+ADJOINT_MESH_STEPS = 10
+# ranks against the single-device gradient (value, forcing, state0.po),
+# of each field's maximum: the float64 bar of a decomposed run
+ADJOINT_MESH_TOL = MESH_F64_TOL
+
+
+def _adjoint_mesh_rank(file, meshes, steps):
+    """What each rank of phase 20 runs: on each (my, mx) mesh, a warm-up
+    adjoint of 2 substeps, then ocean_sensitivity(mesh, 'overlap',
+    remat=True) over `steps` substeps from the state in `file`, the
+    forward and backward timed apart (the loss marks the forward's end),
+    qgstep's launches by mode in each, the bytes staged through the host
+    in each and the peak memory; rank 0 adds the gradients (state0.po's
+    gathered, the forcing's). On the rows mesh the primal at (1 +- eps)
+    tauxo by the mesh runner (the finite difference). Last, one more
+    substep with parallel/halo.py's window launches recorded, each held
+    against window_reference on the card (launches after the counts were
+    read): the recorded launch's output and that of the same launch
+    through the kernel's rule against window_reference's forward, and
+    the gradient of a seeded weighting of the rule's output against
+    autograd through the plain version (an identity: the rule's backward
+    is window_reference's VJP; it shows the gradient goes through the
+    rule)."""
+    import torch.distributed as dist
+    import qgcm_torch.parallel.halo as halo
+    from qgcm_torch.adjoint import layer1_energy_proxy, ocean_sensitivity
+    from qgcm_torch.config import double_gyre_ocean_only
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import ocean_forcing_from_mean
+    from qgcm_torch.models.stepper import make_ocean_only_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches, \
+        window_reference
+    from qgcm_torch.parallel.mesh import Mesh, gather, gather_tree, \
+        shard_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()          # NCCL sets up its communicator here
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(file, weights_only=False)
+    model = build_model(double_gyre_ocean_only(dtype="float64"), dev)
+    cfg = model.cfg
+    st = type(saved["state"])(*(t.to(dev) for t in saved["state"]))
+    mf = tuple(t.to(dev) for t in saved["mean_forcing"])
+    obj = layer1_energy_proxy(model)
+    out = []
+    for shape in meshes:
+        mesh = Mesh(shape, grid=(cfg.nypo, cfg.nxpo))
+        sb = shard_tree(st, mesh)
+        sens = ocean_sensitivity(model, obj, remat=True, mesh=mesh,
+                                 halo_variant="overlap")
+        sens(sb, mf, 2)                                   # warm-up
+        rec = {}
+
+        def loss(final):
+            torch.cuda.synchronize()
+            rec.update(t=time.perf_counter(),
+                       launches=dict(qgstep.mode_launches),
+                       staged=mesh.staged_bytes)
+            return obj(final)
+
+        sens = ocean_sensitivity(model, loss, remat=True, mesh=mesh,
+                                 halo_variant="overlap")
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        mesh.counts.clear()
+        mesh.staged_bytes = 0
+        t0 = time.perf_counter()
+        val, g = sens(sb, mf, steps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = dict(qgstep.mode_launches)
+        res = dict(mesh=list(shape), value=float(val),
+                   fwd_launches=rec["launches"], all_launches=launches,
+                   fwd_ms=(rec["t"] - t0) * 1e3 / steps,
+                   bwd_ms=(t1 - rec["t"]) * 1e3 / steps,
+                   fwd_mb=rec["staged"] / steps / 1e6,
+                   bwd_mb=(mesh.staged_bytes - rec["staged"]) / steps / 1e6,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   counts=dict(mesh.counts))
+        # this rank's block of d/dpo on its true points: nonzero where the
+        # gradient reaches the block
+        nr = max(0, min(mesh.by, cfg.nypo - mesh.iy * mesh.by))
+        nc = max(0, min(mesh.bx, cfg.nxpo - mesh.ix * mesh.bx))
+        res["block_max"] = g.state0.po[..., :nr, :nc].abs().max().item()
+        res["forcing_fp"] = [fingerprint(a) for a in g.forcing]
+        po = gather(g.state0.po, mesh, site="test")
+        if rank == 0:
+            res["po"] = po.cpu()
+            res["forcing"] = [a.cpu() for a in g.forcing]
+        del g, po
+        if shape[1] == 1:
+            # the central difference along tauxo, by the mesh runner
+            run = make_ocean_only_runner(model, mesh=mesh,
+                                         halo_variant="overlap",
+                                         spectral_variant="a2a")
+            with torch.no_grad():
+                def primal(a):
+                    f = shard_tree(ocean_forcing_from_mean(
+                        model, a * mf[0], mf[1], mf[2]), mesh)
+                    return float(obj(gather_tree(run(sb, f, steps), mesh)))
+                res["fd"] = ((primal(1 + FD_EPS) - primal(1 - FD_EPS))
+                             / (2 * FD_EPS))
+        # one more substep with its window launches recorded, then each
+        # launch's gradient through the rule against the plain version's
+        calls = []
+        real = halo.qgstep
+        halo.qgstep = _window_recorder(calls)
+        try:
+            with torch.no_grad():
+                make_ocean_only_runner(model, mesh=mesh,
+                                       halo_variant="overlap",
+                                       spectral_variant="a2a")(
+                    sb, shard_tree(ocean_forcing_from_mean(model, *mf),
+                                   mesh), 1)
+        finally:
+            halo.qgstep = real
+        gen = torch.Generator(device=dev).manual_seed(20 + rank)
+        checks = []
+        for args, kw, launched in calls:
+            leaves = [a.detach().clone().requires_grad_()
+                      if torch.is_tensor(a) else a for a in args]
+            xs = [a for a in leaves if torch.is_tensor(a)]
+            got = qgstep(*leaves, **kw)
+            plain = window_reference(*leaves, **kw)
+            scale = plain.detach().abs().max().clamp_min(1e-300)
+            fwd_err = max(((o.detach() - plain.detach()).abs().max()
+                           / scale).item() for o in (launched, got))
+            w = torch.randn(got.shape, generator=gen, device=dev,
+                            dtype=got.dtype)
+            rule = type(got.grad_fn).__name__
+            g_rule = torch.autograd.grad((got * w).sum(), xs)
+            g_plain = torch.autograd.grad((plain * w).sum(), xs)
+            err = max(((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-300)).item() for a, b in zip(g_rule, g_plain))
+            checks.append(dict(shape=list(args[0].shape), out=list(got.shape),
+                               x_ext=kw.get("x_ext", False), rule=rule,
+                               fwd_err=fwd_err, err=err))
+        res["windows"] = checks
+        out.append(res)
+        del sb
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_adjoint_mesh(card, device):
+    """The distributed adjoint in MESH_RANKS ranks (mesh_backend):
+    double_gyre_ocean_only at full width in float64 from an eddy under
+    the double-gyre wind, layer1_energy_proxy, 10 substeps, remat=True,
+    'overlap' on 4x1 rows and on 2x2, each against the single-device
+    adjoint on the card from the same state (the value, the three
+    forcing gradients and state0.po's, gathered, within
+    ADJOINT_MESH_TOL of each field's maximum); every rank's block of
+    d/dpo nonzero and within the bar of the single-device block; the
+    rows run's directional derivative along tauxo against a central
+    finite difference (FD_RTOL); each rank's window launches of a
+    further substep, their outputs, direct and through the kernel's
+    rule, against window_reference's (F64_TOL, phase 2's bar) and their
+    gradients through the rule against autograd through window_reference
+    (ADJOINT_TOL; an identity that shows the rule is taken). Returns (the
+    kernels line's launch counts by mode, the paths' entries)."""
+    import shutil
+    from pathlib import Path
+    from qgcm_torch.adjoint import layer1_energy_proxy, ocean_sensitivity
+    from qgcm_torch.config import double_gyre_ocean_only
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parent
+    work = root / MESH20_WORKDIR
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "ranks").mkdir(parents=True)
+    model, st, mf = adjoint_case(double_gyre_ocean_only, device)
+    obj = layer1_energy_proxy(model)
+    n = ADJOINT_MESH_STEPS
+    timed_sensitivity(model, obj, st, mf, 2, remat=True)      # warm-up
+    val, g, stats = timed_sensitivity(model, obj, st, mf, n, remat=True)
+    print(f"  single device: value {float(val):.12e}; forward "
+          f"{stats['fwd_ms']:.2f}, backward {stats['bwd_ms']:.2f} ms/substep; "
+          f"peak {stats['peak_gb']:.3f} GB [{card}]")
+    want_po = g.state0.po.cpu()
+    want_f = [a.cpu() for a in g.forcing]
+    file = work / "state.pt"
+    torch.save(dict(state=to_host(st), mean_forcing=[a.cpu() for a in mf]),
+               file)
+    cfg = model.cfg
+    del model, st, g
+    torch.cuda.empty_cache()
+    backend, label = mesh_backend()
+    t0 = time.perf_counter()
+    results = spawn_ranks(_adjoint_mesh_rank, MESH_RANKS, str(file),
+                          list(ADJOINT_MESHES), n, backend=backend,
+                          workdir=work / "ranks", timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths = []
+    tauxo = mf[0].cpu()
+    for i, shape in enumerate(ADJOINT_MESHES):
+        per_rank = [r[i] for r in results]
+        r0 = per_rank[0]
+        mesh_s = f"{shape[0]}x{shape[1]}"
+        mode = "rows" if shape[1] == 1 else "x_ext"
+        errs = {"value": abs(r0["value"] - float(val)) / abs(float(val)),
+                "d/dpo": grad_ratio(r0["po"], want_po)}
+        for name, a, b in zip(("tauxo", "tauyo", "fnetoc"), r0["forcing"],
+                              want_f):
+            errs[f"d/d{name}"] = grad_ratio(a, b)
+        same = all(p["value"] == r0["value"]
+                   and p["forcing_fp"] == r0["forcing_fp"]
+                   for p in per_rank[1:])
+        # each rank's block of the single-device d/dpo
+        by, bx = -(-cfg.nypo // shape[0]), -(-cfg.nxpo // shape[1])
+        blocks = []
+        for k, p in enumerate(per_rank):
+            iy, ix = divmod(k, shape[1])
+            sl = (..., slice(iy * by, (iy + 1) * by),
+                  slice(ix * bx, (ix + 1) * bx))
+            blocks.append((p["block_max"],
+                           grad_ratio(r0["po"][sl], want_po[sl],
+                                      want_po.abs().max().item())))
+        fwd = {m: sum(p["fwd_launches"][m] for p in per_rank)
+               for m in totals}
+        alls = {m: sum(p["all_launches"][m] for p in per_rank)
+                for m in totals}
+        for m in totals:
+            totals[m] += alls[m]
+        print(f"  {mesh_s} overlap, remat=True, {n} substeps: vs the "
+              f"single device (max|diff|/max) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bar {ADJOINT_MESH_TOL:g}); value and forcing gradients "
+              f"the same bits on every rank: {same}")
+        print("    each rank's block of d/dpo: max "
+              + ", ".join(f"{m:.3e}" for m, _ in blocks)
+              + "; vs the single-device block (of its max) "
+              + ", ".join(f"{e:.3e}" for _, e in blocks))
+        print(f"    {mode} launches (all ranks): forward {fwd[mode]}, with "
+              f"the backward's recomputation {alls[mode]}; per rank: forward "
+              + ", ".join(f"{p['fwd_ms']:.2f}" for p in per_rank)
+              + " ms/substep, backward "
+              + ", ".join(f"{p['bwd_ms']:.2f}" for p in per_rank)
+              + f" ms/substep; staged {r0['fwd_mb']:.3f} MB forward, "
+              f"{r0['bwd_mb']:.3f} MB backward a rank-substep (rank 0); peak "
+              + ", ".join(f"{p['peak_gb']:.3f}" for p in per_rank)
+              + f" GB -- {label} [{card}]")
+        print(f"    rank 0's collectives: {r0['counts']}")
+        windows = [w for p in per_rank for w in p["windows"]]
+        worst_w = max(w["err"] for w in windows)
+        worst_f = max(w["fwd_err"] for w in windows)
+        rules = sorted({w["rule"] for w in windows})
+        print(f"    {len(windows)} window launches of a substep (all ranks) "
+              f"through {rules}: output (direct and through the rule) vs "
+              f"window_reference, worst {worst_f:.3e} of max|q| (bar "
+              f"{F64_TOL:g}); gradient vs autograd through "
+              f"window_reference (the rule's backward is its VJP), worst "
+              f"{worst_w:.3e} of max|grad| (bar {ADJOINT_TOL:g}); shapes of "
+              f"rank 0's "
+              + ", ".join(f"{w['shape']}->{w['out']}"
+                          for w in per_rank[0]["windows"]))
+        entry = dict(path=f"distributed adjoint {mesh_s} overlap float64 "
+                     f"remat=True", launches=alls, forward_launches=fwd,
+                     rel_err=max(errs.values()),
+                     fwd_ms_per_rank_substep=r0["fwd_ms"],
+                     bwd_ms_per_rank_substep=r0["bwd_ms"],
+                     staged_mb_fwd=r0["fwd_mb"], staged_mb_bwd=r0["bwd_mb"],
+                     peak_gb=[p["peak_gb"] for p in per_rank],
+                     rule_fwd_err=worst_f, rule_max_err=worst_w)
+        if "fd" in r0:
+            adj = float((r0["forcing"][0] * tauxo).sum())
+            fd_rel = abs(adj - r0["fd"]) / abs(r0["fd"])
+            print(f"    d/da L(a tauxo): adjoint {adj:.12e}, central "
+                  f"difference {r0['fd']:.12e}, rel {fd_rel:.3e} (bar "
+                  f"{FD_RTOL:g})")
+            entry["fd_rel"] = fd_rel
+            if not (r0["fd"] != 0 and fd_rel <= FD_RTOL):
+                raise AssertionError(f"the distributed adjoint on {mesh_s} "
+                                     "misses its finite difference")
+        paths.append(entry)
+        per_step = 3 if mode == "rows" else 5
+        if not (max(errs.values()) <= ADJOINT_MESH_TOL and same
+                and all(m > 0 and e <= ADJOINT_MESH_TOL for m, e in blocks)):
+            raise AssertionError(f"the distributed adjoint on {mesh_s} misses "
+                                 "the single-device adjoint")
+        if (fwd[mode] != per_step * n * MESH_RANKS
+                or alls[mode] != 2 * fwd[mode]
+                or any(v for m, v in alls.items() if m != mode)):
+            raise AssertionError(f"the distributed adjoint on {mesh_s}: "
+                                 f"launches {fwd} forward, {alls} in all")
+        if not (worst_f <= F64_TOL and worst_w <= ADJOINT_TOL
+                and rules == ["_WindowBackward"]
+                and len(per_rank[0]["windows"]) == per_step):
+            raise AssertionError("a window launch through the kernel's rule "
+                                 "misses window_reference")
+    return totals, paths
+
+
+def grad_ratio(a, b, scale=None) -> float:
+    """max|a - b| over max|b| (or `scale`) of two host tensors."""
+    s = b.abs().max().item() if scale is None else scale
+    return (a - b).abs().max().item() / s if s else (a - b).abs().max().item()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -3470,6 +3787,12 @@ def main() -> int:
     for mode in totals:
         totals[mode] += totals19[mode]
     mesh_paths += mesh_paths19
+    with phase(f"[20] the distributed adjoint: double_gyre_ocean_only "
+               f"float64 on 4x1 and 2x2, {mesh_backend()[1]}"):
+        totals20, mesh_paths20 = phase_adjoint_mesh(card, device)
+    for mode in totals:
+        totals[mode] += totals20[mode]
+    mesh_paths += mesh_paths20
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",

@@ -18,6 +18,17 @@ the card.
     sens = ocean_sensitivity(model, layer1_energy_proxy(model))
     val, grads = sens(state0, (tauxo, tauyo, fnetoc), n_steps=1200)
     dL_dtaux = grads.forcing[0]   # (nypo, nxpo)
+
+Distributed (`mesh`, `halo_variant`): every rank differentiates its
+blocks' run through the mesh runner; the collectives' and the window
+kernel's autograd rules (parallel/mesh.py, ops/qgstep.py) carry the
+cotangents between the ranks, as XLA transposes qgcm_tpu's collectives.
+
+    with distributed_session("gloo"):
+        mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        sens = ocean_sensitivity(model, obj, mesh=mesh,
+                                 halo_variant="overlap")
+        val, grads = sens(shard_tree(state0, mesh), mean_forcing, n)
 """
 
 from __future__ import annotations
@@ -29,7 +40,11 @@ import torch
 from .model import Model
 from .models.ocean import _as_field, ocean_forcing_from_mean
 from .models.stepper import make_ocean_only_runner
+from .parallel.mesh import gather_tree, replicated, shard_tree, zero_padding
 from .state import OceanState
+
+# the collective call site of the gradients' one all_reduce (Mesh.counts)
+SUMS = "adjoint.sums"
 
 
 class OceanSensitivity(NamedTuple):
@@ -79,39 +94,75 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
     ocean_forcing_from_mean, so dL/dtauxo includes the Ekman velocity,
     curl and boundary stress-integral (txis/txin) pathways.
 
-    qgcm_tpu's distributed adjoint (mesh, halo_variant) is not ported
-    and raises."""
-    if mesh is not None or halo_variant is not None:
-        raise NotImplementedError(
-            "the distributed adjoint is not ported; see the multi-GPU "
-            "items of ROADMAP.md")
-    run = make_ocean_only_runner(model, remat=remat)
+    mesh, halo_variant: the distributed adjoint (qgcm_tpu/adjoint.py:
+    41-98), through make_ocean_only_runner(model, mesh, halo_variant,
+    'a2a', remat): a rows mesh, or for a box any (y, x) mesh, made for
+    the ocean's p-grid. state0 is then this rank's blocks
+    (parallel/mesh.shard_tree) and the mean forcing the whole fields on
+    every rank; the forcing is derived from them whole and sharded. The
+    final state is gathered, so `loss` sees the whole OceanState on every
+    rank; its cotangent is seeded on rank 0 alone (parallel/mesh.py's
+    convention for a value every rank computes the same). The value
+    comes out the same on every rank; the gradient of state0 as this
+    rank's blocks, zero on their padding; the gradients of the
+    replicated leaves of state0 (its scalars and mode vectors) and of
+    the forcing summed over the ranks by one all_reduce, the same bits
+    on every rank. segment_steps chains blocks: each rank keeps its
+    blocks' segment starts. A mesh without halo_variant is qgcm_tpu's
+    GSPMD partitioning, which has no PyTorch counterpart: it raises
+    (ValueError); without a mesh halo_variant is not read."""
+    run = make_ocean_only_runner(
+        model, mesh=mesh, halo_variant=halo_variant,
+        spectral_variant=None if mesh is None else "a2a", remat=remat)
+
+    def forcing(mean_forcing):
+        f = ocean_forcing_from_mean(model, *mean_forcing)
+        return f if mesh is None else shard_tree(f, mesh)
 
     def value_and_grad(state0, mean_forcing, n_steps, step0, cot=None):
         """(loss, d/d state0, d/d forcing) of one program; with `cot` the
-        cotangent of the final state replaces the loss (value None)."""
+        cotangent of the final state replaces the loss (value None). On
+        a mesh the gradients of replicated inputs are this rank's
+        parts."""
         with torch.enable_grad():
             s0 = OceanState(*_leaves(state0))
             mf = _leaves(_as_field(model, x) for x in mean_forcing)
-            st = run(s0, ocean_forcing_from_mean(model, *mf), n_steps,
-                     step0)
+            st = run(s0, forcing(mf), n_steps, step0)
             if cot is None:
-                val = loss(st)
-                g = _grads([val], [*s0, *mf])
+                val = loss(st if mesh is None else gather_tree(st, mesh))
+                seed = (None if mesh is None else
+                        [torch.ones_like(val) if mesh.rank == 0
+                         else torch.zeros_like(val)])
+                g = _grads([val], [*s0, *mf], seed)
                 val = val.detach()
             else:
                 val = None
                 g = _grads(list(st), [*s0, *mf], list(cot))
         return val, OceanState(*g[:len(s0)]), tuple(g[len(s0):])
 
-    def fn(state0, mean_forcing, n_steps: int, step0: int = 0):
-        val, gs, gf = value_and_grad(state0, mean_forcing, n_steps, step0)
+    def result(val, gs, gf):
+        """The OceanSensitivity: on a mesh the replicated gradients summed
+        over the ranks (one all_reduce) and the blocks' padding zero."""
+        if mesh is not None:
+            rep = [k for k, v in gs._asdict().items() if replicated(v)]
+            parts = [getattr(gs, k) for k in rep] + list(gf)
+            tot = mesh.all_reduce(torch.cat([t.reshape(-1) for t in parts]),
+                                  SUMS)
+            sums = [v.view_as(t) for v, t in zip(
+                tot.split([t.numel() for t in parts]), parts)]
+            gs = zero_padding(gs._replace(**dict(zip(rep, sums))), mesh)
+            gf = tuple(sums[len(rep):])
         return val, OceanSensitivity(state0=gs, forcing=gf)
+
+    def fn(state0, mean_forcing, n_steps: int, step0: int = 0):
+        return result(*value_and_grad(state0, mean_forcing, n_steps, step0))
 
     if not segment_steps:
         return fn
 
-    plain = make_ocean_only_runner(model)
+    plain = make_ocean_only_runner(
+        model, mesh=mesh, halo_variant=halo_variant,
+        spectral_variant=None if mesh is None else "a2a")
 
     def to_host(st):
         return OceanState(*(torch.empty_like(
@@ -127,7 +178,7 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
                              f"segment_steps ({segment_steps})")
         k_segs = n_steps // segment_steps
         with torch.no_grad():
-            f = ocean_forcing_from_mean(model, *mean_forcing)
+            f = forcing(mean_forcing)
             starts = [to_host(state0)]
             st = state0
             for k in range(k_segs - 1):
@@ -141,7 +192,7 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
                 to_device(starts[k]), mean_forcing, segment_steps,
                 step0 + k * segment_steps, cot=cot)
             gmf = tuple(a + b for a, b in zip(gmf, gmf_k))
-        return val, OceanSensitivity(state0=cot, forcing=gmf)
+        return result(val, cot, gmf)
 
     return fn_seg
 

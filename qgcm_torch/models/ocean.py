@@ -588,6 +588,13 @@ class _Rows:
         else:
             self.p_true = self.tp_true = rows_p
             self.t_true = self.pt_true = rows_t
+        # wall_strips' rows: the block's index of each (0 where the block
+        # does not hold it) and whether the block holds it
+        held = [self.local(g) for g in (*range(_STRIP),
+                                        *range(self.nyp - _STRIP, self.nyp))]
+        self.strip_rows = torch.tensor([i or 0 for i in held], device=device)
+        self.strip_held = torch.tensor([i is not None for i in held],
+                                       device=device)[:, None]
 
     def local(self, g: int):
         """The block's index of global row g, or None."""
@@ -691,16 +698,12 @@ class _Rows:
         """(len, nl, 2*_STRIP, nx) every rank's copy of the global rows
         0 .. _STRIP-1 and nyp-_STRIP .. nyp-1 of the row-blocked (nl, n,
         nx) `fields`: each row from the block that holds it (the others
-        add zeros, so the sum is exact)."""
+        add zeros, so the sum is exact). Every rank's share is made from
+        `fields`, one that holds no strip row too, so that autograd
+        records the all_reduce on every rank alike (parallel/mesh.py)."""
         stack = torch.stack(fields)
-        out = stack.new_zeros(stack.shape[:2] + (2 * _STRIP,)
-                              + stack.shape[-1:])
-        want = list(range(_STRIP)) + list(range(self.nyp - _STRIP,
-                                                self.nyp))
-        for k, g in enumerate(want):
-            i = self.local(g)
-            if i is not None:
-                out[:, :, k] = stack[:, :, i]
+        out = torch.where(self.strip_held,
+                          stack.index_select(2, self.strip_rows), 0.0)
         return self.mesh.all_reduce(out, WALLS)
 
 
@@ -1046,16 +1049,18 @@ def _ekman_rows(model: Model, rows, tauxo, tauyo, fnetoc, wekto):
         wekto = F.pad(wekto, (1, 1))
     xp = _t_ghosts(rows, wekto, 1)
     wekpo = 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
-    zero = tauxo.new_zeros(())
-    txis = txin = zero
+    txis = txin = tauxo.new_zeros(())
     if cfg.cyclic_ocean:
-        # the stresses' row i is global row r0 - 1 + i
+        # the stresses' row i is global row r0 - 1 + i; a block that holds
+        # no wall still makes its zero share from tauxo, so that autograd
+        # records the all_reduce on every rank alike (parallel/mesh.py)
         s, nth = rows.local(0), rows.local(rows.nyp - 1)
-        walls = torch.stack([
-            0.5 * dxo * line_sum(tauxo[1, :] + tauxo[2, :])
-            if s is not None else zero,
-            0.5 * dxo * line_sum(tauxo[nth, :] + tauxo[nth + 1, :])
-            if nth is not None else zero])
+        held = torch.tensor([s is not None, nth is not None],
+                            device=tauxo.device)
+        i = nth or 0
+        walls = torch.where(held, 0.5 * dxo * torch.stack([
+            line_sum(tauxo[1, :] + tauxo[2, :]),
+            line_sum(tauxo[i, :] + tauxo[i + 1, :])]), 0.0)
         txis, txin = rows.mesh.all_reduce(walls, FORCING_WALLS)
     return OceanForcing(
         tauxo=torch.where(rows.p_true, rows.inner(tauxo), 0.0),

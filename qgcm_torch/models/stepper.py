@@ -25,7 +25,8 @@ import functools
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from ..model import Model
 from ..state import AtmosState, OceanState, OceanForcing
@@ -44,7 +45,9 @@ REMAT_LEVEL = 16
 # remat="dots" keeps the outputs of these operators, the matrix products
 # and FFTs of the spectral solves, and recomputes the rest: the
 # counterpart of qgcm_tpu's dots_saveable policy, which keeps the MXU
-# products.
+# products. On a mesh the rest includes the collectives (the c10d ops)
+# and their staging copies: a recomputation replays them, as it replays
+# the ranks' other collectives.
 _DOTS = frozenset(getattr(torch.ops.aten, name) for name in (
     "mm", "bmm", "addmm", "baddbmm", "_fft_r2c", "_fft_c2r", "_fft_c2c"))
 
@@ -54,23 +57,32 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _checkpointed(fn, dots: bool = False):
+def _checkpointed(fn, dots: bool = False, whole: bool = False):
     """fn under non-reentrant checkpointing (which nests); with `dots`
-    the products and FFTs are saved (_DOTS)."""
+    the products and FFTs are saved (_DOTS). `whole`: a recomputation
+    replays all of fn, not only as far as the last tensor the backward
+    needs (the early stop), so that every rank of a mesh replays every
+    collective of fn whatever its own last saved tensor."""
     kw = {}
     if dots:
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return lambda carry: checkpoint(fn, carry, use_reentrant=False, **kw)
+
+    def run(carry):
+        with set_checkpoint_early_stop(not whole):
+            return checkpoint(fn, carry, use_reentrant=False, **kw)
+    return run
 
 
-def remat_loop(body, carry, length: int, remat=False):
+def remat_loop(body, carry, length: int, remat=False, whole: bool = False):
     """`length` calls carry = body(carry), checkpointed as qgcm_tpu's
     _remat_scan nests its scans (stepper.py:93-122). remat False: plain.
     True, "dots" or an int >= 2 (the per-level fan-out, else
     REMAT_LEVEL): each call of body is checkpointed ("dots": saving the
     products and FFTs), and runs longer than a level are cut into
-    checkpointed chunks of `level` units, recursively."""
+    checkpointed chunks of `level` units, recursively. `whole`: every
+    recomputation replays its whole chunk (_checkpointed), as a mesh
+    runner's ranks need."""
     if not remat:
         for _ in range(length):
             carry = body(carry)
@@ -87,12 +99,12 @@ def remat_loop(body, carry, length: int, remat=False):
                     c = fn(c)
                 return c
 
-            carry = run(_checkpointed(chunk), carry, chunks)
+            carry = run(_checkpointed(chunk, whole=whole), carry, chunks)
         for _ in range(n):
             carry = fn(carry)
         return carry
 
-    return run(_checkpointed(body, remat == "dots"), carry, length)
+    return run(_checkpointed(body, remat == "dots", whole), carry, length)
 
 
 def average_ocean_levels(st: OceanState) -> OceanState:
@@ -121,18 +133,14 @@ def average_atmos_levels(st: AtmosState) -> AtmosState:
     )
 
 
-def _check_mesh(mesh, halo_variant, spectral_variant, remat=False):
+def _check_mesh(mesh, halo_variant, spectral_variant):
     """A mesh run's two variants, as the port takes them: halo_variant
     'staged', 'deep' or 'overlap' (parallel/halo.py) and
     spectral_variant 'a2a' (parallel/spectral.py). Without them a mesh
     run is qgcm_tpu's automatic GSPMD partitioning, which has no
-    PyTorch counterpart: it raises, and so does a mesh runner's remat
-    (the distributed adjoint is not ported)."""
+    PyTorch counterpart: it raises."""
     if mesh is None:
         return
-    if remat:
-        raise ValueError("a mesh runner takes no remat: the distributed "
-                         "adjoint is not ported")
     if halo_variant is None or spectral_variant != "a2a":
         raise ValueError(
             "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
@@ -235,8 +243,10 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
 
     remat (remat_loop): False stores every step for a backward pass;
     True, "dots" or an int checkpoints pairs of substeps, as qgcm_tpu's
-    scan body is a pair. A mesh runner takes no remat."""
-    _check_mesh(mesh, halo_variant, spectral_variant, remat)
+    scan body is a pair. On a mesh every rank recomputes its blocks'
+    pairs, replaying their collectives in the forward's order (the
+    backward's own collectives are the rules of parallel/mesh.py)."""
+    _check_mesh(mesh, halo_variant, spectral_variant)
     head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
     nstr = model.cfg.nstr
 
@@ -254,7 +264,8 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
                 state = one(state, n)
             return state
         pairs, rem = divmod(n_steps, 2)
-        state, n = remat_loop(pair, (state, step0), pairs, remat)
+        state, n = remat_loop(pair, (state, step0), pairs, remat,
+                              whole=mesh is not None)
         return one(state, n) if rem else state
 
     return run
@@ -317,9 +328,14 @@ def make_coupled_runner(model: Model, remat=False, mesh=None,
     and the atmosphere is whole on every rank: its forcing comes out of
     xforc's all_reduce the same bits on every rank, so every rank's
     atmosphere stays the same bits. halo_variant and
-    spectral_variant='a2a' are the ocean-only mesh runner's; a mesh
-    runner takes no remat."""
-    _check_mesh(mesh, halo_variant, spectral_variant, remat)
+    spectral_variant='a2a' are the ocean-only mesh runner's. A mesh
+    runner takes no remat: the coupled model's distributed adjoint is
+    not ported (it comes after the atmosphere on row blocks)."""
+    _check_mesh(mesh, halo_variant, spectral_variant)
+    if mesh is not None and remat:
+        raise ValueError("a coupled mesh runner takes no remat: the coupled "
+                         "model's distributed adjoint is not ported (see "
+                         "ROADMAP.md)")
     head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
     segment = make_atmos_segment(model)
     nstr = model.cfg.nstr

@@ -633,13 +633,13 @@ def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
     mode: C = W, the grid's whole width. x_ext (box only): W = C + 6
     with 3 real ghost columns each side, the core's column 0 at global
     column `col0` of a grid `nx_total` wide (columns beyond are
-    padding)."""
+    padding). A window goes through step_window, and through its rules
+    (_Window) where autograd or a transform sees the call."""
     if row0 is None:
         if x_ext or ny_total is not None or nx_total is not None or col0:
             raise ValueError("window arguments need row0")
         return _full(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
                      ah4, cyclic, sponge)
-    mode = "x_ext" if x_ext else "rows"
     if x_ext and cyclic:
         raise ValueError("x_ext windows are for the box only")
     if ny_total is None:
@@ -657,16 +657,84 @@ def qgstep(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, *,
     _check(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4, sponge,
            window)
     _device_ok(pom)
+    where = _Where(bool(cyclic), bool(sponge), int(row0), int(ny_total),
+                   int(col0), int(nx_total), bool(x_ext))
+    args = (pom, po, qo, qom, wekpo, entoc, r_spl if sponge else None,
+            [float(c) for c in consts], [float(a) for a in ah2],
+            [float(a) for a in ah4], where)
+    step = _Window.apply if _seen(args[:N_INPUTS]) else step_window
+    return step(*args)
+
+
+class _Where(NamedTuple):
+    """Where a window lies (qgstep's window arguments), and the step's
+    two switches."""
+    cyclic: bool
+    sponge: bool
+    row0: int
+    ny_total: int
+    col0: int
+    nx_total: int
+    x_ext: bool
+
+
+def _window_plain(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                  where):
+    return window_reference(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
+                            ah2, ah4, cyclic=where.cyclic,
+                            sponge=where.sponge, row0=where.row0,
+                            ny_total=where.ny_total, col0=where.col0,
+                            nx_total=where.nx_total, x_ext=where.x_ext)
+
+
+def step_window(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                where):
+    """A window's step: on CUDA one launch of the kernel in the row or
+    x_ext mode, on the CPU window_reference."""
     if pom.device.type == "cpu":
-        return window_reference(pom, po, qo, qom, wekpo, entoc, r_spl,
-                                consts, ah2, ah4, cyclic=cyclic,
-                                sponge=sponge, row0=row0, ny_total=ny_total,
-                                col0=col0, nx_total=nx_total, x_ext=x_ext)
-    inputs = [t.unsqueeze(0) if t is not None else None
-              for t in (pom, po, qo, qom, wekpo, entoc,
-                        r_spl if sponge else None)]
-    return _launch(inputs, consts, ah2, ah4, cyclic, sponge, mode, window,
-                   row0, ny_total, col0, nx_total, x_ext)[0]
+        return _window_plain(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
+                             ah2, ah4, where)
+    rows = pom.shape[1] - 2 * HALO
+    window = (rows, pom.shape[2] - (2 * HALO if where.x_ext else 0))
+    inputs = [None if t is None else t.unsqueeze(0)
+              for t in (pom, po, qo, qom, wekpo, entoc, r_spl)]
+    return _launch(inputs, consts, ah2, ah4, where.cyclic, where.sponge,
+                   "x_ext" if where.x_ext else "rows", window, where.row0,
+                   where.ny_total, where.col0, where.nx_total,
+                   where.x_ext)[0]
+
+
+class _Window(torch.autograd.Function):
+    """step_window with its reverse-mode rule, as _Step is the full
+    field's: the forward is the kernel on the card (window_reference on
+    the CPU); the gradient is window_reference's VJP, recomputed from the
+    saved inputs. A window's padding rows and columns (at or beyond
+    ny_total / nx_total) come out zero, so their cotangents reach no
+    input, and the inputs' padding gets none. Windows run only in the
+    mesh runners, whose collectives have no forward-mode or vmap rules,
+    so neither has this one: under those transforms it raises."""
+
+    @staticmethod
+    def forward(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
+                where):
+        return step_window(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
+                           ah2, ah4, where)
+
+    setup_context = staticmethod(_Step.setup_context)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        primals = [t for t in saved if t is not None]
+        sponge_in = saved[-1] is not None
+
+        def fn(*xs):
+            return _window_plain(*xs[:6], xs[6] if sponge_in else None,
+                                 *ctx.rest)
+        grads = list(torch.func.vjp(fn, *primals)[1](grad))
+        if len(grads) < N_INPUTS:
+            grads.append(None)
+        return (*grads, *(None,) * len(ctx.rest))
 
 
 def _device_ok(pom):

@@ -35,6 +35,32 @@ each direction, as qgcm_tpu's collective-permutes do. `staged_bytes`
 counts the bytes copied to and from the host for the collectives.
 qgcm_tpu's HLO census of collectives (parallel/inspect.py) has no
 counterpart here; these counts take its place.
+
+Autograd sees through every collective (the distributed adjoint,
+adjoint.py), where it records one: an input that requires grad under
+grad mode. The rules take one convention for a tensor every rank holds
+the same (a replicated tensor): the cotangent a rank holds of it is
+that rank's part, and its whole cotangent is the sum over the ranks.
+So the backward of `all_reduce` is the all_reduce of the cotangent;
+that of `all_to_all` the same all_to_all (with equal chunks its own
+transpose); that of `all_gather` (and of `gather`) the sum over the
+ranks of each rank's cotangent of this rank's chunk, one all_to_all;
+that of an exchange of ghosts a reverse exchange, each neighbour adding
+the ghosts' cotangent to that of the rows or columns it sent (the walls
+received zeros and send nothing back). A value every rank computes the
+same from replicated inputs (a loss of a gathered state) is therefore
+differentiated with its cotangent seeded on one rank, and the gradient
+of a replicated input is the all_reduce of its ranks' gradients
+(adjoint.py does both). The backward's collectives are counted under
+the site's name with ".T" appended. Each rule's backward first unpacks
+what its forward saved, so that a checkpointed region is recomputed
+(its forward collectives replayed) before any of its backward
+collectives, on every rank alike. Each rank decides by its own input
+whether a collective takes its rule, so a call site must make that
+input from the differentiated values on every rank, a rank whose share
+is zeros too (torch.where on what it holds, not a fresh zero tensor):
+else the ranks that record issue a backward collective that the others
+never match.
 """
 
 from __future__ import annotations
@@ -129,6 +155,11 @@ class Mesh:
     # -- collectives ------------------------------------------------
     def all_reduce(self, t: torch.Tensor, site: str) -> torch.Tensor:
         """The sum of t over the ranks (a new tensor)."""
+        if _records(t):
+            return _AllReduce.apply(t, self, site)
+        return self._all_reduce(t, site)
+
+    def _all_reduce(self, t: torch.Tensor, site: str) -> torch.Tensor:
         self.counts[site] += 1
         if self.size == 1:
             return t.clone()
@@ -157,6 +188,12 @@ class Mesh:
         of ranks along `axis` (axis_ranks): chunk k goes to the k-th of
         them, and chunk k of the result came from it. Along an axis of
         one rank it is no collective, and is not counted."""
+        if _records(t):
+            return _AllToAll.apply(t, self, site, axis)
+        return self._all_to_all(t, site, axis)
+
+    def _all_to_all(self, t: torch.Tensor, site: str,
+                    axis=None) -> torch.Tensor:
         peers = self.axis_ranks(axis)
         if axis is not None and len(peers) == 1:
             return t.clone()
@@ -178,6 +215,11 @@ class Mesh:
 
     def all_gather(self, t: torch.Tensor, site: str) -> list:
         """[t of rank 0, t of rank 1, ...]: every rank's t."""
+        if self.size > 1 and _records(t):
+            return list(_AllGather.apply(t, self, site))
+        return self._all_gather(t, site)
+
+    def _all_gather(self, t: torch.Tensor, site: str) -> list:
         self.counts[site] += 1
         if self.size == 1:
             return [t]
@@ -196,29 +238,36 @@ class Mesh:
         block's last h rows go north (to iy + 1), its first h rows south.
         Returns an Exchange whose wait() gives (south, north) ghosts, or
         (west, east) for 'x'; the ends of the domain receive zeros (the
-        wall convention, halo.py:33-35)."""
+        wall convention, halo.py:33-35). Under autograd the rule spans
+        the post and the wait (the ghosts come out of wait())."""
         self.counts[site] += 2
         dim = -2 if axis == "y" else -1
+        ex = self._post(f.narrow(dim, 0, h),
+                        f.narrow(dim, f.shape[dim] - h, h), axis, f)
+        if _records(f):
+            ex.rule = (self, f, axis, h, site)
+        return ex
+
+    def _post(self, lo: torch.Tensor, hi: torch.Tensor, axis: str,
+              like: torch.Tensor) -> "Exchange":
+        """Send lo to the neighbour below along `axis` and hi to the one
+        above, and post the receipt of theirs (of lo's shape)."""
         lo_peer = self._peer(-1, 0) if axis == "y" else self._peer(0, -1)
         hi_peer = self._peer(1, 0) if axis == "y" else self._peer(0, 1)
-        shape = list(f.shape)
-        shape[dim] = h
-        ops, recvs = [], {}
-        sends = []
-        for name, peer, part in (("lo", lo_peer, f.narrow(dim, 0, h)),
-                                 ("hi", hi_peer,
-                                  f.narrow(dim, f.shape[dim] - h, h))):
+        shape = list(lo.shape)
+        ops, recvs, sends = [], {}, []
+        for name, peer, part in (("lo", lo_peer, lo), ("hi", hi_peer, hi)):
             if peer is None:
                 continue
             s = self._host(part)
             sends.append(s)
-            recvs[name] = self._recv_buffer(f, shape)
+            recvs[name] = self._recv_buffer(like, shape)
             ops += [dist.P2POp(dist.isend, s, peer, self.group),
                     dist.P2POp(dist.irecv, recvs[name], peer, self.group)]
         if ops:
-            self._sync(f)
+            self._sync(like)
         works = dist.batch_isend_irecv(ops) if ops else []
-        return Exchange(works, recvs, sends, f, shape)
+        return Exchange(works, recvs, sends, like, shape)
 
 
 class Exchange:
@@ -227,10 +276,16 @@ class Exchange:
     def __init__(self, works, recvs, sends, like, shape):
         self._works, self._recvs, self._sends = works, recvs, sends
         self._like, self._shape = like, shape
+        self.rule = None
 
     def wait(self):
         """(lo, hi) ghosts on the block's device: (south, north) rows or
         (west, east) columns; zeros where there is no neighbour."""
+        if self.rule is not None:
+            return _Ghosts.apply(self.rule[1], self)
+        return self._finish()
+
+    def _finish(self):
         for w in self._works:
             w.wait()
         like = self._like
@@ -243,6 +298,99 @@ class Exchange:
                 out.append(r.to(like.device, non_blocking=True)
                            if r.device != like.device else r)
         return tuple(out)
+
+
+def _records(t: torch.Tensor) -> bool:
+    """Whether autograd records an operation on t (the collectives take
+    their rules only then: the forward-only path keeps its launches)."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    """Mesh.all_reduce under autograd: the backward is the all_reduce of
+    the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, site):
+        out = mesh._all_reduce(t, site)
+        ctx.mesh, ctx.site = mesh, site
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors       # a checkpointed region recomputes here
+        return ctx.mesh._all_reduce(g.contiguous(), ctx.site + ".T"), \
+            None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Mesh.all_to_all under autograd: chunk k went to the k-th rank, so
+    the cotangent of chunk k comes back from it by the same
+    all_to_all."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, site, axis):
+        out = mesh._all_to_all(t, site, axis)
+        ctx.mesh, ctx.site, ctx.axis = mesh, site, axis
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors
+        return ctx.mesh._all_to_all(g.contiguous(), ctx.site + ".T",
+                                    ctx.axis), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Mesh.all_gather under autograd: every rank holds a part of the
+    cotangent of each rank's chunk, and this rank's chunk takes the sum
+    of the parts, which one all_to_all brings together."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, site):
+        outs = mesh._all_gather(t, site)
+        ctx.mesh, ctx.site = mesh, site
+        ctx.save_for_backward(outs[mesh.rank])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors
+        parts = ctx.mesh._all_to_all(
+            torch.stack([g.contiguous() for g in grads]), ctx.site + ".T")
+        return parts.sum(0), None, None
+
+
+class _Ghosts(torch.autograd.Function):
+    """An Exchange's wait() under autograd: the ghosts as a function of
+    the block f. The backward sends each ghost's cotangent back to the
+    neighbour it came from, which adds it to the cotangent of the rows
+    (or columns) it sent; a blocking reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, f, ex):
+        mesh, _, axis, h, site = ex.rule
+        lo, hi = ex._finish()
+        ctx.mesh, ctx.axis, ctx.h, ctx.site = mesh, axis, h, site
+        ctx.shape = f.shape
+        ctx.save_for_backward(lo, hi)
+        return lo, hi
+
+    @staticmethod
+    def backward(ctx, g_lo, g_hi):
+        ctx.saved_tensors
+        mesh, h = ctx.mesh, ctx.h
+        mesh.counts[ctx.site + ".T"] += 2
+        back_lo, back_hi = mesh._post(g_lo.contiguous(), g_hi.contiguous(),
+                                      ctx.axis, g_lo)._finish()
+        dim = -2 if ctx.axis == "y" else -1
+        n = ctx.shape[dim]
+        g = g_lo.new_zeros(ctx.shape)
+        g.narrow(dim, 0, h).add_(back_lo)
+        g.narrow(dim, n - h, h).add_(back_hi)
+        return g, None
 
 
 def make_mesh(rows_only: bool = False, grid=None) -> Mesh:
@@ -329,13 +477,29 @@ def block_of(mesh: Mesh, ny: int, nx: int) -> Block:
     return Block(r0, mesh.by, rows, c0, mesh.bx, cols)
 
 
+def replicated(x) -> bool:
+    """Whether x is held whole by every rank and not in blocks: a tensor
+    of fewer than two dimensions (the state's scalars and mode vectors)
+    or a value that is not a tensor (a running mean's count)."""
+    return not torch.is_tensor(x) or x.dim() < 2
+
+
+def field_extent(x: torch.Tensor, mesh: Mesh, t_rows: bool = False,
+                 t_cols: bool = False):
+    """(ny, nx) of the whole field of which x is this rank's block:
+    t_rows / t_cols say whether its rows / columns are the T-grid's (one
+    fewer than the p-grid's); on a rows mesh a block has its field's own
+    columns."""
+    nyp, nxp = mesh.grid
+    return (nyp - 1 if t_rows else nyp,
+            x.shape[-1] if mesh.mx == 1 else nxp - 1 if t_cols else nxp)
+
+
 def shard(x: torch.Tensor, mesh: Mesh):
     """This rank's block of a full field (..., ny, nx), zero-padded to
-    (..., by, bx); contiguous. Tensors of fewer than two dimensions (the
-    state's scalars and mode vectors) are replicated: returned as they
-    are, and so are values that are not tensors (a running mean's
-    count)."""
-    if not torch.is_tensor(x) or x.dim() < 2:
+    (..., by, bx); contiguous. Replicated values are returned as they
+    are."""
+    if replicated(x):
         return x
     ny, nx = x.shape[-2:]
     b = block_of(mesh, ny, nx)
@@ -346,15 +510,11 @@ def shard(x: torch.Tensor, mesh: Mesh):
 def gather(x: torch.Tensor, mesh: Mesh, t_rows: bool = False,
            t_cols: bool = False, site: str = "gather"):
     """The full field from every rank's block (the inverse of shard), on
-    every rank: t_rows / t_cols say whether its rows / columns are the
-    T-grid's (one fewer than the p-grid's; on a rows mesh a block has
-    its field's own columns). Replicated tensors and values that are not
-    tensors are returned as they are."""
-    if not torch.is_tensor(x) or x.dim() < 2:
+    every rank: t_rows / t_cols as field_extent's. Replicated values are
+    returned as they are."""
+    if replicated(x):
         return x
-    nyp, nxp = mesh.grid
-    ny = nyp - 1 if t_rows else nyp
-    nx = x.shape[-1] if mesh.mx == 1 else nxp - 1 if t_cols else nxp
+    ny, nx = field_extent(x, mesh, t_rows, t_cols)
     parts = mesh.all_gather(x.contiguous(), site)
     rows = [torch.cat(parts[iy * mesh.mx:(iy + 1) * mesh.mx], dim=-1)
             for iy in range(mesh.my)]
@@ -376,3 +536,20 @@ def gather_tree(tree, mesh: Mesh):
     return type(tree)(**{k: gather(v, mesh, k in T_GRID_FIELDS,
                                    k in T_COL_FIELDS)
                          for k, v in tree._asdict().items()})
+
+
+def zero_padding(tree, mesh: Mesh):
+    """A NamedTuple of blocks (as shard_tree gives them) with each block's
+    padding, the rows and columns at or beyond its field's end, set to
+    zero; replicated values as they are."""
+
+    def one(k, x):
+        if replicated(x):
+            return x
+        ny, nx = field_extent(x, mesh, k in T_GRID_FIELDS, k in T_COL_FIELDS)
+        b = block_of(mesh, ny, nx)
+        out = torch.zeros_like(x)
+        out[..., :b.rows, :b.cols] = x[..., :b.rows, :b.cols]
+        return out
+
+    return type(tree)(**{k: one(k, v) for k, v in tree._asdict().items()})

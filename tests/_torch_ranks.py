@@ -408,3 +408,91 @@ def raising_rank(n_steps):
         raise RuntimeError("this rank fails")
     for _ in range(n_steps):
         mesh.all_reduce(torch.ones(1), "test")
+
+
+def adjoint_setup(kind):
+    """(model, state, mean forcing, objective) of a distributed-adjoint
+    case on the CPU in float64: the seeded state of small_cfg, the box
+    ('box') or the channel ('channel'), under the double-gyre wind, with
+    layer1_energy_proxy in the box and transport_proxy in the
+    channel."""
+    from qgcm_torch.adjoint import layer1_energy_proxy, transport_proxy
+    model, st, f = seeded_state(small_cfg(kind == "channel"))
+    obj = (transport_proxy if kind == "channel" else layer1_energy_proxy)
+    return model, st, (f.tauxo, f.tauyo, f.fnetoc), obj(model)
+
+
+def adjoint_rank(cases, steps, halo_cases=(), pair_cases=()):
+    """For each case (kind of adjoint_setup, mesh shape: 'rows' or (my,
+    mx), halo variant, remat, segment_steps): ocean_sensitivity on a mesh
+    of the ranks over `steps` substeps. Every rank returns the value and
+    the forcing gradients (which must be the same bits on every rank),
+    whether its state0 gradient's padding is zero, the collective counts
+    by site and qgstep's launches by mode; rank 0 adds the state0
+    gradient gathered whole. Then halo_grad_rank's `halo_cases`, and the
+    `pair_cases` on a rows mesh of a group of ranks 0 and 1 (the others
+    wait)."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = dict(adjoint=_adjoint_cases(cases, steps),
+               halo=halo_grad_rank(halo_cases))
+    if pair_cases:
+        pair = dist.new_group([0, 1])
+        if dist.get_rank() < 2:
+            out["pair"] = _adjoint_cases(pair_cases, steps, pair)
+    return out
+
+
+def _adjoint_cases(cases, steps, group=None):
+    from qgcm_torch.adjoint import ocean_sensitivity
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    out = []
+    for kind, shape, variant, remat, seg in cases:
+        model, st, mf, obj = adjoint_setup(kind)
+        cfg = model.cfg
+        mesh = (_grid_mesh(shape, (cfg.nypo, cfg.nxpo)) if group is None
+                else Mesh((2, 1), grid=(cfg.nypo, cfg.nxpo), group=group))
+        reset_launches()
+        val, g = ocean_sensitivity(model, obj, remat=remat,
+                                   segment_steps=seg, mesh=mesh,
+                                   halo_variant=variant)(
+            shard_tree(st, mesh), mf, steps)
+        res = dict(value=float(val), forcing=[a.numpy() for a in g.forcing],
+                   pad_zero=padding_zero(g.state0, mesh, cfg.nypo, cfg.nxpo),
+                   counts=dict(mesh.counts),
+                   launches=dict(qgstep.mode_launches))
+        full = numpy_fields(gather_tree(g.state0, mesh))
+        if mesh.rank == 0:
+            res["state0"] = full
+        out.append(res)
+    return out
+
+
+def halo_grad_rank(cases):
+    """For each case (cyclic, sponge, mesh shape, variant, nyaooc): the
+    gradient of sum(qgstep_halo(blocks) * weights) with respect to every
+    block input, gathered whole (rank 0), and the collective counts: the
+    schedules' exchanges, gathers and window launches under autograd."""
+    from qgcm_torch.parallel.halo import qgstep_halo
+    out = []
+    for cyclic, sponge, shape, variant, nyaooc in cases:
+        cfg = small_cfg(cyclic, sponge, nyaooc=nyaooc)
+        args = halo_args(cfg)
+        mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
+        blocks = [None if a is None else
+                  shard(a, mesh).requires_grad_() for a in args[:7]]
+        w = shard(halo_weights(cfg), mesh)
+        q = qgstep_halo(*blocks, *args[7:], cyclic=cyclic, sponge=sponge,
+                        mesh=mesh, variant=variant)
+        grads = torch.autograd.grad((q * w).sum(),
+                                    [b for b in blocks if b is not None])
+        full = [gather(g, mesh, site="test").numpy() for g in grads]
+        out.append(dict(grads=full, counts=dict(mesh.counts)))
+    return out if torch.distributed.get_rank() == 0 else None
+
+
+def halo_weights(cfg):
+    """Seeded weights of the output of a vorticity step."""
+    rng = np.random.default_rng(7)
+    return torch.from_numpy(rng.standard_normal((cfg.nlo, cfg.nypo,
+                                                 cfg.nxpo)))

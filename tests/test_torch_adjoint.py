@@ -10,8 +10,8 @@ difference at rel 1e-6 (qgcm_tpu's bar); reverse against forward mode
 and host-level segments equal to the stored gradient at 1e-12 of each
 field's max (the same arithmetic recomputed, qgcm_tpu's bar); the
 coupled runner with remat against a finite difference at rel 1e-5
-(qgcm_tpu's bar); and the fused step's gradient rule against
-torch.autograd.gradcheck."""
+(qgcm_tpu's bar); the fused step's gradient rule against
+torch.autograd.gradcheck; and a mesh without a halo variant refused."""
 
 import jax
 import numpy as np
@@ -167,9 +167,14 @@ def test_segmented_adjoint_equals_one_program(stored):
 
 
 def test_distributed_adjoint_is_not_ported(stored):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ocean_sensitivity(stored[0], layer1_energy_proxy(stored[0]),
-                          mesh=object())
+    """qgcm_tpu's GSPMD form of the distributed adjoint (a mesh without
+    halo_variant) has no PyTorch counterpart and raises; the distributed
+    adjoint with a halo variant is tests/test_torch_parallel_adjoint.py's."""
+    from qgcm_torch.parallel.mesh import make_mesh
+    model = stored[0]
+    mesh = make_mesh(rows_only=True, grid=(model.cfg.nypo, model.cfg.nxpo))
+    with pytest.raises(ValueError, match="GSPMD"):
+        ocean_sensitivity(model, layer1_energy_proxy(model), mesh=mesh)
 
 
 def test_coupled_runner_differentiates_with_remat():

@@ -320,9 +320,9 @@ def test_2d_coupled_runner_matches_qgcm_tpu_and_single_device(spawned):
 def test_mesh_refusals():
     """What the coupled mesh paths refuse: qgcm_tpu's GSPMD choices
     (halo_variant None, spectral_variant other than 'a2a'), remat with a
-    mesh (the distributed adjoint is not ported), an atmosphere-only
-    model (the atmosphere on row blocks is not ported), a mesh made for
-    another grid and a channel's mesh with x > 1."""
+    mesh (the coupled model's distributed adjoint is not ported), an
+    atmosphere-only model (the atmosphere on row blocks is not ported), a
+    mesh made for another grid and a channel's mesh with x > 1."""
     model, _, _ = ranks.seeded_coupled("box")
     cfg = model.cfg
     mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))

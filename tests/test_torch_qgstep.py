@@ -6,7 +6,9 @@ On CPU tensors ops.qgstep runs its plain PyTorch version
 mode, at the bar the Pallas kernel meets (tests/test_pallas_qg.py):
 max|dq| <= 1e-12 max|q|, with qom bit-exact. The CUDA kernel itself is
 checked on the card (chip_smoke.py); here its launch geometry and its
-parameter block are checked against the kernel source."""
+parameter block are checked against the kernel source, and the window
+modes' autograd rule (_Window) against autograd through their plain
+version."""
 
 import re
 from pathlib import Path
@@ -21,9 +23,9 @@ from qgcm_torch.grids import build_grids
 from qgcm_torch.model import _sponge_ramp, build_model
 from qgcm_torch.models.ocean import _qgostep, qgstep_consts
 from qgcm_torch.ops import qgstep as qgstep_mod
-from qgcm_torch.ops.qgstep import (MAX_STRIP_H, MIN_STRIP_H, STRIP_W,
-                                   TILE_H, TILE_W, launch_geometry, qgstep,
-                                   qgstep_reference, window_geometry,
+from qgcm_torch.ops.qgstep import (HALO, MAX_STRIP_H, MIN_STRIP_H,
+                                   STRIP_W, TILE_H, TILE_W, launch_geometry,
+                                   qgstep, qgstep_reference, window_geometry,
                                    window_reference)
 
 from test_torch_cases import cfg_pair, jax_case, rel_err, to_port
@@ -315,3 +317,56 @@ def test_window_reference_matches_pallas_interpret(cyclic, sponge, x_ext):
         assert rel_err(got[:, :tr, :tc], want[:, :tr, :tc]) <= TOL, (r0, c0)
         assert not got[:, tr:].count_nonzero()
         assert not got[..., tc:].count_nonzero()
+
+
+def test_window_rule_matches_window_reference():
+    """The window modes' autograd rule (ops/qgstep.py::_Window: on the CPU
+    window_reference forward, its VJP recomputed in the backward) against
+    autograd through window_reference, on a ragged last block (two
+    padding rows, and in x_ext two padding columns), for a box row
+    window, a channel row window with the sponge and a box x_ext window
+    with the sponge: every input's gradient within 1e-12 of its maximum,
+    and zero on the padding."""
+    gen = torch.Generator().manual_seed(5)
+    nl, ny, nx = 2, 13, 11
+    for x_ext, cyclic, sponge in [(False, False, False), (False, True, True),
+                                  (True, False, True)]:
+        _check_window_rule(gen, nl, ny, nx, x_ext, cyclic, sponge)
+
+
+def _check_window_rule(gen, nl, ny, nx, x_ext, cyclic, sponge):
+    rows, cols = 6, (5 if x_ext else nx)
+    row0 = ny - rows + 2 - HALO           # core rows ny-4 .. ny+1
+    col0 = nx - cols + 2 if x_ext else 0  # core columns nx-3 .. nx+1
+    width = cols + (2 * HALO if x_ext else 0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+
+    inputs = [rnd(nl, rows + 2 * HALO, width) for _ in range(3)] + [
+        rnd(nl, rows, cols), rnd(rows, cols), rnd(rows, cols)] + (
+        [rnd(rows, cols)] if sponge else [])
+    consts = tuple((0.2 + torch.rand(11, generator=gen,
+                                     dtype=torch.float64)).tolist())
+    kw = dict(cyclic=cyclic, sponge=sponge, row0=row0, ny_total=ny,
+              col0=col0, nx_total=nx, x_ext=x_ext)
+    args = (*inputs, *([None] if not sponge else []), consts, (1.0, 2.0),
+            (0.5, 0.7))
+    out = qgstep(*args, **kw)
+    assert type(out.grad_fn).__name__ == "_WindowBackward"
+    w = torch.randn(out.shape, generator=gen, dtype=torch.float64)
+    got = torch.autograd.grad(out, inputs, w)
+    want = torch.autograd.grad(window_reference(*args, **kw), inputs, w)
+    core_pad = ny - (row0 + HALO)
+    case = (x_ext, cyclic, sponge)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-12 * float(
+            b.abs().max()), case
+    for i, a in enumerate(got):
+        lo = core_pad + (HALO if i < 3 else 0)
+        assert not a[..., lo:, :].any(), (case, i)
+        if x_ext:
+            clo = nx - col0 + (HALO if i < 3 else 0)
+            assert not a[..., clo:].any(), (case, i)
+
