@@ -2734,6 +2734,17 @@ MESH_DRIVER_CADENCES = dict(valday=0.25, dgnday=0.25, odiday=0.25,
 # the monit.nc series held against phase 10's single-device day at
 # RESUME_TOL (the others are printed): the energies of both fluids
 MESH_MONIT_HELD = ("kealoc", "kealat")
+# the atmosphere-only Driver(mesh): double_gyre_coupled's atmosphere at
+# full width in float64 over a prescribed SST (the radiative balance's
+# with seeded noise of ATMOS_SST_NOISE kelvin) from rest, for
+# ATMOS_DRIVER_DAYS with every atmosphere cadence on, on a rows mesh of
+# the ranks, against the single-device Driver on the card: the final
+# atmosphere within MESH_F64_TOL of each field's maximum
+ATMOS_DRIVER_DAYS = 0.05
+ATMOS_DRIVER_CADENCES = dict(valday=0.025, dgnday=0.025, adiday=0.025,
+                             prtday=0.05, resday=0.05, dtavat=0.025,
+                             name="rbal")
+ATMOS_SST_NOISE = 2.0
 # `ensemble --shard-members` on phase 10's case, float64, against the
 # command unsharded: every series of ensemble.nc within SHARD_TOL of its
 # maximum. A spread is the members' small difference (3.7e-4 m^2/s^2 in
@@ -2782,7 +2793,8 @@ def _coupled_mesh_rank(tasks):
     from qgcm_torch.models.ocean import init_ocean_state
     from qgcm_torch.models.stepper import make_coupled_runner
     from qgcm_torch.ops.qgstep import qgstep, reset_launches
-    from qgcm_torch.parallel.mesh import gather_tree, make_mesh, shard_tree
+    from qgcm_torch.parallel.mesh import (atmos_mesh, gather_tree, make_mesh,
+                                          shard_tree)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = dist.get_rank()
@@ -2791,6 +2803,10 @@ def _coupled_mesh_rank(tasks):
     out = []
     for task in tasks:
         res = dict(task=task["label"])
+        if task["kind"] == "driver":
+            out.append({**res, **_atmos_driver_rank(task, dev)})
+            torch.cuda.empty_cache()
+            continue
         if task["kind"] == "members":
             saved = torch.load(task["file"], weights_only=False)
             model = build_model(saved["cfg"], dev)
@@ -2829,9 +2845,11 @@ def _coupled_mesh_rank(tasks):
         nstr = cfg.nstr
         cycles, warm = task["cycles"], task["warm"]
         mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+        amesh = atmos_mesh(mesh, cfg)
         run = make_coupled_runner(model, mesh=mesh, halo_variant="overlap",
                                   spectral_variant="a2a")
-        ob, atb = run(shard_tree(oc, mesh), at, warm * nstr, step0=step0)
+        ob, atb = run(shard_tree(oc, mesh), shard_tree(at, amesh),
+                      warm * nstr, step0=step0)
         torch.cuda.synchronize()
         dist.barrier()
         reset_launches()
@@ -2847,8 +2865,17 @@ def _coupled_mesh_rank(tasks):
                                 qgstep.mode_launches.items()},
             counts={k: v / n for k, v in mesh.counts.items()},
             staged_mb=mesh.staged_bytes / n / 1e6,
-            host_ms=(time.perf_counter() - t0) * 1e3 / n,
-            atmos_fp={k: fingerprint(v) for k, v in atb._asdict().items()})
+            host_ms=(time.perf_counter() - t0) * 1e3 / n)
+        # the kernel launches of one more cycle, profiled (its result is
+        # not kept)
+        dist.barrier()
+        res["cycle_launches"] = kernel_launches(
+            lambda: run(ob, atb, nstr, step0=step0 + cycles * nstr))
+        # the atmosphere's row blocks put together on every rank, and its
+        # replicated leaves
+        atb = gather_tree(atb, amesh)
+        res["atmos_fp"] = {k: fingerprint(v) for k, v in
+                           atb._asdict().items()}
         full = gather_tree(ob, mesh)
         if rank == 0:
             ref_o, ref_a = make_coupled_runner(model)(oc, at, cycles * nstr,
@@ -2865,6 +2892,170 @@ def _coupled_mesh_rank(tasks):
         del model, oc, at, ob, atb, full
         torch.cuda.empty_cache()
     return out
+
+
+def atmos_driver_case(dev):
+    """(model, RunParams, sst_mean) of phase 18's atmosphere-only
+    Driver run."""
+    from qgcm_torch.config import double_gyre_coupled
+    from qgcm_torch.model import build_model
+    from qgcm_torch.params import RunParams
+    model = build_model(double_gyre_coupled(dtype="float64",
+                                            atmos_only=True), dev)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(18)
+    sst = (torch.as_tensor(model.rad.sstbar, device=dev)[:, None]
+           + ATMOS_SST_NOISE * torch.randn((cfg.nyto, cfg.nxto),
+                                           generator=gen, device=dev,
+                                           dtype=torch.float64))
+    params = RunParams(trun=ATMOS_DRIVER_DAYS / 365.0, dta=cfg.dta,
+                       nstr=cfg.nstr, **ATMOS_DRIVER_CADENCES)
+    return model, params, sst
+
+
+def _atmos_driver_rank(task, dev):
+    """Phase 18's atmosphere-only Driver(mesh) in one rank: the rank's
+    seconds, collectives and staged MB, whether it aborted; rank 0 adds
+    the final atmosphere (gathered by the Driver) on the host."""
+    import torch.distributed as dist
+    from qgcm_torch.parallel.mesh import make_mesh
+    from qgcm_torch.run import Driver
+    model, params, sst = atmos_driver_case(dev)
+    cfg = model.cfg
+    mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = Driver(model, params, task["outdir"], sst_mean=sst, mesh=mesh,
+                 verbose=False).run()
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, steps=res.steps_done,
+               aborted=res.aborted, counts=dict(mesh.counts),
+               staged_mb=mesh.staged_bytes / 1e6,
+               atmos_fp={k: fingerprint(v)
+                         for k, v in res.atmos._asdict().items()})
+    if dist.get_rank() == 0:
+        out["atmos"] = to_host(res.atmos)
+    return out
+
+
+def kernel_launches(fn) -> int:
+    """The card's kernel launches of fn() (memcpy and memset not
+    counted), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+# --rank-cycle: the coupled double gyre's rank-cycle in MESH_RANKS ranks,
+# cycles timed after one of warm-up, then one profiled
+RANK_CYCLES = 5
+
+
+def _rank_cycle_rank(cycles):
+    """One rank of rank_cycle: double_gyre_coupled in float32 from the
+    radiative balance under an ocean eddy on a rows mesh of the ranks,
+    the atmosphere on its row blocks where the checkout has them
+    (parallel/mesh.atmos_mesh), else whole on every rank. Returns the
+    rank's host ms and staged MB per cycle and the kernel launches of
+    one profiled cycle."""
+    import torch.distributed as dist
+    import qgcm_torch.parallel.mesh as pm
+    from qgcm_torch.config import double_gyre_coupled
+    from qgcm_torch.generators import eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ocean import init_ocean_state
+    from qgcm_torch.models.stepper import make_coupled_runner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.barrier()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_model(double_gyre_coupled(dtype="float32"), dev)
+    cfg = model.cfg
+    mesh = pm.make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    ob = pm.shard_tree(init_ocean_state(model, init="rbal", po=eddy_pressure(
+        cfg, ssh_amp=0.1)), mesh)
+    ab = init_atmos_state(model, init="rbal")
+    blocks = hasattr(pm, "atmos_mesh")
+    if blocks:
+        ab = pm.shard_tree(ab, pm.atmos_mesh(mesh, cfg))
+    run = make_coupled_runner(model, mesh=mesh, halo_variant="overlap",
+                              spectral_variant="a2a")
+    nstr = cfg.nstr
+    ob, ab = run(ob, ab, nstr)
+    torch.cuda.synchronize()
+    dist.barrier()
+    mesh.staged_bytes = 0
+    t0 = time.perf_counter()
+    ob, ab = run(ob, ab, cycles * nstr, step0=nstr)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / cycles
+    staged = mesh.staged_bytes / cycles / 1e6
+    dist.barrier()
+    launches = kernel_launches(
+        lambda: run(ob, ab, nstr, step0=(cycles + 1) * nstr))
+    return dict(blocks=blocks, host_ms=host_ms, staged_mb=staged,
+                launches=launches)
+
+
+def rank_cycle(card) -> dict:
+    """The coupled double gyre's rank-cycle (_rank_cycle_rank) in
+    MESH_RANKS ranks (mesh_backend) of this process's qgcm_torch: per
+    rank, host ms and MB staged a cycle over RANK_CYCLES cycles and the
+    kernel launches of a profiled cycle."""
+    from pathlib import Path
+    from qgcm_torch.parallel.launch import spawn_ranks
+    work = Path.cwd() / "build" / "qgcm_torch" / "rank_cycle"
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    backend, label = mesh_backend()
+    res = spawn_ranks(_rank_cycle_rank, MESH_RANKS, RANK_CYCLES,
+                      backend=backend, workdir=work, timeout=600)
+    return dict(blocks=res[0]["blocks"], label=label, card=card,
+                host_ms=[r["host_ms"] for r in res],
+                staged_mb=[r["staged_mb"] for r in res],
+                launches=[r["launches"] for r in res])
+
+
+def compare_rank_cycles(checkouts) -> int:
+    """rank_cycle of each checkout in turn, each in a process of its own
+    with that checkout's qgcm_torch and this file's code (copied under
+    the checkout's build/ as chip_smoke_probe, so that the spawned ranks
+    import it by that name): for instance a parent commit unpacked under
+    build/, and this one, in the order parent, this, this, parent."""
+    from pathlib import Path
+    here = str(Path(__file__).resolve())
+    child = ("import json, shutil, sys, pathlib; "
+             "d = pathlib.Path('build/qgcm_torch/probe').resolve(); "
+             "d.mkdir(parents=True, exist_ok=True); "
+             f"shutil.copy({here!r}, d / 'chip_smoke_probe.py'); "
+             "sys.path.append(str(d)); "
+             "import chip_smoke_probe as m; "
+             "print('RANK_CYCLE ' + json.dumps(m.rank_cycle("
+             "m.card_line())))")
+    got = run_in_checkouts(checkouts, child, r"^RANK_CYCLE ([^\n]*)$",
+                           "the rank-cycle")
+    if got is None:
+        return 1
+    print(f"double_gyre_coupled float32 rank-cycle by checkout, in the "
+          f"order run [{card_line()}]:")
+    for where, m in got:
+        r = json.loads(m.group(1))
+        print(f"  {where} (atmosphere "
+              f"{'on row blocks' if r['blocks'] else 'whole on every rank'}"
+              f", {r['label']}): kernel launches a rank-cycle "
+              f"{r['launches']}; host ms a rank-cycle over {RANK_CYCLES} "
+              + ", ".join(f"{v:.2f}" for v in r["host_ms"])
+              + "; MB staged a rank-cycle "
+              + ", ".join(f"{v:.3f}" for v in r["staged_mb"]))
+    return 0
 
 
 def torchrun_cli(argv, backend, ranks=MESH_RANKS):
@@ -2956,10 +3147,13 @@ def phase_coupled_mesh(card, states, members):
     meshes in MESH_RANKS ranks (mesh_backend): the golden coupled box in
     float64 on 4 rows and double_gyre_coupled (20 cycles) and
     southern_ocean_coupled (5 cycles) in float32 at full width from
-    phases 7 and 8's final states, each against the single-device coupled
-    runner from the same state, every rank's atmosphere the same bits;
-    phase 15's 8 members again on a member mesh of the ranks, bit for bit
-    phase 15's run of the same blocks of members; then through torchrun,
+    phases 7 and 8's final states, the atmosphere on row blocks, each
+    against the single-device coupled runner from the same state, every
+    rank's atmosphere (gathered) the same bits; phase 15's 8 members
+    again on a member mesh of the ranks, bit for bit phase 15's run of
+    the same blocks of members; double_gyre_coupled's atmosphere alone
+    through Driver(mesh) in float64 against the single-device Driver on
+    the card (ATMOS_DRIVER_DAYS); then through torchrun,
     `run --mesh rows` on phase 10's case for half a day and `run
     --resume` for another, against phase 10's single-device day, and
     `ensemble --shard-members` in float64 against the same command
@@ -2995,6 +3189,22 @@ def phase_coupled_mesh(card, states, members):
                       "double_gyre_ocean_only on a member mesh",
                       file=members["file"], members=ENSEMBLE_MEMBERS,
                       fields=("po", "pom", "qo", "qom", "sst", "dpioc")))
+    # the atmosphere alone: the single-device Driver on the card first
+    from qgcm_torch.run import Driver
+    atmos_dir = root / MESH18_WORKDIR / "atmos_only"
+    shutil.rmtree(atmos_dir, ignore_errors=True)
+    model, params, sst = atmos_driver_case(torch.device("cuda"))
+    t0 = time.perf_counter()
+    single = Driver(model, params, str(atmos_dir / "single"), sst_mean=sst,
+                    verbose=False).run()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_atmos = to_host(single.atmos)
+    del model, sst, single
+    torch.cuda.empty_cache()
+    tasks.append(dict(kind="driver", label="atmosphere-only Driver(mesh), "
+                      "double_gyre_coupled float64",
+                      outdir=str(atmos_dir / "mesh")))
     backend, label = mesh_backend()
     t0 = time.perf_counter()
     results = spawn_ranks(_coupled_mesh_rank, MESH_RANKS, tasks,
@@ -3006,6 +3216,29 @@ def phase_coupled_mesh(card, states, members):
     for i, task in enumerate(tasks):
         per_rank = [r[i] for r in results]
         r0 = per_rank[0]
+        if task["kind"] == "driver":
+            errs = field_errors(single_atmos, r0["atmos"],
+                                ("pa", "qa", "ast", "hmixa", "dpiat"))
+            same = all(pr["atmos_fp"] == r0["atmos_fp"]
+                       for pr in per_rank[1:])
+            steps = r0["steps"]
+            print(f"  {task['label']}, {MESH_RANKS}x1 rows, {steps} steps "
+                  f"({ATMOS_DRIVER_DAYS} days, every atmosphere cadence on): "
+                  f"final atmosphere vs the single-device Driver on the "
+                  f"card (max|diff|/max) "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (bar {MESH_F64_TOL:g}); every rank's atmosphere the "
+                  f"same bits: {same}")
+            print(f"    host {1e3 * r0['seconds'] / steps:.2f} ms/step "
+                  f"(rank 0; single device "
+                  f"{1e3 * single_s / steps:.2f}); {r0['staged_mb'] / steps:.3f}"
+                  f" MB staged a step; collectives of rank 0 {r0['counts']} "
+                  f"-- {label} [{card}]")
+            if not (all(v <= MESH_F64_TOL for v in errs.values()) and same
+                    and not any(pr["aborted"] for pr in per_rank)):
+                raise AssertionError("the atmosphere-only Driver(mesh) "
+                                     "misses the single-device Driver")
+            continue
         launches = {m: sum(pr["launches"].get(m, 0) for pr in per_rank)
                     for m in totals}
         if task["kind"] == "members":
@@ -3044,7 +3277,9 @@ def phase_coupled_mesh(card, states, members):
               f"{r0['launches_per_cycle']}; collectives {r0['counts']}; "
               f"{r0['staged_mb']:.3f} MB staged through the host; host "
               f"{r0['host_ms']:.2f} ms/cycle (rank 0; max over ranks "
-              f"{max(p['host_ms'] for p in per_rank):.2f}) -- {label} "
+              f"{max(p['host_ms'] for p in per_rank):.2f}); kernel launches "
+              f"of a profiled cycle by rank "
+              f"{[p['cycle_launches'] for p in per_rank]} -- {label} "
               f"[{card}]")
         if not (r0["finite"] and r0.get("duplicate_column", True)
                 and same_atmos and worst <= task["tol"]):
@@ -3141,7 +3376,8 @@ def _mesh2d_rank(tasks):
                                            make_ocean_only_runner)
     from qgcm_torch.ops.qgstep import qgstep, reset_launches, \
         window_reference
-    from qgcm_torch.parallel.mesh import Mesh, gather_tree, shard_tree
+    from qgcm_torch.parallel.mesh import (Mesh, atmos_mesh, gather_tree,
+                                          shard_tree)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = dist.get_rank()
@@ -3187,7 +3423,9 @@ def _mesh2d_rank(tasks):
                     return run(state, fb, n, step0=k0), None
             k0 = step0 // unit
             steps, warm = task["steps"], task["warm"]
-            sb, ab = go(sb, at if coupled else None, warm, k0)
+            ab = (shard_tree(at, atmos_mesh(mesh, cfg)) if coupled
+                  else None)
+            sb, ab = go(sb, ab, warm, k0)
             torch.cuda.synchronize()
             dist.barrier()
             reset_launches()
@@ -3204,6 +3442,9 @@ def _mesh2d_rank(tasks):
                        staged_mb=mesh.staged_bytes / n / 1e6,
                        host_ms=(time.perf_counter() - t0) * 1e3 / n)
             full = gather_tree(sb, mesh)
+            # the atmosphere's row blocks put together on every rank
+            ab_full = (gather_tree(ab, atmos_mesh(mesh, cfg)) if coupled
+                       else None)
             res["pad_zero"] = all(
                 bool((v[..., max(0, cfg.nypo - mesh.iy * mesh.by):, :] == 0
                       ).all()) and bool((v[..., max(0, cfg.nxpo - mesh.ix
@@ -3215,9 +3456,9 @@ def _mesh2d_rank(tasks):
                         st, at, steps * unit, step0=step0)
                     res["errors"] = {
                         **field_errors(ref_o, full, task["ocean"]),
-                        **field_errors(ref_a, ab, task["atmos"])}
+                        **field_errors(ref_a, ab_full, task["atmos"])}
                     res["finite"] = all(bool(torch.isfinite(t).all())
-                                        for t in (*full, *ab))
+                                        for t in (*full, *ab_full))
                     del ref_a
                 else:
                     ref_o = make_ocean_only_runner(model)(st, f, steps,
@@ -3228,7 +3469,7 @@ def _mesh2d_rank(tasks):
                 del ref_o
             if coupled:
                 res["atmos_fp"] = {k: fingerprint(v)
-                                   for k, v in ab._asdict().items()}
+                                   for k, v in ab_full._asdict().items()}
             if task.get("windows") and shape == task["windows"]:
                 # one more substep, its x_ext launches recorded
                 calls = []
@@ -3689,6 +3930,349 @@ def phase_adjoint_mesh(card, device):
     return totals, paths
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the coupled model's distributed adjoint, in MESH_RANKS ranks
+# (mesh_backend)
+# ----------------------------------------------------------------------
+
+# where the ranks meet and the initial state waits for them (listed in
+# .gitignore)
+MESH21_WORKDIR = "build/qgcm_torch/mesh_coupled_adjoint"
+# the meshes of the coupled distributed adjoint, each against the
+# single-device coupled gradient on the card from the same state
+COUPLED_ADJOINT_MESHES = ((MESH_RANKS, 1), (2, 2))
+COUPLED_ADJOINT_CYCLES = 2
+# the directional derivative along a seeded direction of the initial SST
+# (a unit normal a point) against central differences of the steps
+# COUPLED_FD_EPS kelvin, the best of them within COUPLED_FD_RTOL,
+# qgcm_tpu's bar (tests/test_adjoint.py:157-190; its step is 1e-4 K a
+# point). A difference's truncation and the mixed layers' switches that
+# its points cross grow with the step, its roundoff shrinks: on the CPU
+# at 241^2 x 3 (25 x 97 atmosphere) 1e-3, 1e-2, 1e-1 and 1 K read
+# 5.4e-8, 2.3e-9, 5.4e-12 and 4.1e-4; on the card at full width 1e-2 K
+# read 9.4e-6
+COUPLED_FD_EPS = (1e-2, 1e-3, 1e-4)
+COUPLED_FD_RTOL = 1e-5
+
+
+def coupled_objective(model):
+    """Phase 21's objective of a final (ocean, atmosphere): qgcm_tpu's
+    coupled adjoint's, mean(ast^2) of the atmosphere
+    (tests/test_adjoint.py:157-190), plus layer1_energy_proxy of the
+    ocean."""
+    from qgcm_torch.adjoint import layer1_energy_proxy
+    proxy = layer1_energy_proxy(model)
+
+    def loss(ocean, atmos):
+        return torch.mean(torch.square(atmos.ast)) + proxy(ocean)
+
+    return loss
+
+
+def coupled_adjoint_case(dev):
+    """(model, ocean, atmosphere) of phase 21: double_gyre_coupled at full
+    width in float64, the ocean an eddy over the radiative balance's
+    SST, the atmosphere the radiative balance (qgcm_tpu's test's
+    start)."""
+    from qgcm_torch.config import double_gyre_coupled
+    from qgcm_torch.generators import eddy_pressure
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ocean import init_ocean_state
+    model = build_model(double_gyre_coupled(dtype="float64"), dev)
+    oc = init_ocean_state(model, init="rbal",
+                          po=eddy_pressure(model.cfg, ssh_amp=0.1))
+    return model, oc, init_atmos_state(model, init="rbal")
+
+
+def coupled_value_and_grad(model, run, ocean, atmos, n, mesh=None,
+                           marks=None):
+    """(value, d/d ocean0, d/d atmos0) of coupled_objective after n
+    atmosphere steps of the coupled runner `run`, every field of both
+    initial states a leaf. With `mesh` the states are this rank's blocks
+    (the atmosphere's on atmos_mesh) and `run` a mesh runner: the final
+    states are gathered, the loss seeded on rank 0 alone and the
+    replicated leaves' gradients summed over the ranks by one
+    all_reduce, as adjoint.ocean_sensitivity does. `marks` gets the
+    time, qgstep's launches and the staged bytes at the forward's
+    end."""
+    from qgcm_torch.ops.qgstep import qgstep
+    from qgcm_torch.parallel.mesh import (atmos_mesh, gather_tree,
+                                          replicated)
+    lo = type(ocean)(*(t.detach().clone().requires_grad_()
+                       for t in ocean))
+    la = type(atmos)(*(t.detach().clone().requires_grad_()
+                       for t in atmos))
+    with torch.enable_grad():
+        o, a = run(lo, la, n)
+        if marks is not None:
+            torch.cuda.synchronize()
+            marks.update(t=time.perf_counter(),
+                         launches=dict(qgstep.mode_launches),
+                         staged=0 if mesh is None else mesh.staged_bytes)
+        if mesh is not None:
+            o, a = gather_tree(o, mesh), gather_tree(
+                a, atmos_mesh(mesh, model.cfg))
+        val = coupled_objective(model)(o, a)
+        seed = (torch.ones_like(val) if mesh is None or mesh.rank == 0
+                else torch.zeros_like(val))
+        g = torch.autograd.grad(val, [*lo, *la], seed, allow_unused=True)
+    g = [torch.zeros_like(x) if d is None else d for d, x in zip(g, [*lo,
+                                                                     *la])]
+    go, ga = type(ocean)(*g[:len(lo)]), type(atmos)(*g[len(lo):])
+    if mesh is not None:
+        rep = [(t, k) for t in (go, ga) for k, v in t._asdict().items()
+               if replicated(v)]
+        parts = [getattr(t, k) for t, k in rep]
+        tot = mesh.all_reduce(torch.cat([v.reshape(-1) for v in parts]),
+                              "chip_smoke.sums")
+        sums = iter(v.view_as(x) for v, x in zip(
+            tot.split([x.numel() for x in parts]), parts))
+        go = go._replace(**{k: next(sums) for t, k in rep if t is go})
+        ga = ga._replace(**{k: next(sums) for t, k in rep if t is ga})
+    return val.detach(), go, ga
+
+
+def sst_direction(cfg, dev):
+    """Phase 21's seeded direction of the initial SST (a unit normal a
+    point), the same on every rank."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    return torch.randn((cfg.nyto, cfg.nxto), generator=gen, device=dev,
+                       dtype=torch.float64)
+
+
+def _coupled_adjoint_rank(file, meshes, cycles):
+    """What each rank of phase 21 runs: on each (my, mx) mesh, a warm-up
+    gradient of one cycle, then coupled_value_and_grad through
+    make_coupled_runner(mesh, remat=True, 'overlap', 'a2a') over
+    `cycles` cycles from the state in `file`, the forward and backward
+    timed apart, qgstep's launches by mode in each, the bytes staged
+    through the host in each and the peak memory; the largest magnitude
+    of d/d(initial SST) (sst and sstm) on the rank's own points, the
+    fingerprints of the replicated gradients; rank 0 adds d/dsst and
+    d/dpo gathered whole. (The gradient by the initial atmosphere is NaN
+    at this width, on the single device alike: the drag's square root
+    (coupling.make_xforc's quad_drag) has an infinite derivative where
+    the wind is zero or so weak that its argument rounds to zero, as
+    from rest, and qgcm_tpu's is the same formula.) On the rows mesh the primal at the initial
+    SST +- each of COUPLED_FD_EPS along sst_direction, by the mesh
+    runner."""
+    import torch.distributed as dist
+    from qgcm_torch.config import double_gyre_coupled
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.mesh import (Mesh, atmos_mesh, gather,
+                                          gather_tree, replicated, shard,
+                                          shard_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()          # NCCL sets up its communicator here
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(file, weights_only=False)
+    model = build_model(double_gyre_coupled(dtype="float64"), dev)
+    cfg = model.cfg
+    oc = type(saved["ocean"])(*(t.to(dev) for t in saved["ocean"]))
+    at = type(saved["atmos"])(*(t.to(dev) for t in saved["atmos"]))
+    n = cycles * cfg.nstr
+    out = []
+    for shape in meshes:
+        mesh = Mesh(shape, grid=(cfg.nypo, cfg.nxpo))
+        amesh = atmos_mesh(mesh, cfg)
+        kw = dict(mesh=mesh, halo_variant="overlap", spectral_variant="a2a")
+        run = make_coupled_runner(model, remat=True, **kw)
+        ob, ab = shard_tree(oc, mesh), shard_tree(at, amesh)
+        coupled_value_and_grad(model, run, ob, ab, cfg.nstr, mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        mesh.counts.clear()
+        mesh.staged_bytes = 0
+        marks = {}
+        t0 = time.perf_counter()
+        val, go, ga = coupled_value_and_grad(model, run, ob, ab, n, mesh,
+                                             marks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = dict(mesh=list(shape), value=float(val),
+                   fwd_launches=marks["launches"],
+                   all_launches=dict(qgstep.mode_launches),
+                   fwd_ms=(marks["t"] - t0) * 1e3 / cycles,
+                   bwd_ms=(t1 - marks["t"]) * 1e3 / cycles,
+                   fwd_mb=marks["staged"] / cycles / 1e6,
+                   bwd_mb=(mesh.staged_bytes - marks["staged"]) / cycles
+                   / 1e6,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   counts=dict(mesh.counts),
+                   replicated_fp=[fingerprint(v) for t in (go, ga)
+                                  for v in t if replicated(v)])
+        dsst = go.sst + go.sstm
+        nr = max(0, min(mesh.by, cfg.nyto - mesh.iy * mesh.by))
+        nc = (dsst.shape[-1] if mesh.mx == 1 else
+              max(0, min(mesh.bx, cfg.nxto - mesh.ix * mesh.bx)))
+        res["sst_block_max"] = dsst[:nr, :nc].abs().max().item()
+        whole = dict(sst=gather(dsst, mesh, True, True, site="test"),
+                     po=gather(go.po, mesh, site="test"))
+        if rank == 0:
+            res["grads"] = {k: v.cpu() for k, v in whole.items()}
+        del go, ga, whole
+        if shape[1] == 1:
+            plain = make_coupled_runner(model, **kw)
+            db = shard(sst_direction(cfg, dev), mesh)
+            obj = coupled_objective(model)
+
+            def primal(a):
+                with torch.no_grad():
+                    o, a_ = plain(ob._replace(sst=ob.sst + a * db,
+                                              sstm=ob.sstm + a * db), ab, n)
+                    return float(obj(gather_tree(o, mesh),
+                                     gather_tree(a_, amesh)))
+
+            res["fd"] = [(primal(eps) - primal(-eps)) / (2 * eps)
+                         for eps in COUPLED_FD_EPS]
+        out.append(res)
+        del ob, ab
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_coupled_adjoint_mesh(card, device):
+    """The coupled model's distributed adjoint in MESH_RANKS ranks
+    (mesh_backend): double_gyre_coupled at full width in float64 (961^2
+    x 3 ocean, 385 x 97 x 3 atmosphere), COUPLED_ADJOINT_CYCLES cycles,
+    remat=True, 'overlap', on 4x1 and 2x2, the atmosphere on row blocks:
+    coupled_objective's gradient by every field of both initial states,
+    against the single-device gradient on the card from the same state:
+    the value the same bits on every rank and within MESH_F64_TOL of the
+    single device's, d/d(initial SST) and d/dpo gathered within
+    MESH_F64_TOL of each field's maximum, the replicated gradients the
+    same bits on every rank, every rank's block of d/dsst nonzero; on
+    the rows mesh the directional derivative along a seeded SST
+    direction against a central difference (COUPLED_FD_RTOL). Prints per
+    mesh the window launches forward and with the recomputation, the
+    host ms per rank-cycle forward and backward, the MB staged and the
+    peak GB per rank. Returns (the kernels line's launch counts by mode,
+    the paths' entries)."""
+    import shutil
+    from pathlib import Path
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parent
+    work = root / MESH21_WORKDIR
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "ranks").mkdir(parents=True)
+    model, oc, at = coupled_adjoint_case(device)
+    cfg = model.cfg
+    cycles = COUPLED_ADJOINT_CYCLES
+    run = make_coupled_runner(model, remat=True)
+    coupled_value_and_grad(model, run, oc, at, cfg.nstr)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    marks = {}
+    t0 = time.perf_counter()
+    val, go, ga = coupled_value_and_grad(model, run, oc, at,
+                                         cycles * cfg.nstr, marks=marks)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    print(f"  single device: value {float(val):.12e}; forward "
+          f"{(marks['t'] - t0) * 1e3 / cycles:.2f}, backward "
+          f"{(t1 - marks['t']) * 1e3 / cycles:.2f} ms/cycle; full-field "
+          f"launches forward {marks['launches']['full']}, with the "
+          f"recomputation {qgstep.mode_launches['full']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    want = dict(sst=(go.sst + go.sstm).cpu(), po=go.po.cpu())
+    direction = sst_direction(cfg, device).cpu()
+    file = work / "state.pt"
+    torch.save(dict(ocean=to_host(oc), atmos=to_host(at)), file)
+    del model, oc, at, go, ga, run
+    torch.cuda.empty_cache()
+    backend, label = mesh_backend()
+    t0 = time.perf_counter()
+    results = spawn_ranks(_coupled_adjoint_rank, MESH_RANKS, str(file),
+                          list(COUPLED_ADJOINT_MESHES), cycles,
+                          backend=backend, workdir=work / "ranks",
+                          timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths = []
+    for i, shape in enumerate(COUPLED_ADJOINT_MESHES):
+        per_rank = [r[i] for r in results]
+        r0 = per_rank[0]
+        mesh_s = f"{shape[0]}x{shape[1]}"
+        mode = "rows" if shape[1] == 1 else "x_ext"
+        errs = {"value": abs(r0["value"] - float(val)) / abs(float(val))}
+        errs.update({f"d/d{k}": grad_ratio(r0["grads"][k], w)
+                     for k, w in want.items()})
+        same = all(p["value"] == r0["value"]
+                   and p["replicated_fp"] == r0["replicated_fp"]
+                   for p in per_rank[1:])
+        fwd = {m: sum(p["fwd_launches"][m] for p in per_rank)
+               for m in totals}
+        alls = {m: sum(p["all_launches"][m] for p in per_rank)
+                for m in totals}
+        for m in totals:
+            totals[m] += alls[m]
+        print(f"  {mesh_s} overlap, remat=True, {cycles} cycles: vs the "
+              f"single device (max|diff|/max) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bar {MESH_F64_TOL:g}); value and replicated gradients "
+              f"the same bits on every rank: {same}")
+        print("    each rank's block of d/dsst: max "
+              + ", ".join(f"{p['sst_block_max']:.3e}" for p in per_rank))
+        print(f"    {mode} launches (all ranks): forward {fwd[mode]}, with "
+              f"the backward's recomputation {alls[mode]}; per rank: forward "
+              + ", ".join(f"{p['fwd_ms']:.2f}" for p in per_rank)
+              + " ms/cycle, backward "
+              + ", ".join(f"{p['bwd_ms']:.2f}" for p in per_rank)
+              + f" ms/cycle; staged {r0['fwd_mb']:.3f} MB forward, "
+              f"{r0['bwd_mb']:.3f} MB backward a rank-cycle (rank 0); peak "
+              + ", ".join(f"{p['peak_gb']:.3f}" for p in per_rank)
+              + f" GB -- {label} [{card}]")
+        print(f"    rank 0's collectives: {r0['counts']}")
+        entry = dict(path=f"coupled distributed adjoint {mesh_s} overlap "
+                     f"float64 remat=True", launches=alls,
+                     forward_launches=fwd, rel_err=max(errs.values()),
+                     fwd_ms_per_rank_cycle=r0["fwd_ms"],
+                     bwd_ms_per_rank_cycle=r0["bwd_ms"],
+                     staged_mb_fwd=r0["fwd_mb"], staged_mb_bwd=r0["bwd_mb"],
+                     peak_gb=[p["peak_gb"] for p in per_rank])
+        if "fd" in r0:
+            adj = float((r0["grads"]["sst"] * direction).sum())
+            rels = [abs(adj - fd) / abs(fd) if fd else float("inf")
+                    for fd in r0["fd"]]
+            print(f"    d/da L(sst + a d): adjoint {adj:.12e}; central "
+                  f"differences "
+                  + ", ".join(f"{fd:.12e} (step {eps:g} K, rel {r:.3e})"
+                              for eps, fd, r in zip(COUPLED_FD_EPS,
+                                                    r0["fd"], rels))
+                  + f" (bar {COUPLED_FD_RTOL:g} for the best)")
+            entry["fd_rel"] = min(rels)
+            if not min(rels) <= COUPLED_FD_RTOL:
+                raise AssertionError(f"the coupled distributed adjoint on "
+                                     f"{mesh_s} misses its finite "
+                                     "difference")
+        paths.append(entry)
+        per_step = 3 if mode == "rows" else 5
+        if not (all(v <= MESH_F64_TOL for v in errs.values()) and same
+                and all(p["sst_block_max"] > 0 for p in per_rank)):
+            raise AssertionError(f"the coupled distributed adjoint on "
+                                 f"{mesh_s} misses the single-device "
+                                 "gradient")
+        if (fwd[mode] != per_step * cycles * MESH_RANKS
+                or alls[mode] != 2 * fwd[mode]
+                or any(v for m, v in alls.items() if m != mode)):
+            raise AssertionError(f"the coupled distributed adjoint on "
+                                 f"{mesh_s}: launches {fwd} forward, {alls} "
+                                 "in all")
+    return totals, paths
+
+
 def grad_ratio(a, b, scale=None) -> float:
     """max|a - b| over max|b| (or `scale`) of two host tensors."""
     s = b.abs().max().item() if scale is None else scale
@@ -3793,6 +4377,13 @@ def main() -> int:
     for mode in totals:
         totals[mode] += totals20[mode]
     mesh_paths += mesh_paths20
+    with phase(f"[21] the coupled model's distributed adjoint: "
+               f"double_gyre_coupled float64 on 4x1 and 2x2, "
+               f"{mesh_backend()[1]}"):
+        totals21, mesh_paths21 = phase_coupled_adjoint_mesh(card, device)
+    for mode in totals:
+        totals[mode] += totals21[mode]
+    mesh_paths += mesh_paths21
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
@@ -3847,9 +4438,12 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows"):
-        # python3 chip_smoke.py --main-path|--windows CHECKOUT [...]
-        compare = (compare_main_path if sys.argv[1] == "--main-path"
-                   else compare_windows)
+    if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows",
+                                             "--rank-cycle"):
+        # python3 chip_smoke.py --main-path|--windows|--rank-cycle
+        # CHECKOUT [...]
+        compare = {"--main-path": compare_main_path,
+                   "--windows": compare_windows,
+                   "--rank-cycle": compare_rank_cycles}[sys.argv[1]]
         sys.exit(compare(sys.argv[2:]) if torch.cuda.is_available() else 1)
     sys.exit(main())

@@ -34,9 +34,10 @@ torchrun:
 --dist-backend names the group's backend: nccl (the default; each rank
 takes the card of its local rank) or gloo (the CPU, or ranks that share
 a card; the ranks run on --device). A box takes any NYxNX and 'hybrid'
-(the hosts on y, a host's ranks on x); a channel takes rows meshes only
-(NX > 1 raises, with qgcm_tpu's reason: the duplicated column's
-wraparound), and 'hybrid' puts its ranks on y. Not ported: --ckpt-format.
+(the hosts on y, a host's ranks on x); a channel, and an
+atmosphere-only case, take rows meshes only (NX > 1 raises, with
+qgcm_tpu's reason: the duplicated column's wraparound), and 'hybrid'
+puts their ranks on y. Not ported: --ckpt-format.
 """
 
 from __future__ import annotations
@@ -183,7 +184,9 @@ def _run(args):
         from .params import params_to_config
         from .parallel.mesh import mesh_from_spec
         grid = params_to_config(params, cfg)
-        mesh = mesh_from_spec(args.mesh, grid.cyclic_ocean,
+        # an atmosphere-only case is cut by rows, as a channel is
+        mesh = mesh_from_spec(args.mesh,
+                              grid.cyclic_ocean or grid.atmos_only,
                               (grid.nypo, grid.nxpo))
         _say(f"mesh: {{'y': {mesh.my}, 'x': {mesh.mx}}} over {mesh.size} "
              "devices (a2a spectral solvers)")

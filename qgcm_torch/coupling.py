@@ -431,6 +431,7 @@ def _bilint_ast(coup: Coupling, astm: torch.Tensor, t0: int = 0,
 XFORC_ROWS = "coupling.rows"
 XFORC_COLS = "coupling.cols"
 XFORC_SUMS = "coupling.sums"
+XFORC_GATHER = "coupling.gather"
 
 
 def make_xforc(model, mesh=None):
@@ -446,11 +447,17 @@ def make_xforc(model, mesh=None):
     With `mesh` (parallel/mesh.py: a mesh made for the ocean's p-grid,
     as the decomposed ocean step takes it: rows, or for a box any (y, x)
     shape) pom and sstm are this rank's blocks and so is the ocean
-    forcing (mesh.shard_tree's layout); pam, astm and hmixam are whole on
-    every rank, and so are the atmospheric forcing and the diagnostics,
-    the same bits on every rank. No collective is larger than the coarse
+    forcing (mesh.shard_tree's layout); pam, astm and hmixam are its row
+    blocks of the atmosphere (on parallel/mesh.atmos_mesh(mesh, cfg)),
+    and so is the atmospheric forcing; the diagnostics are the same bits
+    on every rank. An atmosphere-only case passes pom None and as sstm
+    its block of the prescribed SST, on a rows mesh (a mesh with x > 1
+    raises, as for a channel). No collective is larger than the coarse
     atmospheric grid, as in qgcm_tpu (coupling.py:600-604, 731-736):
-      * every rank computes the coarse velocities from the whole pam;
+      * one gather puts together the coarse fields xforc reads (pam's
+        two bottom layers, astm, hmixam), so that every rank refines the
+        atmosphere rows its fine rows need, wherever they lie, and
+        computes the coarse velocities from the whole pam;
       * the fine grid is cut into the ocean's blocks: a rank refines the
         fine rows of its ocean rows (rank 0 also those south of the
         ocean, the rank with the ocean's north wall those north of it)
@@ -473,7 +480,12 @@ def make_xforc(model, mesh=None):
         and the diagnostics' sums; one all_reduce of coarse size adds
         the ranks' shares;
       * in the channel the ranks that hold the wall rows form txisoc and
-        txinoc, which an all_reduce hands to every rank (ekman_forcing).
+        txinoc, which an all_reduce hands to every rank (ekman_forcing);
+      * every rank forms the whole atmospheric forcing from the summed
+        coarse outputs, the same bits on every rank, and keeps its rows.
+    Under autograd the gather's backward hands each rank the sum of the
+    ranks' cotangents of its rows, and the all_reduce's that of the
+    coarse outputs, each rank's nonzero only where its rows read them.
     A coarse value that one rank's rows form whole comes out bit for bit
     the single-device one; a sum split across a block boundary differs
     from it by roundoff, as qgcm_tpu's own does (:733-735). A footprint
@@ -483,6 +495,8 @@ def make_xforc(model, mesh=None):
     bands are rows of a block like any other."""
     from .models.ocean import _Rows, check_mesh_grid, ekman_forcing
     from .ops.stencils import _col_mask
+    from .parallel.mesh import atmos_mesh, cyclic_x_refusal, gather, \
+        shard_tree
 
     cfg: ModelConfig = model.cfg
     g: Grids = model.grids
@@ -546,11 +560,12 @@ def make_xforc(model, mesh=None):
         cdrfac, qu2fac = cdrfaa, qu2faa
 
     if mesh is not None:
-        if cfg.atmos_only:
-            raise NotImplementedError(
-                "a decomposed xforc cuts the ocean's blocks; the atmosphere "
-                "on row blocks is not ported yet (ROADMAP.md)")
+        if cfg.atmos_only and mesh.mx > 1:
+            raise cyclic_x_refusal(f"the decomposed xforc of an atmosphere-"
+                                   f"only case on a {mesh.my}x{mesh.mx} "
+                                   "mesh")
         check_mesh_grid(cfg, mesh, "the decomposed xforc")
+        amesh = atmos_mesh(mesh, cfg)
         rows = _Rows(mesh, cfg, dev)
         if rows.r0 >= nypo or rows.c0 >= nxpo:
             raise ValueError(f"rank {mesh.rank} of {mesh.size} holds no "
@@ -754,11 +769,18 @@ def make_xforc(model, mesh=None):
         return F.pad(t[:, g0 - h0:hi - h0], (g0, cols - hi))
 
     def xforc_rows(pam, pom, sstm, astm, hmixam):
+        # the coarse atmosphere whole on every rank from its row blocks:
+        # the two bottom layers of pam (all that xforc reads of it), astm
+        # and hmixam (padded to the p-grid's width), in one gather
+        wide = (F.pad(f, (0, 1))[None] for f in (astm, hmixam))
+        coarse = gather(torch.cat([pam[:2], *wide]), amesh, site=XFORC_GATHER)
+        pam, astm, hmixam = (coarse[:2], coarse[2, :nyta, :nxta],
+                             coarse[3, :nyta, :nxta])
         # the fine rows [e0, e1) and columns [h0, h1): the rank's own and
         # one more each side
         u1ator, v1ator = bicubic_refine_uv(coup, *coarse_velocity(pam),
                                            ndxr, e0, e1, h0, h1)
-        if cfg.tau_udiff:
+        if cfg.tau_udiff and pom is not None:
             # the velocity on ocean rows r0-1 .. r0+n (and columns c0-1 ..
             # c0+m), of which the footprint's points in the fine block
             # are subtracted
@@ -825,12 +847,14 @@ def make_xforc(model, mesh=None):
         ocnrad = rad.D0up * sstm
         slhf = xlamda * (sstm - asto)
         atmrad_oc = rad.Dmdown * asto
-        fsp = F.pad(coup.fsp_oc[r0:r0 + nt], (0, n - nt))[:, None]
-        fnetoc = torch.where(rows.t_true,
-                             -fsp - atmrad_oc - ocnrad - slhf, 0.0)
-        ocean_forcing = ekman_forcing(model, ocean_block(tau_x),
-                                      ocean_block(tau_y), fnetoc,
-                                      rows=rows)
+        ocean_forcing = None
+        if not cfg.atmos_only:
+            fsp = F.pad(coup.fsp_oc[r0:r0 + nt], (0, n - nt))[:, None]
+            fnetoc = torch.where(rows.t_true,
+                                 -fsp - atmrad_oc - ocnrad - slhf, 0.0)
+            ocean_forcing = ekman_forcing(model, ocean_block(tau_x),
+                                          ocean_block(tau_y), fnetoc,
+                                          rows=rows)
         # the T points' share of the atmosphere cells over the ocean
         contrib = ocnrad + (rad.Dmdown - rad.Dmup) * asto + slhf
         blocks = contrib.new_zeros(cfg.nyaooc, cfg.nxaooc)
@@ -853,8 +877,9 @@ def make_xforc(model, mesh=None):
         (tauxa, tauya, vekat, uekat, wekpa, blocks, sums) = (
             t.reshape(s.shape) for t, s in zip(
                 tot.split([s.numel() for s in shares]), shares))
-        return (ocean_forcing, *atmos_tail(
+        afor, diags = atmos_tail(
             pam, astm, hmixam, tauxa, tauya, uekat, vekat,
-            wekpa / coup.wekpa_count, sums[0], sums[1], blocks, sums[2:]))
+            wekpa / coup.wekpa_count, sums[0], sums[1], blocks, sums[2:])
+        return ocean_forcing, shard_tree(afor, amesh), diags
 
     return xforc_rows

@@ -157,9 +157,11 @@ def _atmos_faces(model, ast, pa1, tauxa, tauya):
     return uuf, tuf, vvf, tvf
 
 
-# the collective call sites of the face fields on blocks (Mesh.counts)
+# the collective call sites of the face fields on blocks (Mesh.counts):
+# the ocean's, and the atmosphere's
 FACE_ROWS = "timavge.rows"
 FACE_COLS = "timavge.cols"
+ATM_FACE_ROWS = "timavge.atmos.rows"
 
 
 def _ocean_faces_rows(model, rows, sst, po1, tauxo, tauyo):
@@ -241,10 +243,52 @@ def accumulate_ocean(acc: OceanAverages, state, forcing, model,
         vtvfo=acc.vtvfo + vvf * tvf)
 
 
-def accumulate_atmos(acc: AtmosAverages, state, forcing, model
-                     ) -> AtmosAverages:
-    uuf, tuf, vvf, tvf = _atmos_faces(
-        model, state.ast, state.pa[0], forcing.tauxa, forcing.tauya)
+def _atmos_faces_rows(model, rows, ast, pa1, tauxa, tauya):
+    """_atmos_faces on this rank's row blocks of the atmosphere (`rows`,
+    a models/ocean._Rows of its grid): the W/E faces of its T rows read
+    the p row north of the block, the S/N faces of its p rows the T row
+    south of it (one exchange of a ghost row); the walls and padding by
+    global row."""
+    cfg = model.cfg
+    g = model.grids
+    rdxaf0 = 1.0 / (g.dxa * cfg.fnot)
+    rhf0hm = 0.5 / (cfg.fnot * cfg.mixed.hmat)
+    nt = rows.nxt
+    stack = torch.stack([pa1, tauya, tauxa, F.pad(ast, (0, 1))])
+    south, north = rows.mesh.start_exchange(stack, 1, "y",
+                                            ATM_FACE_ROWS).wait()
+    ext = torch.cat([south, stack, north], dim=-2)  # rows r0-1 .. r0+n
+    pn, tyn = ext[0, 1:], ext[1, 1:]
+    uuf = (-rdxaf0 * (pn[1:, :] - pn[:-1, :])
+           - rhf0hm * (tyn[1:, :] + tyn[:-1, :]))
+    twrap = 0.5 * (ast[:, :1] + ast[:, -1:])
+    tuf = torch.cat([twrap, 0.5 * (ast[:, :-1] + ast[:, 1:]), twrap], dim=1)
+
+    vvf = (rdxaf0 * (pa1[:, 1:] - pa1[:, :-1])
+           + rhf0hm * (tauxa[:, 1:] + tauxa[:, :-1]))
+    gp = rows.gy
+    walls = (gp == 0) | (gp == rows.nyp - 1)
+    vvf = torch.where(walls, 0.0, vvf)
+    below, above = ext[3, :-2, :nt], ext[3, 1:-1, :nt]
+    tvf = torch.where(gp == 0, above, torch.where(
+        gp == rows.nyp - 1, below, 0.5 * (below + above)))
+    t, p = rows.t_true, rows.p_true
+    return (torch.where(t, uuf, 0.0), torch.where(t, tuf, 0.0),
+            torch.where(p, vvf, 0.0), torch.where(p, tvf, 0.0))
+
+
+def accumulate_atmos(acc: AtmosAverages, state, forcing, model,
+                     rows=None) -> AtmosAverages:
+    """acc plus one step's state and forcing; with `rows` (the
+    atmosphere's models/ocean._Rows in a decomposed run) all of them are
+    this rank's row blocks."""
+    if rows is None:
+        uuf, tuf, vvf, tvf = _atmos_faces(
+            model, state.ast, state.pa[0], forcing.tauxa, forcing.tauya)
+    else:
+        uuf, tuf, vvf, tvf = _atmos_faces_rows(
+            model, rows, state.ast, state.pa[0], forcing.tauxa,
+            forcing.tauya)
     return AtmosAverages(
         n=acc.n + 1.0,
         ast=acc.ast + state.ast,

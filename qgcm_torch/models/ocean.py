@@ -553,6 +553,9 @@ INV_SUMS = "ocean.inversion.sums"
 BDY_ROWS = "ocean.ocqbdy.rows"
 BDY_COLS = "ocean.ocqbdy.cols"
 FORCING_WALLS = "ocean.forcing.walls"
+# the atmosphere's (models/atmos.py)
+ATM_INV_SUMS = "atmos.inversion.sums"
+ATM_WALLS = "atmos.walls"
 # the global rows of the wall strips the channel's constraint terms read
 # (_edge_d2d4 and _cyclic_boundary_terms: 5 rows at each wall)
 _STRIP = 5
@@ -564,14 +567,23 @@ class _Rows:
     of nyt = nyp - 1 and, on a mesh with x > 1 (`two_d`), p columns
     [c0, c0 + m) of nxp and the T columns of the same indices of nxt =
     nxp - 1; those at or beyond the grid's end are padding. On a rows
-    mesh every field keeps its own columns (m = nxp; a T field nxt)."""
+    mesh every field keeps its own columns (m = nxp; a T field nxt).
+    With `atmos` the same for the atmosphere's grids on its rows mesh
+    (parallel/mesh.atmos_mesh): a cyclic channel, its collectives
+    counted under the atmosphere's sites."""
 
-    def __init__(self, mesh, cfg, device):
+    def __init__(self, mesh, cfg, device, atmos: bool = False):
         self.mesh = mesh
-        self.cyclic = cfg.cyclic_ocean
+        self.cyclic = atmos or cfg.cyclic_ocean
         self.r0, self.n = mesh.iy * mesh.by, mesh.by
-        self.nyp, self.nyt = cfg.nypo, cfg.nyto
-        self.nxp, self.nxt = cfg.nxpo, cfg.nxto
+        if atmos:
+            self.nyp, self.nyt = cfg.nypa, cfg.nyta
+            self.nxp, self.nxt = cfg.nxpa, cfg.nxta
+            self.sums_site, self.walls_site = ATM_INV_SUMS, ATM_WALLS
+        else:
+            self.nyp, self.nyt = cfg.nypo, cfg.nyto
+            self.nxp, self.nxt = cfg.nxpo, cfg.nxto
+            self.sums_site, self.walls_site = INV_SUMS, WALLS
         self.two_d = mesh.mx > 1
         self.c0, self.m = ((mesh.ix * mesh.bx, mesh.bx) if self.two_d
                            else (0, cfg.nxpo))
@@ -691,7 +703,7 @@ class _Rows:
             parts.append(sign * line_sum(sol[:, i, :], dtype=f64)
                          * (dx / dy) if i is not None
                          else sol.new_zeros(nm, dtype=f64))
-        tot = self.mesh.all_reduce(torch.cat(parts), INV_SUMS)
+        tot = self.mesh.all_reduce(torch.cat(parts), self.sums_site)
         return tot[:nm] * dx * dy, tot[nm:2 * nm], tot[2 * nm:]
 
     def wall_strips(self, fields):
@@ -704,7 +716,7 @@ class _Rows:
         stack = torch.stack(fields)
         out = torch.where(self.strip_held,
                           stack.index_select(2, self.strip_rows), 0.0)
-        return self.mesh.all_reduce(out, WALLS)
+        return self.mesh.all_reduce(out, self.walls_site)
 
 
 def _ghost_rows(rows: _Rows, ext, lo: int, south=None, north=None):
@@ -874,6 +886,24 @@ def check_mesh_grid(cfg, mesh, what: str = "the decomposed substep"):
                          "for the mixed layer's ghost columns (3 at least)")
 
 
+def boundary_ghosts(mesh, f, axis: str, site: str):
+    """(f, lo, hi): the block f and the one ghost row ('y') or column
+    ('x') each side that the boundary PV reads where a wall starts a
+    block. Only the ranks whose block holds that wall read the ghosts; so
+    that the exchange's backward runs on every rank (parallel/mesh.py),
+    under autograd f comes back read through the exchange's output, on
+    which every rank's result then depends."""
+    from ..parallel.mesh import _records
+    dim = -2 if axis == "y" else -1
+    lo, hi = mesh.start_exchange(f, 1, axis, site).wait()
+    if not _records(f):
+        return f, lo, hi
+    n = f.shape[dim]
+    ext = torch.cat([lo, f, hi], dim=dim)
+    return (ext.narrow(dim, 1, n).contiguous(), ext.narrow(dim, 0, 1),
+            ext.narrow(dim, n + 1, 1))
+
+
 def _make_rows_step(model: Model, mesh, variant: str):
     """make_ocean_step's substep on this rank's blocks: row blocks, or in
     the box 2-D blocks of a mesh with x > 1."""
@@ -910,12 +940,12 @@ def _make_rows_step(model: Model, mesh, variant: str):
                                    cyc, forcing, rows=rows)
         ghosts = {}
         if bdy_rows:
-            south, north = mesh.start_exchange(po_new, 1, "y",
-                                               BDY_ROWS).wait()
+            po_new, south, north = boundary_ghosts(mesh, po_new, "y",
+                                                   BDY_ROWS)
             ghosts.update(south=south[:, 0], north=north[:, 0])
         if bdy_cols:
-            west, east = mesh.start_exchange(po_new, 1, "x",
-                                             BDY_COLS).wait()
+            po_new, west, east = boundary_ghosts(mesh, po_new, "x",
+                                                 BDY_COLS)
             ghosts.update(west=west[..., 0], east=east[..., 0])
         qo_new = ocqbdy_block(qo_new, po_new, bm.amat, bm.yporel, dxom2,
                               cfg.fnot, cfg.beta, cfg.ocean.bccooc, bm.ddyn,
@@ -959,7 +989,14 @@ def init_ocean_state(model: Model, init: str = "zero",
     """Initial ocean state: 'zero' (q-gcm.F zeroin:1615), 'rbal'
     (rbalin:1712 -- zero pressure, sstbar SST), or explicit arrays
     (NumPy or tensors). PV is derived from pressure (q-gcm.F:715-732),
-    the constraint values from `constr` (src/conhoms.F:44-199)."""
+    the constraint values from `constr` (src/conhoms.F:44-199).
+
+    In the channel the east column of po and pom is set to the west one
+    before q is derived: every p-grid field of the channel keeps that
+    duplicate, and a q derived from a pressure without it would carry
+    the offset for good (the leapfrog never rederives q), which a
+    restart, rederiving q from the saved p, would drop. qgcm_tpu takes
+    such a pressure as it is."""
     cfg = model.cfg
     g = model.grids
     dev, dtype = model.device, model.dtype
@@ -970,6 +1007,9 @@ def init_ocean_state(model: Model, init: str = "zero",
     po = (torch.zeros((nlo, nypo, nxpo), device=dev, dtype=dtype)
           if po is None else _as_field(model, po))
     pom = po if pom is None else _as_field(model, pom)
+    if cyclic:
+        po = torch.cat([po[..., :-1], po[..., :1]], dim=-1)
+        pom = torch.cat([pom[..., :-1], pom[..., :1]], dim=-1)
     if sst is None:
         if init == "rbal":
             sst = _as_field(model, model.rad.sstbar)[:, None].expand(

@@ -166,10 +166,12 @@ def make_cycle_head(model: Model, mesh=None, halo_variant=None,
 
     With `mesh` (a mesh made for the ocean's p-grid: rows, or for a box
     any (y, x) shape) the ocean's state and forcing are this rank's
-    blocks (parallel/mesh.py): the
+    blocks (parallel/mesh.py), and the atmosphere's state and forcing its
+    row blocks on parallel/mesh.atmos_mesh(mesh, cfg); an atmosphere-only
+    head takes as `sst_mean` the rank's block of the prescribed SST. The
     substep is the decomposed one (make_ocean_step's halo path) and
-    xforc the decomposed one (coupling.make_xforc); the atmosphere stays
-    whole on every rank. The mesh needs both variants (_check_mesh)."""
+    xforc the decomposed one (coupling.make_xforc). The mesh needs both
+    variants (_check_mesh)."""
     from ..coupling import make_xforc
     cfg = model.cfg
     has_oc, has_at = not cfg.atmos_only, not cfg.ocean_only
@@ -198,14 +200,15 @@ def make_cycle_head(model: Model, mesh=None, halo_variant=None,
     return head
 
 
-def make_atmos_segment(model: Model):
+def make_atmos_segment(model: Model, mesh=None):
     """`length` atmosphere steps under one forcing, shared by the runners
     and the Driver (the partial cycles of an exact-cadence Driver run
     included). Returns segment(atmos, afor, n0, length, on_step=None)
     -> atmos: step n0 + i is followed by the time-level averaging when
     (n0 + i) % ATMOS_AVG_PERIOD == 0 (q-gcm.F:1370-1407), then by
-    on_step(atmos, n0 + i)."""
-    astep = make_atmos_step(model)
+    on_step(atmos, n0 + i). With `mesh` the atmosphere and its forcing
+    are this rank's row blocks (models/atmos.make_atmos_step)."""
+    astep = make_atmos_step(model, mesh)
 
     def segment(atmos, afor, n0: int, length: int, on_step=None):
         for i in range(length):
@@ -323,21 +326,20 @@ def make_coupled_runner(model: Model, remat=False, mesh=None,
 
     With `mesh` (a mesh made for the ocean's p-grid, as the ocean-only
     runner takes it; qgcm_tpu/models/stepper.py:255-329) the ocean is
-    this rank's blocks in and out (parallel/mesh.shard_tree), stepped by the
-    decomposed substep under the decomposed xforc (make_cycle_head),
-    and the atmosphere is whole on every rank: its forcing comes out of
-    xforc's all_reduce the same bits on every rank, so every rank's
-    atmosphere stays the same bits. halo_variant and
-    spectral_variant='a2a' are the ocean-only mesh runner's. A mesh
-    runner takes no remat: the coupled model's distributed adjoint is
-    not ported (it comes after the atmosphere on row blocks)."""
+    this rank's blocks in and out (parallel/mesh.shard_tree), stepped by
+    the decomposed substep under the decomposed xforc (make_cycle_head),
+    and the atmosphere is this rank's row blocks in and out (shard_tree
+    on parallel/mesh.atmos_mesh(mesh, cfg)), stepped on them.
+    halo_variant and spectral_variant='a2a' are the ocean-only mesh
+    runner's. With remat the mesh runner is the coupled model's
+    distributed adjoint (qgcm_tpu's, under jax.grad): every rank
+    recomputes its blocks' cycles, replaying their collectives in the
+    forward's order, and the collectives' and the window kernel's
+    autograd rules (parallel/mesh.py, ops/qgstep.py) carry the
+    cotangents between the ranks."""
     _check_mesh(mesh, halo_variant, spectral_variant)
-    if mesh is not None and remat:
-        raise ValueError("a coupled mesh runner takes no remat: the coupled "
-                         "model's distributed adjoint is not ported (see "
-                         "ROADMAP.md)")
     head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
-    segment = make_atmos_segment(model)
+    segment = make_atmos_segment(model, mesh)
     nstr = model.cfg.nstr
 
     def cycle(carry):
@@ -349,7 +351,8 @@ def make_coupled_runner(model: Model, remat=False, mesh=None,
             step0: int = 0):
         cycles = _split_cycles(n_steps, step0, nstr)
         ocean, atmos, _ = remat_loop(cycle, (ocean, atmos, cycles.start),
-                                     len(cycles), remat)
+                                     len(cycles), remat,
+                                     whole=mesh is not None)
         return ocean, atmos
 
     return run

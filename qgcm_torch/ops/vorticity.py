@@ -146,3 +146,15 @@ def atqzbd(q: torch.Tensor, p: torch.Tensor, amat: torch.Tensor,
     bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
     return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, 0, fnot,
                       cyclic=True)
+
+
+def atqzbd_block(q, p, amat, yprel, dxm2, fnot, beta, bcco, ddyn,
+                 r0: int, ny: int, south=None, north=None):
+    """atqzbd on a row block of a decomposed run: q and p hold rows r0,
+    r0+1, ... of a grid ny rows tall, every column; yprel and ddyn the
+    same rows. `south`/`north` are the p rows just outside the block,
+    needed only where a wall is the block's first or last row and its
+    inner neighbour lies in the next block."""
+    bcfac_f = bcco * dxm2 / (0.5 * bcco + 1.0) / fnot
+    return _bc_rowcol(q, p, amat, yprel, bcfac_f, beta, ddyn, 0, fnot,
+                      cyclic=True, r0=r0, ny=ny, south=south, north=north)

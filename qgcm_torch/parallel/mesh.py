@@ -18,7 +18,9 @@ rows and columns past the grid's end are padding, zero on input and kept
 zero by every stage. The ocean's T-grid (nyp - 1 rows, nxp - 1 columns)
 takes the p-grid's blocks: T row j sits between p rows j and j + 1, T
 column i between p columns i and i + 1. On a rows mesh (mx = 1) every
-field keeps its own columns.
+field keeps its own columns. The atmosphere of a decomposed run has a
+mesh of its own (atmos_mesh): row blocks of its grid over all the
+ranks, whatever the ocean's mesh's shape.
 
 An all_to_all along one axis (the ranks of a mesh row, or of a mesh
 column) is one all_to_all_single over the whole group whose chunks for
@@ -60,7 +62,12 @@ whether a collective takes its rule, so a call site must make that
 input from the differentiated values on every rank, a rank whose share
 is zeros too (torch.where on what it holds, not a fresh zero tensor):
 else the ranks that record issue a backward collective that the others
-never match.
+never match. Likewise autograd runs a rule's backward only on a rank
+whose differentiated value its output reaches, so a collective's output
+must reach it on every rank: a rank that receives ghosts it does not
+read reads its block back through them (models/ocean.boundary_ghosts).
+Then every rank runs the backward's collectives in the same order, the
+reverse of the forward's.
 """
 
 from __future__ import annotations
@@ -87,7 +94,7 @@ class Mesh:
     holds this rank; this rank's (iy, ix), and, when made for a grid
     (ny, nx) -- the ocean's p-grid -- its block sizes (by, bx)."""
 
-    def __init__(self, shape, grid=None, group=None):
+    def __init__(self, shape, grid=None, group=None, tally=None):
         self.my, self.mx = shape
         self.group = group
         if dist.is_initialized():
@@ -105,8 +112,19 @@ class Mesh:
         if self.grid is not None:
             self.by = self.block(self.grid[0], "y")
             self.bx = self.block(self.grid[1], "x")
-        self.counts = Counter()
-        self.staged_bytes = 0
+        # the collective counts and staged bytes, shared with the mesh
+        # `tally` when given (atmos_mesh's)
+        self.counts = Counter() if tally is None else tally.counts
+        self._staged = [0] if tally is None else tally._staged
+        self._atmos = None
+
+    @property
+    def staged_bytes(self) -> int:
+        return self._staged[0]
+
+    @staged_bytes.setter
+    def staged_bytes(self, n: int):
+        self._staged[0] = n
 
     def block(self, n: int, axis: str) -> int:
         """The ceil block of an extent n over the mesh axis 'y' or 'x'."""
@@ -416,6 +434,20 @@ def cyclic_x_refusal(what: str) -> ValueError:
         "blocks): use make_mesh(rows_only=True) / --mesh rows")
 
 
+def atmos_mesh(mesh: Mesh, cfg) -> Mesh:
+    """The atmosphere's mesh in a run decomposed over `mesh` (the ocean's,
+    of any shape): row blocks of the atmosphere's p-grid over all of
+    mesh's ranks, in rank order, every column whole (the atmosphere is a
+    zonally cyclic channel, cut by rows only as the port's ocean channel
+    is). qgcm_tpu lays the atmosphere over the ocean's (y, x) mesh; on a
+    rows mesh the blocks are the same. Its collectives count in mesh's
+    counts and staged bytes; made once per mesh."""
+    if mesh._atmos is None:
+        mesh._atmos = Mesh((mesh.size, 1), grid=(cfg.nypa, cfg.nxpa),
+                           group=mesh.group, tally=mesh)
+    return mesh._atmos
+
+
 def make_hybrid_mesh(rows_only: bool = False, grid=None) -> Mesh:
     """qgcm_tpu's mesh for runs over several hosts
     (qgcm_tpu/parallel/mesh.py:60): the hosts split 'y' and each host's
@@ -523,8 +555,9 @@ def gather(x: torch.Tensor, mesh: Mesh, t_rows: bool = False,
 
 def shard_tree(tree, mesh: Mesh):
     """This rank's blocks of a full OceanState, OceanForcing or
-    OceanAverages (a NamedTuple of tensors); scalars and mode vectors
-    are replicated."""
+    OceanAverages on the ocean's mesh, or of an AtmosState, AtmosForcing
+    or AtmosAverages on the atmosphere's (atmos_mesh): a NamedTuple of
+    tensors; scalars and mode vectors are replicated."""
     return type(tree)(**{k: shard(v, mesh)
                          for k, v in tree._asdict().items()})
 

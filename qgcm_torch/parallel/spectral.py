@@ -253,13 +253,20 @@ class ShardedCyclicHelmholtz:
 
 
 def wrap_inversions(model, mesh):
-    """A Model whose ocean PV inversion solves on the blocks of `mesh`
-    through the pencil transposes above (spectral.py:340); the constraint
-    algebra around it is models/ocean.py's. The atmosphere is whole on
-    every rank of a decomposed run, so its inversion is left as it is."""
-    helm = model.inv_oc.helm
-    wrapped = (ShardedCyclicHelmholtz(helm, mesh)
-               if isinstance(helm, CyclicHelmholtz)
-               else ShardedBoxHelmholtz(helm, mesh))
-    return dataclasses.replace(
-        model, inv_oc=dataclasses.replace(model.inv_oc, helm=wrapped))
+    """A Model whose PV inversions solve on blocks through the pencil
+    transposes above (spectral.py:340): the ocean's on the blocks of
+    `mesh`, the atmosphere's on its rows mesh (parallel/mesh.atmos_mesh),
+    as qgcm_tpu wraps both. The constraint algebra around them is
+    models/ocean.py's and models/atmos.py's."""
+    from .mesh import atmos_mesh
+    inv_oc, inv_at = model.inv_oc, model.inv_at
+    if inv_oc is not None:
+        helm = inv_oc.helm
+        wrapped = (ShardedCyclicHelmholtz(helm, mesh)
+                   if isinstance(helm, CyclicHelmholtz)
+                   else ShardedBoxHelmholtz(helm, mesh))
+        inv_oc = dataclasses.replace(inv_oc, helm=wrapped)
+    if inv_at is not None:
+        inv_at = dataclasses.replace(inv_at, helm=ShardedCyclicHelmholtz(
+            inv_at.helm, atmos_mesh(mesh, model.cfg)))
+    return dataclasses.replace(model, inv_oc=inv_oc, inv_at=inv_at)

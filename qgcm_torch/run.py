@@ -37,9 +37,9 @@ ported.
 With a `mesh` (a mesh of the process group, parallel/mesh.py: a rows
 mesh, or for a box any (y, x) shape) the run is decomposed as qgcm_tpu's
 Driver(mesh) is (qgcm_tpu/run.py:93-180, 318-345): the ocean's state,
-forcing and running means are this rank's blocks, the atmosphere is
-whole on every rank, and the cycle head is
-the decomposed one (models/stepper.make_cycle_head). qgcm_tpu's rule for
+forcing and running means are this rank's blocks, the atmosphere's its
+row blocks (parallel/mesh.atmos_mesh), and the cycle head is the
+decomposed one (models/stepper.make_cycle_head). qgcm_tpu's rule for
 I/O holds: the writers see fields gathered whole at cadence boundaries
 only; every rank gathers and checks validity, and only the primary rank
 (parallel/launch.is_primary) writes, prints and profiles. A fail-fast
@@ -47,9 +47,10 @@ stop is decided by an all_reduce of every rank's verdict, so that no
 rank stops while another waits in a collective. A resumed run reads
 restart.nc on every rank and takes its blocks.
 
-A channel runs on rows meshes only: a mesh with x > 1 raises, with
-qgcm_tpu's reason (the duplicated column's wraparound), where qgcm_tpu
-falls back to GSPMD's partitioning, which has no PyTorch counterpart.
+A channel, and an atmosphere-only case, run on rows meshes only: a mesh
+with x > 1 raises, with qgcm_tpu's reason (the duplicated column's
+wraparound), where qgcm_tpu falls back to GSPMD's partitioning, which
+has no PyTorch counterpart.
 
 Not ported: Orbax checkpoints.
 """
@@ -87,7 +88,8 @@ from .io import (save_restart, load_restart, load_restart_forcing,
                  OceanSnapshots, AtmosSnapshots, read_mean_forcing)
 from .io.ncdf import host
 from .parallel.launch import is_primary
-from .parallel.mesh import gather_tree, shard, shard_tree
+from .parallel.mesh import (atmos_mesh, cyclic_x_refusal, gather_tree,
+                            shard, shard_tree)
 
 # the collective call site of the fail-fast verdict (Mesh.counts)
 VERDICT = "run.verdict"
@@ -153,9 +155,10 @@ class Driver:
         'a2a' (the only one ported), halo_variant 'auto' takes 'overlap'
         on a mesh of more than one rank and leaves a one-rank mesh to the
         single-device path, as qgcm_tpu leaves a one-device mesh to
-        GSPMD. An atmosphere-only model takes no mesh (the atmosphere on
-        row blocks is not ported), nor a channel a mesh with x > 1; both
-        raise before any collective.
+        GSPMD. The atmosphere is cut by rows over the mesh's ranks
+        (parallel/mesh.atmos_mesh); an atmosphere-only model, like a
+        channel, takes no mesh with x > 1: that raises before any
+        collective.
 
         cadence_rounding: "cycles" (default) rounds every cadence to a
         whole number of coupling cycles exactly like the reference
@@ -172,17 +175,20 @@ class Driver:
         number of steps per interval."""
         cfg = model.cfg
         if mesh is not None:
-            if cfg.atmos_only:
-                raise NotImplementedError(
-                    "a decomposed run cuts the ocean's blocks; the "
-                    "atmosphere on row blocks is not ported yet "
-                    "(ROADMAP.md)")
+            if cfg.atmos_only and mesh.mx > 1:
+                raise cyclic_x_refusal(f"an atmosphere-only run on a "
+                                       f"{mesh.my}x{mesh.mx} mesh")
             check_mesh_grid(cfg, mesh, "a decomposed run")
             if halo_variant == "auto":
                 halo_variant = "overlap" if mesh.size > 1 else None
                 mesh = mesh if mesh.size > 1 else None
         self.mesh = mesh
         self.rows = None if mesh is None else _Rows(mesh, cfg, model.device)
+        # the atmosphere's row blocks (parallel/mesh.atmos_mesh)
+        self.amesh = self.arows = None
+        if mesh is not None and not cfg.ocean_only:
+            self.amesh = atmos_mesh(mesh, cfg)
+            self.arows = _Rows(self.amesh, cfg, model.device, atmos=True)
         self.model = model
         self.p = params
         self.outdir = outdir
@@ -275,7 +281,8 @@ class Driver:
         self.mean_forcing = mean_forcing   # (tauxo, tauyo, fnetoc)
         self._head = make_cycle_head(model, mesh, halo_variant,
                                      spectral_variant)
-        self._segment = make_atmos_segment(model) if self.has_at else None
+        self._segment = (make_atmos_segment(model, mesh) if self.has_at
+                         else None)
         if self.has_at:
             from .coupling import make_xforc
             self._xforc = make_xforc(model, mesh=mesh)
@@ -320,7 +327,7 @@ class Driver:
         if self.has_at:
             ofor, afor, _ = self._xforc(
                 at.pam, oc.pom if self.has_oc else None,
-                oc.sstm if self.has_oc else self.sst_mean,
+                oc.sstm if self.has_oc else self._sst_in,
                 at.astm, at.hmixam)
             return ofor, afor
         if self.mean_forcing is None:
@@ -344,16 +351,29 @@ class Driver:
         n = nsteps0, the absolute step of the start."""
         oc, at, tini = self._initial_state()
         oacc = zero_ocean_averages(self.model)
-        if self.mesh is not None:
-            oc, oacc = shard_tree(oc, self.mesh), shard_tree(oacc, self.mesh)
+        aacc = zero_atmos_averages(self.model)
+        # an atmosphere-only head reads the rank's block of the SST
+        self._sst_in = self.sst_mean
+        mesh, amesh = self.mesh, self.amesh
+        if mesh is not None:
+            # a fluid that is not stepped stays whole: the restart files
+            # carry its initial state (save_restart)
             sofor, safor = self._stored_forcing
+            if self.has_oc:
+                oc, oacc = shard_tree(oc, mesh), shard_tree(oacc, mesh)
+            if amesh is not None:
+                at, aacc = shard_tree(at, amesh), shard_tree(aacc, amesh)
+                if safor is not None:
+                    safor = shard_tree(safor, amesh)
             if sofor is not None:
-                self._stored_forcing = (shard_tree(sofor, self.mesh), safor)
+                sofor = shard_tree(sofor, mesh)
+            self._stored_forcing = (sofor, safor)
+            if self.sst_mean is not None:
+                self._sst_in = shard(self.sst_mean, mesh)
         ofor, afor = self._initial_forcing(oc, at)
         step0 = _nint(tini * SECSYR / self.model.cfg.dta)  # q-gcm.F:649
         self._step0 = step0
-        return Carry(oc, at, ofor, afor, oacc,
-                     zero_atmos_averages(self.model), step0), tini
+        return Carry(oc, at, ofor, afor, oacc, aacc, step0), tini
 
     def advance(self, carry: Carry, n_steps: int) -> Carry:
         """`n_steps` atmosphere steps from carry.n, keeping the cycle
@@ -390,7 +410,8 @@ class Driver:
             if midpoint and self.ntavat and \
                     (i + 1 - step0) % self.ntavat != nmidat:
                 return
-            aacc = accumulate_atmos(aacc, at_new, afor, model)
+            aacc = accumulate_atmos(aacc, at_new, afor, model,
+                                    rows=self.arows)
 
         lead = min(n_steps, (nstr - n % nstr) % nstr)
         if lead and self.has_at:
@@ -399,7 +420,7 @@ class Driver:
         n_cycles, tail = divmod(n_steps - lead, nstr)
         for length in [nstr] * n_cycles + ([tail] if tail else []):
             oc, ofor, afor = self._head(oc, at, ofor, afor, n, acc_oc,
-                                        sst_mean=self.sst_mean)
+                                        sst_mean=self._sst_in)
             if self.has_at:
                 at = self._segment(at, afor, n, length, acc_at)
             n += length
@@ -475,14 +496,22 @@ class Driver:
             return (oc if has_oc else None), (at if has_at else None)
 
         def whole(carry, means):
-            """(ocean, ocean forcing, ocean means) of the carry, gathered
-            whole on every rank in a decomposed run (the means only when
+            """(ocean, ocean forcing, ocean means, atmosphere, atmosphere
+            forcing, atmosphere means) of the carry, gathered whole on
+            every rank in a decomposed run (the means only when
             `means`)."""
             oc, ofor, oacc = carry.oc, carry.ofor, carry.oacc
-            if mesh is None or not has_oc:
-                return oc, ofor, oacc
-            return (gather_tree(oc, mesh), gather_tree(ofor, mesh),
-                    gather_tree(oacc, mesh) if means else None)
+            at, afor, aacc = carry.at, carry.afor, carry.aacc
+            if mesh is None:
+                return oc, ofor, oacc, at, afor, aacc
+            if has_oc:
+                oc, ofor = gather_tree(oc, mesh), gather_tree(ofor, mesh)
+                oacc = gather_tree(oacc, mesh) if means else None
+            if has_at:
+                amesh = self.amesh
+                at, afor = gather_tree(at, amesh), gather_tree(afor, amesh)
+                aacc = gather_tree(aacc, amesh) if means else None
+            return oc, ofor, oacc, at, afor, aacc
 
         def valid(ocf, atf, ofor, afor):
             """(verdict, report) of valids, the verdict the same on every
@@ -523,9 +552,9 @@ class Driver:
 
             if not any(due(c) for c in cadences):
                 continue
-            at, afor, aacc = carry.at, carry.afor, carry.aacc
-            oc, ofor, oacc = whole(carry, due(self.ntavoc)
-                                   or due(self.ntavat) or due(self.nocavg))
+            oc, ofor, oacc, at, afor, aacc = whole(
+                carry, due(self.ntavoc) or due(self.ntavat)
+                or due(self.nocavg))
             ocf, atf = fluids(oc, at)
 
             ok, rep = (valid(ocf, atf, ofor, afor) if due(self.nvalid)
@@ -550,9 +579,9 @@ class Driver:
                 xdiags = None
                 if has_at and has_oc:
                     # the decomposed xforc is a collective of every rank
-                    ocb = carry.oc
+                    ocb, atb = carry.oc, carry.at
                     _, _, xdiags = self._xforc(
-                        at.pam, ocb.pom, ocb.sstm, at.astm, at.hmixam)
+                        atb.pam, ocb.pom, ocb.sstm, atb.astm, atb.hmixam)
                 if monw:
                     monw.append(compute_monitor(model, ocf, atf, ofor, afor,
                                                 xdiags=xdiags), tyrs)
@@ -564,12 +593,14 @@ class Driver:
                 write_avges(f"{out}/avges.nc", model,
                             oacc if has_oc else None,
                             aacc if has_at else None)
-            if due(self.ncovoc) and covs:
+            # each fluid's samples where it is stepped (qgcm_tpu reads
+            # the other fluid's and fails in a single-fluid run)
+            if due(self.ncovoc) and "po" in covs:
                 covs["po"] = accumulate_cov(covs["po"], oc.po[0],
                                             nsi=self.nscvoc, grid="p")
                 covs["to"] = accumulate_cov(covs["to"], oc.sst,
                                             nsi=self.nscvoc)
-            if due(self.ncovat) and covs:
+            if due(self.ncovat) and "pa" in covs:
                 covs["pa"] = accumulate_cov(covs["pa"], at.pa[0],
                                             nsi=self.nscvat, grid="p")
                 covs["ta"] = accumulate_cov(covs["ta"], at.ast,
@@ -618,8 +649,7 @@ class Driver:
             self.seconds["events"] += time.perf_counter() - te
 
         te = time.perf_counter()
-        at, afor, aacc = carry.at, carry.afor, carry.aacc
-        oc, ofor, oacc = whole(carry, True)
+        oc, ofor, oacc, at, afor, aacc = whole(carry, True)
         tyrs = tini + n_done * cfg.dta / SECSYR
         if writes:
             if not aborted:

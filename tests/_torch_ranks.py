@@ -256,54 +256,66 @@ def padding_zero(tree, mesh, nyp, nxp) -> bool:
 def xforc_rank(cases, shape=None):
     """For each case (kind, config overrides): the decomposed xforc of
     the seeded coupled state on a rows mesh of the ranks (or a mesh of
-    `shape`): the ocean forcing gathered whole, this rank's atmospheric
-    forcing and diagnostics (the same bits on every rank), the
-    collective counts and whether the forcing's padding is zero."""
+    `shape`), the atmosphere in its row blocks: the ocean and the
+    atmospheric forcing gathered whole, the diagnostics and the
+    replicated scalars of the atmospheric forcing (the same bits on every
+    rank), the collective counts and whether the forcings' padding is
+    zero."""
     from qgcm_torch.coupling import make_xforc
+    from qgcm_torch.parallel.mesh import atmos_mesh
     torch.set_num_threads(1)
     out = []
     for kind, over in cases:
         model, oc, at = seeded_coupled(kind, **over)
         cfg = model.cfg
         mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
-        ob = shard_tree(oc, mesh)
+        amesh = atmos_mesh(mesh, cfg)
+        ob, ab = shard_tree(oc, mesh), shard_tree(at, amesh)
         ofor, afor, xd = make_xforc(model, mesh=mesh)(
-            at.pam, ob.pom, ob.sstm, at.astm, at.hmixam)
+            ab.pam, ob.pom, ob.sstm, ab.astm, ab.hmixam)
         counts = dict(mesh.counts)
         out.append(dict(ofor=numpy_fields(gather_tree(ofor, mesh)),
-                        afor=numpy_fields(afor), diags=numpy_fields(xd),
+                        afor=numpy_fields(gather_tree(afor, amesh)),
+                        diags=numpy_fields(xd),
+                        scalars=[afor.txisat.numpy(), afor.txinat.numpy()],
                         counts=counts,
-                        pad_zero=padding_zero(ofor, mesh, cfg.nypo,
-                                              cfg.nxpo)))
+                        pad_zero=padding_zero(ofor, mesh, cfg.nypo, cfg.nxpo)
+                        and padding_zero(afor, amesh, cfg.nypa, cfg.nxpa)))
     return out
 
 
 def coupled_runner_rank(cases, shape=None):
     """For each case (kind, config overrides, halo variant, cycles): the
     seeded coupled state run that many coupling cycles by the decomposed
-    coupled runner on a rows mesh of the ranks (or a mesh of `shape`):
-    the ocean gathered whole, this rank's atmosphere, the collectives
-    per cycle, qgstep's launches and whether the ocean's padding stayed
-    zero."""
+    coupled runner on a rows mesh of the ranks (or a mesh of `shape`),
+    the atmosphere in its row blocks: both fluids gathered whole, this
+    rank's replicated leaves of the atmosphere (the same bits on every
+    rank), the collectives per cycle, qgstep's launches and whether the
+    padding stayed zero."""
     from qgcm_torch.models.stepper import make_coupled_runner
     from qgcm_torch.ops.qgstep import qgstep
+    from qgcm_torch.parallel.mesh import atmos_mesh, replicated
     torch.set_num_threads(1)
     out = []
     for kind, over, variant, cycles in cases:
         model, oc, at = seeded_coupled(kind, **over)
         cfg = model.cfg
         mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
+        amesh = atmos_mesh(mesh, cfg)
         run = make_coupled_runner(model, mesh=mesh, halo_variant=variant,
                                   spectral_variant="a2a")
         n0 = qgstep.launches
-        ob, at = run(shard_tree(oc, mesh), at, cycles * cfg.nstr)
+        ob, ab = run(shard_tree(oc, mesh), shard_tree(at, amesh),
+                     cycles * cfg.nstr)
+        counts = {k: v / cycles for k, v in mesh.counts.items()}
         out.append(dict(ocean=numpy_fields(gather_tree(ob, mesh)),
-                        atmos=numpy_fields(at),
-                        counts={k: v / cycles for k, v in
-                                mesh.counts.items() if k != "gather"},
+                        atmos=numpy_fields(gather_tree(ab, amesh)),
+                        replicated={k: v.numpy() for k, v in
+                                    ab._asdict().items() if replicated(v)},
+                        counts=counts,
                         launches=qgstep.launches - n0,
-                        pad_zero=padding_zero(ob, mesh, cfg.nypo,
-                                              cfg.nxpo)))
+                        pad_zero=padding_zero(ob, mesh, cfg.nypo, cfg.nxpo)
+                        and padding_zero(ab, amesh, cfg.nypa, cfg.nxpa)))
     return out
 
 
@@ -422,20 +434,23 @@ def adjoint_setup(kind):
     return model, st, (f.tauxo, f.tauyo, f.fnetoc), obj(model)
 
 
-def adjoint_rank(cases, steps, halo_cases=(), pair_cases=()):
+def adjoint_rank(cases, steps, halo_cases=(), pair_cases=(),
+                 coupled_cases=(), cycles=2):
     """For each case (kind of adjoint_setup, mesh shape: 'rows' or (my,
     mx), halo variant, remat, segment_steps): ocean_sensitivity on a mesh
     of the ranks over `steps` substeps. Every rank returns the value and
     the forcing gradients (which must be the same bits on every rank),
     whether its state0 gradient's padding is zero, the collective counts
     by site and qgstep's launches by mode; rank 0 adds the state0
-    gradient gathered whole. Then halo_grad_rank's `halo_cases`, and the
+    gradient gathered whole. Then halo_grad_rank's `halo_cases`, the
     `pair_cases` on a rows mesh of a group of ranks 0 and 1 (the others
-    wait)."""
+    wait), and coupled_grad_rank's `coupled_cases` over `cycles`
+    coupling cycles."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     out = dict(adjoint=_adjoint_cases(cases, steps),
-               halo=halo_grad_rank(halo_cases))
+               halo=halo_grad_rank(halo_cases),
+               coupled=coupled_grad_rank(coupled_cases, cycles))
     if pair_cases:
         pair = dist.new_group([0, 1])
         if dist.get_rank() < 2:
@@ -496,3 +511,98 @@ def halo_weights(cfg):
     rng = np.random.default_rng(7)
     return torch.from_numpy(rng.standard_normal((cfg.nlo, cfg.nypo,
                                                  cfg.nxpo)))
+
+
+def coupled_loss(model):
+    """The coupled adjoint's objective of a final (ocean, atmosphere):
+    qgcm_tpu's, mean(ast^2) of the atmosphere (tests/test_adjoint.py:
+    157-190), plus the ocean's layer1_energy_proxy."""
+    from qgcm_torch.adjoint import layer1_energy_proxy
+    proxy = layer1_energy_proxy(model)
+
+    def loss(ocean, atmos):
+        return torch.mean(torch.square(atmos.ast)) + proxy(ocean)
+
+    return loss
+
+
+def coupled_gradient(model, run, ocean, atmos, n_steps, mesh=None):
+    """(value, d/d ocean0, d/d atmos0) of coupled_loss after n_steps of
+    the coupled runner `run`, every field of both initial states a leaf.
+    With `mesh` the states are this rank's blocks (the atmosphere on
+    atmos_mesh) and run a mesh runner: the final states are gathered,
+    the loss seeded on rank 0 alone, the replicated leaves' gradients
+    summed over the ranks by one all_reduce and the blocks' padding
+    zero (adjoint.ocean_sensitivity's conventions)."""
+    from qgcm_torch.adjoint import _grads, _leaves
+    from qgcm_torch.parallel.mesh import atmos_mesh, replicated, \
+        zero_padding
+    from qgcm_torch.state import AtmosState, OceanState
+    lo, la = OceanState(*_leaves(ocean)), AtmosState(*_leaves(atmos))
+    with torch.enable_grad():
+        o, a = run(lo, la, n_steps)
+        seed = None
+        if mesh is not None:
+            amesh = atmos_mesh(mesh, model.cfg)
+            o, a = gather_tree(o, mesh), gather_tree(a, amesh)
+        val = coupled_loss(model)(o, a)
+        if mesh is not None:
+            seed = [torch.ones_like(val) if mesh.rank == 0
+                    else torch.zeros_like(val)]
+        g = _grads([val], [*lo, *la], seed)
+    go, ga = OceanState(*g[:len(lo)]), AtmosState(*g[len(lo):])
+    if mesh is not None:
+        rep = [(t, k) for t in (go, ga) for k, v in t._asdict().items()
+               if replicated(v)]
+        parts = [getattr(t, k) for t, k in rep]
+        tot = mesh.all_reduce(torch.cat([p.reshape(-1) for p in parts]),
+                              "test.sums")
+        sums = iter(v.view_as(p) for v, p in zip(
+            tot.split([p.numel() for p in parts]), parts))
+        go = zero_padding(go._replace(**{k: next(sums) for t, k in rep
+                                         if t is go}), mesh)
+        ga = zero_padding(ga._replace(**{k: next(sums) for t, k in rep
+                                         if t is ga}), amesh)
+    return val.detach(), go, ga
+
+
+def coupled_grad_rank(cases, cycles):
+    """For each case (kind, config overrides, mesh shape, halo variant,
+    remat): coupled_gradient through the coupled mesh runner on a mesh of
+    the ranks over `cycles` coupling cycles. Every rank returns the
+    value, its replicated gradients, whether its blocks' padding is zero,
+    its collective counts by site and qgstep's launches; rank 0 adds the
+    gradients gathered whole."""
+    from qgcm_torch.models.stepper import make_coupled_runner
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.mesh import atmos_mesh, replicated
+    out = []
+    for kind, over, shape, variant, remat in cases:
+        model, oc, at = seeded_coupled(kind, **over)
+        cfg = model.cfg
+        mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
+        amesh = atmos_mesh(mesh, cfg)
+        run = make_coupled_runner(model, remat=remat, mesh=mesh,
+                                  halo_variant=variant,
+                                  spectral_variant="a2a")
+        reset_launches()
+        val, go, ga = coupled_gradient(
+            model, run, shard_tree(oc, mesh), shard_tree(at, amesh),
+            cycles * cfg.nstr, mesh)
+        res = dict(value=float(val), counts=dict(mesh.counts),
+                   launches=dict(qgstep.mode_launches),
+                   replicated={f"{n}.{k}": v.numpy() for n, t in
+                               (("ocean", go), ("atmos", ga))
+                               for k, v in t._asdict().items()
+                               if replicated(v)},
+                   sst_rows=bool((go.sst + go.sstm)[:max(0, min(
+                       mesh.by, cfg.nyto - mesh.iy * mesh.by))].abs()
+                       .max() > 0),
+                   pad_zero=padding_zero(go, mesh, cfg.nypo, cfg.nxpo)
+                   and padding_zero(ga, amesh, cfg.nypa, cfg.nxpa))
+        whole = (numpy_fields(gather_tree(go, mesh)),
+                 numpy_fields(gather_tree(ga, amesh)))
+        if mesh.rank == 0:
+            res["ocean"], res["atmos"] = whole
+        out.append(res)
+    return out

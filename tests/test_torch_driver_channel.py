@@ -6,7 +6,14 @@ substeps from an ocean eddy (from rest the meridional flow, and with
 it every eddy flux, would be roundoff), through each package's Driver
 in float64.
 Both write the same file set with every variable within rel 1e-9 (the
-golden bar). The coupled comparison is tests/test_torch_driver.py."""
+golden bar). The coupled comparison is tests/test_torch_driver.py.
+
+The eddy's east column does not repeat its west one on this grid; the
+port makes it do so when it derives q (models/ocean.init_ocean_state),
+so that a run resumed from its own restart.nc stays on the straight run
+(qgcm_tpu keeps the offset in q, and its resumed runs leave the
+straight one by 9.4e-3 of po here). qgcm_tpu's Driver gets the restart
+the port's init_ocean_state wrote, which holds the periodic state."""
 
 import os
 
@@ -92,6 +99,52 @@ def test_channel_driver_writes_the_jax_file_set(pair):
     assert ((d / "port" / "input_parameters.m").read_text()
             == (d / "jax" / "input_parameters.m").read_text())
     assert drv.nsteps == 120 and drv.model.cfg.dtype == "float64"
+
+
+# a run resumed half-way from its own restart.nc against the straight
+# run: float64 roundoff (8.6e-16 of po's maximum read on this case)
+RESUME_TOL = 1e-14
+
+
+def test_channel_resumed_from_its_restart_matches_straight_run(tmp_path):
+    """The channel started from the raw eddy (its east column off its west
+    one by more than 3% of the eddy's maximum), resumed half-way from the
+    restart.nc of its own first half, against the straight run: the
+    pressures, PV, SST and mass constraints of the final state within
+    1e-14 of their maxima (float64 restart files). Without the repair of
+    the initial duplicate column q keeps the offset, and the resume
+    leaves the straight run by 9.4e-3 of po. The momentum-constraint
+    vectors are not held: a resume rederives them from p (constr, as
+    the reference does: the restart holds none), and the leapfrogged
+    deep layer's has drifted from that by 1.7e-7 here."""
+    import torch
+    p = _params(parse_input_params, str(tmp_path / "start.nc"))
+    model = build_model(params_to_config(p, _base(torch_config)), "cpu")
+    po = eddy_pressure(model.cfg)
+    assert np.abs(po[..., -1] - po[..., 0]).max() > 0.03 * np.abs(po).max()
+    raw = torch.from_numpy(po)
+    save_restart(p.name, model, init_ocean_state(model, po=po)._replace(
+        po=raw, pom=raw), init_atmos_state(model, init="rbal"), 0.0)
+    forcing = channel_windstress(model.cfg, model.grids, tau0=2e-5)
+    half = _params(parse_input_params, p.name)
+    half.trun = p.trun / 2
+    resumed = _params(parse_input_params, str(tmp_path / "half" /
+                                              "restart.nc"))
+    resumed.trun = p.trun / 2
+    with pytest.MonkeyPatch.context() as mp:
+        _float64_files(mp, "qgcm_torch", {})
+        out = {}
+        for name, params in (("straight", p), ("half", half),
+                             ("resumed", resumed)):
+            out[name] = Driver(model, params, str(tmp_path / name),
+                               mean_forcing=forcing, verbose=False).run()
+    assert out["straight"].steps_done == 2 * out["resumed"].steps_done
+    for k, want in out["straight"].ocean._asdict().items():
+        if k.startswith("ocnc"):
+            continue
+        got = getattr(out["resumed"].ocean, k)
+        scale = want.abs().max()
+        assert (got - want).abs().max() <= RESUME_TOL * scale, k
 
 
 @pytest.mark.parametrize("name", NC_FILES)

@@ -10,7 +10,10 @@ value within 1e-12: tests/test_adjoint.py:262-268's bars); remat True, 4
 and "dots" and host segments against the stored one-program gradient at
 1e-12; the gradient's padding, the replicated results' bits on every
 rank, the backward's collectives against the forward's and every
-rank's collectives against rank 0's; the gradient of
+rank's collectives against rank 0's; the coupled model's distributed
+adjoint (make_coupled_runner(mesh, remat=True) differentiated, the
+atmosphere on row blocks) against the port's single-device coupled
+gradient; the gradient of
 the vorticity step alone through each schedule ('local' where the blocks
 are too small for ghosts) against the single-device step's; and
 qgcm_tpu's distributed adjoint (tests/test_adjoint.py:226's call, 4 rows
@@ -41,6 +44,7 @@ STATE_TOL = 1e-12
 VALUE_TOL = 1e-12
 JAX_TOL = 1e-11
 REMAT_TOL = 1e-12
+COUPLED_TOL = 1e-11
 SEGMENT = 5
 
 # (kind, mesh shape, halo variant, remat, segment_steps)
@@ -63,16 +67,30 @@ HALO_CASES = [(False, False, "rows", v, 12) for v in ("staged", "deep",
     (False, False, (2, 2), "overlap", 12), (False, True, (2, 2), "local", 12)]
 
 
+# the coupled model's distributed adjoint: (kind, config overrides, mesh
+# shape, halo variant, remat) over CYCLES coupling cycles of the small
+# coupled double gyre (tests/test_adjoint.py:157-190's grid, its
+# atmosphere's 13 rows in blocks of 4 on 4 ranks); nyta 24 gives 25
+# atmosphere rows in blocks of 7, so that rank 1 holds no row of the
+# wall strips (rows 0-4 and 20-24)
+CYCLES = 2
+COUPLED_CASES = [("box", {}, "rows", "overlap", True),
+                 ("box", {}, (2, 2), "overlap", True),
+                 ("box", dict(nyta=24), "rows", "overlap", True)]
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     """The ranks' results, from one spawn of 4 ranks: out[n] the adjoint
     cases on n ranks (n = 2: a group of ranks 0 and 1), rank by rank;
-    out['halo'] rank 0's results of HALO_CASES."""
+    out['halo'] rank 0's results of HALO_CASES; out['coupled'] the
+    COUPLED_CASES, rank by rank."""
     four = spawn_ranks(ranks.adjoint_rank, 4, CASES_4, STEPS, HALO_CASES,
-                       CASES_2, backend="gloo",
+                       CASES_2, COUPLED_CASES, CYCLES, backend="gloo",
                        workdir=tmp_path_factory.mktemp("adj"), timeout=180)
     return {2: [r["pair"] for r in four[:2]],
-            4: [r["adjoint"] for r in four], "halo": four[0]["halo"]}
+            4: [r["adjoint"] for r in four], "halo": four[0]["halo"],
+            "coupled": [r["coupled"] for r in four]}
 
 
 @pytest.fixture(scope="module")
@@ -199,7 +217,7 @@ def _sites(counts):
     """The forward's collective sites of a run, but for the final gather
     and the gradients' sums."""
     return [k for k in counts if not k.endswith(".T")
-            and k not in ("gather", "adjoint.sums")]
+            and k not in ("gather", "adjoint.sums", "test.sums")]
 
 
 def _single_step_grads(cyclic, sponge, nyaooc):
@@ -231,6 +249,54 @@ def _check_halo_steps(spawned):
             assert sites == ["halo.gather"], case
         for k in sites:
             assert counts[k] == counts[k + ".T"], (case, k)
+
+
+def test_coupled_distributed_gradient_matches_single_device(spawned):
+    """The coupled model's distributed adjoint: make_coupled_runner(mesh,
+    remat=True, 'overlap', 'a2a') over 2 coupling cycles, the atmosphere
+    on row blocks, differentiated for qgcm_tpu's coupled loss (mean(ast^2)
+    of the final atmosphere) plus the ocean's layer1_energy_proxy, by
+    every field of both initial states, on 4x1 and 2x2 meshes (and on 4
+    rows of a taller atmosphere, whose rank 1 holds no row of the wall
+    strips), against the port's single-device coupled gradient (remat
+    True): every gradient field within 1e-11 of its maximum, the value
+    within 1e-12; on every rank the value and the replicated gradients
+    (scalars and mode vectors, summed over the ranks) the same bits,
+    the blocks' padding zero and the rank's rows of d/d(initial sst)
+    nonzero; every rank's collectives, forward and backward, rank 0's;
+    each site's backward at most half its forward count (the
+    recomputation replays every cycle; the last atmosphere steps' PV
+    inversion reaches no loss), exactly half for the ocean's and xforc's
+    sites; no launch (CPU tensors take the plain chains)."""
+    from qgcm_torch.models.stepper import make_coupled_runner
+    res = spawned["coupled"]
+    for i, case in enumerate(COUPLED_CASES):
+        kind, over, shape = case[:3]
+        model, oc, at = ranks.seeded_coupled(kind, **over)
+        val, go, ga = ranks.coupled_gradient(
+            model, make_coupled_runner(model, remat=True), oc, at,
+            CYCLES * model.cfg.nstr)
+        got = res[0][i]
+        assert abs(got["value"] - float(val)) <= VALUE_TOL * abs(
+            float(val)), case
+        for name, want in (("ocean", go), ("atmos", ga)):
+            for k, b in want._asdict().items():
+                assert rel(got[name][k], b) <= COUPLED_TOL, (case, name, k)
+        counts = got["counts"]
+        for r, rank in enumerate(res):
+            mine = rank[i]
+            assert mine["value"] == got["value"], (case, r)
+            for k, a in got["replicated"].items():
+                assert np.array_equal(mine["replicated"][k], a), (case, r, k)
+            assert mine["pad_zero"] and mine["sst_rows"], (case, r)
+            assert mine["counts"] == counts, (case, r)
+        for k in _sites(counts):
+            if k + ".T" in counts:
+                assert 0 < 2 * counts[k + ".T"] <= counts[k], (case, k)
+            if k.startswith(("ocean.", "halo.", "coupling.")):
+                assert counts[k] == 2 * counts[k + ".T"], (case, k)
+        assert got["launches"] == dict.fromkeys(("full", "rows", "x_ext"),
+                                                0), case
 
 
 def test_matches_qgcm_tpu_distributed_adjoint(spawned):

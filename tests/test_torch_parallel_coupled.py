@@ -5,9 +5,11 @@ of each output's maximum, with tau_udiff off and on, in the box and the
 channel and over a footprint that reaches the atmosphere's wall bands;
 the decomposed coupled runner against qgcm_tpu's mesh runner over 2
 coupling cycles at 1e-11 (tests/test_sharding.py:41-58); the box's
-xforc and runner on a 2x2 mesh the same way; every rank's atmosphere
-the same bits; bicubic_refine_window against qgcm_tpu's, and the
-refinement by row and column range; and what the mesh paths refuse."""
+xforc and runner on a 2x2 mesh the same way, the atmosphere on row
+blocks over the ranks; every rank's atmosphere and atmospheric forcing
+the same bits where they are replicated; bicubic_refine_window against
+qgcm_tpu's, and the refinement by row and column range; and what the
+mesh paths refuse."""
 
 import jax
 import numpy as np
@@ -145,8 +147,11 @@ def test_decomposed_xforc_matches_qgcm_tpu_mesh_xforc(spawned, case, n):
             if key != "ofor":
                 assert all(np.array_equal(r[key][name], res[0][key][name])
                            for r in res[1:]), (key, name)
+    for r in res[1:]:
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(r["scalars"], res[0]["scalars"]))
     assert all(r["pad_zero"] for r in res)
-    want_counts = {"coupling.sums": 1}
+    want_counts = {"coupling.sums": 1, "coupling.gather": 1}
     if over.get("tau_udiff"):
         want_counts["coupling.rows"] = 2
     if kind == "channel":
@@ -177,7 +182,8 @@ def test_coupled_mesh_runner_matches_qgcm_tpu(spawned, case, n):
     'a2a') on n ranks against qgcm_tpu's mesh runner on n devices: every
     field of both fluids within 1e-11 of its maximum (the integrals
     dpio*/dpia* against area x max|p|, as tests/test_torch_coupled.py
-    holds them); every rank's atmosphere the same bits; the kernel path
+    holds them); every rank's atmosphere (its row blocks gathered) and
+    its replicated leaves the same bits; the kernel path
     launches nothing on CPU tensors; padding rows stay zero."""
     kind, over, _, cycles = RUNNER_CASES[case]
     model, _, _ = ranks.seeded_coupled(kind, **over)
@@ -195,6 +201,8 @@ def test_coupled_mesh_runner_matches_qgcm_tpu(spawned, case, n):
     for r in res[1:]:
         for name, a in res[0]["atmos"].items():
             assert np.array_equal(r["atmos"][name], a), name
+        for name, a in res[0]["replicated"].items():
+            assert np.array_equal(r["replicated"][name], a), name
     assert all(r["pad_zero"] for r in res)
     assert res[0]["launches"] == 0
 
@@ -273,8 +281,11 @@ def test_2d_xforc_matches_qgcm_tpu_mesh_xforc(spawned, case):
             if key != "ofor":
                 assert all(np.array_equal(r[key][name], res[0][key][name])
                            for r in res[1:]), (key, name)
+    for r in res[1:]:
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(r["scalars"], res[0]["scalars"]))
     assert all(r["pad_zero"] for r in res)
-    want_counts = {"coupling.sums": 1}
+    want_counts = {"coupling.sums": 1, "coupling.gather": 1}
     if over.get("tau_udiff"):
         want_counts.update({"coupling.rows": 2, "coupling.cols": 2})
     assert res[0]["counts"] == want_counts
@@ -285,7 +296,8 @@ def test_2d_coupled_runner_matches_qgcm_tpu_and_single_device(spawned):
     qgcm_tpu's mesh runner on 2x2 devices (every field of both fluids
     within 1e-11 of its maximum, the integrals against area x max|p|) and
     against the port's single-device runner at 1e-11; every rank's
-    atmosphere the same bits; padding zero; the cycle's collectives."""
+    atmosphere (gathered) and its replicated leaves the same bits;
+    padding zero; the cycle's collectives."""
     kind, over, _, cycles = RUNNER_CASES[RUNNER_2D[0]]
     model, oc, at = ranks.seeded_coupled(kind, **over)
     cfg, g = model.cfg, model.grids
@@ -309,20 +321,23 @@ def test_2d_coupled_runner_matches_qgcm_tpu_and_single_device(spawned):
     for r in res[1:]:
         for name, a in res[0]["atmos"].items():
             assert np.array_equal(r["atmos"][name], a), name
+        for name, a in res[0]["replicated"].items():
+            assert np.array_equal(r["replicated"][name], a), name
     assert all(r["pad_zero"] for r in res)
     counts = res[0]["counts"]
     assert counts["coupling.sums"] == 1
     assert counts["coupling.rows"] == counts["coupling.cols"] == 2
     assert counts["halo.rows"] == counts["halo.cols"] == 2
-    assert counts["spectral.a2a"] == 4
+    # the ocean's box solve on 2x2 (4 transposes) and the atmosphere's
+    # channel solves on its rows mesh (4 each, nstr a cycle)
+    assert counts["spectral.a2a"] == 4 + 4 * cfg.nstr
 
 
 def test_mesh_refusals():
     """What the coupled mesh paths refuse: qgcm_tpu's GSPMD choices
-    (halo_variant None, spectral_variant other than 'a2a'), remat with a
-    mesh (the coupled model's distributed adjoint is not ported), an
-    atmosphere-only model (the atmosphere on row blocks is not ported), a
-    mesh made for another grid and a channel's mesh with x > 1."""
+    (halo_variant None, spectral_variant other than 'a2a'), a mesh made
+    for another grid, an atmosphere-only case's mesh with x > 1 and a
+    channel's mesh with x > 1 (the duplicated column's wraparound)."""
     model, _, _ = ranks.seeded_coupled("box")
     cfg = model.cfg
     mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
@@ -330,16 +345,14 @@ def test_mesh_refusals():
                dict(halo_variant="overlap", spectral_variant=None)):
         with pytest.raises(ValueError, match="GSPMD"):
             make_coupled_runner(model, mesh=mesh, **kw)
-    with pytest.raises(ValueError, match="remat"):
-        make_coupled_runner(model, remat=True, mesh=mesh,
-                            halo_variant="overlap", spectral_variant="a2a")
     with pytest.raises(ValueError, match="grid"):
         make_xforc(model, mesh=make_mesh(rows_only=True, grid=(9, 9)))
     from qgcm_torch.model import build_model
     at_only = build_model(cfg.replace(atmos_only=True).validate(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_xforc(at_only, mesh=mesh)
     from types import SimpleNamespace
+    fake = SimpleNamespace(grid=(cfg.nypo, cfg.nxpo), my=1, mx=2)
+    with pytest.raises(ValueError, match="duplicated east column"):
+        make_xforc(at_only, mesh=fake)
     channel, _, _ = ranks.seeded_coupled("channel")
     c = channel.cfg
     fake = SimpleNamespace(grid=(c.nypo, c.nxpo), my=1, mx=2)

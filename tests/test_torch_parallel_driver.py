@@ -6,7 +6,8 @@ tests/test_torch_driver_channel.py through Driver(mesh) with every
 cadence on, against the port's single-device Driver at 1e-11 (every
 file) and qgcm_tpu's Driver(mesh) on a mesh of the same shape at 1e-9
 (monit.nc and the final restart), and a run resumed mid-way from the
-restart.nc the primary rank wrote against the straight one; `run --mesh
+restart.nc the primary rank wrote against the straight one; the
+coupled double gyre's atmosphere alone (atmos_only) the same way; `run --mesh
 rows --dist-backend gloo` and `ensemble --shard-members` through
 cli.main in the ranks (the gcd messages are qgcm_tpu's), and `run --mesh
 2x2` on a cut double-gyre box in 4 processes under torchrun; a validity
@@ -59,6 +60,12 @@ TENDENCY_TOL = {"ddtkeat": JAX_TOL, "ddtpeat": JAX_TOL}
 # wind, is zero but for roundoff (4.2e-22 m/s against Ekman velocities of
 # order 1e-6 m/s), so two roundings of it differ by their own size.
 OCEAN_TENDENCY_TOL = {"ddtkeoc": JAX_TOL, "ddtpeoc": JAX_TOL, "wetmoc": 1.0}
+# The atmosphere-only case's mean Ekman velocities at T and p points,
+# wetmat and wepmat (5.8e-12 m/s), are 4.4e-5 of the Ekman velocity's
+# largest magnitude (1.32e-7 m/s at T points, 1.35e-7 at p points): they
+# are held against qgcm_tpu at JAX_TOL of that field, 1e-9 x 1.32e-7 /
+# 5.8e-12 = 2.3e-5 of their own value (the two read 4.6e-8 apart).
+WETMAT_TOL = {"wetmat": 2.3e-5, "wepmat": 2.3e-5}
 RANKS = 2
 CLI_GRID = ["--preset", "southern_ocean_ocean_only", "--nxta", "12",
             "--nxaooc", "12", "--nyta", "6", "--nyaooc", "4", "--ndxr", "4",
@@ -118,6 +125,21 @@ def _channel_case(d):
         init_atmos_state(model, init="rbal"), 0.0)
     forcing = channel_windstress(model.cfg, model.grids, tau0=2e-5)
     return model.cfg, p, dict(mean_forcing=forcing)
+
+
+def _atmos_case(d):
+    """(config, RunParams, Driver keywords) of the atmosphere of the
+    coupled double gyre alone, from rest (rbal) over a prescribed SST
+    with seeded noise, for a quarter day."""
+    base = coupled._coupled_base(torch_config).replace(atmos_only=True)
+    p = RunParams(**{**coupled.CADENCES, "trun": 0.25 / 365.0,
+                     "name": "rbal"})
+    cfg = params_to_config(p, base)
+    rad = build_model(cfg, "cpu").rad
+    rng = np.random.default_rng(3)
+    sst = rad.sstbar[:, None] + 2.0 * rng.standard_normal(
+        (cfg.nyto, cfg.nxto))
+    return cfg, p, dict(sst_mean=sst)
 
 
 def _halves(cfg, p, kw, d, prefix=""):
@@ -201,11 +223,13 @@ def runs(tmp_path_factory):
          "2x2", "--outdir", str(box / "mesh"), "--dist-backend", "gloo"]
         + BOX_GRID, cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
-    dirs = {"coupled": d / "coupled", "channel": d / "channel"}
+    dirs = {"coupled": d / "coupled", "channel": d / "channel",
+            "atmos": d / "atmos"}
     for v in dirs.values():
         v.mkdir()
     cases = {"coupled": _coupled_case(dirs["coupled"]),
              "channel": _channel_case(dirs["channel"])}
+    atmos = _atmos_case(dirs["atmos"])
     jax_meshes = {"jax_": JaxMesh(np.asarray(jax.devices()[:RANKS]).reshape(
         RANKS, 1), ("y", "x")), "jax2d_": JaxMesh(np.asarray(
             jax.devices()[:4]).reshape(MESH_2D), ("y", "x"))}
@@ -233,6 +257,18 @@ def runs(tmp_path_factory):
                     JaxDriver(jax_build_model(jax_params_to_config(pj, base)),
                               pj, out, mesh=jax_mesh, verbose=False,
                               **kw).run()
+        # the atmosphere alone: the single-device Driver and qgcm_tpu's
+        # Driver on a 2 x 1 mesh
+        cfg, p, kw = atmos
+        Driver(build_model(cfg, "cpu"), p, str(dirs["atmos"] / "single"),
+               verbose=False, **kw).run()
+        # qgcm_tpu's Driver samples the ocean's covariances in an
+        # atmosphere-only run and fails there: it runs without them
+        pj = JaxRunParams(**{**vars(p), "dtcovoc": 0.0})
+        JaxDriver(jax_build_model(jax_params_to_config(
+            pj, coupled._coupled_base(jax_config).replace(atmos_only=True))),
+            pj, str(dirs["atmos"] / "jax"), mesh=jax_meshes["jax_"],
+            verbose=False, **kw).run()
         cli = _cli_case(d)
         assert main(["run", str(cli), "--outdir", str(cli / "single"),
                      "--quiet"] + CLI_GRID) == 0
@@ -241,7 +277,8 @@ def runs(tmp_path_factory):
         for m in (4, 6):
             assert main(_ensemble(cli, cli / f"ens{m}", m, "--quiet")) == 0
     mesh_runs = [r for kind in cases
-                 for r in _halves(*cases[kind], dirs[kind])]
+                 for r in _halves(*cases[kind], dirs[kind])] + [
+        (*atmos[:2], str(dirs["atmos"] / "mesh"), atmos[2])]
     argvs = [["run", str(cli), "--mesh", "rows", "--outdir",
               str(cli / "mesh")] + GLOO + CLI_GRID,
              _ensemble(cli, cli / "ens4_mesh", 4, "--shard-members", *GLOO),
@@ -275,9 +312,15 @@ def test_mesh_driver_matches_single_device(runs, kind, seg):
     TENDENCY_TOL); the same file set and input_parameters.m; no rank
     aborted. Over the whole run, its first half, and the second half
     resumed from the first half's restart.nc (which the primary rank
-    wrote, and every rank read and cut into its blocks)."""
+    wrote, and every rank read and cut into its blocks). The channel's
+    resumed half ends where its straight run ends, at roundoff
+    (tests/test_torch_driver_channel.py's RESUME_TOL): its initial
+    duplicate column is repaired when q is derived."""
     d = runs["dirs"][kind]
     want = f"single_{seg}"
+    if kind == "channel" and seg == "seg2":
+        coupled.assert_same_file(d, "lastday.nc", channel.RESUME_TOL,
+                                 got="seg2", want="mesh")
     assert coupled._files(d / seg) == coupled._files(d / want)
     for name in coupled._files(d / want):
         if name.endswith(".nc"):
@@ -359,16 +402,46 @@ def test_mesh_driver_matches_qgcm_tpu_mesh_driver(runs, kind, seg, name):
                                  want=f"jax_{seg}")
 
 
+def test_atmos_only_mesh_driver(runs):
+    """The atmosphere alone (atmos_only over a prescribed SST) through
+    Driver(mesh) on 2 ranks, the atmosphere cut by rows: every file within
+    1e-11 of its largest magnitude of the port's single-device Driver
+    (the energy tendencies: TENDENCY_TOL), the same file set, and
+    monit.nc and lastday.nc within 1e-9 of qgcm_tpu's Driver on a 2 x 1
+    mesh (the mean Ekman velocities: WETMAT_TOL); no rank
+    aborted; the same collectives on both ranks, the
+    decomposed xforc's gather and all_reduce once a cycle (and at the
+    start)."""
+    d = runs["dirs"]["atmos"]
+    assert coupled._files(d / "mesh") == coupled._files(d / "single")
+    for name in coupled._files(d / "single"):
+        if name.endswith(".nc"):
+            coupled.assert_same_file(d, name, SINGLE_TOL, got="mesh",
+                                     want="single", rtols=TENDENCY_TOL)
+    for name in ("monit.nc", "lastday.nc"):
+        coupled.assert_same_file(d, name, JAX_TOL, got="mesh", want="jax",
+                                 rtols=WETMAT_TOL)
+    a, b = (r["runs"][6] for r in runs["two"])
+    assert not a["aborted"] and not b["aborted"]
+    assert a["counts"] == b["counts"]
+    cycles = 120 // 3
+    assert a["counts"]["coupling.gather"] == \
+        a["counts"]["coupling.sums"] == cycles + 1
+    assert a["counts"]["atmos.inversion.sums"] == 120
+
+
 def test_mesh_driver_collectives(runs):
     """The coupled mesh Driver's collectives: the decomposed xforc's one
     all_reduce a cycle (and one more at each monitor record), the fail-
     fast verdicts, the gathers at cadence boundaries and the running
-    means' face exchange; the same counts on both ranks."""
+    means' face exchanges (the ocean's a substep, the atmosphere's a
+    step); the same counts on both ranks."""
     a, b = (r["runs"][0]["counts"] for r in runs["two"])
     assert a == b
     cycles = 240 // 3
     assert a["coupling.sums"] == cycles + 1 + 4      # + initial + monit
     assert a["timavge.rows"] == 2 * cycles
+    assert a["timavge.atmos.rows"] == 2 * 240
     assert a["run.verdict"] == 4 + 2                 # valday + resday
     assert a["gather"] > 0
 
