@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --windows CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --channel-ydst
 
-Builds the port's CUDA kernel from qgcm_torch/csrc with nvcc, holds it
-against its plain PyTorch version on the card (model states, and seeded
-random fields at the ragged edges of the kernel's strips), reproduces
+Builds the port's CUDA kernels from qgcm_torch/csrc with nvcc, holds the
+vorticity kernel against its plain PyTorch version on the card (model
+states, and seeded random fields at the ragged edges of the kernel's
+strips), reproduces
 the ocean golden run in float64 on the card, then drives the main path
 -- the ocean-only double-gyre box, 961x961 p-points x 3 layers in
 float32 -- through the public entry points, times it and profiles a few
@@ -54,14 +56,22 @@ a resume; then the distributed adjoint (phase 20): the float64 adjoint
 of the main path's box on 4x1 and 2x2 meshes of 4 ranks with remat,
 against the single-device adjoint on the card and a finite
 difference, and every rank's window launches' gradients through the
-kernel's autograd rule against autograd through their plain version.
+kernel's autograd rule against autograd through their plain version;
+then the coupled model's distributed adjoint (phase 21); and last the
+GEMM DST (phase 22): the hand-written 3xTF32 GEMM alone at the DST's
+products for 3x961^2 and 3x4801^2 against float64 and torch.matmul, box
+solves at both sizes under the FFT DST and the GEMM DST at each
+solver_precision, and the main path's box (250 substeps) and its
+8-member ensemble (50) under each.
 Every phase raises on a failure; nothing runs on the CPU. The last line of
 standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
 with its launch count on the main path and on each other path, its
 error against the plain version, its times and its bound.
 
-With --main-path it runs only phase 4, once for each checkout named
+With --channel-ydst it runs only phase 11's forced channel, once under
+each channel y-DST (compare_channel_ydsts). With --main-path it runs
+only phase 4, once for each checkout named
 (a directory holding chip_smoke.py and qgcm_torch, such as a parent
 commit unpacked under build/), each in a process of its own and in the
 order given, and prints their ms/substep side by side. With --windows
@@ -259,6 +269,27 @@ def profile_units(fn, n, unit, card, top=8):
     trace), the idle share 1 - busy/host, and the device time by kernel
     name. Only the card's activity is traced: host-side op records would
     slow the host, which sets the pace, and so inflate the idle share."""
+    got = trace_units(fn, n)
+    print(f"  profile of {n} {unit}s: host clock {got['host_ms']:.4f} "
+          f"ms/{unit} with the profiler on [{card}]")
+    if not got["activities"]:
+        print("  device busy: not measured (no device activity in the "
+              "profiler's trace)")
+        return got
+    busy_ms = got["busy_ms"]
+    print(f"  device busy {busy_ms:.4f} ms/{unit} in {got['activities']} "
+          f"device activities ({got['activities'] / n:.0f}/{unit}); idle "
+          f"share 1 - busy/host = {got['idle']:.4f}")
+    for name, ms in list(got["by_name"].items())[:top]:
+        print(f"    {ms:8.4f} ms/{unit} {100 * ms / busy_ms:5.1f}%  "
+              f"{name[:90]}")
+    return got
+
+
+def trace_units(fn, n) -> dict:
+    """profile_units' measurement without its printing: host_ms and
+    busy_ms per unit, the idle share, the device activities' count and
+    the device ms per unit by kernel name (largest first)."""
     from pathlib import Path
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -272,27 +303,18 @@ def profile_units(fn, n, unit, card, top=8):
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    print(f"  profile of {n} {unit}s: host clock {host_ms:.4f} ms/{unit} "
-          f"with the profiler on [{card}]")
-    if not events:
-        print("  device busy: not measured (no device activity in the "
-              "profiler's trace)")
-        return
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
             busy_us += b - max(a, end)
             end = b
     busy_ms = busy_us / 1e3 / n
-    print(f"  device busy {busy_ms:.4f} ms/{unit} in {len(events)} device "
-          f"activities ({len(events) / n:.0f}/{unit}); idle share "
-          f"1 - busy/host = {1 - busy_ms / host_ms:.4f}")
     by_name = {}
     for e in events:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"    {us / 1e3 / n:8.4f} ms/{unit} "
-              f"{100 * us / 1e3 / n / busy_ms:5.1f}%  {name[:90]}")
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3 / n
+    return dict(host_ms=host_ms, busy_ms=busy_ms,
+                idle=1 - busy_ms / host_ms, activities=len(events),
+                by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
 def small_cfg(nlo, sponge=False, tall=False):
@@ -2726,6 +2748,10 @@ COUPLED_MESH_CYCLES = {"double_gyre_coupled": (20, 2),
 # the golden coupled box in float64 (phase 6's configuration) from the
 # radiative balance under an ocean eddy, with tau_udiff
 GOLDEN_MESH_CYCLES = 10
+# the short GEMM DST cases of phases 18 (the golden coupled box, cycles)
+# and 19 (the golden box on 2x2, substeps)
+MATMUL_MESH_CYCLES = 4
+MATMUL_MESH_STEPS = 10
 # each segment of the CLI's mesh run: half of phase 10's resumed day
 MESH_DRIVER_SEGMENT_DAYS = 0.5
 MESH_DRIVER_CADENCES = dict(valday=0.25, dgnday=0.25, odiday=0.25,
@@ -3177,7 +3203,14 @@ def phase_coupled_mesh(card, states, members):
                                  ocean=OceanConfig(dxo=20.0e3))
     tasks = [dict(kind="runner", label="golden coupled box float64",
                   cfg=golden, cycles=GOLDEN_MESH_CYCLES, warm=1,
-                  ocean=ocean, atmos=atmos, tol=MESH_F64_TOL)]
+                  ocean=ocean, atmos=atmos, tol=MESH_F64_TOL),
+             # the GEMM DST (phase 22) through the sharded solvers: the
+             # ocean's box and the atmosphere's channel
+             dict(kind="runner", label="golden coupled box float64, "
+                  "solver_transform='matmul'",
+                  cfg=golden.replace(solver_transform="matmul"),
+                  cycles=MATMUL_MESH_CYCLES, warm=1, ocean=ocean,
+                  atmos=atmos, tol=MESH_F64_TOL)]
     for preset in (double_gyre_coupled, southern_ocean_coupled):
         cycles, warm = COUPLED_MESH_CYCLES[preset.__name__]
         tasks.append(dict(kind="runner", label=f"{preset.__name__} float32",
@@ -3536,6 +3569,11 @@ def phase_mesh_2d(card, states, main_file):
     tasks = [
         dict(kind="ocean", label="golden box float64", cfg=golden_cfg(),
              meshes=[(2, 2)], steps=GOLDEN_STEPS, warm=MESH_WARMUP,
+             ocean=ocean, tol=MESH_F64_TOL),
+        dict(kind="ocean", label="golden box float64, "
+             "solver_transform='matmul'",
+             cfg=golden_cfg().replace(solver_transform="matmul"),
+             meshes=[(2, 2)], steps=MATMUL_MESH_STEPS, warm=MESH_WARMUP,
              ocean=ocean, tol=MESH_F64_TOL),
         dict(kind="ocean", label="double_gyre_ocean_only float32",
              cfg=double_gyre_ocean_only(dtype="float32"), file=main_file,
@@ -4273,6 +4311,466 @@ def phase_coupled_adjoint_mesh(card, device):
     return totals, paths
 
 
+# ----------------------------------------------------------------------
+# Phase 22: the GEMM DST (solver_transform='matmul', solver_precision)
+# ----------------------------------------------------------------------
+
+# the 3xTF32 kernel against the float64 product: at most GEMM_FACTOR times
+# torch.matmul's float32 error on the same inputs, and GEMM_REL_TOL of
+# max|C| (three TF32 passes keep 22 of float32's 24 bits a product)
+GEMM_FACTOR = 4.0
+GEMM_REL_TOL = 1e-5
+PEAK_TF32_FLOP_PER_S = 495e12
+# a box solve against the float64 solve, of its max: 'highest' at most
+# SOLVE_FACTOR times the float32 FFT solve's error; 'high' at most
+# HIGH_SOLVE_TOL, qgcm_tpu's own figure for its 3-pass 'high'
+# (qgcm_tpu/solver/helmholtz.py:101-107)
+SOLVE_FACTOR = 4.0
+HIGH_SOLVE_TOL = 6e-5
+# the main path's box under each DST for DST_STEPS substeps (the first
+# DST_WARMUP not timed): the float32 'matmul'/'highest' run's drift of po
+# and qo from the float64 run at most DRIFT_FACTOR times the FFT run's
+DST_STEPS = 250
+DST_WARMUP = 25
+DRIFT_FACTOR = 2.0
+DST_PROFILE_STEPS = 5
+# the DSTs of the box, each (label, dtype, transform, precision)
+DST_VARIANTS = (("f32 fft", "float32", "fft", "highest"),
+                ("f32 matmul/highest", "float32", "matmul", "highest"),
+                ("f32 matmul/high", "float32", "matmul", "high"),
+                ("f64 fft", "float64", "fft", "highest"),
+                ("f64 matmul", "float64", "matmul", "highest"))
+
+
+def gemm_bound(batch, m, n, k) -> tuple:
+    """(bound_ms, bound_by) of one 3xTF32 product C (batch, m, n) = A
+    (batch, m, k) . B (k, n), one operand shared: three TF32 passes of 2mnk
+    operations at the card's TF32 rate, or each input read once and C
+    written once at its memory rate."""
+    t_ops = 3 * 2 * batch * m * n * k / PEAK_TF32_FLOP_PER_S * 1e3
+    t_bytes = 4 * (batch * m * k + k * n + batch * m * n) / HBM_BYTES_PER_S \
+        * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dst_gemm_shapes(n):
+    """The products of one packed DST of length n (grid n + 2) on a
+    3-layer field: (label, the matrix, the field's shape per axis) for the
+    first split level's K2 and the dense base."""
+    from qgcm_torch.solver.helmholtz import PackedDST
+    dst = PackedDST(n, torch.float32, "cuda", "high")
+    k2 = dst.levels[0][1]
+    out = [(f"K2 {tuple(k2.shape)}", k2)]
+    out.append((f"base {tuple(dst.base.shape)}", dst.base))
+    return out
+
+
+def phase_gemm_kernel(card) -> dict:
+    """(a): the 3xTF32 kernel at the DST's shapes for 3x961^2 and
+    3x4801^2, on axis -1 (x . K) and -2 (K^T . x): its error against the
+    float64 product beside torch.matmul's in float32; hot and cold times
+    (graph replays) beside its bound, the plain version's time (eager
+    events; ops.gemm.plain, the float64 product rounded to float32) and
+    torch.matmul's in float32 (graph replays, the library call computing
+    the same function). Returns the kernels line's entry for the 961^2
+    K2 product on axis -1, with every shape's row."""
+    from qgcm_torch.ops import gemm
+    lib = gemm.build_kernel()
+    print(f"  gemm3xtf32 kernel: {lib.path.name}, built in "
+          f"{lib.build_s:.2f} s")
+    for line in lib.log.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"    {line.strip()}")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rows, entry = [], None
+    for grid in (961, 4801):
+        n = grid - 2
+        reps = 20 if grid == 961 else 3
+        for label, K in dst_gemm_shapes(n):
+            for dim in (-1, -2):
+                shape = ((3, n, K.shape[0]) if dim == -1
+                         else (3, K.shape[0], n))
+                x = torch.randn(shape, generator=g, device="cuda")
+                gemm.reset_launches()
+                c = gemm.contract(x, K, dim)
+                torch.cuda.synchronize()
+                if gemm.contract.launches != 1:
+                    raise AssertionError("contract did not launch gemm3xtf32 "
+                                         "once")
+                c64 = gemm.plain(x.double(), K, dim)
+                c32 = torch.matmul(x, K) if dim == -1 else torch.matmul(
+                    K.mT, x)
+                scale = float(c64.abs().max())
+                err = float((c.double() - c64).abs().max())
+                err32 = float((c32.double() - c64).abs().max())
+                err_plain = float((c - gemm.plain(x, K, dim)).abs().max())
+                hot, cold = kernel_ms(lambda: gemm.contract(x, K, dim), reps)
+                plain = cuda_ms(lambda: gemm.plain(x, K, dim), reps)
+                lib_ms = graph_ms(lambda: torch.matmul(
+                    x, K) if dim == -1 else torch.matmul(K.mT, x),
+                    reps) / reps
+                m_, n_ = ((shape[1], K.shape[1]) if dim == -1
+                          else (K.shape[1], shape[2]))
+                bound, by = gemm_bound(3, m_, n_, K.shape[0])
+                row = dict(grid=grid, product=label, axis=dim,
+                           shape=list(shape), max_abs_err=err_plain,
+                           err_vs_float64=err, rel_err=err / scale,
+                           f32_matmul_err=err32,
+                           ms=hot, cold_ms=cold, plain_ms=plain,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                rows.append(row)
+                print(f"  3x{grid}^2 {label} axis {dim}, x {shape}: "
+                      f"max|C - C64| {err:.3e} = {err / scale:.3e} max|C| "
+                      f"(torch.matmul f32 {err32:.3e}; bars "
+                      f"{GEMM_FACTOR:g}x that and {GEMM_REL_TOL:g}); vs "
+                      f"the plain version (C64 rounded) {err_plain:.3e}; "
+                      f"{hot:.4f} ms hot, {cold:.4f} cold; bound {bound:.4f} "
+                      f"ms ({by}), share {bound / hot:.3f}; plain "
+                      f"{plain:.4f} ms, torch.matmul {lib_ms:.4f} ms "
+                      f"[{card}]")
+                if not (err <= GEMM_FACTOR * err32
+                        and err <= GEMM_REL_TOL * scale):
+                    raise AssertionError("gemm3xtf32 misses its error bars")
+                if entry is None:
+                    entry = row
+                del x, c, c64, c32
+        torch.cuda.empty_cache()
+    return dict(name="gemm3xtf32", route="cuda",
+                source="qgcm_torch/csrc/gemm3xtf32.cu",
+                replaces="qgcm_tpu/solver/helmholtz.py:109",
+                replaces_note="no Pallas kernel: the GEMM DST's XLA dot at "
+                "Precision.HIGH (3-pass bf16) in _mm",
+                launches=None, max_abs_err=entry["max_abs_err"],
+                ms=entry["ms"], ms_method="cuda_graph_replay",
+                plain_ms=entry["plain_ms"], bound_ms=entry["bound_ms"],
+                bound_by=entry["bound_by"], library_ms=entry["library_ms"],
+                share_of_bound=entry["bound_ms"] / entry["ms"],
+                shapes=rows)
+
+
+@contextlib.contextmanager
+def sgemm_products():
+    """The GEMM DST's float32 'highest' products as float32 SGEMMs
+    (torch.matmul, TF32 off) while it lasts, in place of the float64
+    GEMMs rounded once that the port runs (ops/gemm.py::plain): the
+    design [22] measured and replaced, kept here as a witness."""
+    from qgcm_torch.ops import gemm
+    plain = gemm.plain
+
+    def sgemm(x, K, dim):
+        K = K.to(x.dtype)
+        return x @ K if dim == -1 else K.mT @ x
+    gemm.plain = sgemm
+    try:
+        yield
+    finally:
+        gemm.plain = plain
+
+
+def phase_dst_solves(card) -> list:
+    """(b): one box solve at 3x961^2 (double_gyre_ocean_only) and
+    3x4801^2 (natl_1km) under each of DST_VARIANTS, and the float32
+    'highest' one again with SGEMM products (sgemm_products, not held to
+    a bar): ms a solve by CUDA events and by the host clock (each call
+    enqueued after the last, the card drained at the end), and the error
+    against the float64 FFT solve of the same seeded right-hand side."""
+    from qgcm_torch.config import double_gyre_ocean_only, natl_1km
+    from qgcm_torch.modes import eigenmodes
+    from qgcm_torch.ops import gemm
+    from qgcm_torch.solver.helmholtz import make_box_helmholtz
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for preset in (double_gyre_ocean_only, natl_1km):
+        cfg = preset()
+        grid, dx = cfg.nxpo, cfg.ocean.dxo
+        rdm2 = eigenmodes(cfg.ocean.gpoc, cfg.ocean.hoc, cfg.fnot).rdm2
+        rhs = torch.randn((cfg.nlo, cfg.nypo, grid), generator=g,
+                          device="cuda", dtype=torch.float64)
+        ref = None
+        errs = {}
+        reps = 10 if grid == 961 else 3
+        witness = ("f32 matmul/highest, SGEMM products", "float32",
+                   "matmul", "highest")
+        for variant in (DST_VARIANTS[3], *DST_VARIANTS[:3], witness,
+                        DST_VARIANTS[4]):
+            label, dtype, transform, prec = variant
+            dt = getattr(torch, dtype)
+            helm = make_box_helmholtz(grid, cfg.nypo, dx, dx, rdm2, dtype=dt,
+                                      device="cuda", transform=transform,
+                                      mm_precision=prec)
+            r = rhs.to(dt)
+            with (sgemm_products() if variant is witness
+                  else contextlib.nullcontext()):
+                gemm.reset_launches()
+                sol = helm.solve(r).double()
+                launches = gemm.contract.launches
+                ms = cuda_ms(lambda: helm.solve(r), reps)
+                h0 = time.perf_counter()
+                for _ in range(reps):
+                    helm.solve(r)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - h0) * 1e3 / reps
+            if ref is None:
+                ref = sol
+            err = float((sol - ref).abs().max() / ref.abs().max())
+            errs[label] = err
+            print(f"  {cfg.nlo}x{cfg.nypo}x{grid} {label}: {ms:.4f} ms/solve "
+                  f"(CUDA events), {host_ms:.4f} (host clock); max|p - "
+                  f"p64|/max {err:.3e}; gemm3xtf32 launches a solve "
+                  f"{launches} [{card}]")
+            out.append(dict(grid=grid, variant=label, ms=ms, host_ms=host_ms,
+                            rel_err=err, gemm_launches=launches))
+            if (prec == "high") != (launches > 0):
+                raise AssertionError(f"{label}: gemm3xtf32 launched "
+                                     f"{launches} times in a solve")
+            del helm, r, sol
+        torch.cuda.empty_cache()
+        if not errs["f32 matmul/highest"] <= SOLVE_FACTOR * errs["f32 fft"]:
+            raise AssertionError("the 'highest' GEMM DST solve misses "
+                                 f"{SOLVE_FACTOR:g}x the FFT solve's error")
+        if not errs["f32 matmul/high"] <= HIGH_SOLVE_TOL:
+            raise AssertionError("the 'high' GEMM DST solve misses "
+                                 f"{HIGH_SOLVE_TOL:g}")
+        del rhs, ref
+    return out
+
+
+def _dst_run(variant, device):
+    """The main path's box (double_gyre_ocean_only at full width) under
+    one of DST_VARIANTS: (model, state after DST_WARMUP substeps, forcing,
+    runner)."""
+    from qgcm_torch.config import double_gyre_ocean_only
+    from qgcm_torch.generators import eddy_pressure, double_gyre_windstress
+    from qgcm_torch.model import build_model
+    from qgcm_torch.models.ocean import (init_ocean_state,
+                                         ocean_forcing_from_mean)
+    from qgcm_torch.models.stepper import make_ocean_only_runner
+    _, dtype, transform, prec = variant
+    cfg = double_gyre_ocean_only(dtype=dtype, solver_transform=transform,
+                                 solver_precision=prec)
+    model = build_model(cfg, device)
+    st = init_ocean_state(model, po=eddy_pressure(cfg, ssh_amp=0.15))
+    f = ocean_forcing_from_mean(
+        model, *double_gyre_windstress(cfg, model.grids))
+    run = make_ocean_only_runner(model)
+    return model, run(st, f, DST_WARMUP), f, run
+
+
+# kernel groups of a [22] profile, by name: cuFFT's, the 3xTF32 kernel's,
+# float64 GEMMs (a float32 run's 'highest' DST), float32 GEMMs (the
+# layer <-> mode einsums), and the copies (the FFT DST's odd extension,
+# the packed DST's concatenations)
+DST_GROUPS = (("cuFFT", ("fft",)), ("gemm3xtf32", ("gemm3xtf32",)),
+              ("f64 GEMMs", ("f64", "dgemm", "d884")),
+              ("f32 GEMMs", ("sgemm", "gemmSN", "gemv", "gemmk1")),
+              ("cat/flip copies", ("CatArrayBatchedCopy", "flip")))
+
+
+def dst_kernels(by_name) -> dict:
+    """ms a unit by DST_GROUPS group of a profile's kernels (the first
+    group whose word a kernel's name holds)."""
+    out = dict.fromkeys(name for name, _ in DST_GROUPS)
+    for kernel, ms in by_name.items():
+        for name, words in DST_GROUPS:
+            if any(w in kernel for w in words):
+                out[name] = (out[name] or 0.0) + ms
+                break
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def phase_dst_paths(card, device) -> tuple:
+    """(c) and (d): the main path's box, 961^2x3 at full width, under
+    'fft', 'matmul'/'highest' and 'matmul'/'high' in float32 and 'fft' in
+    float64, each for DST_STEPS substeps from the same start: ms a
+    substep (CUDA events) and the device-busy share (a profile of
+    DST_PROFILE_STEPS more) in this call, and the float32 runs' drift of
+    po and qo from the float64 run; then 8 members (ENSEMBLE_MEMBERS) of
+    the float32 FFT run's final state through the ensemble runner under
+    each float32 DST for ENSEMBLE_STEPS substeps: ms a member-substep,
+    busy and idle, and the device time by kernel group (DST_GROUPS).
+    Returns (the 'high' run's gemm3xtf32 launches, the paths'
+    entries)."""
+    from qgcm_torch.models.ensemble import (make_ensemble_runner,
+                                            perturbed_ocean_members)
+    from qgcm_torch.ops import gemm
+    from qgcm_torch.ops.qgstep import qgstep
+    finals, models, paths, high_launches = {}, {}, [], None
+    n = DST_STEPS - DST_WARMUP
+    for variant in DST_VARIANTS[:4]:
+        label = variant[0]
+        model, st, f, run = _dst_run(variant, device)
+        torch.cuda.synchronize()
+        gemm.reset_launches()
+        qgstep.launches = 0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        ev0.record()
+        st = run(st, f, n, step0=DST_WARMUP)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3 / n
+        dev_ms = ev0.elapsed_time(ev1) / n
+        launches = gemm.contract.launches
+        if not all(bool(torch.isfinite(t).all()) for t in st):
+            raise AssertionError(f"{label}: non-finite values")
+        helm = model.inv_oc.helm
+        want = (n * 4 * (len(helm.tx.levels) + 1)
+                if variant[3] == "high" else 0)
+        if launches != want or qgstep.launches != n:
+            raise AssertionError(f"{label}: {launches} gemm3xtf32 launches "
+                                 f"(expected {want}), {qgstep.launches} "
+                                 f"qgstep launches in {n} substeps")
+        if variant[3] == "high":
+            high_launches = launches
+        prof = trace_units(lambda: run(st, f, DST_PROFILE_STEPS,
+                                       step0=DST_STEPS), DST_PROFILE_STEPS)
+        dst = dst_kernels(prof["by_name"])
+        print(f"  {label}: {dev_ms:.4f} ms/substep (CUDA events), "
+              f"{host_ms:.4f} host; profiled busy {prof['busy_ms']:.4f} "
+              f"ms/substep, idle share {prof['idle']:.4f}; gemm3xtf32 "
+              f"launches {launches} in {n} substeps [{card}]")
+        print("    by kernel group, ms/substep: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in dst.items()))
+        finals[label] = st
+        models[label] = (model, f)
+        paths.append(dict(path=f"double_gyre_ocean_only {label}",
+                          substep_ms=dev_ms, host_ms=host_ms,
+                          busy_ms=prof["busy_ms"], idle=prof["idle"],
+                          gemm_launches=launches))
+    ref = finals["f64 fft"]
+    drift = {}
+    for label in ("f32 fft", "f32 matmul/highest", "f32 matmul/high"):
+        st = finals[label]
+        drift[label] = {k: float((getattr(st, k).double() - getattr(ref, k))
+                                 .abs().max() / getattr(ref, k).abs().max())
+                        for k in ("po", "qo")}
+        print(f"  {label} after {DST_STEPS} substeps: drift from float64 "
+              f"po {drift[label]['po']:.3e}, qo {drift[label]['qo']:.3e}")
+    for k in ("po", "qo"):
+        if not drift["f32 matmul/highest"][k] <= \
+                DRIFT_FACTOR * drift["f32 fft"][k]:
+            raise AssertionError(f"the 'matmul'/'highest' box drifts from "
+                                 f"float64 in {k} more than {DRIFT_FACTOR:g}x "
+                                 f"the FFT box")
+    for p in paths:
+        p["drift"] = drift.get(p["path"].split(" ", 1)[1])
+    del finals["f64 fft"], models["f64 fft"], ref
+    torch.cuda.empty_cache()
+
+    # (d) the 8-member ensemble from the float32 FFT run's state
+    m, steps = ENSEMBLE_MEMBERS, ENSEMBLE_STEPS
+    base = finals["f32 fft"]
+    for label in ("f32 fft", "f32 matmul/highest", "f32 matmul/high"):
+        model, f = models[label]
+        gen = torch.Generator(device=device).manual_seed(22)
+        members = perturbed_ocean_members(model, base, gen, m,
+                                          amp=ENSEMBLE_AMP)
+        run_e = make_ensemble_runner(model)
+        run_e(members, f, 2, DST_STEPS)           # warm-up
+        torch.cuda.synchronize()
+        gemm.reset_launches()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        ev0.record()
+        out = run_e(members, f, steps, DST_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3 / steps
+        dev_ms = ev0.elapsed_time(ev1) / steps
+        launches = gemm.contract.launches
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError(f"ensemble {label}: non-finite values")
+        prof = trace_units(lambda: run_e(out, f, DST_PROFILE_STEPS,
+                                         DST_STEPS + steps),
+                           DST_PROFILE_STEPS)
+        dst = dst_kernels(prof["by_name"])
+        print(f"  ensemble {m} members {label}, {steps} substeps: "
+              f"{dev_ms / m:.4f} ms/member-substep (CUDA events; "
+              f"{dev_ms:.4f} a substep, {host_ms:.4f} host); profiled busy "
+              f"{prof['busy_ms']:.4f} ms/substep, idle "
+              f"{prof['host_ms'] - prof['busy_ms']:.4f} ms (share "
+              f"{prof['idle']:.4f}); gemm3xtf32 launches {launches} "
+              f"[{card}]")
+        print("    by kernel group, ms/substep: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in dst.items()))
+        paths.append(dict(path=f"ensemble {m} members {label}",
+                          member_substep_ms=dev_ms / m, host_ms=host_ms,
+                          busy_ms=prof["busy_ms"], idle=prof["idle"],
+                          kernel_groups=dst, gemm_launches=launches))
+        del members, out, run_e
+        torch.cuda.empty_cache()
+    return high_launches, paths
+
+
+# the channel's y-DSTs held to phase 11's record and float64 witness by
+# --channel-ydst: (label, the y-DST the model builds, SGEMM products)
+CHANNEL_YDSTS = (("'sine': one float32 SGEMM with the sine matrix ('auto')",
+                  "sine", False),
+                 ("packed GEMM DST, float64 products ('matmul')", "matmul",
+                  False),
+                 ("packed GEMM DST, float32 SGEMM products", "matmul", True),
+                 ("FFT DST", "fft", False))
+
+
+def compare_channel_ydsts() -> int:
+    """Phase 11's forced channel (10 days, float32, through the CLI) under
+    each of CHANNEL_YDSTS in turn, the float64 run once, each held to the
+    record and the float64 witness by check_monit_record, printed and not
+    raised: why solver_transform='auto' gives a float32 channel the
+    'sine' y-DST (solver/helmholtz.py::resolve_ytransform)."""
+    import qgcm_torch.model as model_mod
+    from qgcm_torch.config import southern_ocean_ocean_only
+    nypo = southern_ocean_ocean_only().nypo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"the forced channel's y-DSTs [{card}]")
+    grid = ["--preset", "southern_ocean_ocean_only", "--dtype"]
+    case64 = new_case("channel_ydst_f64", f"{CHANNEL_CASE}/input.params")
+    run_cli(["prepare", str(case64), "--forcing", "channel"] + grid
+            + ["float64"])
+    run_cli(["run", str(case64), "--quiet", "--trun", repr(CHANNEL_TRUN)]
+            + grid + ["float64"])
+    chosen = model_mod.resolve_ytransform
+    for i, (label, ydst, sgemm) in enumerate(CHANNEL_YDSTS):
+        print(f"  == {label}")
+        case = new_case(f"channel_ydst_{i}", f"{CHANNEL_CASE}/input.params")
+        model_mod.resolve_ytransform = (
+            lambda cfg, nyp, ydst=ydst: ydst if nyp == nypo
+            else chosen(cfg, nyp))
+        try:
+            with (sgemm_products() if sgemm else contextlib.nullcontext()):
+                run_cli(["prepare", str(case), "--forcing", "channel"]
+                        + grid + ["float32"])
+                run_cli(["run", str(case), "--quiet", "--trun",
+                         repr(CHANNEL_TRUN)] + grid + ["float32"])
+            check_monit_record(case / "outdata" / "monit.nc",
+                               case64 / "outdata" / "monit.nc")
+            print("  held")
+        except AssertionError as e:
+            print(f"  {e}")
+        finally:
+            model_mod.resolve_ytransform = chosen
+    return 0
+
+
+def phase_dst(card, device) -> dict:
+    """Phase 22, the GEMM DST: (a) the 3xTF32 kernel alone, (b) box
+    solves, (c) the main path's box and (d) its 8-member ensemble under
+    each DST. Returns the kernels line's gemm3xtf32 entry, its launches
+    those of (c)'s 'high' run."""
+    entry = phase_gemm_kernel(card)
+    solves = phase_dst_solves(card)
+    launches, paths = phase_dst_paths(card, device)
+    entry["launches"] = launches
+    entry["paths"] = [dict(path="double_gyre_ocean_only f32 matmul/high",
+                           launches=launches)]
+    entry["solves"], entry["runs"] = solves, paths
+    return entry
+
+
 def grad_ratio(a, b, scale=None) -> float:
     """max|a - b| over max|b| (or `scale`) of two host tensors."""
     s = b.abs().max().item() if scale is None else scale
@@ -4298,8 +4796,15 @@ def main() -> int:
     print(f"[1] card: {card}")
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    lib = build_kernel()
-    print(f"    qgstep kernel: {lib.path.name}, built in {lib.build_s:.2f} s")
+    # both kernels' nvcc at once (each build waits on its own process)
+    from concurrent.futures import ThreadPoolExecutor
+    from qgcm_torch.ops import gemm
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(build_kernel), pool.submit(gemm.build_kernel)]
+        lib, gemm_lib = (b.result() for b in builds)
+    print(f"    qgstep kernel: {lib.path.name}, built in {lib.build_s:.2f} s; "
+          f"gemm3xtf32: {gemm_lib.path.name}, {gemm_lib.build_s:.2f} s, "
+          f"in parallel")
     for line in lib.log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"      {line.strip()}")
@@ -4384,6 +4889,9 @@ def main() -> int:
     for mode in totals:
         totals[mode] += totals21[mode]
     mesh_paths += mesh_paths21
+    with phase("[22] the GEMM DST: solver_transform='matmul' at each "
+               "solver_precision against the FFT DST"):
+        gemm_entry = phase_dst(card, device)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
@@ -4400,7 +4908,7 @@ def main() -> int:
             for p in mesh_paths if p["launches"][mode]]
     print(card_line())
     print(json.dumps({"kernels": [kernel, members, modes["rows"],
-                                  modes["x_ext"]]}))
+                                  modes["x_ext"], gemm_entry]}))
     print(json.dumps({"ok": True, "device": device_info()}))
     return 0
 
@@ -4438,6 +4946,8 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--channel-ydst"]:
+        sys.exit(compare_channel_ydsts() if torch.cuda.is_available() else 1)
     if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows",
                                              "--rank-cycle"):
         # python3 chip_smoke.py --main-path|--windows|--rank-cycle

@@ -137,13 +137,17 @@ class ModelConfig:
     # The fused CUDA vorticity kernel has no switch: ops.qgstep launches
     # it exactly when the fields live on a CUDA device.
     # Inversion DST backend. 'fft' selects the FFT DST (torch.fft)
-    # everywhere; 'auto' too, except that a float32 channel of at least
-    # 512 interior rows takes its y-DST as a GEMM, as qgcm_tpu does
-    # (solver.helmholtz.resolve_ytransform); 'matmul' is refused by
-    # model.build_model until the box's GEMM DST is ported.
+    # everywhere, 'matmul' the GEMM DST (qgcm_tpu's packed radix split)
+    # everywhere; 'auto' is 'fft' except that a float32 channel of at
+    # least 512 interior rows takes its y-DST as a GEMM, as qgcm_tpu does
+    # (solver.helmholtz.resolve_transform / resolve_ytransform; unlike
+    # qgcm_tpu's, the port's 'auto' keeps the box on the FFT, and that
+    # GEMM is one with the dense sine matrix at 'highest').
     solver_transform: str = "auto"
-    # Accumulation of the (unported) matmul DST; kept so configs carry
-    # over from qgcm_tpu unchanged.
+    # The GEMM DST's float32 products: 'highest' as float64 GEMMs
+    # rounded once to float32 (as accurate as the FFT DST), 'high' as
+    # three TF32 tensor-core passes (the hand-written kernel of
+    # ops/gemm.py; qgcm_tpu's 3-pass bf16 'high'). Float64 ignores it.
     solver_precision: str = "highest"
     # Compute BOTH fluids' mixed layers in float64 on float32 runs
     # (store stays float32). None = auto: ON for float32 models. The

@@ -23,8 +23,9 @@ from .radiation import Radiation, radiat
 from .topo import Topography, TopoSpec, build_topography
 from .coupling import Coupling, build_coupling
 from .ops.integrals import xintp_weights
-from .solver.helmholtz import (BoxHelmholtz, CyclicHelmholtz,
-                               make_box_helmholtz, make_cyclic_helmholtz,
+from .solver.helmholtz import (PRECISIONS, TRANSFORMS, BoxHelmholtz,
+                               CyclicHelmholtz, make_box_helmholtz,
+                               make_cyclic_helmholtz, resolve_transform,
                                resolve_ytransform)
 
 
@@ -193,10 +194,12 @@ def _channel_homogeneous(nyp: int, nxp: int, yp: np.ndarray,
 
 def _build_channel_inversion(nxp: int, nyp: int, yp: np.ndarray,
                              modes: Modes, dx: float, dy: float, device,
-                             dtype, ytransform: str) -> ChannelInversion:
+                             dtype, ytransform: str,
+                             mm_precision: str) -> ChannelInversion:
     helm = make_cyclic_helmholtz(nxp, nyp, dx, dy, modes.rdm2,
                                  dtype=dtype, device=device,
-                                 ytransform=ytransform)
+                                 ytransform=ytransform,
+                                 mm_precision=mm_precision)
     (pbh, pch1, pch2, hbsi, aipbh, aipch, hc1s, hc2s, hc1n,
      hc2n) = _channel_homogeneous(nyp, nxp, yp, modes.rdm2, dx, dy,
                                   xintp_weights(nyp, nxp))
@@ -221,10 +224,13 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids, modes: Modes,
     if cfg.cyclic_ocean:
         return _build_channel_inversion(nxpo, nypo, grids.ypo, modes, dxo,
                                         dyo, device, dtype,
-                                        resolve_ytransform(cfg, nypo))
+                                        resolve_ytransform(cfg, nypo),
+                                        cfg.solver_precision)
     wop = xintp_weights(nypo, nxpo)
     helm = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2,
-                              dtype=dtype, device=device)
+                              dtype=dtype, device=device,
+                              transform=resolve_transform(cfg, nxpo, nypo),
+                              mm_precision=cfg.solver_precision)
     sub = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2[1:],
                              device="cpu")
     sol0 = sub.solve_np(np.ones((nlo - 1, nypo, nxpo)))
@@ -243,12 +249,10 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids, modes: Modes,
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.solver_transform == "matmul":
-        raise NotImplementedError(
-            "solver_transform='matmul' (the GEMM DST) is not ported; use "
-            "'fft' or 'auto'")
-    if cfg.solver_transform not in ("auto", "fft"):
+    if cfg.solver_transform not in ("auto", *TRANSFORMS):
         raise ValueError(f"unknown solver_transform {cfg.solver_transform!r}")
+    if cfg.solver_precision not in PRECISIONS:
+        raise ValueError(f"unknown solver_precision {cfg.solver_precision!r}")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not {cfg.dtype}")
 
@@ -293,7 +297,8 @@ def build_model(cfg: ModelConfig, device="cuda",
         cfg, grids, modes_oc, device, dtype)
     inv_at = None if cfg.ocean_only else _build_channel_inversion(
         cfg.nxpa, cfg.nypa, grids.ypa, modes_at, grids.dxa, grids.dya,
-        device, dtype, resolve_ytransform(cfg, cfg.nypa))
+        device, dtype, resolve_ytransform(cfg, cfg.nypa),
+        cfg.solver_precision)
     coupling = (build_coupling(cfg, grids, rad, device, dtype)
                 if not cfg.ocean_only or cfg.tau_udiff else None)
     return Model(

@@ -6,9 +6,9 @@ Each rank holds a block of the grid (parallel/mesh.py); all_to_all
 transposes hand every rank whole rows, then whole columns, and back,
 moving O(N^2 / P) bytes a rank where a gather would move the whole grid.
 The transforms are the single-device solvers' own (solver/helmholtz.py:
-cuFFT, or a float32 channel's y-DST as a GEMM with the sine matrix),
-applied to whole axes, so the sharded solve matches the single-device
-one to roundoff. On a (my, mx) mesh with P = my * mx ranks:
+cuFFT, or the GEMM DST in its packed order under transform 'matmul', as
+qgcm_tpu's spectral.py:172-181 dispatches), applied to whole axes, so the
+sharded solve matches the single-device one to roundoff. On a (my, mx) mesh with P = my * mx ranks:
 
   ShardedBoxHelmholtz     blocks (By, Bx) -> a2a over 'x' -> x-pencils
                           (By2 / mx, mx * Bx), DST-x -> a2a over the
@@ -45,7 +45,8 @@ blocks' pads are dropped (by the blocks' true sizes) so that a transform
 sees the axis whole and contiguous, and put back on the way out.
 Transform lengths are the true extents; the padding is zero and stays
 zero: the padded eigenvalues are 1.0 and the padded Parseval weights
-0.0 (spectral.py:57-62).
+0.0 (spectral.py:57-62), appended after the vectors in the solver's
+spectral order (packed under 'matmul').
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..solver.helmholtz import BoxHelmholtz, CyclicHelmholtz, dst1
+from ..solver.helmholtz import BoxHelmholtz, CyclicHelmholtz
 
 A2A = "spectral.a2a"
 
@@ -174,24 +175,24 @@ class ShardedBoxHelmholtz:
         mesh = self.mesh
         if mesh.mx > 1:      # x-pencils of By2 / mx rows of the block
             rhs = _to_pencils(mesh, _pad_dim(rhs, -2, self.by2), 1, 2, "x")
-        b = dst1(rhs[..., 1:1 + self.nxi], dim=-1)
+        b = self.base.xdst(rhs[..., 1:1 + self.nxi])
         c = _rows_to_cols(mesh, _pad_dim(b, -1, self.xs))
         if mesh.mx > 1:
             c = _drop_block_pads(c, -2, self.by2, self.ysizes)
-        return dst1(c[..., 1:1 + self.nyi, :], dim=-2)
+        return self.base.ydst(c[..., 1:1 + self.nyi, :])
 
     def inverse(self, spec: torch.Tensor) -> torch.Tensor:
         """Spectral chunk -> (nm, by, bx) blocks with zero walls and
         padding, scaled by norm."""
         mesh = self.mesh
-        c = dst1(spec, dim=-2)
+        c = self.base.iydst(spec)
         if mesh.mx > 1:
             c = _insert_block_pads(_pad_dim(c, -2, self.nyp, 1), -2,
                                    self.by2, self.ysizes)
         else:
             c = _pad_dim(c, -2, mesh.size * self.by, 1)
         b = _cols_to_rows(mesh, c)
-        sol = dst1(b[..., :self.nxi], dim=-1) * self.norm
+        sol = self.base.ixdst(b[..., :self.nxi]) * self.norm
         # the walls' and the padding's zeros: the inverse DST leaves
         # zeros in the rows that were zero on the way in
         if mesh.mx == 1:
@@ -236,7 +237,7 @@ class ShardedCyclicHelmholtz:
         and the padding."""
         mesh, nyi, mx = self.mesh, self.nyi, self.mesh.mx
         b = _to_pencils(mesh, _pad_dim(rhs, -1, self.bx2), 2, 1, "y")
-        sy = _pad_dim(self.base._ydst(b[..., 1:1 + nyi, :]), -2, self.ys)
+        sy = _pad_dim(self.base.ydst(b[..., 1:1 + nyi, :]), -2, self.ys)
         c = _to_pencils(mesh, sy, 1, 2, order=self.order)
         if mx > 1:
             c = _drop_block_pads(c, -1, self.bx2, self.xsizes)
@@ -246,7 +247,7 @@ class ShardedCyclicHelmholtz:
         sy = (_insert_block_pads(sy, -1, self.bx2, self.xsizes) if mx > 1
               else _pad_dim(sy, -1, self.bx2))
         d = _to_pencils(mesh, sy, 2, 1, order=self.order)
-        sol = self.base._ydst(d[..., :nyi, :]) * self.norm
+        sol = self.base.iydst(d[..., :nyi, :]) * self.norm
         e = _to_pencils(mesh, _pad_dim(sol, -2, mesh.my * self.by, 1), 1, 2,
                         "y")
         return e[..., :self.bx]

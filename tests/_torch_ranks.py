@@ -4,6 +4,7 @@ the tests build. The ranks are started with the "spawn" method
 (qgcm_torch.parallel.launch.spawn_ranks), so this module imports only
 torch, numpy and qgcm_torch: never JAX, never qgcm_tpu."""
 
+import contextlib
 import importlib
 import os
 
@@ -112,19 +113,21 @@ def solver_rng_rhs(kind, nyp, nxp, seed):
 RDM2 = np.array([0.0, 2.3, 7.7])
 
 
-def base_solver(kind, nyp, nxp, ytransform="fft"):
+def base_solver(kind, nyp, nxp, transform="fft"):
     """The port's single-device solver of tests/test_spectral.py's
-    cases: dx 0.7, dy 0.9, rdm2 RDM2, float64 on the CPU."""
+    cases: dx 0.7, dy 0.9, rdm2 RDM2, float64 on the CPU; `transform`
+    the box's DST or the channel's y-DST."""
     from qgcm_torch.solver.helmholtz import (make_box_helmholtz,
                                              make_cyclic_helmholtz)
     if kind == "box":
-        return make_box_helmholtz(nxp, nyp, 0.7, 0.9, RDM2, device="cpu")
+        return make_box_helmholtz(nxp, nyp, 0.7, 0.9, RDM2, device="cpu",
+                                  transform=transform)
     return make_cyclic_helmholtz(nxp, nyp, 0.7, 0.9, RDM2, device="cpu",
-                                 ytransform=ytransform)
+                                 ytransform=transform)
 
 
 def solver_rank(cases, shape=None):
-    """For each case (kind, nyp, nxp, ytransform, seed): the sharded solve
+    """For each case (kind, nyp, nxp, transform, seed): the sharded solve
     on a rows mesh of the ranks (or on a mesh of `shape`) gathered whole,
     and for the box the spectrum (its column chunks gathered) with its
     padded columns."""
@@ -132,8 +135,8 @@ def solver_rank(cases, shape=None):
                                               ShardedCyclicHelmholtz)
     torch.set_num_threads(1)
     out = []
-    for kind, nyp, nxp, ytransform, seed in cases:
-        base = base_solver(kind, nyp, nxp, ytransform)
+    for kind, nyp, nxp, transform, seed in cases:
+        base = base_solver(kind, nyp, nxp, transform)
         mesh = _grid_mesh(shape, (nyp, nxp))
         rhs = shard(torch.from_numpy(solver_rng_rhs(kind, nyp, nxp, seed)),
                     mesh)
@@ -154,17 +157,32 @@ def solver_rank(cases, shape=None):
     return out if torch.distributed.get_rank() == 0 else None
 
 
+def matmul_cfg(cfg):
+    """cfg under solver_transform='matmul', the GEMM DST's split forced
+    active in this process (_MM_SPLIT_MIN 4, as
+    tests/test_torch_dst_matmul.py sets it) so that the small grids
+    recurse."""
+    import qgcm_torch.solver.helmholtz as helmholtz
+    helmholtz._MM_SPLIT_MIN = 4
+    return cfg.replace(solver_transform="matmul")
+
+
 def runner_rank(cases, shape=None):
-    """For each case (cyclic, variant, n_steps, nyaooc[, nxaooc]): the
-    seeded state run n_steps substeps by the sharded runner on a rows
-    mesh of the ranks (or on a mesh of `shape`), gathered whole, with the
-    collective counts per substep and qgstep's launches."""
+    """For each case (cyclic, variant, n_steps, nyaooc[, nxaooc[,
+    transform]]): the seeded state run n_steps substeps by the sharded
+    runner on a rows mesh of the ranks (or on a mesh of `shape`),
+    gathered whole, with the collective counts per substep and qgstep's
+    launches. Under transform 'matmul' (matmul_cfg) the solver is the
+    GEMM DST."""
     from qgcm_torch.models.stepper import make_ocean_only_runner
     from qgcm_torch.ops.qgstep import qgstep
     torch.set_num_threads(1)
     out = []
-    for cyclic, variant, n_steps, nyaooc, *nx in cases:
-        cfg = small_cfg(cyclic, nyaooc=nyaooc, nxaooc=nx[0] if nx else 24)
+    for cyclic, variant, n_steps, nyaooc, *more in cases:
+        cfg = small_cfg(cyclic, nyaooc=nyaooc,
+                        nxaooc=more[0] if more else 24)
+        if more[1:] == ["matmul"]:
+            cfg = matmul_cfg(cfg)
         model, st, f = seeded_state(cfg)
         mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
         run = make_ocean_only_runner(model, mesh=mesh, halo_variant=variant,
@@ -422,14 +440,38 @@ def raising_rank(n_steps):
         mesh.all_reduce(torch.ones(1), "test")
 
 
+@contextlib.contextmanager
+def forced_split():
+    """The GEMM DST's split forced active (_MM_SPLIT_MIN 4, as
+    tests/test_torch_dst_matmul.py sets it) while solvers are built in
+    this block, so that the small grids recurse; a solver fixes its
+    packed order and kernels when it is built."""
+    import qgcm_torch.solver.helmholtz as helmholtz
+    saved = helmholtz._MM_SPLIT_MIN
+    helmholtz._MM_SPLIT_MIN = 4
+    try:
+        yield
+    finally:
+        helmholtz._MM_SPLIT_MIN = saved
+
+
 def adjoint_setup(kind):
     """(model, state, mean forcing, objective) of a distributed-adjoint
     case on the CPU in float64: the seeded state of small_cfg, the box
-    ('box') or the channel ('channel'), under the double-gyre wind, with
-    layer1_energy_proxy in the box and transport_proxy in the
-    channel."""
+    ('box'; 'box-matmul' under solver_transform='matmul', its split
+    forced so that both axes recurse) or the channel ('channel'), under
+    the double-gyre wind, with layer1_energy_proxy in the box and
+    transport_proxy in the channel."""
     from qgcm_torch.adjoint import layer1_energy_proxy, transport_proxy
-    model, st, f = seeded_state(small_cfg(kind == "channel"))
+    cfg = small_cfg(kind == "channel")
+    if kind == "box-matmul":
+        with forced_split():
+            model, st, f = seeded_state(
+                cfg.replace(solver_transform="matmul"))
+        helm = model.inv_oc.helm
+        assert helm.tx.levels and helm.ty.levels
+    else:
+        model, st, f = seeded_state(cfg)
     obj = (transport_proxy if kind == "channel" else layer1_energy_proxy)
     return model, st, (f.tauxo, f.tauyo, f.fnetoc), obj(model)
 

@@ -52,9 +52,11 @@ def test_cyclic_helmholtz_matches_jax(nxp, nyp):
 
 @pytest.mark.parametrize("nxp,nyp", [(25, 13), (97, 25)])
 def test_cyclic_helmholtz_gemm_ydst_matches_jax(nxp, nyp):
-    """The y-DST as a GEMM with the sine matrix (ytransform='matmul')
-    against qgcm_tpu's 'matmul' y-transform and the port's FFT form, in
-    float64; the duplicate east column is kept."""
+    """The y-DST as a GEMM (ytransform='matmul', at these heights the
+    packed form's dense base, the split's levels being
+    tests/test_torch_dst_matmul.py's; and 'sine', one GEMM with the sine
+    matrix) against qgcm_tpu's 'matmul' y-transform and the port's FFT
+    form, in float64; the duplicate east column is kept."""
     rng = np.random.default_rng(nyp)
     rdm2 = np.array([0.0, 2.5e-9, 9.0e-9])
     rhs = rng.standard_normal((3, nyp, nxp))
@@ -63,18 +65,26 @@ def test_cyclic_helmholtz_gemm_ydst_matches_jax(nxp, nyp):
     th = make_cyclic_helmholtz(nxp, nyp, 20e3, 20e3, rdm2, device="cpu",
                                ytransform="matmul")
     fft = make_cyclic_helmholtz(nxp, nyp, 20e3, 20e3, rdm2, device="cpu")
-    got = th.solve(torch.from_numpy(rhs))
-    assert rel_err(got, np.asarray(jh.solve(rhs))) <= TOL
-    assert rel_err(got, fft.solve(torch.from_numpy(rhs))) <= TOL
-    assert torch.equal(got[..., -1], got[..., 0])
+    sine = make_cyclic_helmholtz(nxp, nyp, 20e3, 20e3, rdm2, device="cpu",
+                                 ytransform="sine")
+    for solver in (th, sine):
+        got = solver.solve(torch.from_numpy(rhs))
+        assert rel_err(got, np.asarray(jh.solve(rhs))) <= TOL
+        assert rel_err(got, fft.solve(torch.from_numpy(rhs))) <= TOL
+        assert torch.equal(got[..., -1], got[..., 0])
 
 
 def test_ytransform_policy_is_jax():
     """The channel's y-DST is chosen as qgcm_tpu chooses it: a GEMM for
     the float32 southern-ocean ocean (575 interior rows) under 'auto',
     the FFT for its atmosphere (107 rows), in float64 and under 'fft'.
-    At that height the port's float32 GEMM solve matches qgcm_tpu's
-    within float32 roundoff (1e-5 of the solution's maximum)."""
+    There the port's GEMM is one with the float32 sine matrix ('sine',
+    where qgcm_tpu's is 'matmul') at 'highest', and the packed GEMM DST
+    under an explicit 'matmul' or at 'high'. At that height both float32
+    solves match qgcm_tpu's within float32 roundoff (1e-5 of the
+    solution's maximum): 'sine', the one 'auto' builds, and the packed
+    form (one split level, 575 = 2 * 288 - 1; float64 products at
+    'highest')."""
     from qgcm_tpu.solver.helmholtz import (
         resolve_ytransform as jax_resolve)
     from qgcm_torch.solver.helmholtz import resolve_ytransform
@@ -85,25 +95,41 @@ def test_ytransform_policy_is_jax():
             cj = jax_config.southern_ocean_coupled(**kw)
             ct = torch_config.southern_ocean_coupled(**kw)
             for nyp in (ct.nypo, ct.nypa):
-                picked.add((dtype, transform, nyp,
-                            resolve_ytransform(ct, nyp)))
-                assert resolve_ytransform(ct, nyp) == jax_resolve(cj, nyp)
-    assert ("float32", "auto", 577, "matmul") in picked
+                got = resolve_ytransform(ct, nyp)
+                picked.add((dtype, transform, nyp, got))
+                assert {"sine": "matmul"}.get(got, got) == jax_resolve(cj,
+                                                                       nyp)
+    assert ("float32", "auto", 577, "sine") in picked
     assert ("float32", "auto", 109, "fft") in picked
     cfg = torch_config.southern_ocean_ocean_only(nxaooc=2, nxta=2,
                                                  dtype="float32")
     helm = build_model(cfg, "cpu").inv_oc.helm
     assert helm.ysine.shape == (575, 575) and helm.ysine.dtype == torch.float32
+    for over, want in (({}, "sine"), ({"solver_transform": "matmul"},
+                                      "matmul"),
+                       ({"solver_precision": "high"}, "matmul")):
+        assert resolve_ytransform(cfg.replace(**over), 577) == want, over
+    th = make_cyclic_helmholtz(33, 577, 5e3, 5e3, np.zeros(1),
+                               dtype=torch.float32, device="cpu",
+                               ytransform="matmul")
+    (m, k2, _), = th.ty.levels
+    assert (m, tuple(k2.shape), tuple(th.ty.base.shape)) == (
+        288, (287, 288), (287, 287))
+    # float32 values, held in float64 for the 'highest' float64 products
+    for k in (k2, th.ty.base):
+        assert k.dtype == torch.float64 and torch.equal(k.float().double(), k)
     rng = np.random.default_rng(577)
     rdm2 = np.array([0.0, 2.5e-9, 9.0e-9])
     rhs = rng.standard_normal((3, 577, 33)).astype(np.float32)
     rhs[..., -1] = rhs[..., 0]
     jh = jax_cyclic(33, 577, 5e3, 5e3, rdm2, dtype=np.float32,
                     ytransform="matmul")
-    th = make_cyclic_helmholtz(33, 577, 5e3, 5e3, rdm2, dtype=torch.float32,
-                               device="cpu", ytransform="matmul")
-    assert rel_err(th.solve(torch.from_numpy(rhs)),
-                   np.asarray(jh.solve(rhs))) <= 1e-5
+    want = np.asarray(jh.solve(rhs))
+    for yt in ("sine", "matmul"):
+        th = make_cyclic_helmholtz(33, 577, 5e3, 5e3, rdm2,
+                                   dtype=torch.float32, device="cpu",
+                                   ytransform=yt)
+        assert rel_err(th.solve(torch.from_numpy(rhs)), want) <= 1e-5, yt
 
 
 def test_channel_constraints_solved_in_float64():

@@ -73,19 +73,49 @@ def test_generators_bit_for_bit(kind):
         _same(got, want, "double_gyre_windstress")
 
 
+MATMUL = {"box": {}, "cyclic": {"cyclic_ocean": True},
+          "coupled": {"ocean_only": False},
+          "atmos_only": {"ocean_only": False, "atmos_only": True}}
+
+
 @pytest.mark.parametrize("override,err", [
-    ({"solver_transform": "matmul", "cyclic_ocean": True},
-     NotImplementedError),
-    ({"solver_transform": "matmul", "ocean_only": False},
-     NotImplementedError),
-    ({"solver_transform": "matmul", "ocean_only": False,
-      "atmos_only": True}, NotImplementedError),
-    ({"solver_transform": "matmul"}, NotImplementedError),
-    ({"dtype": "float16"}, ValueError)])
-def test_build_model_refuses_unported(override, err):
-    """The GEMM DST is refused in every geometry (box, cyclic ocean,
-    coupled, atmosphere-only), as is a dtype the model has no kernel
-    for; nothing else is."""
-    _, cfg_t = cfg_pair("pallas")
-    with pytest.raises(err):
-        build_model(cfg_t.replace(**override), "cpu")
+    *(({"solver_transform": "matmul", **o}, None) for o in MATMUL.values()),
+    ({"dtype": "float16"}, ValueError),
+    ({"solver_transform": "dct"}, ValueError),
+    ({"solver_precision": "low"}, ValueError)],
+    ids=[*(f"matmul-{k}" for k in MATMUL), "float16", "transform",
+         "precision"])
+def test_build_model_refuses_unported(override, err, monkeypatch):
+    """build_model refuses a dtype the model has no kernel for and an
+    unknown solver_transform or solver_precision, and nothing else: the
+    GEMM DST builds in every geometry (box, cyclic ocean, coupled,
+    atmosphere-only), with the split forced active (qgcm_tpu's and the
+    port's _MM_SPLIT_MIN at 4), and its solvers' permuted vectors are
+    qgcm_tpu's bit for bit."""
+    import qgcm_tpu.solver.helmholtz as J_h
+    import qgcm_torch.solver.helmholtz as T_h
+    monkeypatch.setattr(J_h, "_MM_SPLIT_MIN", 4)
+    monkeypatch.setattr(T_h, "_MM_SPLIT_MIN", 4)
+    cfg_j, cfg_t = cfg_pair("pallas")
+    if err is not None:
+        with pytest.raises(err):
+            build_model(cfg_t.replace(**override), "cpu")
+        return
+    tm = build_model(cfg_t.replace(**override), "cpu")
+    jm = jax_build_model(cfg_j.replace(**override))
+    pairs = [(tm.inv_at, jm.inv_at), (tm.inv_oc, jm.inv_oc)]
+    built = 0
+    for t, j in pairs:
+        if t is None:
+            assert j is None
+            continue
+        th, jh = t.helm, j.helm
+        cyclic = hasattr(jh, "ytransform")
+        assert (jh.ytransform if cyclic else jh.transform) == "matmul"
+        assert (th.ty if cyclic else th.tx) is not None
+        for name in ("lamx", "lamy", "rdm2") + (() if cyclic else
+                                                ("gx", "gy")):
+            _same(getattr(th, name), getattr(jh, name), f"helm.{name}")
+        built += 1
+    assert built == (1 if override.get("ocean_only", True)
+                     or override.get("atmos_only") else 2)

@@ -17,7 +17,11 @@ gradient; the gradient of
 the vorticity step alone through each schedule ('local' where the blocks
 are too small for ghosts) against the single-device step's; and
 qgcm_tpu's distributed adjoint (tests/test_adjoint.py:226's call, 4 rows
-devices) at 1e-11.
+devices, the GEMM DST) at 1e-11 against the port's under the GEMM DST,
+its split forced active on both axes so that the gradient goes through
+the packed order, the sharded padding of the permuted vectors and the
+split's flips across the pencils, and which is held to its
+single-device gradient too.
 
 The file holds two tests, each checking many cases (the failing case is
 named in the assertion): pytest-xdist's --dist loadfile queues files by
@@ -57,7 +61,8 @@ CASES_4 = [("box", "rows", v, False, 0) for v in ("staged", "deep",
     for v in ("overlap", "deep")] + [
     ("channel", "rows", "overlap", False, 0)] + [
     ("box", "rows", "overlap", r, 0) for r in (True, 4, "dots")] + [
-    ("box", "rows", "overlap", True, SEGMENT)]
+    ("box", "rows", "overlap", True, SEGMENT),
+    ("box-matmul", "rows", "overlap", False, 0)]
 # the vorticity step alone: (cyclic, sponge, mesh shape, variant,
 # nyaooc); on 4 rows ranks nyaooc 3 leaves 7 rows in blocks of 2, too few
 # for ghosts: 'local' is taken
@@ -97,7 +102,7 @@ def spawned(tmp_path_factory):
 def single():
     """The port's single-device gradients (every step stored) by kind."""
     out = {}
-    for kind in ("box", "channel"):
+    for kind in ("box", "channel", "box-matmul"):
         model, st, mf, obj = ranks.adjoint_setup(kind)
         out[kind] = ocean_sensitivity(model, obj, remat=False)(st, mf,
                                                                 STEPS)
@@ -302,10 +307,11 @@ def test_coupled_distributed_gradient_matches_single_device(spawned):
 def test_matches_qgcm_tpu_distributed_adjoint(spawned):
     """tests/test_adjoint.py:226's call of qgcm_tpu's distributed adjoint
     (4 host devices, a rows mesh, 'overlap', the matmul DST) on the box's
-    seeded state, 10 substeps, against the port's on 4 rows ranks: the
-    value and every gradient field within 1e-11 of its maximum. qgcm_tpu
-    transforms through GSPMD in adjoint runs, the port through its a2a
-    pencils."""
+    seeded state, 10 substeps, against the port's on 4 rows ranks, the
+    GEMM DST too (split in the port, _torch_ranks.forced_split, and
+    unsplit in qgcm_tpu at this size: the same DST): the value and every
+    gradient field within 1e-11 of its maximum. qgcm_tpu transforms
+    through GSPMD in adjoint runs, the port through its a2a pencils."""
     import jax
     import jax.numpy as jnp
     import qgcm_tpu.config
@@ -328,7 +334,8 @@ def test_matches_qgcm_tpu_distributed_adjoint(spawned):
                  static_argnames=("n_steps",))
     s0 = shard_tree(to_jax(OceanState, st0), mesh)
     val, g = quick_compile(fn, s0, mf, STEPS)(s0, mf)
-    res = spawned[4][0][CASES_4.index(("box", "rows", "overlap", False, 0))]
+    res = spawned[4][0][CASES_4.index(("box-matmul", "rows", "overlap",
+                                       False, 0))]
     assert abs(res["value"] - float(val)) <= JAX_TOL * abs(float(val))
     for i, (a, b) in enumerate(zip(res["forcing"], g.forcing)):
         assert rel(a, b) <= JAX_TOL, i

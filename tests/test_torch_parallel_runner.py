@@ -48,17 +48,26 @@ CASES_2D = [(False, "overlap", STEPS, 12, 24), (False, "deep", 2, 6, 6)]
 IDS_2D = ["overlap-25x49", "deep-13x13"]
 MESHES = ((2, 2), (1, 4))
 MESH_IDS = ["2x2", "1x4"]
+# the GEMM DST (solver_transform='matmul', its split forced active in the
+# ranks by _torch_ranks.matmul_cfg) in the same spawns, after the cases
+# above: the box and the channel on the rows meshes, the box on the 2-D
+# ones
+CASES_MM = [(False, "overlap", STEPS, 12, 24, "matmul"),
+            (True, "overlap", STEPS, 12, 24, "matmul")]
+CASES_2D_MM = [(False, "overlap", STEPS, 12, 24, "matmul")]
 
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    out = {n: spawn_ranks(ranks.runner_rank, n, CASES, backend="gloo",
+    out = {n: spawn_ranks(ranks.runner_rank, n, CASES + CASES_MM,
+                          backend="gloo",
                           workdir=tmp_path_factory.mktemp(f"run{n}"),
                           timeout=120)[0]
            for n in RANKS}
     for my, mx in MESHES:
         out[(my, mx)] = spawn_ranks(
-            ranks.runner_rank, my * mx, CASES_2D, (my, mx), backend="gloo",
+            ranks.runner_rank, my * mx, CASES_2D + CASES_2D_MM, (my, mx),
+            backend="gloo",
             workdir=tmp_path_factory.mktemp(f"run{my}x{mx}"),
             timeout=120)[0]
     return out
@@ -116,6 +125,37 @@ def test_runner_short_schedules_match_single_device(spawned, case, n):
     for name in FIELDS[cyclic]:
         assert rel_err(res["state"][name], getattr(ref, name)) <= TOL, name
     assert res["pad_zero"]
+
+
+# (spawn, case of CASES_MM): each rows mesh runs both, each 2-D mesh the
+# box
+MM_WHERE = [*((n, c) for n in RANKS for c in range(len(CASES_MM))),
+            *((m, 0) for m in MESHES)]
+MM_IDS = [("%dx%d" % (w if isinstance(w, tuple) else (w, 1)))
+          + ("-channel" if CASES_MM[c][0] else "-box") for w, c in MM_WHERE]
+
+
+@pytest.mark.parametrize("where,case", MM_WHERE, ids=MM_IDS)
+def test_matmul_runner_matches_single_device(spawned, where, case,
+                                             monkeypatch):
+    """20 'overlap' substeps under solver_transform='matmul' on rows
+    meshes of 2 and 4 ranks (box and channel) and on 2x2 and 1x4 (box):
+    each field within 1e-11 of its maximum of the port's single-device
+    'matmul' runner (which tests/test_torch_dst_matmul.py holds to
+    qgcm_tpu's), padding zero, no kernel launch on CPU tensors."""
+    import qgcm_torch.solver.helmholtz as helmholtz
+    monkeypatch.setattr(helmholtz, "_MM_SPLIT_MIN", 4)
+    cyclic, variant, steps, nyaooc, nxaooc, _ = CASES_MM[case]
+    cfg = ranks.small_cfg(cyclic, nyaooc=nyaooc, nxaooc=nxaooc)
+    model, st, f = ranks.seeded_state(cfg.replace(solver_transform="matmul"))
+    assert model.inv_oc.helm.ty.levels
+    ref = make_ocean_only_runner(model)(st, f, steps)
+    offset = len(CASES) if isinstance(where, int) else len(CASES_2D)
+    res = spawned[where][offset + case]
+    for name in FIELDS[cyclic]:
+        assert rel_err(res["state"][name], getattr(ref, name)) <= TOL, name
+    assert res["pad_zero"]
+    assert res["launches"] == 0
 
 
 # collectives per substep: the mixed layer's two exchanges (sst, sstm,

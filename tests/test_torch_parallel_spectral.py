@@ -29,13 +29,21 @@ from test_torch_cases import one_torch_thread, rel_err
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
-# (kind, nyp, nxp, ytransform, seed): tests/test_spectral.py's 15 x 19
+# (kind, nyp, nxp, transform, seed): tests/test_spectral.py's 15 x 19
 # box and 15 x 17 channel (uneven over 2 and 4 rows), an even box, the
 # channel's GEMM y-DST, and the uneven realistic aspects of
-# test_spectral.py:222 (577^2 box) and :252 (145 x 1153 channel)
+# test_spectral.py:222 (577^2 box) and :252 (145 x 1153 channel); then
+# the GEMM DST where it splits (575 = 2 * 288 - 1 and 479 = 2 * 240 - 1
+# interior points, one level above _MM_SPLIT_MIN): the 577^2 box and a
+# channel of 481 rows, whose spectra are in packed order; and the
+# channel's 'sine' y-DST, one GEMM with the dense sine matrix (the one
+# 'auto' builds for a float32 channel of 512 rows or more; qgcm_tpu's
+# 'matmul' at this height)
 CASES = [("box", 15, 19, "fft", 0), ("cyclic", 15, 17, "fft", 1),
          ("box", 16, 12, "fft", 2), ("cyclic", 15, 17, "matmul", 3),
-         ("box", 577, 577, "fft", 4), ("cyclic", 145, 1153, "fft", 5)]
+         ("box", 577, 577, "fft", 4), ("cyclic", 145, 1153, "fft", 5),
+         ("box", 577, 577, "matmul", 6), ("cyclic", 481, 33, "matmul", 7),
+         ("cyclic", 15, 17, "sine", 8)]
 IDS = [f"{k}-{ny}x{nx}-{t}" for k, ny, nx, t, _ in CASES]
 RANKS = (2, 4)
 # the 2-D meshes (my, mx) of tests/test_spectral.py:36's kind, on 4 and 2
@@ -44,6 +52,12 @@ RANKS = (2, 4)
 MESHES = ((2, 2), (1, 4), (1, 2))
 MESH_IDS = [f"{my}x{mx}" for my, mx in MESHES]
 TOL_2D = 1e-12
+# qgcm_tpu's sharded channel with a split GEMM y-DST fails XLA's HLO
+# verifier on two CPU devices ("HLO all-to-all has operands with
+# different shapes", on the 2 x 1 and 1 x 2 meshes at every width
+# tried), so there the port's solve is held to its single-device solve
+# only
+QGCM_TPU_FAILS = {(7, 2), (7, (1, 2))}
 
 
 @pytest.fixture(scope="module")
@@ -72,18 +86,21 @@ def single_device(i):
 @functools.lru_cache(maxsize=None)
 def qgcm_tpu_sharded(i, n):
     """qgcm_tpu's sharded solve of case i on n x 1 devices, or on a mesh
-    of n = (my, mx)."""
+    of n = (my, mx); the port's 'sine' y-DST is held to qgcm_tpu's
+    'matmul', the dense sine matrix at the heights of CASES."""
     from qgcm_tpu.parallel import spectral as jsp
     from qgcm_tpu.solver.helmholtz import (make_box_helmholtz,
                                            make_cyclic_helmholtz)
     kind, nyp, nxp, yt, seed = CASES[i]
+    yt = {"sine": "matmul"}.get(yt, yt)
     my, mx = n if isinstance(n, tuple) else (n, 1)
     mesh = JaxMesh(np.asarray(jax.devices()[:my * mx]).reshape(my, mx),
                    ("y", "x"))
     rhs = jax.numpy.asarray(ranks.solver_rng_rhs(kind, nyp, nxp, seed))
     if kind == "box":
         sh = jsp.ShardedBoxHelmholtz(
-            make_box_helmholtz(nxp, nyp, 0.7, 0.9, ranks.RDM2), mesh)
+            make_box_helmholtz(nxp, nyp, 0.7, 0.9, ranks.RDM2,
+                               transform=yt), mesh)
     else:
         sh = jsp.ShardedCyclicHelmholtz(
             make_cyclic_helmholtz(nxp, nyp, 0.7, 0.9, ranks.RDM2,
@@ -106,8 +123,12 @@ def test_sharded_solve_matches_single_device(spawned, i, n):
         assert np.array_equal(res["sol"][..., -1], res["sol"][..., 0])
 
 
-@pytest.mark.parametrize("n", RANKS)
-@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+@pytest.mark.parametrize("i,n", [(i, n) for i in range(len(CASES))
+                                 for n in RANKS
+                                 if (i, n) not in QGCM_TPU_FAILS],
+                         ids=[f"{IDS[i]}-{n}" for i in range(len(CASES))
+                              for n in RANKS
+                              if (i, n) not in QGCM_TPU_FAILS])
 def test_sharded_solve_matches_qgcm_tpu(spawned, i, n):
     """Within 1e-12 of qgcm_tpu's sharded solver on an n x 1 mesh."""
     assert rel_err(spawned[n][i]["sol"], qgcm_tpu_sharded(i, n)) <= 1e-12
@@ -141,7 +162,8 @@ def test_2d_solve_matches_single_device_and_qgcm_tpu(spawned, i, mesh):
     res = spawned[mesh][i]
     want, _ = single_device(i)
     assert rel_err(res["sol"], want) <= TOL_2D
-    assert rel_err(res["sol"], qgcm_tpu_sharded(i, mesh)) <= TOL_2D
+    if (i, mesh) not in QGCM_TPU_FAILS:
+        assert rel_err(res["sol"], qgcm_tpu_sharded(i, mesh)) <= TOL_2D
     assert res["pad_zero"]
     assert res["a2a"] == (2 if CASES[i][0] == "cyclic" and mesh[0] == 1
                           else 4)
