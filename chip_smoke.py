@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --windows CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --gemm CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --channel-ydst
 
 Builds the port's CUDA kernels from qgcm_torch/csrc with nvcc, holds the
@@ -59,7 +60,8 @@ difference, and every rank's window launches' gradients through the
 kernel's autograd rule against autograd through their plain version;
 then the coupled model's distributed adjoint (phase 21); and last the
 GEMM DST (phase 22): the hand-written 3xTF32 GEMM alone at the DST's
-products for 3x961^2 and 3x4801^2 against float64 and torch.matmul, box
+products for 3x961^2 and 3x4801^2 against float64 and torch.matmul (its
+machine code wgmma, its constant's planes the CPU's bit for bit), box
 solves at both sizes under the FFT DST and the GEMM DST at each
 solver_precision, and the main path's box (250 substeps) and its
 8-member ensemble (50) under each.
@@ -77,7 +79,10 @@ commit unpacked under build/), each in a process of its own and in the
 order given, and prints their ms/substep side by side. With --windows
 it times, the same way, phase 12's window launches (among them the 2-D
 runner's bands; and the full-field and member launches at 961^2) of
-each checkout, side by side.
+each checkout, side by side; with --gemm, phase 22(a), the 3xTF32
+kernel at the GEMM DST's products against float64 and torch.matmul,
+(b)'s solves and (c)'s box under the float32 FFT and 'high' DSTs, and
+the host's cost of a contract call (gemm_checkout).
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -158,13 +163,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def sass_census(path) -> list[str]:
-    """Per kernel function of the built library (each type: the march for
-    one member or several, and the window tile), its machine instructions
-    as cuobjdump -sass lists them: the total, the floating-point ones
-    (FADD/FMUL/FFMA and the D forms), shared-memory loads (LDS, of which
-    ptxas adds never-executed @!PT ones beside each cp.async) and the
-    cp.async copies (LDGSTS). Empty if cuobjdump is absent."""
+def sass_functions(path) -> list:
+    """(mangled name, opcodes) of each kernel function in the built
+    library at path, as cuobjdump -sass lists it; empty if cuobjdump is
+    absent."""
     from pathlib import Path
     from qgcm_torch.ops._cuda import _nvcc
     tool = Path(_nvcc()).parent / "cuobjdump"
@@ -172,13 +174,22 @@ def sass_census(path) -> list[str]:
         return []
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                           text=True).stdout
+    return [(func.split()[0], [m.split()[-1].split(".")[0] for m in re.findall(
+        r"/\*[0-9a-f]{4}\*/\s+((?:@!?U?P\w+\s+)?[A-Z0-9]+)", func)])
+        for func in sass.split("Function : ")[1:]]
+
+
+def sass_census(path) -> list[str]:
+    """Per kernel function of the built library (each type: the march for
+    one member or several, and the window tile), its machine instructions
+    as cuobjdump -sass lists them: the total, the floating-point ones
+    (FADD/FMUL/FFMA and the D forms), shared-memory loads (LDS, of which
+    ptxas adds never-executed @!PT ones beside each cp.async) and the
+    cp.async copies (LDGSTS). Empty if cuobjdump is absent."""
     lines = []
-    for func in sass.split("Function : ")[1:]:
-        ops = [m.split()[-1].split(".")[0] for m in re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+((?:@!?U?P\w+\s+)?[A-Z0-9]+)", func)]
+    for name, ops in sass_functions(path):
         # the mangled name carries the instance: qgstep_kernelI<d|f>Lb<0|1>E
         # (the march, one member or several), qgstep_tile_kernelI<d|f>E
-        name = func.split()[0]
         inst = re.search(r"qgstep_kernelI([df])Lb([01])E", name)
         tile = re.search(r"qgstep_tile_kernelI([df])E", name)
         found = inst or tile
@@ -288,8 +299,10 @@ def profile_units(fn, n, unit, card, top=8):
 
 def trace_units(fn, n) -> dict:
     """profile_units' measurement without its printing: host_ms and
-    busy_ms per unit, the idle share, the device activities' count and
-    the device ms per unit by kernel name (largest first)."""
+    busy_ms per unit, the idle share, span_ms (from the first device
+    activity's start to the last one's end, per unit), the device
+    activities' count and the device ms per unit by kernel name (largest
+    first)."""
     from pathlib import Path
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -304,16 +317,19 @@ def trace_units(fn, n) -> dict:
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    for a, b in spans:
         if b > end:
             busy_us += b - max(a, end)
             end = b
     busy_ms = busy_us / 1e3 / n
+    span_ms = (end - spans[0][0]) / 1e3 / n if spans else 0.0
     by_name = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3 / n
     return dict(host_ms=host_ms, busy_ms=busy_ms,
-                idle=1 - busy_ms / host_ms, activities=len(events),
+                idle=1 - busy_ms / host_ms, span_ms=span_ms,
+                activities=len(events),
                 by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
@@ -4365,76 +4381,140 @@ def dst_gemm_shapes(n):
     return out
 
 
-def phase_gemm_kernel(card) -> dict:
-    """(a): the 3xTF32 kernel at the DST's shapes for 3x961^2 and
-    3x4801^2, on axis -1 (x . K) and -2 (K^T . x): its error against the
-    float64 product beside torch.matmul's in float32; hot and cold times
-    (graph replays) beside its bound, the plain version's time (eager
-    events; ops.gemm.plain, the float64 product rounded to float32) and
-    torch.matmul's in float32 (graph replays, the library call computing
-    the same function). Returns the kernels line's entry for the 961^2
-    K2 product on axis -1, with every shape's row."""
+def gemm_sass(path) -> dict:
+    """Per instance of the 3xTF32 kernel in the built library (its tile
+    width), the count of each tensor-core and copy instruction in its
+    machine code (sass_functions): HGMMA (wgmma), HMMA (mma.sync), LDGSTS
+    (cp.async), UTMALDG (TMA loads), STL (spills)."""
+    out = {}
+    for name, ops in sass_functions(path):
+        width = re.search(r"gemm3xtf32_kernelILi(\d+)E", name)
+        if width:
+            out[int(width.group(1))] = {op: ops.count(op) for op in (
+                "HGMMA", "HMMA", "LDGSTS", "UTMALDG", "STL")}
+    return out
+
+
+def gemm_rows(card) -> list:
+    """[22](a)'s products: the 3xTF32 kernel at the DST's shapes for
+    3x961^2 and 3x4801^2, on axis -1 (x . K) and -2 (K^T . x): its error
+    against the float64 product beside torch.matmul's in float32, held to
+    GEMM_FACTOR and GEMM_REL_TOL; hot and cold times (graph replays)
+    beside its bound and torch.matmul's in float32 (graph replays, the
+    library call computing the same function), and the plain version's
+    (eager events; ops.gemm.plain, the float64 product rounded to
+    float32). Where the wrapper splits the constant into planes
+    (ops.gemm.planes_entry), the card's planes are held bit for bit to
+    the CPU's rounding of the same matrix (ops.gemm.split_planes). Also
+    run in other checkouts by --gemm."""
     from qgcm_torch.ops import gemm
-    lib = gemm.build_kernel()
-    print(f"  gemm3xtf32 kernel: {lib.path.name}, built in "
-          f"{lib.build_s:.2f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"    {line.strip()}")
     g = torch.Generator(device="cuda").manual_seed(22)
-    rows, entry = [], None
+    rows = []
     for grid in (961, 4801):
         n = grid - 2
         reps = 20 if grid == 961 else 3
         for label, K in dst_gemm_shapes(n):
-            for dim in (-1, -2):
-                shape = ((3, n, K.shape[0]) if dim == -1
-                         else (3, K.shape[0], n))
-                x = torch.randn(shape, generator=g, device="cuda")
+            if hasattr(gemm, "planes_entry"):
+                for view, mat in (("K", K), ("K.mT", K.mT)):
+                    got = gemm.planes_entry(mat).planes.cpu()
+                    want = gemm.split_planes(mat.cpu())
+                    same = torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32))
+                    print(f"  3x{grid}^2 {label} {view}: hi/lo planes "
+                          f"{tuple(got.shape)} bit for bit the CPU's: {same}")
+                    if not same:
+                        raise AssertionError("the card's planes differ from "
+                                             "the CPU's split")
+            # the field whole with K; then narrowed, as PackedDST.inverse
+            # hands it over (a level's yo, from the start of an axis n
+            # long, or the base's block at its end), with K.mT
+            cases = [(dim, K, None) for dim in (-1, -2)]
+            start = 0 if label.startswith("K2") else n - K.shape[1]
+            cases += [(dim, K.mT, start) for dim in (-1, -2)]
+            for dim, mat, start in cases:
+                shape = ((3, n, mat.shape[0]) if dim == -1
+                         else (3, mat.shape[0], n))
+                operand = "K" if start is None else (
+                    f"K.mT, the field narrowed from {n} at {start}")
+                if start is None:
+                    x = torch.randn(shape, generator=g, device="cuda")
+                else:
+                    whole = list(shape)
+                    whole[dim] = n
+                    x = torch.randn(whole, generator=g, device="cuda").narrow(
+                        dim, start, mat.shape[0])
                 gemm.reset_launches()
-                c = gemm.contract(x, K, dim)
+                c = gemm.contract(x, mat, dim)
                 torch.cuda.synchronize()
                 if gemm.contract.launches != 1:
                     raise AssertionError("contract did not launch gemm3xtf32 "
                                          "once")
-                c64 = gemm.plain(x.double(), K, dim)
-                c32 = torch.matmul(x, K) if dim == -1 else torch.matmul(
-                    K.mT, x)
+                c64 = gemm.plain(x.double(), mat, dim)
+                c32 = torch.matmul(x, mat) if dim == -1 else torch.matmul(
+                    mat.mT, x)
                 scale = float(c64.abs().max())
                 err = float((c.double() - c64).abs().max())
                 err32 = float((c32.double() - c64).abs().max())
-                err_plain = float((c - gemm.plain(x, K, dim)).abs().max())
-                hot, cold = kernel_ms(lambda: gemm.contract(x, K, dim), reps)
-                plain = cuda_ms(lambda: gemm.plain(x, K, dim), reps)
+                err_plain = float((c - gemm.plain(x, mat, dim)).abs().max())
+                hot, cold = kernel_ms(lambda: gemm.contract(x, mat, dim), reps)
+                plain = cuda_ms(lambda: gemm.plain(x, mat, dim), reps)
                 lib_ms = graph_ms(lambda: torch.matmul(
-                    x, K) if dim == -1 else torch.matmul(K.mT, x),
+                    x, mat) if dim == -1 else torch.matmul(mat.mT, x),
                     reps) / reps
-                m_, n_ = ((shape[1], K.shape[1]) if dim == -1
-                          else (K.shape[1], shape[2]))
-                bound, by = gemm_bound(3, m_, n_, K.shape[0])
+                m_, n_ = ((shape[1], mat.shape[1]) if dim == -1
+                          else (mat.shape[1], shape[2]))
+                bound, by = gemm_bound(3, m_, n_, mat.shape[0])
                 row = dict(grid=grid, product=label, axis=dim,
-                           shape=list(shape), max_abs_err=err_plain,
+                           operand=operand, shape=list(shape),
+                           max_abs_err=err_plain,
                            err_vs_float64=err, rel_err=err / scale,
                            f32_matmul_err=err32,
+                           f32_matmul_rel_err=err32 / scale,
                            ms=hot, cold_ms=cold, plain_ms=plain,
-                           library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                           library_ms=lib_ms, sgemm_ratio=hot / lib_ms,
+                           bound_ms=bound, bound_by=by)
                 rows.append(row)
-                print(f"  3x{grid}^2 {label} axis {dim}, x {shape}: "
+                print(f"  3x{grid}^2 {label} axis {dim}, {operand}, x "
+                      f"{shape}: "
                       f"max|C - C64| {err:.3e} = {err / scale:.3e} max|C| "
                       f"(torch.matmul f32 {err32:.3e}; bars "
                       f"{GEMM_FACTOR:g}x that and {GEMM_REL_TOL:g}); vs "
                       f"the plain version (C64 rounded) {err_plain:.3e}; "
                       f"{hot:.4f} ms hot, {cold:.4f} cold; bound {bound:.4f} "
                       f"ms ({by}), share {bound / hot:.3f}; plain "
-                      f"{plain:.4f} ms, torch.matmul {lib_ms:.4f} ms "
-                      f"[{card}]")
+                      f"{plain:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
+                      f"kernel / torch.matmul {hot / lib_ms:.3f} [{card}]")
                 if not (err <= GEMM_FACTOR * err32
                         and err <= GEMM_REL_TOL * scale):
                     raise AssertionError("gemm3xtf32 misses its error bars")
-                if entry is None:
-                    entry = row
                 del x, c, c64, c32
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gemm_kernel(card) -> dict:
+    """(a): the 3xTF32 kernel's build (registers, spills, shared memory,
+    and its machine code: wgmma and no mma.sync) and gemm_rows. Returns
+    the kernels line's entry for the 961^2 K2 product on axis -1, with
+    every shape's row."""
+    from qgcm_torch.ops import gemm
+    lib = gemm.build_kernel()
+    print(f"  gemm3xtf32 kernel: {lib.path.name}, built in "
+          f"{lib.build_s:.2f} s; dynamic shared memory a block: " + ", ".join(
+              f"{lib.cdll.gemm3xtf32_smem(bn)} B (tile 128x{bn})"
+              for bn in gemm.TILE_NS))
+    for line in lib.log.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"    {line.strip()}")
+    census = gemm_sass(lib.path)
+    for bn, ops in sorted(census.items()):
+        print(f"    sass, tile 128x{bn}: " + ", ".join(
+            f"{k} {v}" for k, v in ops.items()))
+    if census and not all(ops["HGMMA"] and not ops["HMMA"]
+                          for ops in census.values()):
+        raise AssertionError("gemm3xtf32's products are not all wgmma")
+    rows = gemm_rows(card)
+    entry = rows[0]
     return dict(name="gemm3xtf32", route="cuda",
                 source="qgcm_torch/csrc/gemm3xtf32.cu",
                 replaces="qgcm_tpu/solver/helmholtz.py:109",
@@ -4446,6 +4526,104 @@ def phase_gemm_kernel(card) -> dict:
                 bound_by=entry["bound_by"], library_ms=entry["library_ms"],
                 share_of_bound=entry["bound_ms"] / entry["ms"],
                 shapes=rows)
+
+
+def contract_host_us(reps=100, batches=9) -> float:
+    """Host microseconds a contract call takes to enqueue, on the 3x961^2
+    base product (axis -1): the median over `batches` of `reps` calls
+    (fewer than the launch queue holds), each batch timed on the host
+    clock before the card is drained."""
+    from qgcm_torch.ops import gemm
+    _, K = dst_gemm_shapes(959)[1]
+    x = torch.randn((3, 959, K.shape[0]), device="cuda")
+    gemm.contract(x, K, -1)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            gemm.contract(x, K, -1)
+        times.append((time.perf_counter() - h0) * 1e6 / reps)
+        torch.cuda.synchronize()
+    return sorted(times)[batches // 2]
+
+
+def gemm_checkout(card) -> dict:
+    """What --gemm runs in each checkout: [22](a) (gemm_rows), (b)'s box
+    solves and (c)'s box under the float32 FFT and 'high' DSTs, and the
+    host's cost of one contract call (contract_host_us)."""
+    labels = ("f32 fft", "f32 matmul/high")
+    return dict(rows=gemm_rows(card),
+                solves=phase_dst_solves(card, labels),
+                paths=[dst_path(v, card, torch.device("cuda"))[0]
+                       for v in DST_VARIANTS if v[0] in labels],
+                contract_host_us=contract_host_us())
+
+
+def compare_gemm(checkouts) -> int:
+    """gemm_checkout in each checkout in turn, this file's code against
+    that checkout's qgcm_torch and kernel (for instance a parent commit
+    unpacked under build/, and this one, in the order parent, this, this,
+    parent), each in a process of its own. Prints side by side each
+    product's hot ms and error beside torch.matmul's, each solve's and
+    box's ms, busy and gemm3xtf32 time, and a contract call's host cost."""
+    from pathlib import Path
+    child = ("import importlib.util, json, sys, torch; "
+             "torch.backends.cuda.matmul.allow_tf32 = False; "
+             "torch.backends.cudnn.allow_tf32 = False; "
+             "spec = importlib.util.spec_from_file_location('smoke', "
+             f"{str(Path(__file__).resolve())!r}); "
+             "m = importlib.util.module_from_spec(spec); "
+             "spec.loader.exec_module(m); "
+             "out = m.gemm_checkout(m.card_line()); "
+             "print('GEMM_CHECKOUT ' + json.dumps(out))")
+    card = card_line()
+    got = run_in_checkouts(checkouts, child, r"^GEMM_CHECKOUT ([^\n]*)$",
+                           "[22](a)-(c)")
+    if got is None:
+        return 1
+    runs = [(where, json.loads(m.group(1))) for where, m in got]
+    print(f"[22](a) by checkout, in the order run: gemm3xtf32 ms hot / cold "
+          f"(CUDA-graph replays), kernel / torch.matmul, max|C - C64| / "
+          f"max|C| [{card}]:")
+    for i, row in enumerate(runs[0][1]["rows"]):
+        print(f"  3x{row['grid']}^2 {row['product']} axis {row['axis']}, "
+              f"{row['operand']}, bound {row['bound_ms']:.4f} ms:")
+        for where, out in runs:
+            r = out["rows"][i]
+            print(f"    {where}: {r['ms']:.4f} / {r['cold_ms']:.4f} ms, share "
+                  f"{r['bound_ms'] / r['ms']:.3f}; torch.matmul "
+                  f"{r['library_ms']:.4f} ms, ratio "
+                  f"{r['ms'] / r['library_ms']:.3f}; error {r['rel_err']:.3e} "
+                  f"(torch.matmul {r['f32_matmul_rel_err']:.3e})")
+    print(f"[22](b) box solves by checkout: ms a solve by CUDA events / host "
+          f"clock (the host's enqueueing alone), profiled busy, device span "
+          f"and gemm3xtf32 ms a solve, error against the f64 FFT solve "
+          f"[{card}]:")
+    for i, sol in enumerate(runs[0][1]["solves"]):
+        print(f"  3x{sol['grid']}^2 {sol['variant']}:")
+        for where, out in runs:
+            r = out["solves"][i]
+            print(f"    {where}: {r['ms']:.4f} / {r['host_ms']:.4f} ms "
+                  f"(enqueued in {r['enqueue_ms']:.4f}), busy "
+                  f"{r['busy_ms']:.4f}, device span {r['span_ms']:.4f}, "
+                  f"gemm3xtf32 {r['gemm_ms']:.4f}; error {r['rel_err']:.3e}, "
+                  f"{r['gemm_launches']} launches")
+    print(f"[22](c) the box by checkout: ms a substep by CUDA events / host "
+          f"clock, profiled busy ms a substep and idle share, gemm3xtf32 ms "
+          f"a substep [{card}]:")
+    for i, path in enumerate(runs[0][1]["paths"]):
+        print(f"  {path['path']}:")
+        for where, out in runs:
+            r = out["paths"][i]
+            print(f"    {where}: {r['substep_ms']:.4f} / {r['host_ms']:.4f} "
+                  f"ms, busy {r['busy_ms']:.4f}, idle {r['idle']:.4f}, "
+                  f"gemm3xtf32 "
+                  f"{r['kernel_groups'].get('gemm3xtf32', 0.0):.4f}")
+    print("host microseconds a contract call (3x961^2 base, axis -1): "
+          + "; ".join(f"{where} {out['contract_host_us']:.2f}"
+                      for where, out in runs))
+    return 0
 
 
 @contextlib.contextmanager
@@ -4467,13 +4645,14 @@ def sgemm_products():
         gemm.plain = plain
 
 
-def phase_dst_solves(card) -> list:
+def phase_dst_solves(card, labels=None) -> list:
     """(b): one box solve at 3x961^2 (double_gyre_ocean_only) and
     3x4801^2 (natl_1km) under each of DST_VARIANTS, and the float32
     'highest' one again with SGEMM products (sgemm_products, not held to
     a bar): ms a solve by CUDA events and by the host clock (each call
     enqueued after the last, the card drained at the end), and the error
-    against the float64 FFT solve of the same seeded right-hand side."""
+    against the float64 FFT solve of the same seeded right-hand side.
+    With `labels`, only the DSTs of those labels and the float64 FFT."""
     from qgcm_torch.config import double_gyre_ocean_only, natl_1km
     from qgcm_torch.modes import eigenmodes
     from qgcm_torch.ops import gemm
@@ -4491,9 +4670,12 @@ def phase_dst_solves(card) -> list:
         reps = 10 if grid == 961 else 3
         witness = ("f32 matmul/highest, SGEMM products", "float32",
                    "matmul", "highest")
-        for variant in (DST_VARIANTS[3], *DST_VARIANTS[:3], witness,
-                        DST_VARIANTS[4]):
+        variants = (DST_VARIANTS[3], *DST_VARIANTS[:3], witness,
+                    DST_VARIANTS[4])
+        for variant in variants:
             label, dtype, transform, prec = variant
+            if labels is not None and label not in (*labels, "f64 fft"):
+                continue
             dt = getattr(torch, dtype)
             helm = make_box_helmholtz(grid, cfg.nypo, dx, dx, rdm2, dtype=dt,
                                       device="cuda", transform=transform,
@@ -4508,27 +4690,37 @@ def phase_dst_solves(card) -> list:
                 h0 = time.perf_counter()
                 for _ in range(reps):
                     helm.solve(r)
+                enqueue_ms = (time.perf_counter() - h0) * 1e3 / reps
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - h0) * 1e3 / reps
+                prof = trace_units(lambda: [helm.solve(r)
+                                            for _ in range(reps)], reps)
             if ref is None:
                 ref = sol
             err = float((sol - ref).abs().max() / ref.abs().max())
             errs[label] = err
+            gemm_ms = sum(v for k, v in prof["by_name"].items()
+                          if "gemm3xtf32" in k)
             print(f"  {cfg.nlo}x{cfg.nypo}x{grid} {label}: {ms:.4f} ms/solve "
-                  f"(CUDA events), {host_ms:.4f} (host clock); max|p - "
-                  f"p64|/max {err:.3e}; gemm3xtf32 launches a solve "
-                  f"{launches} [{card}]")
+                  f"(CUDA events), {host_ms:.4f} (host clock; enqueued in "
+                  f"{enqueue_ms:.4f}); profiled busy {prof['busy_ms']:.4f} "
+                  f"ms/solve, device span {prof['span_ms']:.4f} (gemm3xtf32 "
+                  f"{gemm_ms:.4f}); max|p - p64|/max {err:.3e}; gemm3xtf32 "
+                  f"launches a solve {launches} [{card}]")
             out.append(dict(grid=grid, variant=label, ms=ms, host_ms=host_ms,
+                            enqueue_ms=enqueue_ms, busy_ms=prof["busy_ms"],
+                            span_ms=prof["span_ms"], gemm_ms=gemm_ms,
                             rel_err=err, gemm_launches=launches))
             if (prec == "high") != (launches > 0):
                 raise AssertionError(f"{label}: gemm3xtf32 launched "
                                      f"{launches} times in a solve")
             del helm, r, sol
         torch.cuda.empty_cache()
-        if not errs["f32 matmul/highest"] <= SOLVE_FACTOR * errs["f32 fft"]:
+        if "f32 matmul/highest" in errs and not (
+                errs["f32 matmul/highest"] <= SOLVE_FACTOR * errs["f32 fft"]):
             raise AssertionError("the 'highest' GEMM DST solve misses "
                                  f"{SOLVE_FACTOR:g}x the FFT solve's error")
-        if not errs["f32 matmul/high"] <= HIGH_SOLVE_TOL:
+        if not errs.get("f32 matmul/high", 0.0) <= HIGH_SOLVE_TOL:
             raise AssertionError("the 'high' GEMM DST solve misses "
                                  f"{HIGH_SOLVE_TOL:g}")
         del rhs, ref
@@ -4578,12 +4770,65 @@ def dst_kernels(by_name) -> dict:
     return {k: v for k, v in out.items() if v is not None}
 
 
+def dst_path(variant, card, device) -> tuple:
+    """(c) under one of DST_VARIANTS: the main path's box, 961^2x3 at
+    full width, for DST_STEPS substeps: ms a substep (CUDA events, host
+    clock) of the last DST_STEPS - DST_WARMUP, the launches and splits in
+    them held to one solve's contractions a substep and none, and the
+    device-busy share and kernel groups (DST_GROUPS) of a profile of
+    DST_PROFILE_STEPS more. Returns (its entry, model, final state,
+    forcing)."""
+    from qgcm_torch.ops import gemm
+    from qgcm_torch.ops.qgstep import qgstep
+    n = DST_STEPS - DST_WARMUP
+    label = variant[0]
+    model, st, f, run = _dst_run(variant, device)
+    torch.cuda.synchronize()
+    gemm.reset_launches()
+    qgstep.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    st = run(st, f, n, step0=DST_WARMUP)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / n
+    dev_ms = ev0.elapsed_time(ev1) / n
+    launches = gemm.contract.launches
+    splits = getattr(gemm.contract, "splits", 0)
+    if not all(bool(torch.isfinite(t).all()) for t in st):
+        raise AssertionError(f"{label}: non-finite values")
+    helm = model.inv_oc.helm
+    want = (n * 4 * (len(helm.tx.levels) + 1)
+            if variant[3] == "high" else 0)
+    if launches != want or qgstep.launches != n or splits:
+        raise AssertionError(f"{label}: {launches} gemm3xtf32 launches "
+                             f"(expected {want}), {qgstep.launches} "
+                             f"qgstep launches in {n} substeps, "
+                             f"{splits} constants split (expected 0: "
+                             "each was split in the warm-up)")
+    prof = trace_units(lambda: run(st, f, DST_PROFILE_STEPS,
+                                   step0=DST_STEPS), DST_PROFILE_STEPS)
+    dst = dst_kernels(prof["by_name"])
+    print(f"  {label}: {dev_ms:.4f} ms/substep (CUDA events), "
+          f"{host_ms:.4f} host; profiled busy {prof['busy_ms']:.4f} "
+          f"ms/substep, idle share {prof['idle']:.4f}; gemm3xtf32 "
+          f"launches {launches} in {n} substeps, constants split "
+          f"{splits} [{card}]")
+    print("    by kernel group, ms/substep: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in dst.items()))
+    entry = dict(path=f"double_gyre_ocean_only {label}", substep_ms=dev_ms,
+                 host_ms=host_ms, busy_ms=prof["busy_ms"],
+                 idle=prof["idle"], kernel_groups=dst,
+                 gemm_launches=launches)
+    return entry, model, st, f
+
+
 def phase_dst_paths(card, device) -> tuple:
-    """(c) and (d): the main path's box, 961^2x3 at full width, under
-    'fft', 'matmul'/'highest' and 'matmul'/'high' in float32 and 'fft' in
-    float64, each for DST_STEPS substeps from the same start: ms a
-    substep (CUDA events) and the device-busy share (a profile of
-    DST_PROFILE_STEPS more) in this call, and the float32 runs' drift of
+    """(c) and (d): the main path's box (dst_path) under 'fft',
+    'matmul'/'highest' and 'matmul'/'high' in float32 and 'fft' in
+    float64, each from the same start, and the float32 runs' drift of
     po and qo from the float64 run; then 8 members (ENSEMBLE_MEMBERS) of
     the float32 FFT run's final state through the ensemble runner under
     each float32 DST for ENSEMBLE_STEPS substeps: ms a member-substep,
@@ -4593,51 +4838,15 @@ def phase_dst_paths(card, device) -> tuple:
     from qgcm_torch.models.ensemble import (make_ensemble_runner,
                                             perturbed_ocean_members)
     from qgcm_torch.ops import gemm
-    from qgcm_torch.ops.qgstep import qgstep
     finals, models, paths, high_launches = {}, {}, [], None
-    n = DST_STEPS - DST_WARMUP
     for variant in DST_VARIANTS[:4]:
         label = variant[0]
-        model, st, f, run = _dst_run(variant, device)
-        torch.cuda.synchronize()
-        gemm.reset_launches()
-        qgstep.launches = 0
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        ev0.record()
-        st = run(st, f, n, step0=DST_WARMUP)
-        ev1.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - h0) * 1e3 / n
-        dev_ms = ev0.elapsed_time(ev1) / n
-        launches = gemm.contract.launches
-        if not all(bool(torch.isfinite(t).all()) for t in st):
-            raise AssertionError(f"{label}: non-finite values")
-        helm = model.inv_oc.helm
-        want = (n * 4 * (len(helm.tx.levels) + 1)
-                if variant[3] == "high" else 0)
-        if launches != want or qgstep.launches != n:
-            raise AssertionError(f"{label}: {launches} gemm3xtf32 launches "
-                                 f"(expected {want}), {qgstep.launches} "
-                                 f"qgstep launches in {n} substeps")
+        entry, model, st, f = dst_path(variant, card, device)
         if variant[3] == "high":
-            high_launches = launches
-        prof = trace_units(lambda: run(st, f, DST_PROFILE_STEPS,
-                                       step0=DST_STEPS), DST_PROFILE_STEPS)
-        dst = dst_kernels(prof["by_name"])
-        print(f"  {label}: {dev_ms:.4f} ms/substep (CUDA events), "
-              f"{host_ms:.4f} host; profiled busy {prof['busy_ms']:.4f} "
-              f"ms/substep, idle share {prof['idle']:.4f}; gemm3xtf32 "
-              f"launches {launches} in {n} substeps [{card}]")
-        print("    by kernel group, ms/substep: " + "; ".join(
-            f"{k} {v:.4f}" for k, v in dst.items()))
+            high_launches = entry["gemm_launches"]
         finals[label] = st
         models[label] = (model, f)
-        paths.append(dict(path=f"double_gyre_ocean_only {label}",
-                          substep_ms=dev_ms, host_ms=host_ms,
-                          busy_ms=prof["busy_ms"], idle=prof["idle"],
-                          gemm_launches=launches))
+        paths.append(entry)
     ref = finals["f64 fft"]
     drift = {}
     for label in ("f32 fft", "f32 matmul/highest", "f32 matmul/high"):
@@ -4679,9 +4888,16 @@ def phase_dst_paths(card, device) -> tuple:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - h0) * 1e3 / steps
         dev_ms = ev0.elapsed_time(ev1) / steps
-        launches = gemm.contract.launches
+        launches, splits = gemm.contract.launches, gemm.contract.splits
         if not all(bool(torch.isfinite(t).all()) for t in out):
             raise AssertionError(f"ensemble {label}: non-finite values")
+        want = (steps * 4 * (len(model.inv_oc.helm.tx.levels) + 1)
+                if label.endswith("high") else 0)
+        if splits or launches != want:
+            raise AssertionError(f"ensemble {label}: {launches} gemm3xtf32 "
+                                 f"launches (expected {want}, one for all "
+                                 f"members), {splits} constants split in the "
+                                 "timed run (expected 0)")
         prof = trace_units(lambda: run_e(out, f, DST_PROFILE_STEPS,
                                          DST_STEPS + steps),
                            DST_PROFILE_STEPS)
@@ -4949,11 +5165,12 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--channel-ydst"]:
         sys.exit(compare_channel_ydsts() if torch.cuda.is_available() else 1)
     if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows",
-                                             "--rank-cycle"):
-        # python3 chip_smoke.py --main-path|--windows|--rank-cycle
+                                             "--rank-cycle", "--gemm"):
+        # python3 chip_smoke.py --main-path|--windows|--rank-cycle|--gemm
         # CHECKOUT [...]
         compare = {"--main-path": compare_main_path,
                    "--windows": compare_windows,
-                   "--rank-cycle": compare_rank_cycles}[sys.argv[1]]
+                   "--rank-cycle": compare_rank_cycles,
+                   "--gemm": compare_gemm}[sys.argv[1]]
         sys.exit(compare(sys.argv[2:]) if torch.cuda.is_available() else 1)
     sys.exit(main())

@@ -1,5 +1,5 @@
 """The GEMM DST's float32 product at solver_precision='high': the CUDA
-kernel's wrapper and its plain version.
+kernel's wrapper, its launch plan and its plain version.
 
 `contract(x, K, dim)` contracts axis `dim` (-1 or -2) of x with the first
 axis of the constant matrix K: x @ K for dim -1, K.mT @ x for dim -2
@@ -11,23 +11,42 @@ float32, the full-precision product (qgcm_tpu on the CPU ignores the
 precision too). There is no fallback between the two: a CUDA tensor gets
 the kernel or an exception.
 
-The kernel takes strided batches, so neither orientation copies the
-field: for dim -1 the field is A (its rows and columns as they lie) and K
-is B with a batch stride of 0; for dim -2, K.mT is A with a batch stride
-of 0 and the field is B. The gradient is the same kernel on the
-transposed strides (only x gets one: K is a build-time constant), and
-under torch.func.vmap the mapped axis folds into the batch (the ensemble
-runner vmaps the steps over members, models/ensemble.py).
+The kernel holds the field in registers and reads the constant from
+shared memory as wgmma takes it: K-major TF32 planes. So K is split once,
+`split_planes`, into its hi and lo planes (rounded as cvt.rna.tf32.f32
+rounds, `tf32_round`), transposed to K-major and padded to a 16-byte
+pitch, and kept with its TMA descriptors in a small cache keyed on the
+matrix's storage, offset, shape, strides and version (`planes_entry`):
+K and K.mT are two entries, an in-place edit makes a fresh one, and each
+build adds one to `contract.splits`. `plan` is the launch as a pure
+function of the field's shape and strides: the field is A, through its
+transposed strides for dim -2 (C^T = x^T K, written transposed), the
+batch folded into A's rows where the strides allow it, and the tile width
+that fills the card. The gradient is the same contraction with K.mT
+(only x gets one: K is a build-time constant), and under torch.func.vmap
+the mapped axis folds into the batch (the ensemble runner vmaps the
+steps over members, models/ensemble.py).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from .qgstep import _seen
+
+# the kernel's tile: 128 rows of C (two consumer warpgroups of 64), one of
+# TILE_NS columns, the depth in stages of 32 (csrc/gemm3xtf32.cu)
+TILE_M = 128
+TILE_NS = (128, 96, 64)
+# SMs of an H100 SXM: the plan of a CPU tensor (the tests) assumes one
+NUM_SMS = 132
+# constants whose planes the cache keeps (a 4801^2 box's solver has 10)
+PLANES_KEPT = 32
 
 
 def plain(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
@@ -47,10 +66,157 @@ def build_kernel():
     from ._cuda import build
     lib = build("gemm3xtf32")
     lib.cdll.gemm3xtf32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+        + [ctypes.c_int, ctypes.c_void_p])
     lib.cdll.gemm3xtf32.restype = ctypes.c_int
+    lib.cdll.gemm3xtf32_planes_map.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+    lib.cdll.gemm3xtf32_planes_map.restype = ctypes.c_int
     return lib
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits) as cvt.rna.tf32.f32
+    rounds: to nearest, ties away from zero (adding half a unit to the
+    magnitude's bits), the 13 low bits zero; finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_planes(K: torch.Tensor) -> torch.Tensor:
+    """K (k, n) float32 as the kernel reads it: (2, n, pitch) on K's
+    device, plane 0 hi = tf32(K), plane 1 lo = tf32(K - hi), K-major
+    (planes[p, j, i] is K[i, j]'s part) with the pitch k rounded up to a
+    multiple of 4 floats (16 bytes, TMA's stride unit) and the pad zero.
+    hi + lo is K to 2^-22 of |K|."""
+    k, n = K.shape
+    kt = K.mT.contiguous()
+    hi = tf32_round(kt)
+    lo = tf32_round(kt - hi)
+    planes = K.new_zeros((2, n, -(-k // 4) * 4))
+    planes[0, :, :k] = hi
+    planes[1, :, :k] = lo
+    return planes
+
+
+class PlanesEntry:
+    """A constant's split planes, the matrix they were made from (held, so
+    that its storage, the cache's key, is not reused while cached), its
+    version then, and their TMA descriptors by tile width."""
+
+    def __init__(self, K: torch.Tensor):
+        self.source, self.version = K, K._version
+        self.planes = split_planes(K)
+        self.maps: dict = {}
+
+    def tensor_map(self, bn: int):
+        """The kernel's TMA descriptor of the planes for tiles of bn
+        columns (made once, on first use)."""
+        if bn not in self.maps:
+            buf = ctypes.create_string_buffer(128)
+            _, n, pitch = self.planes.shape
+            err = build_kernel().cdll.gemm3xtf32_planes_map(
+                buf, self.planes.data_ptr(), n, pitch, bn)
+            if err != 0:
+                raise RuntimeError(f"gemm3xtf32: cuTensorMapEncodeTiled "
+                                   f"failed with {err}")
+            self.maps[bn] = buf
+        return self.maps[bn]
+
+
+_PLANES: "collections.OrderedDict[tuple, PlanesEntry]" = (
+    collections.OrderedDict())
+
+
+def planes_entry(K: torch.Tensor) -> PlanesEntry:
+    """The cached planes of constant K (a matrix or a view of one): split
+    on the first call for its storage, offset, shape and strides, and
+    again after an in-place edit (K._version moved). The cache keeps the
+    PLANES_KEPT most recently used."""
+    key = (K.device, K.untyped_storage().data_ptr(), K.storage_offset(),
+           tuple(K.shape), K.stride())
+    entry = _PLANES.get(key)
+    if entry is None or entry.version != K._version:
+        entry = _PLANES[key] = PlanesEntry(K)
+        contract.splits += 1
+        while len(_PLANES) > PLANES_KEPT:
+            _PLANES.popitem(last=False)
+    _PLANES.move_to_end(key)
+    return entry
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel: C[b] = A[b] . K for b < batch, A (batch,
+    m, k) the field through a_strides (the register operand in both
+    orientations), C[b, i, j] written at c_strides into a contiguous
+    result of out_shape; transposed for dim -2 (C^T = x^T K); folded where
+    the field's batch merged into A's rows; tiles of TILE_M x bn, `grid`
+    persistent blocks walking `tiles`."""
+    batch: int
+    m: int
+    n: int
+    k: int
+    a_strides: tuple
+    c_strides: tuple
+    out_shape: tuple
+    transposed: bool
+    folded: bool
+    bn: int
+    tiles: int
+    grid: int
+
+
+def _tiles(batch, m, n, bn):
+    return batch * -(-m // TILE_M) * -(-n // bn)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(shape, strides, k_shape, dim: int, num_sms: int = NUM_SMS) -> Plan:
+    """The launch for a field of `shape` (batch, rows, cols) and `strides`
+    (elements, all three tuples) contracted on axis dim with a (k, n)
+    constant; cached, as the DST makes the same few calls. The tile
+    width is the one of TILE_NS whose waves over num_sms blocks take the
+    least time, a tile's time taken as its width plus 16 columns of fixed
+    cost (its epilogue and the ring's fill). Raises ValueError for a
+    field without a unit stride on its last two axes (the kernel copies
+    along one) or a product past the kernel's 32-bit limits."""
+    batch, rows, cols = shape
+    s0, s1, s2 = strides
+    k, n = k_shape
+    if dim == -1:
+        m, depth, sam, sak = rows, cols, s1, s2
+        out_shape, c_strides = (batch, rows, n), (rows * n, n, 1)
+    else:
+        m, depth, sam, sak = cols, rows, s2, s1
+        out_shape, c_strides = (batch, n, cols), (n * cols, 1, cols)
+    if depth != k:
+        raise ValueError(f"axis {dim} of the field ({depth}) does not match "
+                         f"the constant's first axis ({k})")
+    folded = (batch > 1 and s0 == m * sam
+              and c_strides[0] == m * c_strides[1])
+    if folded:
+        batch, m, s0, c_strides = 1, batch * m, 0, (0, *c_strides[1:])
+    if 1 not in (sam, sak):
+        raise ValueError(f"the kernel copies the field along a unit stride; "
+                         f"its strides are {strides}")
+    bn = min(TILE_NS, key=lambda t: (
+        -(-_tiles(batch, m, n, t) // num_sms) * (t + 16), -t))
+    tiles = _tiles(batch, m, n, bn)
+    if max(m, n, k, tiles, TILE_M * max(sam, sak)) >= 2**31:
+        raise ValueError(f"product too large for the kernel: batch {batch}, "
+                         f"{m}x{n}x{k}, {tiles} tiles, strides {strides}")
+    return Plan(batch=batch, m=m, n=n, k=k, a_strides=(s0, sam, sak),
+                c_strides=c_strides, out_shape=out_shape,
+                transposed=dim == -2, folded=folded, bn=bn, tiles=tiles,
+                grid=min(tiles, num_sms))
+
+
+@functools.cache
+def _num_sms(device: torch.device) -> int:
+    if device.type != "cuda":
+        return NUM_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x, K, dim):
@@ -72,24 +238,16 @@ def _check(x, K, dim):
                          "cuda device or the cpu")
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B by the kernel: a (batch, M, K) and b (batch, K, N), any
-    strides (a batch stride of 0 shares one matrix), C contiguous."""
-    batch, m, k = a.shape
-    n = b.shape[2]
-    if b.shape[0] != batch or b.shape[1] != k:
-        raise ValueError(f"A {tuple(a.shape)} and B {tuple(b.shape)} do not "
-                         "make a batched product")
-    if max(batch, (m + 63) // 64) > 65535 or max(m, n, k) >= 2**31:
-        raise ValueError(f"product too large for the kernel's grid: batch "
-                         f"{batch}, {m}x{n}x{k}")
-    c = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
+def _launch(p: Plan, x: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Run plan p by the kernel: x the 3-D field, K the constant."""
+    tmap = planes_entry(K).tensor_map(p.bn)
+    c = torch.empty(p.out_shape, dtype=torch.float32, device=x.device)
     lib = build_kernel().cdll
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.gemm3xtf32(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                             batch, m, n, k, *a.stride(), *b.stride(),
-                             stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gemm3xtf32(x.data_ptr(), c.data_ptr(), tmap, p.bn,
+                             p.batch, p.m, p.n, p.k, *p.a_strides,
+                             *p.c_strides, p.grid, stream)
     if err != 0:
         raise RuntimeError(f"gemm3xtf32 kernel launch failed: CUDA error "
                            f"{err}")
@@ -103,18 +261,30 @@ def _batched(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() == 3 else t.reshape(-1, *t.shape[-2:])
 
 
+def _planned(x: torch.Tensor, K: torch.Tensor, dim: int,
+             launch) -> torch.Tensor:
+    """The contraction as one planned launch: x's leading axes as one
+    batch (copied where neither of its last two axes has a unit stride),
+    `plan` of that, launch(plan, x3, K) (the kernel's `_launch`), the
+    result given x's leading axes back."""
+    xb = _batched(x)
+    strides = xb.stride()
+    if 1 not in strides[1:]:        # the kernel copies along a unit stride
+        xb = torch.empty(xb.shape, dtype=xb.dtype,
+                         device=xb.device).copy_(xb)
+        strides = xb.stride()
+    p = plan(xb.shape, strides, K.shape, dim, _num_sms(x.device))
+    out = launch(p, xb, K)
+    return out if x.dim() == 3 else out.reshape(*x.shape[:-2],
+                                                *out.shape[-2:])
+
+
 def _apply(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
     """The contraction without autograd's rules: the kernel on CUDA, the
     plain version on the CPU."""
     if x.device.type == "cpu":
         return plain(x, K, dim)
-    lead = x.shape[:-2]
-    xb = _batched(x)
-    if dim == -1:
-        out = _launch(xb, K.expand(xb.shape[0], *K.shape))
-    else:
-        out = _launch(K.mT.expand(xb.shape[0], K.shape[1], K.shape[0]), xb)
-    return out.reshape(*lead, *out.shape[-2:])
+    return _planned(x, K, dim, _launch)
 
 
 class _Contract(torch.autograd.Function):
@@ -162,8 +332,10 @@ def contract(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def reset_launches():
-    """Set the kernel's launch count to zero."""
+    """Set the kernel's launch count, and the count of constants split
+    into planes, to zero."""
     contract.launches = 0
+    contract.splits = 0
 
 
 reset_launches()
