@@ -5,7 +5,8 @@
     python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --windows CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --gemm CHECKOUT [CHECKOUT ...]
-    python3 chip_smoke.py --channel-ydst
+    python3 chip_smoke.py --channel-spread
+    python3 chip_smoke.py --channel-year [sine|matmul|fft ...]
 
 Builds the port's CUDA kernels from qgcm_torch/csrc with nvcc, holds the
 vorticity kernel against its plain PyTorch version on the card (model
@@ -71,8 +72,14 @@ standard output is
 with its launch count on the main path and on each other path, its
 error against the plain version, its times and its bound.
 
-With --channel-ydst it runs only phase 11's forced channel, once under
-each channel y-DST (compare_channel_ydsts). With --main-path it runs
+With --channel-spread it runs only phase 11's forced channel, 13 times
+(compare_channel_spread): in float64, and from four perturbed starts in
+float64 and under the float32 sine-matrix y-DST, and once under each
+float32 y-DST, and prints each run's distance from the float64 run
+beside the witness's bars. With --channel-year it runs the forced
+channel's whole float32 year under the 'auto' y-DST, or under each one
+named, and holds it to its production record's bars (channel_year).
+With --main-path it runs
 only phase 4, once for each checkout named
 (a directory holding chip_smoke.py and qgcm_torch, such as a parent
 commit unpacked under build/), each in a process of its own and in the
@@ -1295,43 +1302,77 @@ def phase_driver_channel(card, bare):
                 substeps=substeps, ms_per_substep=ms_sub, events_s=events_s)
 
 
+def record_monit():
+    """The committed record's monit.nc series, each cut to its first
+    CHANNEL_RECORDS records where it has a time axis (float64), and each
+    series' scale, its largest magnitude there."""
+    from pathlib import Path
+    ref, dims = monit_series(Path(__file__).resolve().parent / CHANNEL_CASE
+                             / "outdata" / "monit.nc")
+    cut = {name: np.asarray(v[:CHANNEL_RECORDS] if dims[name][:1] == (
+        "time",) else v, np.float64) for name, v in ref.items()}
+    return cut, dims, {name: float(np.abs(v).max()) for name, v in cut.items()}
+
+
+def run_monit(path, ref, dims):
+    """A run's monit.nc cut as record_monit cuts the record; raises if
+    its series or its record count differ from the record's."""
+    run, _ = monit_series(path)
+    n = CHANNEL_RECORDS
+    if sorted(run) != sorted(ref) or len(run["time"]) != n:
+        raise AssertionError(f"monit.nc: {sorted(set(run) ^ set(ref))}, "
+                             f"{len(run['time'])} records")
+    return {name: np.asarray(v[:n] if dims[name][:1] == ("time",) else v,
+                             np.float64) for name, v in run.items()}
+
+
+def monit_distance(a, b, scale) -> float:
+    """max|a - b| of two series over the record's scale of it (the
+    difference itself where the scale is zero)."""
+    d = float(np.abs(a - b).max())
+    return d / scale if scale else d
+
+
+def witnessed(name) -> bool:
+    """A series held by the float64 witness (check_monit_record): not
+    one of NOT_HELD, the tendencies, or the constraints' closure."""
+    return name not in (*NOT_HELD, *TENDENCIES, "emfroc", "ermaso", "time")
+
+
+def monit_held(name, a, ref, f64, scale, witness) -> bool:
+    """Whether series `name` of a float32 run (`a`) meets its bar:
+    emfroc and ermaso below MONITOR_TOL (the document's own bar: the
+    constraints close below 1e-3), the tendencies within TENDENCY_TOL of
+    the float64 run (`f64`), NOT_HELD always, any other within
+    MONITOR_TOL of the record (`ref`) or no farther from the float64 run
+    than WITNESS_FACTOR times `witness`; distances over `scale`."""
+    if name in ("emfroc", "ermaso"):
+        return float(np.abs(a).max()) <= MONITOR_TOL
+    if name in TENDENCIES:
+        return monit_distance(a, f64, scale) <= TENDENCY_TOL
+    return (name in NOT_HELD or monit_distance(a, ref, scale) <= MONITOR_TOL
+            or monit_distance(a, f64, scale) <= WITNESS_FACTOR * witness)
+
+
 def check_monit_record(path32, path64):
     """Hold the float32 run's monit.nc (path32) against the first
     CHANNEL_RECORDS records of the committed production record, with the
-    float64 run's (path64) as the second witness (WITNESS_FACTOR,
-    TENDENCIES); every error is over the record's largest magnitude of
-    the series. Prints all three distances of every series and raises
-    on a miss."""
-    from pathlib import Path
-    got, _ = monit_series(path32)
-    f64, _ = monit_series(path64)
-    ref, dims = monit_series(Path(__file__).resolve().parent / CHANNEL_CASE
-                             / "outdata" / "monit.nc")
-    n = CHANNEL_RECORDS
-    for run in (got, f64):
-        if sorted(run) != sorted(ref) or len(run["time"]) != n:
-            raise AssertionError(f"monit.nc: {sorted(set(run) ^ set(ref))}, "
-                                 f"{len(run['time'])} records")
+    float64 run's (path64) as the second witness (monit_held, the
+    witness r64: the record's distance from the float64 run); every
+    distance is over the record's largest magnitude of the series.
+    Prints all three distances of every series and raises on a miss."""
+    ref, dims, scales = record_monit()
+    got, f64 = run_monit(path32, ref, dims), run_monit(path64, ref, dims)
     fails, rows = [], []
     for name in sorted(ref):
-        a, b, c = (np.asarray(v[name][:n] if dims[name][:1] == ("time",)
-                              else v[name], np.float64)
-                   for v in (got, ref, f64))
-        scale = float(np.abs(b).max())
-
-        def dist(x, y):
-            return float(np.abs(x - y).max() / scale) if scale else float(
-                np.abs(x - y).max())
-        err, e64, r64 = dist(a, b), dist(a, c), dist(b, c)
+        a, b, c = got[name], ref[name], f64[name]
+        scale = scales[name]
+        err, e64, r64 = (monit_distance(a, b, scale),
+                         monit_distance(a, c, scale),
+                         monit_distance(b, c, scale))
         if name in ("emfroc", "ermaso"):
-            # the document's own bar: the constraints close below 1e-3
             err = float(np.abs(a).max())
-            held = err <= MONITOR_TOL
-        elif name in TENDENCIES:
-            held = e64 <= TENDENCY_TOL
-        else:
-            held = (name in NOT_HELD or err <= MONITOR_TOL
-                    or e64 <= WITNESS_FACTOR * r64)
+        held = monit_held(name, a, b, c, scale, r64)
         rows.append(f"{name} {err:.2e} {e64:.2e} {r64:.2e}"
                     + ("" if held else " MISSED"))
         if name in NOT_HELD:
@@ -1341,9 +1382,9 @@ def check_monit_record(path32, path64):
                     f"{v:.4g}" for v in x.ravel()))
         if not held:
             fails.append(name)
-    print(f"  monit.nc, first {n} days, / max|record|: card f32 - record, "
-          f"card f32 - card f64, record - card f64 (held: the first "
-          f"within {MONITOR_TOL:g} or the second within "
+    print(f"  monit.nc, first {CHANNEL_RECORDS} days, / max|record|: card "
+          f"f32 - record, card f32 - card f64, record - card f64 (held: "
+          f"the first within {MONITOR_TOL:g} or the second within "
           f"{WITNESS_FACTOR:g}x the third; {', '.join(TENDENCIES)}: the "
           f"second within {TENDENCY_TOL:g}):")
     for i in range(0, len(rows), 3):
@@ -4372,12 +4413,13 @@ def gemm_bound(batch, m, n, k) -> tuple:
 def dst_gemm_shapes(n):
     """The products of one packed DST of length n (grid n + 2) on a
     3-layer field: (label, the matrix, the field's shape per axis) for the
-    first split level's K2 and the dense base."""
+    first split level's K2 and the dense base, each the ops.gemm.Constant
+    that a 'high' PackedDST holds."""
     from qgcm_torch.solver.helmholtz import PackedDST
     dst = PackedDST(n, torch.float32, "cuda", "high")
     k2 = dst.levels[0][1]
-    out = [(f"K2 {tuple(k2.shape)}", k2)]
-    out.append((f"base {tuple(dst.base.shape)}", dst.base))
+    out = [(f"K2 {tuple(k2.K.shape)}", k2)]
+    out.append((f"base {tuple(dst.base.K.shape)}", dst.base))
     return out
 
 
@@ -4403,10 +4445,10 @@ def gemm_rows(card) -> list:
     beside its bound and torch.matmul's in float32 (graph replays, the
     library call computing the same function), and the plain version's
     (eager events; ops.gemm.plain, the float64 product rounded to
-    float32). Where the wrapper splits the constant into planes
-    (ops.gemm.planes_entry), the card's planes are held bit for bit to
-    the CPU's rounding of the same matrix (ops.gemm.split_planes). Also
-    run in other checkouts by --gemm."""
+    float32). The planes that each constant and its transpose hold (an
+    ops.gemm.Constant, split where the PackedDST is built) are held bit
+    for bit to the CPU's split of the same matrix (ops.gemm.split_planes).
+    Also run in other checkouts by --gemm."""
     from qgcm_torch.ops import gemm
     g = torch.Generator(device="cuda").manual_seed(22)
     rows = []
@@ -4414,24 +4456,24 @@ def gemm_rows(card) -> list:
         n = grid - 2
         reps = 20 if grid == 961 else 3
         for label, K in dst_gemm_shapes(n):
-            if hasattr(gemm, "planes_entry"):
-                for view, mat in (("K", K), ("K.mT", K.mT)):
-                    got = gemm.planes_entry(mat).planes.cpu()
-                    want = gemm.split_planes(mat.cpu())
-                    same = torch.equal(got.view(torch.int32),
-                                       want.view(torch.int32))
-                    print(f"  3x{grid}^2 {label} {view}: hi/lo planes "
-                          f"{tuple(got.shape)} bit for bit the CPU's: {same}")
-                    if not same:
-                        raise AssertionError("the card's planes differ from "
-                                             "the CPU's split")
+            for view, const in (("K", K), ("K.mT", K.mT)):
+                got = const.planes.cpu()
+                want = gemm.split_planes(const.K.cpu())
+                same = torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                print(f"  3x{grid}^2 {label} {view}: hi/lo planes "
+                      f"{tuple(got.shape)} bit for bit the CPU's: {same}")
+                if not same:
+                    raise AssertionError("the card's planes differ from "
+                                         "the CPU's split")
             # the field whole with K; then narrowed, as PackedDST.inverse
             # hands it over (a level's yo, from the start of an axis n
             # long, or the base's block at its end), with K.mT
             cases = [(dim, K, None) for dim in (-1, -2)]
-            start = 0 if label.startswith("K2") else n - K.shape[1]
+            start = 0 if label.startswith("K2") else n - K.K.shape[1]
             cases += [(dim, K.mT, start) for dim in (-1, -2)]
-            for dim, mat, start in cases:
+            for dim, const, start in cases:
+                mat = const.K
                 shape = ((3, n, mat.shape[0]) if dim == -1
                          else (3, mat.shape[0], n))
                 operand = "K" if start is None else (
@@ -4444,7 +4486,7 @@ def gemm_rows(card) -> list:
                     x = torch.randn(whole, generator=g, device="cuda").narrow(
                         dim, start, mat.shape[0])
                 gemm.reset_launches()
-                c = gemm.contract(x, mat, dim)
+                c = gemm.contract(x, const, dim)
                 torch.cuda.synchronize()
                 if gemm.contract.launches != 1:
                     raise AssertionError("contract did not launch gemm3xtf32 "
@@ -4456,7 +4498,8 @@ def gemm_rows(card) -> list:
                 err = float((c.double() - c64).abs().max())
                 err32 = float((c32.double() - c64).abs().max())
                 err_plain = float((c - gemm.plain(x, mat, dim)).abs().max())
-                hot, cold = kernel_ms(lambda: gemm.contract(x, mat, dim), reps)
+                hot, cold = kernel_ms(lambda: gemm.contract(x, const, dim),
+                                      reps)
                 plain = cuda_ms(lambda: gemm.plain(x, mat, dim), reps)
                 lib_ms = graph_ms(lambda: torch.matmul(
                     x, mat) if dim == -1 else torch.matmul(mat.mT, x),
@@ -4535,7 +4578,7 @@ def contract_host_us(reps=100, batches=9) -> float:
     clock before the card is drained."""
     from qgcm_torch.ops import gemm
     _, K = dst_gemm_shapes(959)[1]
-    x = torch.randn((3, 959, K.shape[0]), device="cuda")
+    x = torch.randn((3, 959, K.K.shape[0]), device="cuda")
     gemm.contract(x, K, -1)
     torch.cuda.synchronize()
     times = []
@@ -4773,8 +4816,8 @@ def dst_kernels(by_name) -> dict:
 def dst_path(variant, card, device) -> tuple:
     """(c) under one of DST_VARIANTS: the main path's box, 961^2x3 at
     full width, for DST_STEPS substeps: ms a substep (CUDA events, host
-    clock) of the last DST_STEPS - DST_WARMUP, the launches and splits in
-    them held to one solve's contractions a substep and none, and the
+    clock) of the last DST_STEPS - DST_WARMUP, the launches in them held
+    to one solve's contractions a substep, and the
     device-busy share and kernel groups (DST_GROUPS) of a profile of
     DST_PROFILE_STEPS more. Returns (its entry, model, final state,
     forcing)."""
@@ -4796,26 +4839,22 @@ def dst_path(variant, card, device) -> tuple:
     host_ms = (time.perf_counter() - h0) * 1e3 / n
     dev_ms = ev0.elapsed_time(ev1) / n
     launches = gemm.contract.launches
-    splits = getattr(gemm.contract, "splits", 0)
     if not all(bool(torch.isfinite(t).all()) for t in st):
         raise AssertionError(f"{label}: non-finite values")
     helm = model.inv_oc.helm
     want = (n * 4 * (len(helm.tx.levels) + 1)
             if variant[3] == "high" else 0)
-    if launches != want or qgstep.launches != n or splits:
+    if launches != want or qgstep.launches != n:
         raise AssertionError(f"{label}: {launches} gemm3xtf32 launches "
                              f"(expected {want}), {qgstep.launches} "
-                             f"qgstep launches in {n} substeps, "
-                             f"{splits} constants split (expected 0: "
-                             "each was split in the warm-up)")
+                             f"qgstep launches in {n} substeps")
     prof = trace_units(lambda: run(st, f, DST_PROFILE_STEPS,
                                    step0=DST_STEPS), DST_PROFILE_STEPS)
     dst = dst_kernels(prof["by_name"])
     print(f"  {label}: {dev_ms:.4f} ms/substep (CUDA events), "
           f"{host_ms:.4f} host; profiled busy {prof['busy_ms']:.4f} "
           f"ms/substep, idle share {prof['idle']:.4f}; gemm3xtf32 "
-          f"launches {launches} in {n} substeps, constants split "
-          f"{splits} [{card}]")
+          f"launches {launches} in {n} substeps [{card}]")
     print("    by kernel group, ms/substep: " + "; ".join(
         f"{k} {v:.4f}" for k, v in dst.items()))
     entry = dict(path=f"double_gyre_ocean_only {label}", substep_ms=dev_ms,
@@ -4888,16 +4927,15 @@ def phase_dst_paths(card, device) -> tuple:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - h0) * 1e3 / steps
         dev_ms = ev0.elapsed_time(ev1) / steps
-        launches, splits = gemm.contract.launches, gemm.contract.splits
+        launches = gemm.contract.launches
         if not all(bool(torch.isfinite(t).all()) for t in out):
             raise AssertionError(f"ensemble {label}: non-finite values")
         want = (steps * 4 * (len(model.inv_oc.helm.tx.levels) + 1)
                 if label.endswith("high") else 0)
-        if splits or launches != want:
+        if launches != want:
             raise AssertionError(f"ensemble {label}: {launches} gemm3xtf32 "
                                  f"launches (expected {want}, one for all "
-                                 f"members), {splits} constants split in the "
-                                 "timed run (expected 0)")
+                                 f"members)")
         prof = trace_units(lambda: run_e(out, f, DST_PROFILE_STEPS,
                                          DST_STEPS + steps),
                            DST_PROFILE_STEPS)
@@ -4920,55 +4958,255 @@ def phase_dst_paths(card, device) -> tuple:
     return high_launches, paths
 
 
-# the channel's y-DSTs held to phase 11's record and float64 witness by
-# --channel-ydst: (label, the y-DST the model builds, SGEMM products)
-CHANNEL_YDSTS = (("'sine': one float32 SGEMM with the sine matrix ('auto')",
-                  "sine", False),
-                 ("packed GEMM DST, float64 products ('matmul')", "matmul",
-                  False),
-                 ("packed GEMM DST, float32 SGEMM products", "matmul", True),
-                 ("FFT DST", "fft", False))
+# ----------------------------------------------------------------------
+# --channel-spread: how far roundoff alone spreads phase 11's forced
+# channel; --channel-year: its whole year
+# ----------------------------------------------------------------------
+
+# a perturbed start: one smooth noise field added to po and pom of the
+# prepared restart.nc, of RMS SPREAD_RMS times the state's max|po| (float32
+# roundoff), or, where that state is at rest (the forced channel's 'rbal'
+# start, po = 0), times the float64 run's max|po| on its last day
+SPREAD_RMS = 1e-7
+# the seeds of the perturbed starts of --channel-spread
+SPREAD_SEEDS = (1, 2, 3, 4)
+# the forced case's CLI flags in --channel-spread and --channel-year
+CHANNEL_GRID = ["--preset", "southern_ocean_ocean_only"]
+# --channel-year: the record's bars (tests/test_production_run.py:198-240)
+YEAR_KE = (1141.0, 1794.0, 6812.0)
+YEAR_KE_RTOL = 0.5
+YEAR_CFL = 0.5
+YEAR_DAYS = (30, 90, 180, 365)
 
 
-def compare_channel_ydsts() -> int:
-    """Phase 11's forced channel (10 days, float32, through the CLI) under
-    each of CHANNEL_YDSTS in turn, the float64 run once, each held to the
-    record and the float64 witness by check_monit_record, printed and not
-    raised: why solver_transform='auto' gives a float32 channel the
-    'sine' y-DST (solver/helmholtz.py::resolve_ytransform)."""
+def perturbed_restart(path, seed, rms) -> np.ndarray:
+    """Add one smooth noise field of RMS `rms` (over all layers and
+    points) to po and pom of the restart.nc at `path`, in place, and
+    return it: seeded noise (torch.Generator().manual_seed(seed)) shaped
+    as models/ensemble.py::_perturbations shapes an ensemble member's
+    (smoothed, zero on the zonal walls), its east column the west one
+    bit for bit (the channel's duplicate column). A run rederives q from
+    the perturbed p (io/restart.py::load_restart)."""
+    from types import SimpleNamespace
+    from scipy.io import netcdf_file
+    from qgcm_torch.models.ensemble import (_boundary_window,
+                                            _perturbations)
+    with netcdf_file(str(path), "a", mmap=False) as f:
+        po, pom = f.variables["po"], f.variables["pom"]
+        shape = tuple(po.shape)
+        win = torch.as_tensor(_boundary_window(SimpleNamespace(
+            nypo=shape[1], nxpo=shape[2], cyclic_ocean=True)))
+        noise, = _perturbations(win, True, torch.Generator().manual_seed(
+            seed), shape, 1, 1.0, False, 4, "cpu")
+        noise = (noise * (rms / float(noise.square().mean().sqrt()))).numpy()
+        po[:] = po[:] + noise
+        pom[:] = pom[:] + noise
+    return noise
+
+
+@contextlib.contextmanager
+def channel_ydst(ydst, precision="highest"):
+    """While it lasts, build_model gives an ocean channel the y-DST `ydst`
+    ('sine', 'matmul' or 'fft') with the GEMM DST's `precision`, whatever
+    the configuration asks for: a local swap of qgcm_torch.model's
+    resolve_ytransform, and of the precision, while its ocean inversion is
+    built. None: the tree's policy."""
     import qgcm_torch.model as model_mod
-    from qgcm_torch.config import southern_ocean_ocean_only
-    nypo = southern_ocean_ocean_only().nypo
+    if ydst is None:
+        yield
+        return
+    build, resolve = (model_mod._build_ocean_inversion,
+                      model_mod.resolve_ytransform)
+
+    def built(cfg, *args):
+        model_mod.resolve_ytransform = lambda cfg, nyp: ydst
+        try:
+            return build(cfg.replace(solver_precision=precision), *args)
+        finally:
+            model_mod.resolve_ytransform = resolve
+    model_mod._build_ocean_inversion = built
+    try:
+        yield
+    finally:
+        model_mod._build_ocean_inversion = build
+
+
+def channel_run(label, dtype, ydst=None, precision="highest", seed=None,
+                scale=None):
+    """Phase 11's forced channel through the CLI (prepare, then
+    CHANNEL_TRUN years), in `dtype`, under channel_ydst(ydst, precision),
+    from the case's start or, with `seed`, from its prepared restart.nc
+    perturbed (perturbed_restart, RMS SPREAD_RMS times `scale`). Returns
+    (the case, ms a substep on the host clock)."""
+    grid = CHANNEL_GRID + ["--dtype", dtype]
+    values = {} if seed is None else {"name": "restart.nc"}
+    case = new_case(f"channel_{label}", f"{CHANNEL_CASE}/input.params",
+                    **values)
+    with channel_ydst(ydst, precision):
+        run_cli(["prepare", str(case), "--forcing", "channel"] + grid)
+        if seed is not None:
+            perturbed_restart(case / "restart.nc", seed, SPREAD_RMS * scale)
+        _, (steps_s, _) = run_cli(["run", str(case), "--quiet", "--trun",
+                                   repr(CHANNEL_TRUN)] + grid)
+    return case, steps_s * 1e3 / (CHANNEL_RECORDS * 160)
+
+
+def spread_scale(case64) -> float:
+    """The perturbations' scale: max|po| of the prepared state, or where
+    it is at rest, of the float64 run's last day (printed)."""
+    from qgcm_torch.io.ncdf import read_var
+    start = float(np.abs(read_var(str(case64 / "restart.nc"), "po")).max())
+    last = float(np.abs(read_var(str(case64 / "outdata" / "lastday.nc"),
+                                 "po")).max())
+    print(f"  max|po|: {start:.6e} in the prepared state, {last:.6e} on the "
+          f"float64 run's last day; perturbations of RMS {SPREAD_RMS:g} x "
+          f"{start if start else last:.6e}")
+    if not (start or last):
+        raise AssertionError("the float64 run's po is zero")
+    return start if start else last
+
+
+def compare_channel_spread() -> int:
+    """How far roundoff alone spreads phase 11's forced channel: its 10
+    days (channel_run) in float64 (F) and from SPREAD_SEEDS' perturbed
+    starts (P64), in float32 under the sine matrix ('sine') from the
+    case's start (S0) and from the same perturbed starts (S), and under
+    the packed GEMM DST at 'highest' (M) and 'high' (H) and the FFT DST
+    (T). Prints, for every witnessed series, each run's distance from F
+    and r64 (the record's); E64 (the largest of P64's); which runs hold
+    today's witness (4 r64) and which 4 E64 (monit_held); each float32
+    run's ms a substep; and the rule's verdict, A (the bar follows the
+    path: some S misses 4 r64, or M, H and T each lie within S's range
+    on every series the witness decides) or B."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    print(f"the forced channel's y-DSTs [{card}]")
-    grid = ["--preset", "southern_ocean_ocean_only", "--dtype"]
-    case64 = new_case("channel_ydst_f64", f"{CHANNEL_CASE}/input.params")
-    run_cli(["prepare", str(case64), "--forcing", "channel"] + grid
-            + ["float64"])
-    run_cli(["run", str(case64), "--quiet", "--trun", repr(CHANNEL_TRUN)]
-            + grid + ["float64"])
-    chosen = model_mod.resolve_ytransform
-    for i, (label, ydst, sgemm) in enumerate(CHANNEL_YDSTS):
-        print(f"  == {label}")
-        case = new_case(f"channel_ydst_{i}", f"{CHANNEL_CASE}/input.params")
-        model_mod.resolve_ytransform = (
-            lambda cfg, nyp, ydst=ydst: ydst if nyp == nypo
-            else chosen(cfg, nyp))
-        try:
-            with (sgemm_products() if sgemm else contextlib.nullcontext()):
-                run_cli(["prepare", str(case), "--forcing", "channel"]
-                        + grid + ["float32"])
-                run_cli(["run", str(case), "--quiet", "--trun",
-                         repr(CHANNEL_TRUN)] + grid + ["float32"])
-            check_monit_record(case / "outdata" / "monit.nc",
-                               case64 / "outdata" / "monit.nc")
-            print("  held")
-        except AssertionError as e:
-            print(f"  {e}")
-        finally:
-            model_mod.resolve_ytransform = chosen
+    print(f"the forced channel's spread, {CHANNEL_RECORDS} days [{card}]")
+    t0 = time.perf_counter()
+    case64, _ = channel_run("F", "float64")
+    scale = spread_scale(case64)
+    cases = {f"P64_{i}": channel_run(f"P64_{i}", "float64", seed=i,
+                                     scale=scale)[0] for i in SPREAD_SEEDS}
+    runs32 = {"S0": ("sine", "highest", None)}
+    runs32.update({f"S{i}": ("sine", "highest", i) for i in SPREAD_SEEDS})
+    runs32.update(M=("matmul", "highest", None), H=("matmul", "high", None),
+                  T=("fft", "highest", None))
+    ms = {}
+    for label, (ydst, prec, seed) in runs32.items():
+        cases[label], ms[label] = channel_run(label, "float32", ydst, prec,
+                                              seed, scale)
+    print(f"  {len(cases) + 1} runs in {time.perf_counter() - t0:.1f} s")
+
+    ref, dims, scales = record_monit()
+    f = run_monit(case64 / "outdata" / "monit.nc", ref, dims)
+    series = {label: run_monit(c / "outdata" / "monit.nc", ref, dims)
+              for label, c in cases.items()}
+    labels = list(series)
+    dist = {n: {label: monit_distance(series[label][n], f[n], scales[n])
+                for label in labels} for n in ref}
+    r64 = {n: monit_distance(ref[n], f[n], scales[n]) for n in ref}
+    e64 = {n: max(dist[n][f"P64_{i}"] for i in SPREAD_SEEDS) for n in ref}
+    names = [n for n in sorted(ref) if witnessed(n)]
+    print("  distance from F / max|record| by witnessed series:")
+    print("    " + " ".join(f"{h:>9s}" for h in ("series", "r64", "E64",
+                                                   *labels)))
+    for n in names:
+        print("    " + f"{n[:9]:>9s} " + " ".join(
+            f"{v:9.2e}" for v in (r64[n], e64[n],
+                                  *(dist[n][label] for label in labels))))
+
+    def misses(label, witness):
+        return [n for n in sorted(ref) if not monit_held(
+            n, series[label][n], ref[n], f[n], scales[n], witness[n])]
+    verdict = {label: (misses(label, r64), misses(label, e64))
+               for label in labels}
+    for label, (old, new) in verdict.items():
+        print(f"  {label:6s} today's witness ({WITNESS_FACTOR:g} r64): "
+              f"{'held' if not old else 'missed ' + ', '.join(old)}; "
+              f"{WITNESS_FACTOR:g} E64: "
+              f"{'held' if not new else 'missed ' + ', '.join(new)}"
+              + (f"; {ms[label]:.4f} ms/substep (host clock)"
+                 if label in ms else ""))
+    s_runs = [f"S{i}" for i in SPREAD_SEEDS]
+    # the series the witness decides: some float32 run is farther than
+    # MONITOR_TOL from the record in it
+    decided = [n for n in names if any(
+        monit_distance(series[label][n], ref[n], scales[n]) > MONITOR_TOL
+        for label in runs32)]
+    outside = {x: [n for n in decided if not (
+        min(dist[n][s] for s in s_runs) <= dist[n][x]
+        <= max(dist[n][s] for s in s_runs))] for x in ("M", "H", "T")}
+    print(f"  series the witness decides (a float32 run farther than "
+          f"{MONITOR_TOL:g} from the record): {', '.join(decided)}")
+    for x, out in outside.items():
+        print(f"  {x} outside the range of {', '.join(s_runs)} there: "
+              f"{', '.join(out) or 'none'}")
+    s_miss = any(verdict[s][0] for s in s_runs)
+    rule_a = s_miss or not any(outside.values())
+    holds = all(not verdict[x][1] for x in ("S0", "M", "H", "T"))
+    print(f"  rule: {'A' if rule_a else 'B'} (some of {', '.join(s_runs)} "
+          f"misses {WITNESS_FACTOR:g} r64: {s_miss}; M, H and T within "
+          f"their range on every series: {not any(outside.values())}); S0, "
+          f"M, H and T all hold {WITNESS_FACTOR:g} E64: {holds}")
+    print(json.dumps({"channel_spread": dict(
+        card=card, r64={n: r64[n] for n in names},
+        e64={n: e64[n] for n in names},
+        distances={n: dist[n] for n in names},
+        misses_r64={k: v[0] for k, v in verdict.items()},
+        misses_e64={k: v[1] for k, v in verdict.items()},
+        decided=decided, outside_s=outside, ms_per_substep=ms,
+        rule="A" if rule_a else "B", new_witness_holds=holds)}))
+    return 0
+
+
+def channel_year(ydst=None) -> int:
+    """The forced channel's whole year (examples/southern_ocean_forced_1yr,
+    365 float32 days through the CLI) under channel_ydst(ydst) (None: the
+    tree's 'auto'), held to the record's own bars
+    (tests/test_production_run.py:198-240): every value finite, emfroc
+    and ermaso below MONITOR_TOL, cnqgoc below YEAR_CFL, the final KE per
+    layer within YEAR_KE_RTOL of YEAR_KE. Prints kealoc's distance from
+    the record at YEAR_DAYS and the Driver's ms a substep."""
+    from pathlib import Path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    label = ydst or "auto"
+    grid = CHANNEL_GRID + ["--dtype", "float32"]
+    case = new_case(f"channel_year_{label}", f"{CHANNEL_CASE}/input.params")
+    with channel_ydst(ydst):
+        run_cli(["prepare", str(case), "--forcing", "channel"] + grid)
+        log, (steps_s, events_s) = run_cli(["run", str(case), "--quiet"]
+                                           + grid)
+    got, _ = monit_series(case / "outdata" / "monit.nc")
+    ref, _ = monit_series(Path(__file__).resolve().parent / CHANNEL_CASE
+                          / "outdata" / "monit.nc")
+    substeps = 365 * 160
+    print(f"  the forced channel's year, y-DST {label}: "
+          f"{log.strip().splitlines()[-1]}; {steps_s * 1e3 / substeps:.4f} "
+          f"ms/substep (host clock), {events_s:.4f} s in cadence events "
+          f"[{card}]")
+    bad = sorted(n for n, v in got.items() if not np.isfinite(v).all())
+    ke, ke_ref = got["kealoc"], ref["kealoc"]
+    for day in YEAR_DAYS:
+        a, b = ke[day - 1], ke_ref[day - 1]
+        print(f"    day {day}: kealoc {' '.join(f'{v:.4f}' for v in a)}, "
+              f"record {' '.join(f'{v:.4f}' for v in b)}, distance "
+              f"{float(np.abs(a - b).max() / np.abs(b).max()):.3e} of "
+              f"max|record|")
+    worst = {n: float(np.abs(got[n]).max()) for n in ("emfroc", "ermaso")}
+    cfl = float(got["cnqgoc"].max())
+    ke_err = np.abs(ke[-1] - np.array(YEAR_KE)) / np.array(YEAR_KE)
+    print(f"    records {len(ke)}, non-finite {bad or 'none'}; emfroc "
+          f"{worst['emfroc']:.3e}, ermaso {worst['ermaso']:.3e} (bar "
+          f"{MONITOR_TOL:g}); cnqgoc max {cfl:.4f} (bar {YEAR_CFL:g}); final "
+          f"KE {' '.join(f'{v:.1f}' for v in ke[-1])} against "
+          f"{' '.join(f'{v:g}' for v in YEAR_KE)} (rtol {YEAR_KE_RTOL:g}: "
+          f"{' '.join(f'{v:.3f}' for v in ke_err)})")
+    if (bad or len(ke) != 365 or max(worst.values()) >= MONITOR_TOL
+            or cfl >= YEAR_CFL or not (ke_err <= YEAR_KE_RTOL).all()):
+        raise AssertionError(f"the forced channel's year under {label} "
+                             "misses the record's bars")
     return 0
 
 
@@ -5162,8 +5400,15 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--channel-ydst"]:
-        sys.exit(compare_channel_ydsts() if torch.cuda.is_available() else 1)
+    if sys.argv[1:] == ["--channel-spread"]:
+        sys.exit(compare_channel_spread() if torch.cuda.is_available()
+                 else 1)
+    if sys.argv[1:2] == ["--channel-year"]:
+        # python3 chip_smoke.py --channel-year [sine|matmul|fft ...]: the
+        # tree's 'auto', or each y-DST named in turn
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(max(channel_year(y) for y in sys.argv[2:] or [None]))
     if len(sys.argv) > 2 and sys.argv[1] in ("--main-path", "--windows",
                                              "--rank-cycle", "--gemm"):
         # python3 chip_smoke.py --main-path|--windows|--rank-cycle|--gemm

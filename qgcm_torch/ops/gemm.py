@@ -3,34 +3,32 @@ kernel's wrapper, its launch plan and its plain version.
 
 `contract(x, K, dim)` contracts axis `dim` (-1 or -2) of x with the first
 axis of the constant matrix K: x @ K for dim -1, K.mT @ x for dim -2
-(qgcm_tpu/solver/helmholtz.py:109-120, `_mm`). On a CUDA float32 tensor it
-launches the hand-written 3xTF32 GEMM of csrc/gemm3xtf32.cu (built on first
-use, see ops/_cuda.py) and adds one to `contract.launches`; on a CPU tensor
-it returns the plain version, `plain`: torch.matmul in float64 rounded to
-float32, the full-precision product (qgcm_tpu on the CPU ignores the
-precision too). There is no fallback between the two: a CUDA tensor gets
-the kernel or an exception.
+(qgcm_tpu/solver/helmholtz.py:109-120, `_mm`), K held as a `Constant`. On a
+CUDA float32 tensor it launches the hand-written 3xTF32 GEMM of
+csrc/gemm3xtf32.cu (built on first use, see ops/_cuda.py) and adds one to
+`contract.launches`; on a CPU tensor it returns the plain version,
+`plain`: torch.matmul in float64 rounded to float32, the full-precision
+product (qgcm_tpu on the CPU ignores the precision too). There is no
+fallback between the two: a CUDA tensor gets the kernel or an exception.
 
 The kernel holds the field in registers and reads the constant from
-shared memory as wgmma takes it: K-major TF32 planes. So K is split once,
-`split_planes`, into its hi and lo planes (rounded as cvt.rna.tf32.f32
-rounds, `tf32_round`), transposed to K-major and padded to a 16-byte
-pitch, and kept with its TMA descriptors in a small cache keyed on the
-matrix's storage, offset, shape, strides and version (`planes_entry`):
-K and K.mT are two entries, an in-place edit makes a fresh one, and each
-build adds one to `contract.splits`. `plan` is the launch as a pure
-function of the field's shape and strides: the field is A, through its
-transposed strides for dim -2 (C^T = x^T K, written transposed), the
-batch folded into A's rows where the strides allow it, and the tile width
-that fills the card. The gradient is the same contraction with K.mT
-(only x gets one: K is a build-time constant), and under torch.func.vmap
-the mapped axis folds into the batch (the ensemble runner vmaps the
-steps over members, models/ensemble.py).
+shared memory as wgmma takes it: K-major TF32 planes. So each constant is
+split once, where the solver makes it: `Constant(K)` holds K, its hi and
+lo planes (`split_planes`: rounded as cvt.rna.tf32.f32 rounds,
+`tf32_round`, transposed to K-major and padded to a 16-byte pitch), on
+CUDA their TMA descriptors for every tile width, and the same of K.mT
+(`Constant.mT`, which the gradient contracts with). `plan` is the launch
+as a pure function of the field's shape and strides: the field is A,
+through its transposed strides for dim -2 (C^T = x^T K, written
+transposed), the batch folded into A's rows where the strides allow it,
+and the tile width that fills the card. The gradient is the same
+contraction with K.mT (only x gets one: K is a build-time constant), and
+under torch.func.vmap the mapped axis folds into the batch (the ensemble
+runner vmaps the steps over members, models/ensemble.py).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -45,8 +43,6 @@ TILE_M = 128
 TILE_NS = (128, 96, 64)
 # SMs of an H100 SXM: the plan of a CPU tensor (the tests) assumes one
 NUM_SMS = 132
-# constants whose planes the cache keeps (a 4801^2 box's solver has 10)
-PLANES_KEPT = 32
 
 
 def plain(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
@@ -99,50 +95,38 @@ def split_planes(K: torch.Tensor) -> torch.Tensor:
     return planes
 
 
-class PlanesEntry:
-    """A constant's split planes, the matrix they were made from (held, so
-    that its storage, the cache's key, is not reused while cached), its
-    version then, and their TMA descriptors by tile width."""
+def _tensor_map(planes: torch.Tensor, bn: int):
+    """The kernel's TMA descriptor of CUDA planes for tiles of bn
+    columns."""
+    buf = ctypes.create_string_buffer(128)
+    _, n, pitch = planes.shape
+    err = build_kernel().cdll.gemm3xtf32_planes_map(
+        buf, planes.data_ptr(), n, pitch, bn)
+    if err != 0:
+        raise RuntimeError(f"gemm3xtf32: cuTensorMapEncodeTiled failed "
+                           f"with {err}")
+    return buf
 
-    def __init__(self, K: torch.Tensor):
-        self.source, self.version = K, K._version
+
+class Constant:
+    """A constant matrix K (k, n) of the contraction, float32, as the
+    kernel reads it, made once: its planes (split_planes), on CUDA their
+    TMA descriptors for each tile width of TILE_NS (`maps`), and `mT`,
+    the same of K.mT, made with it (the gradient contracts with it; a
+    symmetric K is its own). The GEMM DST makes one of each of its
+    matrices when it is built (solver/helmholtz.py::PackedDST)."""
+
+    def __init__(self, K: torch.Tensor, mT: "Constant" = None):
+        if K.dim() != 2 or K.dtype != torch.float32:
+            raise TypeError(f"a Constant is a float32 matrix, got "
+                            f"{K.dtype} of shape {tuple(K.shape)}")
+        self.K = K
         self.planes = split_planes(K)
-        self.maps: dict = {}
-
-    def tensor_map(self, bn: int):
-        """The kernel's TMA descriptor of the planes for tiles of bn
-        columns (made once, on first use)."""
-        if bn not in self.maps:
-            buf = ctypes.create_string_buffer(128)
-            _, n, pitch = self.planes.shape
-            err = build_kernel().cdll.gemm3xtf32_planes_map(
-                buf, self.planes.data_ptr(), n, pitch, bn)
-            if err != 0:
-                raise RuntimeError(f"gemm3xtf32: cuTensorMapEncodeTiled "
-                                   f"failed with {err}")
-            self.maps[bn] = buf
-        return self.maps[bn]
-
-
-_PLANES: "collections.OrderedDict[tuple, PlanesEntry]" = (
-    collections.OrderedDict())
-
-
-def planes_entry(K: torch.Tensor) -> PlanesEntry:
-    """The cached planes of constant K (a matrix or a view of one): split
-    on the first call for its storage, offset, shape and strides, and
-    again after an in-place edit (K._version moved). The cache keeps the
-    PLANES_KEPT most recently used."""
-    key = (K.device, K.untyped_storage().data_ptr(), K.storage_offset(),
-           tuple(K.shape), K.stride())
-    entry = _PLANES.get(key)
-    if entry is None or entry.version != K._version:
-        entry = _PLANES[key] = PlanesEntry(K)
-        contract.splits += 1
-        while len(_PLANES) > PLANES_KEPT:
-            _PLANES.popitem(last=False)
-    _PLANES.move_to_end(key)
-    return entry
+        self.maps = ({bn: _tensor_map(self.planes, bn) for bn in TILE_NS}
+                     if K.is_cuda else None)
+        if mT is None:
+            mT = self if torch.equal(K, K.mT) else Constant(K.mT, self)
+        self.mT = mT
 
 
 @dataclass(frozen=True)
@@ -219,28 +203,28 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check(x, K, dim):
+def _check(x, C, dim):
     if dim not in (-1, -2):
         raise ValueError(f"dim must be -1 or -2, got {dim}")
-    if not (torch.is_tensor(x) and torch.is_tensor(K)):
-        raise TypeError("x and K must be tensors")
-    if x.dim() < 2 or K.dim() != 2:
-        raise ValueError(f"x must have 2 or more axes and K 2, got "
-                         f"{tuple(x.shape)} and {tuple(K.shape)}")
+    if not (torch.is_tensor(x) and isinstance(C, Constant)):
+        raise TypeError("x must be a tensor and K a Constant")
+    K = C.K
+    if x.dim() < 2:
+        raise ValueError(f"x must have 2 or more axes, got "
+                         f"{tuple(x.shape)}")
     if x.shape[dim] != K.shape[0]:
         raise ValueError(f"axis {dim} of x ({x.shape[dim]}) does not match "
                          f"K's first axis ({K.shape[0]})")
-    if x.dtype != torch.float32 or K.dtype != torch.float32:
-        raise TypeError(f"the 3xTF32 GEMM takes float32, got {x.dtype} and "
-                        f"{K.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the 3xTF32 GEMM takes float32, got {x.dtype}")
     if x.device != K.device or x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"x on {x.device} and K on {K.device}: both on one "
                          "cuda device or the cpu")
 
 
-def _launch(p: Plan, x: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Run plan p by the kernel: x the 3-D field, K the constant."""
-    tmap = planes_entry(K).tensor_map(p.bn)
+def _launch(p: Plan, x: torch.Tensor, C: Constant) -> torch.Tensor:
+    """Run plan p by the kernel: x the 3-D field, C the constant."""
+    tmap = C.maps[p.bn]
     c = torch.empty(p.out_shape, dtype=torch.float32, device=x.device)
     lib = build_kernel().cdll
     with torch.cuda.device(x.device):
@@ -261,11 +245,11 @@ def _batched(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() == 3 else t.reshape(-1, *t.shape[-2:])
 
 
-def _planned(x: torch.Tensor, K: torch.Tensor, dim: int,
+def _planned(x: torch.Tensor, C: Constant, dim: int,
              launch) -> torch.Tensor:
     """The contraction as one planned launch: x's leading axes as one
     batch (copied where neither of its last two axes has a unit stride),
-    `plan` of that, launch(plan, x3, K) (the kernel's `_launch`), the
+    `plan` of that, launch(plan, x3, C) (the kernel's `_launch`), the
     result given x's leading axes back."""
     xb = _batched(x)
     strides = xb.stride()
@@ -273,69 +257,65 @@ def _planned(x: torch.Tensor, K: torch.Tensor, dim: int,
         xb = torch.empty(xb.shape, dtype=xb.dtype,
                          device=xb.device).copy_(xb)
         strides = xb.stride()
-    p = plan(xb.shape, strides, K.shape, dim, _num_sms(x.device))
-    out = launch(p, xb, K)
+    p = plan(xb.shape, strides, tuple(C.K.shape), dim, _num_sms(x.device))
+    out = launch(p, xb, C)
     return out if x.dim() == 3 else out.reshape(*x.shape[:-2],
                                                 *out.shape[-2:])
 
 
-def _apply(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
+def _apply(x: torch.Tensor, C: Constant, dim: int) -> torch.Tensor:
     """The contraction without autograd's rules: the kernel on CUDA, the
     plain version on the CPU."""
     if x.device.type == "cpu":
-        return plain(x, K, dim)
-    return _planned(x, K, dim, _launch)
+        return plain(x, C.K, dim)
+    return _planned(x, C, dim, _launch)
 
 
 class _Contract(torch.autograd.Function):
     """_apply with its rules. Reverse mode: x's cotangent is the same
-    contraction with K.mT; K, a constant of the solver, gets none. Forward
+    contraction with C.mT; C, a constant of the solver, gets none. Forward
     mode: the tangent goes through the same contraction. vmap: the mapped
     axis folds into the batch, one launch for all members."""
 
     @staticmethod
-    def forward(x, K, dim):
-        return _apply(x, K, dim)
+    def forward(x, C, dim):
+        return _apply(x, C, dim)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, K, dim = inputs
-        ctx.K, ctx.dim = K, dim
+        _, C, dim = inputs
+        ctx.C, ctx.dim = C, dim
 
     @staticmethod
     def backward(ctx, grad):
-        return contract(grad, ctx.K.mT, ctx.dim), None, None
+        return contract(grad, ctx.C.mT, ctx.dim), None, None
 
     @staticmethod
-    def jvp(ctx, x_t, K_t, dim_t):
-        return contract(x_t, ctx.K, ctx.dim)
+    def jvp(ctx, x_t, C_t, dim_t):
+        return contract(x_t, ctx.C, ctx.dim)
 
     @staticmethod
-    def vmap(info, in_dims, x, K, dim):
-        if in_dims[1] is not None:
-            raise ValueError("the GEMM DST's matrix is a constant; it "
-                             "cannot be mapped over")
+    def vmap(info, in_dims, x, C, dim):
         x = x.movedim(in_dims[0], 0)
-        out = _Contract.apply(_batched(x), K, dim)
+        out = _Contract.apply(_batched(x), C, dim)
         return out.reshape(*x.shape[:-2], *out.shape[-2:]), 0
 
 
-def contract(x: torch.Tensor, K: torch.Tensor, dim: int) -> torch.Tensor:
-    """Contract axis dim (-1 or -2) of x with K's first axis, in float32:
-    on the card the 3xTF32 kernel (one launch), on the CPU `plain`.
-    Goes through the autograd, forward-mode and vmap rules (_Contract)
-    where a transform or autograd may see the call."""
-    _check(x, K, dim)
+def contract(x: torch.Tensor, C: Constant, dim: int) -> torch.Tensor:
+    """Contract axis dim (-1 or -2) of x with the first axis of C's
+    matrix, in float32: on the card the 3xTF32 kernel (one launch) with
+    C's planes, on the CPU `plain`. Goes through the autograd,
+    forward-mode and vmap rules (_Contract) where a transform or autograd
+    may see the call."""
+    _check(x, C, dim)
     if _seen((x,)):
-        return _Contract.apply(x, K, dim)
-    return _apply(x, K, dim)
+        return _Contract.apply(x, C, dim)
+    return _apply(x, C, dim)
 
 
 def reset_launches():
-    """Set the kernel's launch count, and the count of constants split
-    into planes, to zero."""
+    """Set the kernel's launch count to zero."""
     contract.launches = 0
-    contract.splits = 0
 
 
 reset_launches()

@@ -76,11 +76,24 @@ def resolve_ytransform(cfg, nyp: int) -> str:
     otherwise 'fft'. That GEMM is 'sine', one float32 GEMM with the dense
     sine matrix (the port's y-DST there since it was ported), at
     solver_precision 'highest', and qgcm_tpu's packed GEMM DST
-    ('matmul') at 'high'. The 'sine' is a departure: on the card the
-    forced southern-ocean channel's 10 days keep chip_smoke.py phase
-    11's float64 witness with it only; the packed form (float32 or
-    float64 products), the sine matrix in float64 products and the FFT
-    DST all drift farther from the float64 run (PERF.md, section 6)."""
+    ('matmul') at 'high'.
+
+    The 'sine' is a departure, kept on a measurement of the forced
+    southern-ocean channel's first 10 days (chip_smoke.py
+    --channel-spread, on an H100; PERF.md, section 6), each run's
+    monit.nc distance from the float64 run over the record's maximum.
+    Float64 runs from starts perturbed by noise of RMS 1e-7 of the
+    flow's max|po| stay within 2.1e-4 of it in every series that decides
+    phase 11's witness (kealoc 5.6e-8): the gap of a float32 run is
+    accumulated roundoff, not a chaotic path. There the packed form ('matmul' at 'highest' or
+    'high') and the FFT lie above the range of four float32 'sine' runs
+    from perturbed starts in all 11 such series, by 1.2-111x their
+    largest, and above the 'sine' run from rest in 8-10 of them
+    (ugminoc: 7.84e-3, 1.48e-3 and 2.82e-3 against 9.67e-4-1.19e-3;
+    kealoc 4.18e-4, 1.16e-3, 6.11e-4 against 8.0e-6-1.35e-4), and miss
+    the witness in 8, 6 and 2 series where 'sine' from rest holds it.
+    Over a whole year both 'sine' and the packed form meet the record's
+    bars."""
     if cfg.solver_transform != "auto":
         return cfg.solver_transform
     if cfg.dtype == "float32" and nyp - 2 >= MATMUL_DST_MIN:
@@ -135,14 +148,14 @@ def _mid_signs(m: int) -> np.ndarray:
     return 2.0 - 4.0 * (np.arange(m) % 2)
 
 
-def _mm(x: torch.Tensor, K: torch.Tensor, dim: int,
-        precision: str) -> torch.Tensor:
+def _mm(x: torch.Tensor, K, dim: int) -> torch.Tensor:
     """Contract axis dim (-1 or -2) of x with the first axis of K (K may
     be a transposed view): x @ K or K.mT @ x, neither of which copies x.
-    Float32 at 'high' goes through ops.gemm.contract (the 3xTF32 kernel
-    on the card, its plain version on the CPU); everything else is
+    A float32 solver's K at 'high' is an ops.gemm.Constant and goes
+    through ops.gemm.contract (the 3xTF32 kernel on the card, its plain
+    version on the CPU); every other K is a tensor and takes
     ops.gemm.plain, torch.matmul in float64 rounded to x's type."""
-    if precision == "high" and x.dtype == torch.float32:
+    if isinstance(K, gemm.Constant):
         return gemm.contract(x, K, dim)
     return gemm.plain(x, K, dim)
 
@@ -162,20 +175,26 @@ class PackedDST:
     Each level's kernel is made once, here, in float64 NumPy with its
     argument reduced modulo its period, and rounded to `dtype` on
     `device`; a float32 run at 'highest' keeps those float32 values in
-    float64, the type of its products (_mm). qgcm_tpu instead makes its
-    kernels from iota in the working type at every call (for XLA,
-    :77-87), which in float32 puts up to about 5e-5 rad into the sines
-    of its 239-point base kernel: in float32 the two differ by
-    qgcm_tpu's own error, and the tests compare them in float64."""
+    float64, the type of its products (_mm), and one at 'high' holds each
+    as an ops.gemm.Constant, split here, once, into the 3xTF32 kernel's
+    planes with those of its transpose (the inverse's K2.mT). qgcm_tpu
+    instead makes its kernels from iota in the working type at every
+    call (for XLA, :77-87), which in float32 puts up to about 5e-5 rad
+    into the sines of its 239-point base kernel: in float32 the two
+    differ by qgcm_tpu's own error, and the tests compare them in
+    float64."""
 
     def __init__(self, n: int, dtype, device, precision: str = "highest"):
         if precision not in PRECISIONS:
             raise ValueError(f"unknown solver_precision {precision!r}")
         self.n, self.precision = n, precision
         wide = dtype == torch.float32 and precision == "highest"
+        split = dtype == torch.float32 and precision == "high"
 
         def matrix(a):
             k = _vector(a, device, dtype)
+            if split:
+                return gemm.Constant(k)
             return k.double() if wide else k
 
         sizes = _split_sizes(n)
@@ -191,11 +210,11 @@ class PackedDST:
     def forward(self, x: torch.Tensor, dim: int, level: int = 0):
         """Packed-order DST-I along dim (-1 or -2)."""
         if level == len(self.levels):
-            return _mm(x, self.base, dim, self.precision)
+            return _mm(x, self.base, dim)
         m, K2, s = self.levels[level]
         xf = x.narrow(dim, 0, m - 1)
         xb = x.narrow(dim, m, m - 1).flip(dim)
-        odd = (_mm(xf + xb, K2, dim, self.precision)
+        odd = (_mm(xf + xb, K2, dim)
                + x.narrow(dim, m - 1, 1) * self._signs(s, dim))
         even = self.forward(xf - xb, dim, level + 1)
         return torch.cat([odd, even], dim=dim)
@@ -204,10 +223,10 @@ class PackedDST:
         """DST-I along dim (-1 or -2) of a packed-order spectrum, in
         natural order."""
         if level == len(self.levels):
-            return _mm(y, self.base, dim, self.precision)
+            return _mm(y, self.base, dim)
         m, K2, s = self.levels[level]
         yo = y.narrow(dim, 0, m)
-        uf = _mm(yo, K2.mT, dim, self.precision)
+        uf = _mm(yo, K2.mT, dim)
         um = (yo * self._signs(s, dim)).sum(dim=dim, keepdim=True)
         v = self.inverse(y.narrow(dim, m, m - 1), dim, level + 1)
         return torch.cat([uf + v, um, (uf - v).flip(dim)], dim=dim)

@@ -211,35 +211,38 @@ def test_gemm_wrapper_rules(dim, monkeypatch):
     """ops.gemm.contract on a CPU tensor: the plain product, launching
     nothing; its vmap rule folds the mapped axis into one call; its
     gradient and forward-mode tangent are the plain product's; float64
-    and a mismatched axis are refused."""
+    (field or constant) and a mismatched axis are refused."""
     rng = np.random.default_rng(-dim)
     x = torch.from_numpy(rng.standard_normal((4, 3, 9, 9))).float()
     K = torch.from_numpy(rng.standard_normal((9, 7))).float()
+    C = gemm.Constant(K)
     calls = []
     apply = gemm._apply
     monkeypatch.setattr(gemm, "_apply",
                         lambda *a: calls.append(a[0].shape) or apply(*a))
     gemm.reset_launches()
     want = gemm.plain(x, K, dim)
-    assert torch.equal(gemm.contract(x, K, dim), want)
-    got = torch.func.vmap(lambda t: gemm.contract(t, K, dim))(x)
+    assert torch.equal(gemm.contract(x, C, dim), want)
+    got = torch.func.vmap(lambda t: gemm.contract(t, C, dim))(x)
     assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)
     assert calls[-1] == (12, 9, 9)          # one call for the 4 members
     w = torch.from_numpy(rng.standard_normal(tuple(want.shape))).float()
     grads = []
-    for fn in (gemm.contract, gemm.plain):
+    for fn, k in ((gemm.contract, C), (gemm.plain, K)):
         xg = x.clone().requires_grad_()
-        (fn(xg, K, dim) * w).sum().backward()
+        (fn(xg, k, dim) * w).sum().backward()
         grads.append(xg.grad)
     assert torch.allclose(*grads, rtol=1e-6, atol=1e-6)
     t = torch.from_numpy(rng.standard_normal(tuple(x.shape))).float()
-    tan = torch.func.jvp(lambda v: gemm.contract(v, K, dim), (x,), (t,))[1]
+    tan = torch.func.jvp(lambda v: gemm.contract(v, C, dim), (x,), (t,))[1]
     assert torch.allclose(tan, gemm.plain(t, K, dim), rtol=1e-6, atol=1e-6)
     assert gemm.contract.launches == 0
     with pytest.raises(TypeError):
-        gemm.contract(x.double(), K.double(), dim)
+        gemm.contract(x.double(), C, dim)
+    with pytest.raises(TypeError):
+        gemm.Constant(K.double())
     with pytest.raises(ValueError):
-        gemm.contract(x, K[:8], dim)
+        gemm.contract(x, gemm.Constant(K[:8]), dim)
 
 
 def test_high_ensemble_equals_highest(split4):

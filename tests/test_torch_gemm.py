@@ -1,7 +1,7 @@
 """The 3xTF32 GEMM's host side (qgcm_torch/ops/gemm.py) on the CPU: the
-TF32 rounding that splits the constant, the split planes' layout, their
-cache, and the launch plan, executed in float64 against the plain
-product. Pure torch and NumPy; the kernel itself runs on the card only
+TF32 rounding that splits the constant, the split planes' layout, the
+GEMM DST's constants split once where it is built, and the launch plan,
+executed in float64 against the plain product. Pure torch and NumPy; the kernel itself runs on the card only
 (chip_smoke.py, phase 22)."""
 
 import numpy as np
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from qgcm_torch.ops import gemm
+from qgcm_torch.solver import helmholtz
 
 
 def rna_tf32(x: np.ndarray) -> np.ndarray:
@@ -71,28 +72,66 @@ def test_split_planes_layout(view):
             <= 2.0**-22 * kd.abs()).all()
 
 
-def test_planes_cache():
-    """planes_entry: one split per matrix and per view (K and K.mT are two
-    entries), found again without a split, and a fresh entry after an
-    in-place edit of the matrix."""
-    gemm._PLANES.clear()
-    gemm.reset_launches()
-    rng = np.random.default_rng(3)
-    K = torch.from_numpy(rng.standard_normal((9, 7)).astype(np.float32))
-    first = gemm.planes_entry(K)
-    assert gemm.planes_entry(K) is first
-    assert gemm.planes_entry(K[:, :]) is first      # same storage and view
-    kt = gemm.planes_entry(K.mT)
-    assert kt is not first and gemm.planes_entry(K.mT) is kt
-    assert len(gemm._PLANES) == 2 and gemm.contract.splits == 2
-    assert torch.equal(kt.planes, gemm.split_planes(K.mT))
-    K.mul_(2.0)
-    fresh = gemm.planes_entry(K)
-    assert fresh is not first and gemm.contract.splits == 3
-    assert len(gemm._PLANES) == 2
-    assert torch.equal(fresh.planes, 2.0 * first.planes)
-    gemm._PLANES.clear()
-    gemm.reset_launches()
+def planes_matrix(C):
+    """The float64 matrix that a Constant's planes hold: (hi + lo) read
+    back from K-major, the pad dropped."""
+    k, _ = C.K.shape
+    return (C.planes[0, :, :k].double() + C.planes[1, :, :k].double()).mT
+
+
+@pytest.mark.parametrize("dim", [-1, -2])
+def test_packed_dst_splits_its_constants_once(dim, monkeypatch):
+    """A float32 'high' PackedDST holds each of its matrices as a
+    Constant made when it is built: each level's K2 and K2.mT (its mT)
+    and the symmetric base (its own mT), their planes split_planes of
+    each, bit for bit. A forward, an inverse and a gradient through
+    them, each product run through the launch plan from the planes it is
+    handed (executed in float64), split nothing, hand over only the
+    solver's Constants, and give the 'highest' solver's transform to
+    float32 accuracy."""
+    monkeypatch.setattr(helmholtz, "_MM_SPLIT_MIN", 4)
+    n = 15                      # levels of half-size 8 and 4, a base of 3
+    dst = helmholtz.PackedDST(n, torch.float32, "cpu", "high")
+    ref = helmholtz.PackedDST(n, torch.float32, "cpu", "highest")
+    assert [m for m, _, _ in dst.levels] == [8, 4]
+    held = {id(dst.base)}
+    for (_, K2, _), (_, K2_ref, _) in zip(dst.levels, ref.levels):
+        assert isinstance(K2, gemm.Constant) and K2.mT.mT is K2
+        assert torch.equal(K2.K.double(), K2_ref)
+        held |= {id(K2), id(K2.mT)}
+        for C in (K2, K2.mT):
+            assert torch.equal(C.K, K2.K if C is K2 else K2.K.mT)
+            assert torch.equal(C.planes.view(torch.int32),
+                               gemm.split_planes(C.K).view(torch.int32))
+    assert dst.base.mT is dst.base
+    assert torch.equal(dst.base.planes, gemm.split_planes(dst.base.K.mT))
+    assert dst.base.maps is None            # TMA descriptors: CUDA only
+
+    def no_split(K):
+        raise AssertionError("a call split a constant")
+    handed = []
+
+    def launch(p, x3, C):
+        handed.append(id(C))
+        return run_plan(p, x3, planes_matrix(C)).float()
+    monkeypatch.setattr(gemm, "split_planes", no_split)
+    monkeypatch.setattr(gemm, "_apply",
+                        lambda x, C, d: gemm._planned(x, C, d, launch))
+    rng = np.random.default_rng(15 - dim)
+    shape = (3, n, 5) if dim == -2 else (3, 5, n)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    xg = x.clone().requires_grad_()
+    (dst.forward(xg, dim) * w).sum().backward()
+    xr = x.clone().requires_grad_()
+    (ref.forward(xr, dim) * w).sum().backward()
+    scale = float(ref.forward(x, dim).abs().max())
+    for got, want in ((dst.forward(x, dim), ref.forward(x, dim)),
+                      (dst.inverse(x, dim), ref.inverse(x, dim)),
+                      (xg.grad, xr.grad)):
+        assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert handed and set(handed) == held
+    assert gemm.contract.launches == 0
 
 
 def run_plan(p, x, K):
@@ -154,12 +193,13 @@ def test_launch_plan(dim, narrowed, monkeypatch):
     def planned(t, Km, d):
         calls.append(tuple(t.shape))
         return gemm._planned(t, Km, d,
-                             lambda q, t3, k3: run_plan(q, t3, k3).float())
+                             lambda q, t3, k3: run_plan(q, t3, k3.K).float())
     monkeypatch.setattr(gemm, "_apply", planned)
     members = torch.stack([x, 2.0 * x, -x, 0.5 * x])
     if narrowed:
         members = torch.cat([members, members], dim=-1)[..., :13]
-    got = torch.func.vmap(lambda t: gemm.contract(t, K, dim))(members)
+    C = gemm.Constant(K)
+    got = torch.func.vmap(lambda t: gemm.contract(t, C, dim))(members)
     assert calls == [(12, 11, 13)]
     assert torch.allclose(got, gemm.plain(members, K, dim), rtol=1e-6,
                           atol=1e-6)
