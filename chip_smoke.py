@@ -52,9 +52,8 @@ decomposed coupled model, the Driver and the commands on rows meshes
 (phase 18); and last the 2-D runner (phase 19): the box ocean on 2x2
 and 1x4 meshes of 4 ranks (the golden box in float64, the main path's
 box and the coupled double gyre at full width in float32) against the
-single-device runner, one rank's five x_ext launches of a substep
-against their plain version, and `run --mesh 2x2` under torchrun with
-a resume; then the distributed adjoint (phase 20): the float64 adjoint
+single-device runner, and one rank's five x_ext launches of a substep
+against their plain version; then the distributed adjoint (phase 20): the float64 adjoint
 of the main path's box on 4x1 and 2x2 meshes of 4 ranks with remat,
 against the single-device adjoint on the card and a finite
 difference, and every rank's window launches' gradients through the
@@ -65,7 +64,15 @@ products for 3x961^2 and 3x4801^2 against float64 and torch.matmul (its
 machine code wgmma, its constant's planes the CPU's bit for bit), box
 solves at both sizes under the FFT DST and the GEMM DST at each
 solver_precision, and the main path's box (250 substeps) and its
-8-member ensemble (50) under each.
+8-member ensemble (50) under each; and sharded checkpoints (phase 23):
+`run --mesh 2x2 --ckpt-format sharded` under torchrun from phase 10's
+restart, resumed from its lastday_sharded/ in one process and, the CLI
+in spawned ranks, on 2x2 and on rows, against a single-device straight
+run, the golden coupled box in float64 saved on 2x2 and restored on one
+device, 2x2 and rows, the southern-ocean channel at full width through
+`run --mesh 2x2` (cut by rows over the ranks) against `run --mesh rows`,
+bit for bit, and the seconds of a dump and a restore, restart.nc against
+sharded.
 Every phase raises on a failure; nothing runs on the CPU. The last line of
 standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
@@ -3164,6 +3171,50 @@ def torchrun_cli(argv, backend, ranks=MESH_RANKS):
     return run.stdout
 
 
+def check_mesh_line(log, line, what):
+    """Print the mesh, resume and done lines of a run's log; raise unless
+    it printed `mesh: LINE` (no check when line is None)."""
+    lines = [ln for ln in log.splitlines()
+             if ln.startswith(("mesh:", "done:", "resuming"))]
+    print("    " + "\n    ".join(lines))
+    if line and not any(ln.startswith(f"mesh: {line}") for ln in lines):
+        raise AssertionError(f"{what} printed no mesh line {line}")
+
+
+def resumed_errors(where, single, how, seconds, card) -> bool:
+    """where/outdata_r2's lastday.nc and the MESH_MONIT_HELD series of
+    where/outdata's and outdata_r2's monit.nc together against the
+    single-device straight run in single/outdata; prints them. Returns
+    whether every one is within RESUME_TOL."""
+    want = lastday(single)
+    got = lastday(where, "outdata_r2")
+    errs = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
+            for k, v in want.items()}
+    m_want, dims = monit_series(single / "outdata" / "monit.nc")
+    m_got = [monit_series(where / seg / "monit.nc")[0]
+             for seg in ("outdata", "outdata_r2")]
+    monit = {}
+    for name, w in m_want.items():
+        if name == "time" or not dims[name] or dims[name][0] != "time":
+            continue
+        g = np.concatenate([m[name] for m in m_got])
+        monit[name] = float(np.abs(g - w).max()
+                            / max(np.abs(w).max(), 1e-30))
+    held = {k: monit[k] for k in MESH_MONIT_HELD}
+    rest = sorted(((v, k) for k, v in monit.items()
+                   if k not in MESH_MONIT_HELD), reverse=True)
+    print(f"  {how}, against the single-device straight run: lastday "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; monit.nc " + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
+          + f" (bar {RESUME_TOL:g}); {seconds:.1f} s [{card}]")
+    print("    largest monit.nc differences not held: "
+          + ", ".join(f"{k} {v:.3e}" for v, k in rest[:6]))
+    files = sorted(p.name for p in (where / "outdata_r2").iterdir())
+    print(f"    files of the resumed segment (primary rank): "
+          f"{' '.join(files)}")
+    return max(*errs.values(), *held.values()) <= RESUME_TOL
+
+
 def mesh_cli_resume(spec, mesh_line, backend, card):
     """Through torchrun, `run --mesh SPEC` on phase 10's case for
     MESH_DRIVER_SEGMENT_DAYS and `run --resume` for as long again, from
@@ -3181,48 +3232,15 @@ def mesh_cli_resume(spec, mesh_line, backend, card):
                     **MESH_DRIVER_CADENCES)
     shutil.copy(single / "restart.nc", case / "restart.nc")
     t0 = time.perf_counter()
-    logs = [torchrun_cli(["run", str(case), "--mesh", spec] + grid,
-                         backend)]
-    logs.append(torchrun_cli(["run", str(case), "--mesh", spec,
-                              "--resume"] + grid, backend))
-    cli_s = time.perf_counter() - t0
-    for log in logs:
-        lines = [ln for ln in log.splitlines()
-                 if ln.startswith(("mesh:", "done:"))]
-        print("    " + "\n    ".join(lines))
-        if not any(ln.startswith(f"mesh: {mesh_line}") for ln in lines):
-            raise AssertionError(f"run --mesh {spec} printed no mesh line")
-    want = lastday(single)
-    got = lastday(case, "outdata_r2")
-    errs = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
-            for k, v in want.items()}
-    m_want, dims = monit_series(single / "outdata" / "monit.nc")
-    m_got = [monit_series(case / seg / "monit.nc")[0]
-             for seg in ("outdata", "outdata_r2")]
-    monit = {}
-    for name, w in m_want.items():
-        if name == "time" or not dims[name] or dims[name][0] != "time":
-            continue
-        g = np.concatenate([m[name] for m in m_got])
-        monit[name] = float(np.abs(g - w).max()
-                            / max(np.abs(w).max(), 1e-30))
-    held = {k: monit[k] for k in MESH_MONIT_HELD}
-    rest = sorted(((v, k) for k, v in monit.items()
-                   if k not in MESH_MONIT_HELD), reverse=True)
-    print(f"  run --mesh {spec}, {MESH_DRIVER_SEGMENT_DAYS} + "
-          f"{MESH_DRIVER_SEGMENT_DAYS} days resumed, against phase 10's "
-          f"single-device day: lastday "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + "; monit.nc " + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
-          + f" (bar {RESUME_TOL:g}); {cli_s:.1f} s of torchrun [{card}]")
-    print("    largest monit.nc differences not held: "
-          + ", ".join(f"{k} {v:.3e}" for v, k in rest[:6]))
-    if not max(*errs.values(), *held.values()) <= RESUME_TOL:
+    for argv in (["run", str(case), "--mesh", spec],
+                 ["run", str(case), "--mesh", spec, "--resume"]):
+        check_mesh_line(torchrun_cli(argv + grid, backend), mesh_line,
+                        f"run --mesh {spec}")
+    how = (f"run --mesh {spec}, {MESH_DRIVER_SEGMENT_DAYS} + "
+           f"{MESH_DRIVER_SEGMENT_DAYS} days resumed, torchrun")
+    if not resumed_errors(case, single, how, time.perf_counter() - t0, card):
         raise AssertionError(f"the CLI's run on --mesh {spec} parts from "
                              "the single-device day")
-    files = sorted(p.name for p in (case / "outdata_r2").iterdir())
-    print(f"    files of the resumed segment (primary rank): "
-          f"{' '.join(files)}")
 
 
 def phase_coupled_mesh(card, states, members):
@@ -3607,10 +3625,10 @@ def phase_mesh_2d(card, states, main_file):
     single-device runner (MESH_F32_TOL), with one rank's five x_ext
     launches of a further substep on 2x2 held against window_reference
     on the card (F32_TOL of the window's max|q|); double_gyre_coupled on
-    2x2 from phase 7's final state, 20 cycles, at phase 18's bar; then
-    through torchrun `run --mesh 2x2` on phase 10's case, half a day and
-    half a day resumed, against phase 10's single-device day. Returns
-    (the kernels line's launch counts by mode, the paths' entries)."""
+    2x2 from phase 7's final state, 20 cycles, at phase 18's bar (`run
+    --mesh 2x2` through torchrun, with a resume, is phase 23's).
+    Returns (the kernels line's launch counts by mode, the paths'
+    entries)."""
     import shutil
     from pathlib import Path
     from qgcm_torch.config import double_gyre_coupled, double_gyre_ocean_only
@@ -3712,7 +3730,6 @@ def phase_mesh_2d(card, states, main_file):
                                                for w in r0["windows"])
         paths.append(entry)
 
-    mesh_cli_resume("2x2", "{'y': 2, 'x': 2}", backend, card)
     if totals["full"] or totals["rows"]:
         raise AssertionError("a 2-D run launched another mode than x_ext")
     return totals, paths
@@ -5231,6 +5248,386 @@ def grad_ratio(a, b, scale=None) -> float:
     return (a - b).abs().max().item() / s if s else (a - b).abs().max().item()
 
 
+# ----------------------------------------------------------------------
+# Phase 23: sharded checkpoints, and a channel on a (y, x) mesh
+# ----------------------------------------------------------------------
+
+# where the ranks meet and write their checkpoints (listed in .gitignore)
+MESH23_WORKDIR = "build/qgcm_torch/mesh_ckpt"
+# (1): days of the double gyre's first half on 2x2 with sharded
+# checkpoints and of each resume (20 coupling cycles), held against a
+# single-device straight run of both from phase 10's restart, with every
+# cadence firing in each half
+CKPT_SEGMENT_DAYS = 0.125
+CKPT_CADENCES = dict(valday=0.0625, dgnday=0.0625, odiday=0.125,
+                     adiday=0.125, prtday=0.125, resday=0.125, dtavoc=0.125,
+                     dtavat=0.0625, name="restart.nc")
+# (3): coupling cycles of southern_ocean_coupled through `run --mesh 2x2`
+# and `run --mesh rows` from phase 8's final state (a channel: both are cut
+# by rows over the 4 ranks), and the monitor's interval in cycles
+CHANNEL_MESH_CYCLES = 10
+CHANNEL_MESH_DGN_CYCLES = 2
+# a restore into blocks against the whole restore of the same checkpoint,
+# cut into the same blocks: the constraint integrals' sums in another
+# order alone (io/sharded_ckpt.py; 3.6e-16 on the CPU in the 2x2 and rows
+# cases of tests/test_torch_parallel_driver.py's box)
+CKPT_RESTORE_TOL = 1e-13
+
+
+def seeded_coupled_state(model):
+    """A state of the small coupled box of phase 6 from seeded NumPy noise,
+    the same bits on every rank: a noisy atmosphere over an eddying ocean
+    with a noisy SST (tests/_torch_ranks.py::seeded_coupled's state)."""
+    from qgcm_torch.generators import eddy_pressure
+    from qgcm_torch.models.atmos import init_atmos_state
+    from qgcm_torch.models.ocean import init_ocean_state
+    cfg, rad = model.cfg, model.rad
+    rng = np.random.default_rng(1)
+    pam = 500.0 * rng.standard_normal((cfg.nla, cfg.nypa, cfg.nxta))
+    pam = np.concatenate([pam, pam[:, :, :1]], axis=2)
+    at_shape, oc_shape = (cfg.nyta, cfg.nxta), (cfg.nyto, cfg.nxto)
+    astm = np.asarray(rad.astbar)[:, None] + rng.standard_normal(at_shape)
+    hmixam = cfg.mixed.hmat + 20.0 * rng.standard_normal(at_shape)
+    at = init_atmos_state(model, pa=pam, astm=astm, hmixam=hmixam)
+    sstm = np.asarray(rad.sstbar)[:, None] + rng.standard_normal(oc_shape)
+    oc = init_ocean_state(model, init="rbal", po=eddy_pressure(cfg, 0.3),
+                          sstm=sstm)
+    return oc, at
+
+
+def _ckpt_costs(model, mesh, oc, at, work):
+    """This rank's seconds (host clock, the card drained, the ranks
+    started together) of a dump of its blocks oc, at as restart.nc (the
+    state gathered whole, rank 0 writing) and as a sharded checkpoint
+    (every rank its blocks), and of a restore of each into its blocks
+    (restart.nc: every rank reads all of it and keeps its blocks); the
+    bytes it wrote; and the sharded restore."""
+    import os
+    import torch.distributed as dist
+    from qgcm_torch.io.restart import load_restart, save_restart
+    from qgcm_torch.io.sharded_ckpt import load_checkpoint, save_checkpoint
+    from qgcm_torch.parallel.mesh import (atmos_mesh, gather_tree,
+                                          ocean_mesh, shard_tree)
+    cfg = model.cfg
+    omesh, amesh = ocean_mesh(mesh, cfg), atmos_mesh(mesh, cfg)
+    nc, sh = os.path.join(work, "restart.nc"), os.path.join(work, "sharded")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def dump_nc():
+        o, a = gather_tree(oc, omesh), gather_tree(at, amesh)
+        if mesh.rank == 0:
+            save_restart(nc, model, o, a, 0.0)
+
+    def load_nc():
+        o, a, _ = load_restart(nc, model)
+        return shard_tree(o, omesh), shard_tree(a, amesh)
+
+    out = {}
+    out["dump_nc"], _ = timed(dump_nc)
+    out["dump_sh"], out["bytes_sh"] = timed(
+        lambda: save_checkpoint(sh, oc, at, 0.0, model, mesh))
+    out["load_nc"], _ = timed(load_nc)
+    out["load_sh"], restored = timed(lambda: load_checkpoint(sh, model, mesh))
+    out["bytes_nc"] = os.path.getsize(nc)
+    return out, restored
+
+
+def _tree_error(got, want) -> float:
+    """The largest max|got - want| / max|want| over two NamedTuples'
+    tensors."""
+    return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+               for a, b in zip(got, want))
+
+
+def _ckpt_rank(tasks, work):
+    """What each rank of phase 23 runs: 'cli' tasks run qgcm_torch.cli
+    with their argv (the launches by mode, the exit code and rank 0's
+    output); 'golden' saves phase 6's coupled box in float64 from a seeded
+    state sharded on 2x2, restores it on one device, on 2x2 and on rows,
+    and times the dumps and restores; 'costs' restores a checkpoint of a
+    full-width state into 2x2 blocks and times the dumps and restores."""
+    import contextlib
+    import io
+    import os
+    from qgcm_torch.cli import main as cli_main
+    from qgcm_torch.io.restart import load_restart
+    from qgcm_torch.io.sharded_ckpt import load_checkpoint
+    from qgcm_torch.model import build_model
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    from qgcm_torch.parallel.mesh import (Mesh, atmos_mesh, ocean_mesh,
+                                          shard_tree)
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for task in tasks:
+        res = dict(task=task["label"])
+        if task["kind"] == "cli":
+            reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res["code"] = cli_main(task["argv"])
+            torch.cuda.synchronize()
+            res.update(launches=dict(qgstep.mode_launches),
+                       seconds=time.perf_counter() - t0,
+                       log=buf.getvalue() if rank == 0 else "")
+            out.append(res)
+            continue
+        model = build_model(task["cfg"], dev)
+        cfg = model.cfg
+        grid = (cfg.nypo, cfg.nxpo)
+        mesh = Mesh((2, 2), grid=grid)
+        where = os.path.join(work, task["name"])
+        if rank == 0:
+            os.makedirs(where, exist_ok=True)
+        if task["kind"] == "golden":
+            oc, at = seeded_coupled_state(model)
+            blocks = (shard_tree(oc, ocean_mesh(mesh, cfg)),
+                      shard_tree(at, atmos_mesh(mesh, cfg)))
+        elif task["source"].endswith(".nc"):
+            oc, at, _ = load_restart(task["source"], model)
+            blocks = (shard_tree(oc, ocean_mesh(mesh, cfg)),
+                      shard_tree(at, atmos_mesh(mesh, cfg)))
+        else:
+            blocks = load_checkpoint(task["source"], model, mesh)[:2]
+        costs, restored = _ckpt_costs(model, mesh, *blocks, where)
+        res["costs"] = costs
+        if task["kind"] == "golden":
+            sh = os.path.join(where, "sharded")
+            whole = load_checkpoint(sh, model)[:2]
+            res["one_device_bits"] = all(
+                torch.equal(a, b) for a, b in zip((*whole[0], *whole[1]),
+                                                  (*oc, *at)))
+            rows = Mesh((mesh.size, 1), grid=grid)
+            errs = {}
+            for name, m, got in (("2x2", mesh, restored),
+                                 ("rows", rows,
+                                  load_checkpoint(sh, model, rows)[:2])):
+                want = (shard_tree(whole[0], ocean_mesh(m, cfg)),
+                        shard_tree(whole[1], atmos_mesh(m, cfg)))
+                errs[name] = max(_tree_error(got[0], want[0]),
+                                 _tree_error(got[1], want[1]))
+            res["restore_errors"] = errs
+        res["finite"] = all(bool(torch.isfinite(t).all())
+                            for t in (*restored[0], *restored[1]))
+        out.append(res)
+        del model, blocks, restored
+        torch.cuda.empty_cache()
+    return out
+
+
+def channel_mesh_case(state):
+    """A case directory for southern_ocean_coupled in float32 holding
+    phase 8's final state as restart.nc, run for CHANNEL_MESH_CYCLES
+    coupling cycles with a monitor record every CHANNEL_MESH_DGN_CYCLES
+    and a validity check at each; returns (case, the CLI's grid flags)."""
+    from qgcm_torch.config import southern_ocean_coupled
+    from qgcm_torch.io.restart import save_restart
+    from qgcm_torch.model import build_model
+    from qgcm_torch.params import SECDAY, SECSYR, parse_input_params, \
+        params_to_config
+    base = southern_ocean_coupled(dtype="float32")
+    cycle = base.nstr * base.dta
+    oc, at, step0 = state
+    case = new_case("southern_ocean_coupled_mesh",
+                    "examples/southern_ocean_coupled/input.params",
+                    trun=repr(CHANNEL_MESH_CYCLES * cycle / SECSYR),
+                    valday=repr(CHANNEL_MESH_DGN_CYCLES * cycle / SECDAY),
+                    dgnday=repr(CHANNEL_MESH_DGN_CYCLES * cycle / SECDAY),
+                    odiday=0.0, adiday=0.0, prtday=0.0, resday=0.0,
+                    dtavoc=0.0, dtavat=0.0, name="restart.nc")
+    cfg = params_to_config(parse_input_params(str(case / "input.params")),
+                           base)
+    model = build_model(cfg)
+    save_restart(str(case / "restart.nc"), model, oc, at,
+                 step0 * cfg.dta / SECSYR)
+    del model
+    torch.cuda.empty_cache()
+    return case, ["--preset", "southern_ocean_coupled", "--dtype", "float32"]
+
+
+def phase_checkpoints(card, states):
+    """Sharded checkpoints and a channel on a (y, x) mesh, in MESH_RANKS
+    ranks (mesh_backend): (1) `run --mesh 2x2 --ckpt-format sharded`
+    through torchrun on phase 10's case for CKPT_SEGMENT_DAYS, resumed as
+    long again from its lastday_sharded/ in one process without a mesh,
+    and, in one spawn of the ranks running the CLI, on 2x2 and on rows,
+    each against a single-device straight run of both halves (RESUME_TOL);
+    in the same spawn (2) phase 6's coupled box in float64 from a seeded
+    state saved sharded on 2x2 and restored on one device (the same bits
+    as the state), on 2x2 and on rows (CKPT_RESTORE_TOL of the one-device
+    restore); (3) southern_ocean_coupled at full width in float32 from
+    phase 8's final state through `run --mesh 2x2` and `run --mesh rows`
+    (both cut by rows over the 4 ranks: lastday.nc and monit.nc the same
+    bits); (4) the seconds of a dump and of a restore, restart.nc against
+    sharded, and the bytes a rank writes, for each of the three states.
+    Returns (the kernels line's launch counts by mode, the paths'
+    entries)."""
+    import shutil
+    from pathlib import Path
+    from scipy.io import netcdf_file
+    from qgcm_torch.config import (OceanConfig, double_gyre_coupled,
+                                   southern_ocean_coupled)
+    from qgcm_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parent
+    backend, label = mesh_backend()
+    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
+    days = CKPT_SEGMENT_DAYS
+    cases = {}
+    for name, trun in (("single", 2 * days), ("box", days)):
+        cases[name] = new_case(f"double_gyre_coupled_ckpt_{name}",
+                               "examples/double_gyre_coupled/input.params",
+                               trun=trun / 365.0, **CKPT_CADENCES)
+        shutil.copy(root / CASES / "double_gyre_coupled_resume" /
+                    "restart.nc", cases[name] / "restart.nc")
+    single, box = cases["single"], cases["box"]
+    t0 = time.perf_counter()
+    check_mesh_line(run_cli(["run", str(single), "--quiet"] + grid)[0], None,
+                    "the single-device straight run")
+    print(f"    the single-device straight run, {2 * days} days: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_mesh_line(torchrun_cli(["run", str(box), "--mesh", "2x2",
+                                  "--ckpt-format", "sharded", "--quiet"]
+                                 + grid, backend),
+                    "{'y': 2, 'x': 2}", "run --mesh 2x2 --ckpt-format sharded")
+    print(f"    run --mesh 2x2 --ckpt-format sharded, {days} days: "
+          f"{time.perf_counter() - t0:.1f} s of torchrun; files of the first "
+          f"half: {' '.join(sorted(p.name for p in (box / 'outdata').iterdir()))}")
+    resumes = {}
+    for how in ("one", "2x2", "rows"):
+        resumes[how] = box.parent / f"{box.name}_resume_{how}"
+        shutil.rmtree(resumes[how], ignore_errors=True)
+        shutil.copytree(box, resumes[how])
+    misses = []
+    t0 = time.perf_counter()
+    check_mesh_line(run_cli(["run", str(resumes["one"]), "--resume",
+                             "--quiet"] + grid)[0], None, "the resume")
+    if not resumed_errors(resumes["one"], single, f"{days} + {days} days, "
+                          "resumed in one process without a mesh",
+                          time.perf_counter() - t0, card):
+        misses.append("one process")
+
+    channel, channel_grid = channel_mesh_case(states["southern_ocean_coupled"])
+    work = root / MESH23_WORKDIR
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "ranks").mkdir(parents=True)
+    lines = {"2x2": "{'y': 2, 'x': 2}", "rows": "{'y': 4, 'x': 1}"}
+    tasks = [dict(kind="cli", label=f"double_gyre_coupled --mesh {spec} "
+                  "--resume", resume=spec, line=lines[spec],
+                  argv=["run", str(resumes[spec]), "--mesh", spec, "--resume",
+                        "--dist-backend", backend, "--quiet"] + grid)
+             for spec in ("2x2", "rows")]
+    tasks += [dict(kind="cli", label=f"southern_ocean_coupled --mesh {spec}",
+                   line=lines["rows"],
+                   argv=["run", str(channel), "--mesh", spec, "--outdir",
+                         str(channel / spec), "--dist-backend", backend,
+                         "--quiet"] + channel_grid)
+              for spec in ("2x2", "rows")]
+    tasks += [
+        dict(kind="golden", name="golden", label="golden coupled box float64",
+             cfg=double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8,
+                                     ndxr=4, dta=180.0,
+                                     ocean=OceanConfig(dxo=20.0e3))),
+        dict(kind="costs", name="double_gyre", label="double_gyre_coupled "
+             "float32, (1)'s lastday_sharded/",
+             cfg=double_gyre_coupled(dtype="float32"),
+             source=str(box / "outdata" / "lastday_sharded")),
+        dict(kind="costs", name="channel", label="southern_ocean_coupled "
+             "float32, (3)'s lastday.nc on rows",
+             cfg=southern_ocean_coupled(dtype="float32"),
+             source=str(channel / "rows" / "lastday.nc"))]
+    t0 = time.perf_counter()
+    results = spawn_ranks(_ckpt_rank, MESH_RANKS, tasks, str(work),
+                          backend=backend, workdir=work / "ranks",
+                          timeout=600)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s with start-up "
+          f"[{card}]")
+    totals = {"rows": 0, "x_ext": 0, "full": 0}
+    paths = []
+    for i, task in enumerate(tasks):
+        per_rank = [r[i] for r in results]
+        r0 = per_rank[0]
+        if task["kind"] == "cli":
+            print(f"  {task['label']} (rank 0's output, {r0['seconds']:.1f} "
+                  "s):")
+            check_mesh_line(r0["log"], task["line"], task["label"])
+            if any(p["code"] != 0 for p in per_rank):
+                raise AssertionError(f"{task['label']} failed")
+            launches = {m: sum(p["launches"].get(m, 0) for p in per_rank)
+                        for m in totals}
+            for m in totals:
+                totals[m] += launches[m]
+            paths.append(dict(path=f"[23] {task['label']}",
+                              launches=launches))
+            if "resume" in task:
+                spec = task["resume"]
+                if not resumed_errors(resumes[spec], single,
+                                      f"{days} + {days} days, resumed on "
+                                      f"--mesh {spec}", r0["seconds"], card):
+                    misses.append(f"--mesh {spec}")
+            elif launches["full"] or launches["x_ext"] \
+                    or not launches["rows"]:
+                raise AssertionError(f"{task['label']} launched another mode "
+                                     "than rows")
+            continue
+        c = [p["costs"] for p in per_rank]
+
+        def each(key, scale=1.0):
+            return ", ".join(f"{x[key] / scale:.4f}" for x in c)
+
+        print(f"  {task['label']}, 2x2: dump restart.nc {c[0]['dump_nc']:.4f}"
+              f" s on rank 0 (gathered, rank 0 writing "
+              f"{c[0]['bytes_nc'] / 1e6:.3f} MB; ranks {each('dump_nc')} s), "
+              f"sharded {each('dump_sh')} s ({each('bytes_sh', 1e6)} MB a "
+              f"rank); restore restart.nc {each('load_nc')} s a rank, "
+              f"sharded {each('load_sh')} s a rank; finite "
+              f"{all(p['finite'] for p in per_rank)} [{card}]")
+        if not all(p["finite"] for p in per_rank):
+            raise AssertionError(f"{task['label']}: a restore is not finite")
+        if task["kind"] == "golden":
+            errs = {k: max(p["restore_errors"][k] for p in per_rank)
+                    for k in per_rank[0]["restore_errors"]}
+            bits = all(p["one_device_bits"] for p in per_rank)
+            print(f"    saved sharded on 2x2: restored on one device, the "
+                  f"state's own bits {bits}; into blocks against the "
+                  f"one-device restore cut into the same blocks: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (bar {CKPT_RESTORE_TOL:g})")
+            if not bits or not max(errs.values()) <= CKPT_RESTORE_TOL:
+                raise AssertionError("a sharded restore of the golden box "
+                                     "misses its bar")
+    if misses:
+        raise AssertionError("the sharded checkpoint's resume parts from the "
+                             f"straight run: {', '.join(misses)}")
+    same = {}
+    for name in ("lastday.nc", "monit.nc"):
+        with netcdf_file(str(channel / "2x2" / name), "r", mmap=False) as a, \
+                netcdf_file(str(channel / "rows" / name), "r",
+                            mmap=False) as b:
+            same[name] = (set(a.variables) == set(b.variables) and all(
+                np.array_equal(a.variables[v][:], b.variables[v][:])
+                for v in a.variables))
+    print(f"  southern_ocean_coupled, --mesh 2x2 against --mesh rows, bit for "
+          f"bit: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError("the channel's run on --mesh 2x2 is not its run "
+                             "on --mesh rows")
+    return totals, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -5346,6 +5743,12 @@ def main() -> int:
     with phase("[22] the GEMM DST: solver_transform='matmul' at each "
                "solver_precision against the FFT DST"):
         gemm_entry = phase_dst(card, device)
+    with phase(f"[23] sharded checkpoints, and a channel on a 2x2 mesh: "
+               f"{mesh_backend()[1]}"):
+        totals23, mesh_paths23 = phase_checkpoints(card, states)
+    for mode in totals:
+        totals[mode] += totals23[mode]
+    mesh_paths += mesh_paths23
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",

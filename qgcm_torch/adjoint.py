@@ -39,7 +39,7 @@ import torch
 
 from .model import Model
 from .models.ocean import _as_field, ocean_forcing_from_mean
-from .models.stepper import make_ocean_only_runner
+from .models.stepper import make_ocean_only_runner, mesh_variants
 from .parallel.mesh import gather_tree, replicated, shard_tree, zero_padding
 from .state import OceanState
 
@@ -96,24 +96,26 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
 
     mesh, halo_variant: the distributed adjoint (qgcm_tpu/adjoint.py:
     41-98), through make_ocean_only_runner(model, mesh, halo_variant,
-    'a2a', remat): a rows mesh, or for a box any (y, x) mesh, made for
-    the ocean's p-grid. state0 is then this rank's blocks
-    (parallel/mesh.shard_tree) and the mean forcing the whole fields on
-    every rank; the forcing is derived from them whole and sharded. The
-    final state is gathered, so `loss` sees the whole OceanState on every
-    rank; its cotangent is seeded on rank 0 alone (parallel/mesh.py's
-    convention for a value every rank computes the same). The value
-    comes out the same on every rank; the gradient of state0 as this
-    rank's blocks, zero on their padding; the gradients of the
-    replicated leaves of state0 (its scalars and mode vectors) and of
-    the forcing summed over the ranks by one all_reduce, the same bits
+    'a2a', remat): a mesh of any (y, x) shape made for the ocean's
+    p-grid. state0 is then this rank's blocks (parallel/mesh.shard_tree
+    on the mesh that models/stepper.mesh_variants gives: a channel on a
+    mesh with x > 1 without a halo variant takes row blocks over all the
+    ranks, parallel/mesh.ocean_mesh) and the mean forcing the whole
+    fields on every rank; the forcing is derived from them whole and
+    sharded. The final state is gathered, so `loss` sees the whole
+    OceanState on every rank; its cotangent is seeded on rank 0 alone
+    (parallel/mesh.py's convention for a value every rank computes the
+    same). The value comes out the same on every rank; the gradient of
+    state0 as this rank's blocks, zero on their padding; the gradients
+    of the replicated leaves of state0 (its scalars and mode vectors) and
+    of the forcing summed over the ranks by one all_reduce, the same bits
     on every rank. segment_steps chains blocks: each rank keeps its
-    blocks' segment starts. A mesh without halo_variant is qgcm_tpu's
-    GSPMD partitioning, which has no PyTorch counterpart: it raises
-    (ValueError); without a mesh halo_variant is not read."""
+    blocks' segment starts. A mesh without halo_variant, where qgcm_tpu
+    differentiates its GSPMD partitioning, takes 'overlap'; without a
+    mesh halo_variant is not read."""
+    mesh, halo_variant = mesh_variants(model.cfg, mesh, halo_variant, None)
     run = make_ocean_only_runner(
-        model, mesh=mesh, halo_variant=halo_variant,
-        spectral_variant=None if mesh is None else "a2a", remat=remat)
+        model, mesh=mesh, halo_variant=halo_variant, remat=remat)
 
     def forcing(mean_forcing):
         f = ocean_forcing_from_mean(model, *mean_forcing)
@@ -160,9 +162,8 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
     if not segment_steps:
         return fn
 
-    plain = make_ocean_only_runner(
-        model, mesh=mesh, halo_variant=halo_variant,
-        spectral_variant=None if mesh is None else "a2a")
+    plain = make_ocean_only_runner(model, mesh=mesh,
+                                   halo_variant=halo_variant)
 
     def to_host(st):
         return OceanState(*(torch.empty_like(

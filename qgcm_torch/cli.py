@@ -35,9 +35,16 @@ torchrun:
 takes the card of its local rank) or gloo (the CPU, or ranks that share
 a card; the ranks run on --device). A box takes any NYxNX and 'hybrid'
 (the hosts on y, a host's ranks on x); a channel, and an
-atmosphere-only case, take rows meshes only (NX > 1 raises, with
-qgcm_tpu's reason: the duplicated column's wraparound), and 'hybrid'
-puts their ranks on y. Not ported: --ckpt-format.
+atmosphere-only case, are cut by rows over all the ranks of any NYxNX
+(with a warning where NX > 1, as qgcm_tpu warns where it falls back to
+GSPMD), and 'hybrid' puts their ranks on y.
+
+`run --ckpt-format sharded` writes restart_sharded/ and lastday_sharded/
+(io/sharded_ckpt.py: each rank its own blocks) instead of restart.nc and
+lastday.nc; --resume takes the newest of the four, and a resume restores
+a directory into the blocks of whatever mesh it runs on. qgcm_tpu's
+'orbax' is a JAX format: the port neither reads nor writes it, and
+'sharded' is its counterpart.
 """
 
 from __future__ import annotations
@@ -111,6 +118,17 @@ def _segnum(d):
         return 1
 
 
+def _written(path):
+    """When a checkpoint was finished: a file's mtime, or that of a
+    sharded checkpoint's manifest (written last; 0 when it is missing,
+    so that an incomplete directory loses to any other)."""
+    if not os.path.isdir(path):
+        return os.path.getmtime(path)
+    from .io.sharded_ckpt import MANIFEST
+    m = os.path.join(path, MANIFEST)
+    return os.path.getmtime(m) if os.path.exists(m) else 0.0
+
+
 def cmd_run(args):
     with _ranks(args, args.mesh is not None):
         return _run(args)
@@ -145,12 +163,13 @@ def _run(args):
              if os.path.isdir(d)), key=_segnum)
         prev = segs[-1]
         cands = [os.path.join(prev, n)
-                 for n in ("lastday.nc", "restart.nc")]
+                 for n in ("lastday.nc", "restart.nc",
+                           "lastday_sharded", "restart_sharded")]
         cands = [c for c in cands if os.path.exists(c)]
         if not cands:
             raise SystemExit(f"--resume: no lastday.nc/restart.nc "
                              f"in {prev}")
-        params.name = max(cands, key=os.path.getmtime)
+        params.name = max(cands, key=_written)
         if args.outdir is None:
             # fresh segment dir so the previous outputs survive
             k = 2
@@ -197,7 +216,8 @@ def _run(args):
                    ocavg_days=args.ocavg_days,
                    cadence_rounding="exact" if args.exact_cadences
                    else "cycles", avges_sampling=args.avges_sampling,
-                   profile_dir=args.profile, mesh=mesh)
+                   profile_dir=args.profile, mesh=mesh,
+                   ckpt_format=args.ckpt_format)
     _say(f"done: {res.steps_done} steps, t={res.tyrs:.4f} years; "
           f"{res.seconds['steps']:.4f} s stepping, "
           f"{res.seconds['events']:.4f} s in cadence events"
@@ -313,6 +333,10 @@ def _ensemble(args):
         oc0 = init_ocean_state(model, init=params.name)
         if not cfg.ocean_only:
             at0 = init_atmos_state(model, init=params.name)
+    elif os.path.isdir(params.name):
+        # a sharded checkpoint directory (the Driver's dispatch)
+        from .io.sharded_ckpt import load_checkpoint
+        oc0, at0, tini = load_checkpoint(params.name, model)
     else:
         oc0, at0, tini = load_restart(params.name, model)
 
@@ -648,7 +672,8 @@ def main(argv=None):
                     help="override run length (years)")
     pr.add_argument("--resume", action="store_true",
                     help="continue from the newest checkpoint in the "
-                    "case's outdata (lastday.nc/restart.nc) instead "
+                    "case's outdata (lastday.nc/restart.nc or their "
+                    "_sharded directories) instead "
                     "of the input.params initial state -- the "
                     "reference's restart-chaining workflow "
                     "(exec_qgcm.rb:82-87)")
@@ -677,7 +702,14 @@ def main(argv=None):
                     help="run decomposed over the ranks of a torchrun "
                     "launch: 'auto'/'rows' (row blocks), 'hybrid' (hosts "
                     "on y, a host's ranks on x: rows in a channel), or "
-                    "NYxNX (NX > 1 for a box only)")
+                    "NYxNX (a channel is cut by rows over its NY*NX ranks)")
+    pr.add_argument("--ckpt-format", choices=["netcdf", "sharded"],
+                    default="netcdf", dest="ckpt_format",
+                    help="checkpoint format: 'netcdf' = the reference's "
+                    "restart.nc schema (gathered to one rank); 'sharded' "
+                    "= checkpoint directories restart_sharded/ and "
+                    "lastday_sharded/ where each rank writes its own blocks "
+                    "(the counterpart of qgcm_tpu's 'orbax')")
     add_dist(pr)
     add_grid(pr)
     pr.set_defaults(fn=cmd_run)

@@ -444,16 +444,17 @@ def make_xforc(model, mesh=None):
     footprint of the fine grid before the drag is taken. The fine-grid
     fields live only inside one call.
 
-    With `mesh` (parallel/mesh.py: a mesh made for the ocean's p-grid,
-    as the decomposed ocean step takes it: rows, or for a box any (y, x)
-    shape) pom and sstm are this rank's blocks and so is the ocean
-    forcing (mesh.shard_tree's layout); pam, astm and hmixam are its row
-    blocks of the atmosphere (on parallel/mesh.atmos_mesh(mesh, cfg)),
-    and so is the atmospheric forcing; the diagnostics are the same bits
-    on every rank. An atmosphere-only case passes pom None and as sstm
-    its block of the prescribed SST, on a rows mesh (a mesh with x > 1
-    raises, as for a channel). No collective is larger than the coarse
-    atmospheric grid, as in qgcm_tpu (coupling.py:600-604, 731-736):
+    With `mesh` (parallel/mesh.py: a mesh made for the ocean's p-grid, of
+    any (y, x) shape) pom and sstm are this rank's blocks on
+    parallel/mesh.ocean_mesh(mesh, cfg) (mesh itself for a box, rows
+    over all its ranks for a channel or an atmosphere-only case) and so
+    is the ocean forcing (mesh.shard_tree's layout); pam, astm and hmixam
+    are its row blocks of the atmosphere (on parallel/mesh.atmos_mesh(
+    mesh, cfg)), and so is the atmospheric forcing; the diagnostics are
+    the same bits on every rank. An atmosphere-only case passes pom None
+    and as sstm its block of the prescribed SST. No collective is larger
+    than the coarse atmospheric grid, as in qgcm_tpu (coupling.py:
+    600-604, 731-736):
       * one gather puts together the coarse fields xforc reads (pam's
         two bottom layers, astm, hmixam), so that every rank refines the
         atmosphere rows its fine rows need, wherever they lie, and
@@ -495,8 +496,7 @@ def make_xforc(model, mesh=None):
     bands are rows of a block like any other."""
     from .models.ocean import _Rows, check_mesh_grid, ekman_forcing
     from .ops.stencils import _col_mask
-    from .parallel.mesh import atmos_mesh, cyclic_x_refusal, gather, \
-        shard_tree
+    from .parallel.mesh import atmos_mesh, gather, ocean_mesh, shard_tree
 
     cfg: ModelConfig = model.cfg
     g: Grids = model.grids
@@ -560,10 +560,7 @@ def make_xforc(model, mesh=None):
         cdrfac, qu2fac = cdrfaa, qu2faa
 
     if mesh is not None:
-        if cfg.atmos_only and mesh.mx > 1:
-            raise cyclic_x_refusal(f"the decomposed xforc of an atmosphere-"
-                                   f"only case on a {mesh.my}x{mesh.mx} "
-                                   "mesh")
+        mesh = ocean_mesh(mesh, cfg)
         check_mesh_grid(cfg, mesh, "the decomposed xforc")
         amesh = atmos_mesh(mesh, cfg)
         rows = _Rows(mesh, cfg, dev)

@@ -494,15 +494,11 @@ def make_ocean_step(model: Model, halo=None, sharded: bool = False):
     shape), the vorticity step
     exchanging its ghosts by `variant` ('staged', 'deep' or 'overlap',
     parallel/halo.py) and the inversions transposing (parallel/
-    spectral.py). sharded=True without a halo pair is qgcm_tpu's bare
-    GSPMD partitioning, which has no PyTorch counterpart: it raises."""
+    spectral.py). sharded=True without a halo pair is the single-device
+    step: qgcm_tpu runs that step on global arrays under GSPMD's
+    partitioning with its kernel off, which computes the same numbers."""
     if halo is not None:
         return _make_rows_step(model, *halo)
-    if sharded:
-        raise ValueError(
-            "a decomposed ocean step needs halo=(mesh, variant): qgcm_tpu's "
-            "automatic GSPMD partitioning (sharded=True alone) has no "
-            "PyTorch counterpart")
     cfg = model.cfg
     cyclic = cfg.cyclic_ocean
     dxom2 = 1.0 / model.grids.dxo**2

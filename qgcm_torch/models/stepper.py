@@ -32,6 +32,7 @@ from ..model import Model
 from ..state import AtmosState, OceanState, OceanForcing
 from .atmos import make_atmos_step
 from .ocean import _as_field, make_ocean_step
+from ..parallel.mesh import ocean_mesh
 
 OCEAN_AVG_PERIOD = 25   # ocean substeps between time-level averagings
 ATMOS_AVG_PERIOD = 100  # atmos steps between averagings
@@ -133,19 +134,26 @@ def average_atmos_levels(st: AtmosState) -> AtmosState:
     )
 
 
-def _check_mesh(mesh, halo_variant, spectral_variant):
-    """A mesh run's two variants, as the port takes them: halo_variant
-    'staged', 'deep' or 'overlap' (parallel/halo.py) and
-    spectral_variant 'a2a' (parallel/spectral.py). Without them a mesh
-    run is qgcm_tpu's automatic GSPMD partitioning, which has no
-    PyTorch counterpart: it raises."""
+def mesh_variants(cfg, mesh, halo_variant, spectral_variant):
+    """(mesh, halo_variant) of a mesh run as the port takes it. qgcm_tpu
+    leaves what a variant does not name to GSPMD's partitioning, which
+    has no PyTorch counterpart and computes the same numbers: here
+    halo_variant None takes 'overlap' (parallel/halo.py) and
+    spectral_variant None 'a2a' (parallel/spectral.py, the only one).
+    Given no halo variant, and always in an atmosphere-only case, the
+    ocean's grid takes parallel/mesh.ocean_mesh(mesh, cfg): a channel on
+    a mesh with x > 1 runs on row blocks over all of mesh's ranks, as
+    qgcm_tpu runs it under GSPMD. A channel given a halo variant on such
+    a mesh raises where the substep is built, as qgcm_tpu's halo path
+    does (qgcm_tpu/parallel/halo.py:379-385)."""
     if mesh is None:
-        return
-    if halo_variant is None or spectral_variant != "a2a":
-        raise ValueError(
-            "a mesh run needs halo_variant ('staged', 'deep' or 'overlap') "
-            "and spectral_variant='a2a': qgcm_tpu's GSPMD partitioning of "
-            "the rest has no PyTorch counterpart")
+        return None, halo_variant
+    if spectral_variant not in (None, "a2a"):
+        raise ValueError(f"unknown spectral_variant {spectral_variant!r}: "
+                         "the port's is 'a2a' (None takes it)")
+    if halo_variant is None or cfg.atmos_only:
+        mesh = ocean_mesh(mesh, cfg)
+    return mesh, halo_variant or "overlap"
 
 
 def make_cycle_head(model: Model, mesh=None, halo_variant=None,
@@ -164,22 +172,24 @@ def make_cycle_head(model: Model, mesh=None, halo_variant=None,
     then the ocean's time levels are averaged when the cycle index
     n // nstr is a multiple of OCEAN_AVG_PERIOD.
 
-    With `mesh` (a mesh made for the ocean's p-grid: rows, or for a box
-    any (y, x) shape) the ocean's state and forcing are this rank's
-    blocks (parallel/mesh.py), and the atmosphere's state and forcing its
-    row blocks on parallel/mesh.atmos_mesh(mesh, cfg); an atmosphere-only
-    head takes as `sst_mean` the rank's block of the prescribed SST. The
-    substep is the decomposed one (make_ocean_step's halo path) and
-    xforc the decomposed one (coupling.make_xforc). The mesh needs both
-    variants (_check_mesh)."""
+    With `mesh` (a mesh made for the ocean's p-grid, of any (y, x)
+    shape) the ocean's state and forcing are this rank's blocks
+    (parallel/mesh.py) on the mesh that mesh_variants gives, and the
+    atmosphere's state and forcing its row blocks on
+    parallel/mesh.atmos_mesh(mesh, cfg); an atmosphere-only head takes as
+    `sst_mean` the rank's block of the prescribed SST. The substep is the
+    decomposed one (make_ocean_step's halo path) and xforc the decomposed
+    one (coupling.make_xforc); a variant not given takes mesh_variants'
+    default."""
     from ..coupling import make_xforc
     cfg = model.cfg
     has_oc, has_at = not cfg.atmos_only, not cfg.ocean_only
     nstr = cfg.nstr
-    _check_mesh(mesh, halo_variant, spectral_variant)
-    xforc = make_xforc(model, mesh=mesh) if has_at else None
+    mesh, halo_variant = mesh_variants(cfg, mesh, halo_variant,
+                                       spectral_variant)
     halo = None if mesh is None else (mesh, halo_variant)
     ostep = make_ocean_step(model, halo=halo) if has_oc else None
+    xforc = make_xforc(model, mesh=mesh) if has_at else None
 
     def head(ocean, atmos, ofor, afor, n: int, on_substep=None,
              sst_mean=None):
@@ -232,25 +242,27 @@ def make_ocean_only_runner(model: Model, mesh=None, halo_variant=None,
     ocean-only model); PyTorch runs each substep's operations eagerly on
     the model's device.
 
-    With `mesh` (parallel/mesh.py, a mesh made for the ocean's p-grid:
-    rows, or for a box any (y, x) shape) the state and forcing are this
-    rank's blocks
-    (parallel/mesh.shard_tree) and so is the result: the vorticity step
-    exchanges its ghosts by `halo_variant` ('staged', 'deep' or
-    'overlap', parallel/halo.py) and the inversions transpose by
-    all_to_all (spectral_variant='a2a', parallel/spectral.py). A mesh
-    with halo_variant=None, or with another spectral_variant, is
-    qgcm_tpu's automatic GSPMD partitioning, which has no PyTorch
-    counterpart: it raises. Without a mesh the two variants are not
-    read, as in qgcm_tpu.
+    With `mesh` (parallel/mesh.py, a mesh made for the ocean's p-grid, of
+    any (y, x) shape) the state and forcing are this rank's blocks
+    (parallel/mesh.shard_tree on the mesh that mesh_variants gives) and
+    so is the result: the vorticity step exchanges its ghosts by
+    `halo_variant` ('staged', 'deep' or 'overlap', parallel/halo.py) and
+    the inversions transpose by all_to_all (spectral_variant='a2a',
+    parallel/spectral.py). Where qgcm_tpu leaves a variant to GSPMD's
+    partitioning (None), the port takes 'overlap' and 'a2a', and a
+    channel on a mesh with x > 1 runs on row blocks over all the mesh's
+    ranks (parallel/mesh.ocean_mesh); given a halo variant there it
+    raises, as qgcm_tpu's halo path does. Without a mesh the two
+    variants are not read, as in qgcm_tpu.
 
     remat (remat_loop): False stores every step for a backward pass;
     True, "dots" or an int checkpoints pairs of substeps, as qgcm_tpu's
     scan body is a pair. On a mesh every rank recomputes its blocks'
     pairs, replaying their collectives in the forward's order (the
     backward's own collectives are the rules of parallel/mesh.py)."""
-    _check_mesh(mesh, halo_variant, spectral_variant)
-    head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
+    mesh, halo_variant = mesh_variants(model.cfg, mesh, halo_variant,
+                                       spectral_variant)
+    head = make_cycle_head(model, mesh, halo_variant)
     nstr = model.cfg.nstr
 
     def run(state: OceanState, forcing: OceanForcing, n_steps: int,
@@ -326,19 +338,22 @@ def make_coupled_runner(model: Model, remat=False, mesh=None,
 
     With `mesh` (a mesh made for the ocean's p-grid, as the ocean-only
     runner takes it; qgcm_tpu/models/stepper.py:255-329) the ocean is
-    this rank's blocks in and out (parallel/mesh.shard_tree), stepped by
-    the decomposed substep under the decomposed xforc (make_cycle_head),
-    and the atmosphere is this rank's row blocks in and out (shard_tree
-    on parallel/mesh.atmos_mesh(mesh, cfg)), stepped on them.
-    halo_variant and spectral_variant='a2a' are the ocean-only mesh
-    runner's. With remat the mesh runner is the coupled model's
-    distributed adjoint (qgcm_tpu's, under jax.grad): every rank
+    this rank's blocks in and out (parallel/mesh.shard_tree, on the mesh
+    mesh_variants gives: a channel's with no halo variant is
+    parallel/mesh.ocean_mesh's rows), stepped by the decomposed substep
+    under the decomposed xforc (make_cycle_head), and the atmosphere is
+    this rank's row blocks in and out (shard_tree on
+    parallel/mesh.atmos_mesh(mesh, cfg)), stepped on them. halo_variant
+    and spectral_variant are the ocean-only mesh runner's. With remat the
+    mesh runner is the coupled model's distributed adjoint (qgcm_tpu's,
+    under jax.grad): every rank
     recomputes its blocks' cycles, replaying their collectives in the
     forward's order, and the collectives' and the window kernel's
     autograd rules (parallel/mesh.py, ops/qgstep.py) carry the
     cotangents between the ranks."""
-    _check_mesh(mesh, halo_variant, spectral_variant)
-    head = make_cycle_head(model, mesh, halo_variant, spectral_variant)
+    mesh, halo_variant = mesh_variants(model.cfg, mesh, halo_variant,
+                                       spectral_variant)
+    head = make_cycle_head(model, mesh, halo_variant)
     segment = make_atmos_segment(model, mesh)
     nstr = model.cfg.nstr
 

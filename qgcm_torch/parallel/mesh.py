@@ -20,7 +20,8 @@ takes the p-grid's blocks: T row j sits between p rows j and j + 1, T
 column i between p columns i and i + 1. On a rows mesh (mx = 1) every
 field keeps its own columns. The atmosphere of a decomposed run has a
 mesh of its own (atmos_mesh): row blocks of its grid over all the
-ranks, whatever the ocean's mesh's shape.
+ranks, whatever the ocean's mesh's shape; so has the ocean grid of a
+channel or an atmosphere-only case on a mesh with x > 1 (ocean_mesh).
 
 An all_to_all along one axis (the ranks of a mesh row, or of a mesh
 column) is one all_to_all_single over the whole group whose chunks for
@@ -116,7 +117,7 @@ class Mesh:
         # `tally` when given (atmos_mesh's)
         self.counts = Counter() if tally is None else tally.counts
         self._staged = [0] if tally is None else tally._staged
-        self._atmos = None
+        self._atmos = self._rows = None
 
     @property
     def staged_bytes(self) -> int:
@@ -426,12 +427,52 @@ def make_mesh(rows_only: bool = False, grid=None) -> Mesh:
 
 
 def cyclic_x_refusal(what: str) -> ValueError:
-    """The refusal of a cyclic ocean on a mesh with x > 1, with
-    qgcm_tpu's reason (qgcm_tpu/parallel/halo.py:380-385)."""
+    """The refusal of a cyclic ocean's halo path on a mesh with x > 1,
+    with qgcm_tpu's reason (qgcm_tpu/parallel/halo.py:379-385)."""
     return ValueError(
         f"{what}: the port decomposes cyclic channels over rows only (the "
         "wraparound of the duplicated east column would cross column "
-        "blocks): use make_mesh(rows_only=True) / --mesh rows")
+        "blocks): use make_mesh(rows_only=True) / --mesh rows, or pass no "
+        "halo variant")
+
+
+def _all_rows(mesh: Mesh) -> Mesh:
+    """Row blocks of mesh's grid over all of mesh's ranks, in rank order,
+    every column whole; its collectives count in mesh's counts and staged
+    bytes. mesh itself when it is a rows mesh; made once per mesh."""
+    if mesh.mx == 1:
+        return mesh
+    if mesh._rows is None:
+        mesh._rows = Mesh((mesh.size, 1), grid=mesh.grid, group=mesh.group,
+                          tally=mesh)
+    return mesh._rows
+
+
+def ocean_mesh(mesh: Mesh, cfg) -> Mesh:
+    """The mesh that the ocean's grid takes in a run decomposed over
+    `mesh`: mesh itself for a box; for a channel, or an atmosphere-only
+    case (whose ocean grid carries only the prescribed SST), on a mesh
+    with x > 1, row blocks of the ocean's p-grid over all of mesh's
+    ranks, in rank order, as atmos_mesh cuts the atmosphere. qgcm_tpu
+    runs those under GSPMD's partitioning (qgcm_tpu/run.py:147-167),
+    which has no PyTorch counterpart; the rows mesh of the same ranks
+    computes the same numbers, and a run on it is the same program, bit
+    for bit, as one on `--mesh rows`. The runners take this layout where
+    they are given no halo variant, the Driver and make_xforc always."""
+    if cfg.cyclic_ocean or cfg.atmos_only:
+        return _all_rows(mesh)
+    return mesh
+
+
+def rows_warning(spec: str, n: int) -> str:
+    """What a run says when a mesh with x > 1 is cut by rows (ocean_mesh),
+    where qgcm_tpu's Driver warns as it falls back to GSPMD."""
+    return (f"mesh {spec} decomposes x on a zonally cyclic case (a channel, "
+            "or the atmosphere alone): the halo schedule and the fused "
+            "kernel decompose those over rows only, so the run takes row "
+            f"blocks over all {n} ranks, where qgcm_tpu falls back to "
+            "GSPMD. Rows-only meshes (--mesh rows|auto) are the measured-"
+            "best channel layout.")
 
 
 def atmos_mesh(mesh: Mesh, cfg) -> Mesh:
@@ -467,8 +508,10 @@ def make_hybrid_mesh(rows_only: bool = False, grid=None) -> Mesh:
 def mesh_from_spec(spec: str, cyclic: bool, grid) -> Mesh:
     """The mesh of the CLI's --mesh (qgcm_tpu/cli.py:152-181) for the
     ocean's p-grid `grid`: 'auto' and 'rows' every rank on 'y';
-    'hybrid' make_hybrid_mesh, rows only for a channel; 'NYxNX' that
-    shape, which for a channel must have NX = 1 (cyclic_x_refusal)."""
+    'hybrid' make_hybrid_mesh, rows only when `cyclic` (a channel, or an
+    atmosphere-only case); 'NYxNX' that shape, which when `cyclic` and
+    NX > 1 is cut by rows over its NY x NX ranks (ocean_mesh), with a
+    warning where qgcm_tpu warns and falls back to GSPMD."""
     if spec in ("auto", "rows"):
         return make_mesh(rows_only=True, grid=grid)
     if spec == "hybrid":
@@ -478,9 +521,12 @@ def mesh_from_spec(spec: str, cyclic: bool, grid) -> Mesh:
     except ValueError:
         raise ValueError(f"--mesh takes auto, rows, hybrid or NYxNX, not "
                          f"{spec!r}") from None
+    mesh = Mesh((ny, nx), grid=grid)
     if nx > 1 and cyclic:
-        raise cyclic_x_refusal(f"--mesh {spec}")
-    return Mesh((ny, nx), grid=grid)
+        import warnings
+        warnings.warn(rows_warning(spec, mesh.size), stacklevel=2)
+        return _all_rows(mesh)
+    return mesh
 
 
 class Block(NamedTuple):
@@ -495,13 +541,15 @@ class Block(NamedTuple):
     cols: int
 
 
-def block_of(mesh: Mesh, ny: int, nx: int) -> Block:
-    """This rank's block of a (ny, nx) field of the mesh's p-grid or of
-    its T-grid (one row and one column fewer), which takes the same
-    blocks; on a rows mesh the field keeps its own columns."""
+def block_of(mesh: Mesh, ny: int, nx: int, rank: int = None) -> Block:
+    """This rank's block (or that of the mesh's rank `rank`) of a (ny, nx)
+    field of the mesh's p-grid or of its T-grid (one row and one column
+    fewer), which takes the same blocks; on a rows mesh the field keeps
+    its own columns."""
     if mesh.grid is None:
         raise ValueError("the mesh was made without a grid")
-    r0, c0 = mesh.iy * mesh.by, mesh.ix * mesh.bx
+    iy, ix = (mesh.iy, mesh.ix) if rank is None else divmod(rank, mesh.mx)
+    r0, c0 = iy * mesh.by, ix * mesh.bx
     rows = max(0, min(mesh.by, ny - r0))
     if mesh.mx == 1:
         return Block(r0, mesh.by, rows, 0, nx, nx)

@@ -34,25 +34,28 @@ operator (on the CPU) per atmosphere step, from the profiler's
 key_averages; qgcm_tpu's summary of JAX traces (profiling.py) is not
 ported.
 
-With a `mesh` (a mesh of the process group, parallel/mesh.py: a rows
-mesh, or for a box any (y, x) shape) the run is decomposed as qgcm_tpu's
-Driver(mesh) is (qgcm_tpu/run.py:93-180, 318-345): the ocean's state,
-forcing and running means are this rank's blocks, the atmosphere's its
-row blocks (parallel/mesh.atmos_mesh), and the cycle head is the
-decomposed one (models/stepper.make_cycle_head). qgcm_tpu's rule for
-I/O holds: the writers see fields gathered whole at cadence boundaries
-only; every rank gathers and checks validity, and only the primary rank
-(parallel/launch.is_primary) writes, prints and profiles. A fail-fast
-stop is decided by an all_reduce of every rank's verdict, so that no
-rank stops while another waits in a collective. A resumed run reads
-restart.nc on every rank and takes its blocks.
+With a `mesh` (a mesh of the process group, parallel/mesh.py, of any
+(y, x) shape) the run is decomposed as qgcm_tpu's Driver(mesh) is
+(qgcm_tpu/run.py:93-180, 318-345): the ocean's state, forcing and running
+means are this rank's blocks, the atmosphere's its row blocks
+(parallel/mesh.atmos_mesh), and the cycle head is the decomposed one
+(models/stepper.make_cycle_head). A channel, and an atmosphere-only case,
+on a mesh with x > 1 run cut by rows over all the mesh's ranks
+(parallel/mesh.ocean_mesh), where qgcm_tpu falls back to GSPMD's
+partitioning, which has no PyTorch counterpart; the Driver warns for a
+channel as qgcm_tpu does. qgcm_tpu's rule for I/O holds: the writers see
+fields gathered whole at cadence boundaries only; every rank gathers and
+checks validity, and only the primary rank (parallel/launch.is_primary)
+writes, prints and profiles. A fail-fast stop is decided by an all_reduce
+of every rank's verdict, so that no rank stops while another waits in a
+collective.
 
-A channel, and an atmosphere-only case, run on rows meshes only: a mesh
-with x > 1 raises, with qgcm_tpu's reason (the duplicated column's
-wraparound), where qgcm_tpu falls back to GSPMD's partitioning, which
-has no PyTorch counterpart.
-
-Not ported: Orbax checkpoints.
+Checkpoints (`ckpt_format`): 'netcdf' writes the reference's restart.nc
+and lastday.nc, gathered to the primary rank; 'sharded' writes the
+directories restart_sharded/ and lastday_sharded/ (io/sharded_ckpt.py),
+each rank its own blocks, nothing gathered. A resume takes either: a file
+is read on every rank, which takes its blocks; a directory is restored
+straight into each rank's blocks, from whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ from .models.ocean import (_Rows, _as_field, check_mesh_grid,
                            init_ocean_state,
                            ocean_forcing_from_mean)
 from .models.atmos import init_atmos_state
-from .models.stepper import make_atmos_segment, make_cycle_head
+from .models.stepper import (make_atmos_segment, make_cycle_head,
+                             mesh_variants)
 from .diags import valids, compute_monitor, MonitorWriter
 from .diags.cfl import cfl_numbers
 from .diags.timavge import (zero_ocean_averages, zero_atmos_averages,
@@ -86,10 +90,11 @@ from .diags.areas import build_area_boxes, area_averages, AreasWriter
 from .diags.qocdiag import qocdiag_terms, QocdiagWriter
 from .io import (save_restart, load_restart, load_restart_forcing,
                  OceanSnapshots, AtmosSnapshots, read_mean_forcing)
+from .io.sharded_ckpt import load_checkpoint, save_checkpoint
 from .io.ncdf import host
 from .parallel.launch import is_primary
-from .parallel.mesh import (atmos_mesh, cyclic_x_refusal, gather_tree,
-                            shard, shard_tree)
+from .parallel.mesh import (atmos_mesh, gather_tree, rows_warning, shard,
+                            shard_tree)
 
 # the collective call site of the fail-fast verdict (Mesh.counts)
 VERDICT = "run.verdict"
@@ -148,17 +153,29 @@ class Driver:
                  nscvat: int = 2, cadence_rounding: str = "cycles",
                  avges_sampling: str = "mean", profile_dir: str = None,
                  mesh=None, spectral_variant: str = "a2a",
-                 halo_variant: str = "auto"):
+                 halo_variant: str = "auto", ckpt_format: str = "netcdf"):
         """mesh: a mesh of the process group made for the ocean's p-grid
-        (parallel/mesh.py; x > 1 for a box only), for a decomposed run;
+        (parallel/mesh.py, any (y, x) shape), for a decomposed run;
         qgcm_tpu's arguments and rule (run.py:93-180): spectral_variant
-        'a2a' (the only one ported), halo_variant 'auto' takes 'overlap'
-        on a mesh of more than one rank and leaves a one-rank mesh to the
-        single-device path, as qgcm_tpu leaves a one-device mesh to
-        GSPMD. The atmosphere is cut by rows over the mesh's ranks
-        (parallel/mesh.atmos_mesh); an atmosphere-only model, like a
-        channel, takes no mesh with x > 1: that raises before any
-        collective.
+        'a2a' (the only one; None takes it), halo_variant 'auto' takes
+        'overlap' on a mesh of more than one rank and leaves a one-rank
+        mesh to the single-device path, as qgcm_tpu leaves a one-device
+        mesh to GSPMD; None takes 'overlap' too (models/stepper.
+        mesh_variants). A channel on a mesh with x > 1 under 'auto' warns
+        as qgcm_tpu warns, and runs, as under None, on row blocks over all
+        the ranks (parallel/mesh.ocean_mesh), where qgcm_tpu falls back to
+        GSPMD; with an explicit halo variant it raises, as qgcm_tpu's halo
+        path does. An atmosphere-only case's ocean grid takes those rows
+        on any mesh. The atmosphere is cut by rows over the mesh's ranks
+        (parallel/mesh.atmos_mesh).
+
+        ckpt_format: "netcdf" (default) writes the reference's restart.nc
+        schema, gathered to the primary rank; "sharded" writes checkpoint
+        directories (restart_sharded/, lastday_sharded/,
+        io/sharded_ckpt.py) in which every rank stores its own blocks, the
+        counterpart of qgcm_tpu's "orbax" (run.py:124-127). Resume takes
+        either: a directory in input.params' name field is restored into
+        the run's blocks, a file is read as restart.nc.
 
         cadence_rounding: "cycles" (default) rounds every cadence to a
         whole number of coupling cycles exactly like the reference
@@ -174,14 +191,21 @@ class Driver:
         ntdone grid (q-gcm.F:674-694, :1477-1482); it needs an even
         number of steps per interval."""
         cfg = model.cfg
+        if ckpt_format not in ("netcdf", "sharded"):
+            raise ValueError("ckpt_format must be 'netcdf' or "
+                             f"'sharded', got {ckpt_format!r}")
+        self.ckpt_format = ckpt_format
+        if mesh is not None and halo_variant == "auto":
+            if mesh.mx > 1 and cfg.cyclic_ocean:
+                import warnings
+                warnings.warn(rows_warning(f"{mesh.my}x{mesh.mx}",
+                                           mesh.size), stacklevel=2)
+            halo_variant = None
+            mesh = mesh if mesh.size > 1 else None
+        mesh, halo_variant = mesh_variants(cfg, mesh, halo_variant,
+                                           spectral_variant)
         if mesh is not None:
-            if cfg.atmos_only and mesh.mx > 1:
-                raise cyclic_x_refusal(f"an atmosphere-only run on a "
-                                       f"{mesh.my}x{mesh.mx} mesh")
             check_mesh_grid(cfg, mesh, "a decomposed run")
-            if halo_variant == "auto":
-                halo_variant = "overlap" if mesh.size > 1 else None
-                mesh = mesh if mesh.size > 1 else None
         self.mesh = mesh
         self.rows = None if mesh is None else _Rows(mesh, cfg, model.device)
         # the atmosphere's row blocks (parallel/mesh.atmos_mesh)
@@ -279,8 +303,7 @@ class Driver:
         self.sst_mean = (_as_field(model, sst_mean)
                          if sst_mean is not None else None)
         self.mean_forcing = mean_forcing   # (tauxo, tauyo, fnetoc)
-        self._head = make_cycle_head(model, mesh, halo_variant,
-                                     spectral_variant)
+        self._head = make_cycle_head(model, mesh, halo_variant)
         self._segment = (make_atmos_segment(model, mesh) if self.has_at
                          else None)
         if self.has_at:
@@ -297,14 +320,15 @@ class Driver:
         cfg = model.cfg
         tini = 0.0
         self._stored_forcing = (None, None)
+        self._in_blocks = False
         if p.name in ("zero", "rbal"):
             oc = init_ocean_state(model, init=p.name)
             at = init_atmos_state(model, init=p.name)
         elif os.path.isdir(p.name):
-            raise ValueError(
-                f"{p.name} is a directory: qgcm_torch resumes from "
-                "restart.nc files only (Orbax checkpoints are not "
-                "ported)")
+            # a sharded checkpoint (ckpt_format="sharded"): on a mesh each
+            # rank restores its own blocks
+            oc, at, tini = load_checkpoint(p.name, model, mesh=self.mesh)
+            self._in_blocks = self.mesh is not None
         else:
             oc, at, tini = load_restart(p.name, model)
             # mid-cycle dumps embed the open cycle's forcing; using it
@@ -357,12 +381,22 @@ class Driver:
         mesh, amesh = self.mesh, self.amesh
         if mesh is not None:
             # a fluid that is not stepped stays whole: the restart files
-            # carry its initial state (save_restart)
+            # carry its initial state (save_restart); a sharded restore
+            # gave both fluids in blocks
             sofor, safor = self._stored_forcing
+            if self._in_blocks:
+                if not self.has_oc:
+                    oc = gather_tree(oc, mesh)
+                if amesh is None:
+                    at = gather_tree(at, atmos_mesh(mesh, self.model.cfg))
             if self.has_oc:
-                oc, oacc = shard_tree(oc, mesh), shard_tree(oacc, mesh)
+                oacc = shard_tree(oacc, mesh)
+                if not self._in_blocks:
+                    oc = shard_tree(oc, mesh)
             if amesh is not None:
-                at, aacc = shard_tree(at, amesh), shard_tree(aacc, amesh)
+                aacc = shard_tree(aacc, amesh)
+                if not self._in_blocks:
+                    at = shard_tree(at, amesh)
                 if safor is not None:
                     safor = shard_tree(safor, amesh)
             if sofor is not None:
@@ -425,6 +459,30 @@ class Driver:
                 at = self._segment(at, afor, n, length, acc_at)
             n += length
         return Carry(oc, at, ofor, afor, oacc, aacc, n)
+
+    def _save_ckpt(self, base, carry, whole, tyrs, n_done):
+        """One checkpoint dump ('restart' or 'lastday') in the configured
+        format: restart.nc of the `whole` fluids (oc, at, ofor, afor) by
+        the primary rank, or, on every rank, a sharded directory of the
+        carry's fluids (blocks on a mesh) without a gather."""
+        oc, at, ofor, afor = whole
+        if self.ckpt_format == "netcdf":
+            if self.primary:
+                save_restart(f"{self.outdir}/{base}.nc", self.model, oc, at,
+                             tyrs, **self._midcycle_forcing(n_done, ofor,
+                                                            afor))
+            return
+        if self._midcycle_forcing(n_done, ofor, afor):
+            import warnings
+            warnings.warn(
+                "sharded checkpoints do not embed mid-cycle forcing; the "
+                "resume recomputes it from the advanced m-slots (exact-"
+                "cadence mid-cycle dumps are only trajectory-faithful with "
+                "ckpt_format='netcdf')", stacklevel=3)
+        save_checkpoint(f"{self.outdir}/{base}_sharded",
+                        carry.oc if self.has_oc else None,
+                        carry.at if self.has_at else None, tyrs,
+                        self.model, self.mesh)
 
     def _midcycle_forcing(self, n_done, ofor, afor):
         """kwargs for save_restart: embed the open cycle's forcing when
@@ -634,10 +692,9 @@ class Driver:
                 n_ocavg += 1
             if due(self.nrestart):
                 # last-good checkpoint only
-                if valid(ocf, atf, ofor, afor)[0] and writes:
-                    save_restart(f"{out}/restart.nc", model, oc, at, tyrs,
-                                 **self._midcycle_forcing(n_done, ofor,
-                                                          afor))
+                if valid(ocf, atf, ofor, afor)[0]:
+                    self._save_ckpt("restart", carry, (oc, at, ofor, afor),
+                                    tyrs, n_done)
             if due(self.nprint) and self.verbose:
                 wall = time.time() - t0
                 cflr = cfl_numbers(model, ocf, atf, ofor, afor)
@@ -651,15 +708,15 @@ class Driver:
         te = time.perf_counter()
         oc, ofor, oacc, at, afor, aacc = whole(carry, True)
         tyrs = tini + n_done * cfg.dta / SECSYR
+        if not aborted:
+            # the reference writes its final resave only at normal
+            # termination (q-gcm.F:1528-1539); an aborted run must NOT
+            # leave the invalid state as the newest checkpoint (the
+            # post-mortem snapshots carry it, and restart.nc remains the
+            # last state that PASSED valids)
+            self._save_ckpt("lastday", carry, (oc, at, ofor, afor), tyrs,
+                            n_done)
         if writes:
-            if not aborted:
-                # the reference writes its final resave only at normal
-                # termination (q-gcm.F:1528-1539); an aborted run must
-                # NOT leave the invalid state as the newest checkpoint
-                # (the post-mortem snapshots carry it, and restart.nc
-                # remains the last state that PASSED valids)
-                save_restart(f"{out}/lastday.nc", model, oc, at, tyrs,
-                             **self._midcycle_forcing(n_done, ofor, afor))
             write_avges(f"{out}/avges.nc", model,
                         oacc if has_oc else None, aacc if has_at else None)
             if covs:

@@ -386,9 +386,11 @@ def float64_files(mp, pkg, declared):
 def driver_rank(runs, argvs, fail_rank=None, shape=None):
     """What each rank of tests/test_torch_parallel_driver.py runs, with
     float64 files: `runs`, each (config, RunParams, outdir, Driver
-    keywords) through the port's Driver on a rows mesh of the ranks, or
-    on a mesh of `shape` (returning steps done, whether it aborted and
-    the collective counts); then `argvs` through qgcm_torch.cli.main
+    keywords[, mesh shape]) through the port's Driver on a rows mesh of
+    the ranks, or on a mesh of the run's shape or else of `shape`
+    (returning steps done, whether it aborted and the collective counts,
+    and the mesh the Driver ran on); then `argvs` through
+    qgcm_torch.cli.main
     (returning the exit code, or the message of a SystemExit, and what
     the rank printed).
     On rank `fail_rank` valids fails, as a blow-up seen by one rank
@@ -410,14 +412,17 @@ def driver_rank(runs, argvs, fail_rank=None, shape=None):
                 return real(*a, **kw)._replace(ok=torch.tensor(False))
 
             mp.setattr(qgcm_torch.run, "valids", failing)
-        for cfg, params, outdir, kw in runs:
+        for cfg, params, outdir, kw, *run_shape in runs:
             model = build_model(cfg, "cpu")
-            mesh = _grid_mesh(shape, (cfg.nypo, cfg.nxpo))
-            res = Driver(model, params, outdir, mesh=mesh, verbose=False,
-                         **kw).run()
+            mesh = _grid_mesh(run_shape[0] if run_shape else shape,
+                              (cfg.nypo, cfg.nxpo))
+            drv = Driver(model, params, outdir, mesh=mesh, verbose=False,
+                         **kw)
+            res = drv.run()
             out["runs"].append(dict(steps=res.steps_done,
                                     aborted=res.aborted,
-                                    counts=dict(mesh.counts)))
+                                    counts=dict(mesh.counts),
+                                    mesh=(drv.mesh.my, drv.mesh.mx)))
         for argv in argvs:
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):

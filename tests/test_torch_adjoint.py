@@ -168,13 +168,20 @@ def test_segmented_adjoint_equals_one_program(stored):
 
 def test_distributed_adjoint_is_not_ported(stored):
     """qgcm_tpu's GSPMD form of the distributed adjoint (a mesh without
-    halo_variant) has no PyTorch counterpart and raises; the distributed
-    adjoint with a halo variant is tests/test_torch_parallel_adjoint.py's."""
-    from qgcm_torch.parallel.mesh import make_mesh
-    model = stored[0]
+    halo_variant) has no PyTorch counterpart: the port takes 'overlap'
+    there, the same program, so on a one-rank mesh its value and
+    gradients are those of halo_variant='overlap' bit for bit; the
+    distributed adjoint on ranks is tests/test_torch_parallel_adjoint.py's."""
+    from qgcm_torch.parallel.mesh import make_mesh, shard_tree
+    model, st0, mf = stored[:3]
+    obj = layer1_energy_proxy(model)
     mesh = make_mesh(rows_only=True, grid=(model.cfg.nypo, model.cfg.nxpo))
-    with pytest.raises(ValueError, match="GSPMD"):
-        ocean_sensitivity(model, layer1_energy_proxy(model), mesh=mesh)
+    got, want = (ocean_sensitivity(model, obj, mesh=mesh, halo_variant=h)(
+        shard_tree(st0, mesh), mf, 4) for h in (None, "overlap"))
+    assert torch.equal(got[0], want[0])
+    for a, b in zip((*got[1].state0, *got[1].forcing),
+                    (*want[1].state0, *want[1].forcing)):
+        assert torch.equal(a, b)
 
 
 def test_coupled_runner_differentiates_with_remat():

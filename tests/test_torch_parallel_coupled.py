@@ -22,7 +22,7 @@ from qgcm_torch.coupling import (bicubic_refine_uv, bicubic_refine_window,
                                  make_xforc)
 from qgcm_torch.models.stepper import make_coupled_runner
 from qgcm_torch.parallel.launch import spawn_ranks
-from qgcm_torch.parallel.mesh import make_mesh
+from qgcm_torch.parallel.mesh import atmos_mesh, make_mesh, shard_tree
 
 from test_torch_cases import (one_torch_thread, quick_compile, rel_err,
                               to_jax)
@@ -233,8 +233,9 @@ def test_mesh_specs(spawned):
     """--mesh on 2 and 4 ranks: auto and rows put every rank on y, so
     does hybrid in a channel, where a box's hybrid mesh puts the host's
     ranks on x (one host: 1 x n); a box takes NYxNX of as many ranks as
-    the group has; a channel's NX > 1 raises with qgcm_tpu's reason (the
-    duplicated column's wraparound); a misspelt spec raises."""
+    the group has; a channel's NYxNX of as many ranks, NX > 1 included,
+    is cut by rows over all of them (where qgcm_tpu falls back to GSPMD);
+    a misspelt spec raises."""
     for n in RANKS:
         box, channel = spawned[n][0]["specs"]
         for got in (box, channel):
@@ -251,9 +252,12 @@ def test_mesh_specs(spawned):
         assert box[5] == ((2, 2) if n == 4 else
                           ("ValueError", "a 2x2 mesh needs 4 ranks, the "
                            f"group has {n}"))
-        for err in channel[4:6]:
-            assert err[0] == "ValueError"
-            assert "duplicated east column" in err[1]
+        assert channel[4] == ((2, 1) if n == 2 else
+                              ("ValueError", "a 1x2 mesh needs 2 ranks, the "
+                               f"group has {n}"))
+        assert channel[5] == ((4, 1) if n == 4 else
+                              ("ValueError", "a 2x2 mesh needs 4 ranks, the "
+                               f"group has {n}"))
 
 
 @pytest.mark.parametrize("case", XFORC_2D,
@@ -334,27 +338,30 @@ def test_2d_coupled_runner_matches_qgcm_tpu_and_single_device(spawned):
 
 
 def test_mesh_refusals():
-    """What the coupled mesh paths refuse: qgcm_tpu's GSPMD choices
-    (halo_variant None, spectral_variant other than 'a2a'), a mesh made
-    for another grid, an atmosphere-only case's mesh with x > 1 and a
-    channel's mesh with x > 1 (the duplicated column's wraparound)."""
-    model, _, _ = ranks.seeded_coupled("box")
+    """What the coupled mesh paths take where qgcm_tpu takes GSPMD, and
+    what they refuse. halo_variant None and spectral_variant None run as
+    'overlap' and 'a2a' (on a one-rank mesh the same bits as with those
+    variants named); a mesh made for another grid is refused, and so is
+    a channel given a halo variant on a mesh with x > 1 (the duplicated
+    column's wraparound, qgcm_tpu's halo path's refusal), before the
+    mesh is used."""
+    model, oc, at = ranks.seeded_coupled("box")
     cfg = model.cfg
     mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    blocks = shard_tree(oc, mesh), shard_tree(at, atmos_mesh(mesh, cfg))
+    want = make_coupled_runner(model, mesh=mesh, halo_variant="overlap",
+                               spectral_variant="a2a")(*blocks, cfg.nstr)
     for kw in (dict(halo_variant=None, spectral_variant="a2a"),
                dict(halo_variant="overlap", spectral_variant=None)):
-        with pytest.raises(ValueError, match="GSPMD"):
-            make_coupled_runner(model, mesh=mesh, **kw)
+        got = make_coupled_runner(model, mesh=mesh, **kw)(*blocks, cfg.nstr)
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w)), kw
     with pytest.raises(ValueError, match="grid"):
         make_xforc(model, mesh=make_mesh(rows_only=True, grid=(9, 9)))
-    from qgcm_torch.model import build_model
-    at_only = build_model(cfg.replace(atmos_only=True).validate(), "cpu")
     from types import SimpleNamespace
-    fake = SimpleNamespace(grid=(cfg.nypo, cfg.nxpo), my=1, mx=2)
-    with pytest.raises(ValueError, match="duplicated east column"):
-        make_xforc(at_only, mesh=fake)
     channel, _, _ = ranks.seeded_coupled("channel")
     c = channel.cfg
     fake = SimpleNamespace(grid=(c.nypo, c.nxpo), my=1, mx=2)
     with pytest.raises(ValueError, match="duplicated east column"):
-        make_xforc(channel, mesh=fake)
+        make_coupled_runner(channel, mesh=fake, halo_variant="overlap",
+                            spectral_variant="a2a")

@@ -12,8 +12,14 @@ rows --dist-backend gloo` and `ensemble --shard-members` through
 cli.main in the ranks (the gcd messages are qgcm_tpu's), and `run --mesh
 2x2` on a cut double-gyre box in 4 processes under torchrun; a validity
 failure that one rank alone sees stops every rank, and a rank that
-raises ends the spawn."""
+raises ends the spawn. The calls qgcm_tpu runs under GSPMD: the channel
+on a 1x2 mesh (cut by rows over both ranks: bit for bit the rows mesh's
+run, and within 1e-9 of qgcm_tpu's Driver on a 1x2 mesh), and the
+atmosphere alone on 2x2. Sharded checkpoints: the coupled box's first
+half on 2x2 with ckpt_format="sharded", resumed on 2x2 and on a rows mesh
+of the 4 ranks against the same meshes' restart.nc resumes."""
 
+import json
 import time
 from pathlib import Path
 
@@ -46,6 +52,10 @@ pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 SINGLE_TOL = 1e-11      # against the port's single-device Driver
 JAX_TOL = 1e-9          # against qgcm_tpu's Driver(mesh)
+# a resume from a sharded checkpoint against the same mesh's resume from
+# restart.nc of the same state: the restored states differ in the order
+# of their constraint integrals' sums alone
+RESTORE_TOL = 1e-13
 # The atmosphere's energy tendencies are differences of two time levels'
 # energies (diags/monitor.py:8): the decomposed xforc's split sums
 # (coupling.make_xforc) leave the fields 1e-15 apart, and kealat (3.9e7
@@ -151,6 +161,26 @@ def _halves(cfg, p, kw, d, prefix=""):
         d / f"{prefix}seg1" / "restart.nc")})
     return [(cfg, run, str(d / f"{prefix}{seg}"), kw) for run, seg in
             ((p, "mesh"), (half, "seg1"), (resumed, "seg2"))]
+
+
+def _sharded_resumes(cfg, p, kw, d):
+    """The coupled case's first half on the 2x2 mesh with sharded
+    checkpoints (d/sh2d_seg1), its second half resumed from
+    restart_sharded/ on 2x2 (d/sh2d_seg2) and on a rows mesh of the four
+    ranks (d/shrows_seg2), and, for the latter to be held against, the
+    second half on that rows mesh resumed from the restart.nc of the 2x2
+    first half (d/rows4_seg2)."""
+    half = RunParams(**{**vars(p), "trun": p.trun / 2})
+
+    def resumed(src):
+        return RunParams(**{**vars(half), "name": str(src)})
+
+    sharded = d / "sh2d_seg1" / "restart_sharded"
+    return [(cfg, half, str(d / "sh2d_seg1"), {**kw, "ckpt_format": "sharded"}),
+            (cfg, resumed(sharded), str(d / "sh2d_seg2"), kw),
+            (cfg, resumed(sharded), str(d / "shrows_seg2"), kw, "rows"),
+            (cfg, resumed(d / "mesh2d_seg1" / "restart.nc"),
+             str(d / "rows4_seg2"), kw, "rows")]
 
 
 def _cli_case(d):
@@ -269,6 +299,17 @@ def runs(tmp_path_factory):
             pj, coupled._coupled_base(jax_config).replace(atmos_only=True))),
             pj, str(dirs["atmos"] / "jax"), mesh=jax_meshes["jax_"],
             verbose=False, **kw).run()
+        # the channel's straight run on a 1 x 2 mesh, where qgcm_tpu's
+        # Driver warns and falls back to GSPMD
+        cfg, p, kw = cases["channel"]
+        pj = channel._params(jax_parse, p.name)
+        pj.trun = p.trun
+        with pytest.warns(UserWarning, match="CYCLIC ocean"):
+            JaxDriver(jax_build_model(jax_params_to_config(
+                pj, channel._base(jax_config))), pj,
+                str(dirs["channel"] / "jax1x2"), mesh=JaxMesh(np.asarray(
+                    jax.devices()[:RANKS]).reshape(1, RANKS), ("y", "x")),
+                verbose=False, **kw).run()
         cli = _cli_case(d)
         assert main(["run", str(cli), "--outdir", str(cli / "single"),
                      "--quiet"] + CLI_GRID) == 0
@@ -278,7 +319,9 @@ def runs(tmp_path_factory):
             assert main(_ensemble(cli, cli / f"ens{m}", m, "--quiet")) == 0
     mesh_runs = [r for kind in cases
                  for r in _halves(*cases[kind], dirs[kind])] + [
-        (*atmos[:2], str(dirs["atmos"] / "mesh"), atmos[2])]
+        (*atmos[:2], str(dirs["atmos"] / "mesh"), atmos[2]),
+        (*cases["channel"][:2], str(dirs["channel"] / "mesh1x2"),
+         cases["channel"][2], (1, RANKS))]
     argvs = [["run", str(cli), "--mesh", "rows", "--outdir",
               str(cli / "mesh")] + GLOO + CLI_GRID,
              _ensemble(cli, cli / "ens4_mesh", 4, "--shard-members", *GLOO),
@@ -288,9 +331,11 @@ def runs(tmp_path_factory):
     two = spawn_ranks(ranks.driver_rank, RANKS, mesh_runs, argvs,
                       backend="gloo", workdir=d / "ranks2", timeout=120)
     four = spawn_ranks(ranks.driver_rank, 4, _halves(
-        *cases["coupled"], dirs["coupled"], "mesh2d_"), [_ensemble(
-            cli, cli / "ens6_mesh", 6, "--shard-members", *GLOO)], None,
-        MESH_2D, backend="gloo", workdir=d / "ranks4", timeout=120)
+        *cases["coupled"], dirs["coupled"], "mesh2d_")
+        + _sharded_resumes(*cases["coupled"], dirs["coupled"])
+        + [(*atmos[:2], str(dirs["atmos"] / "mesh2d"), atmos[2])],
+        [_ensemble(cli, cli / "ens6_mesh", 6, "--shard-members", *GLOO)],
+        None, MESH_2D, backend="gloo", workdir=d / "ranks4", timeout=120)
     try:
         out, err = torchrun.communicate(timeout=300)
     finally:
@@ -537,3 +582,79 @@ def test_failure_on_one_rank_stops_every_rank(runs, tmp_path):
         spawn_ranks(ranks.raising_rank, RANKS, 10, backend="gloo",
                     workdir=tmp_path / "raise", timeout=120)
     assert time.perf_counter() - t0 < 60
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "rows"])
+def test_sharded_resume_on_another_mesh(runs, mesh):
+    """The coupled box's first half on a 2x2 mesh with
+    ckpt_format="sharded" writes restart_sharded/ and lastday_sharded/
+    (a manifest and one block file per field and rank) where the
+    restart.nc run writes restart.nc and lastday.nc, and every other file
+    the same; its second half resumed from restart_sharded/ on the 2x2
+    mesh and on a rows mesh of the same four ranks, each rank restoring
+    its own blocks, against the same mesh's resume from the restart.nc of
+    the 2x2 first half: the state they end in (lastday.nc and restart.nc)
+    within RESTORE_TOL of each field's largest magnitude, and every other
+    file within 1e-11 (its time means of eddy products and its energy
+    tendencies, differences of nearly equal terms, read up to 3.7e-12
+    apart)."""
+    d = runs["dirs"]["coupled"]
+    first = coupled._files(d / "sh2d_seg1")
+    plain = [f for f in first if "_sharded/" not in f]
+    assert plain == [f for f in coupled._files(d / "mesh2d_seg1")
+                     if f not in ("restart.nc", "lastday.nc")]
+    for base in ("restart", "lastday"):
+        manifest = json.loads((d / "sh2d_seg1" / f"{base}_sharded" /
+                               "manifest.json").read_text())
+        assert sorted(f for f in first if f.startswith(f"{base}_sharded/")) \
+            == sorted([f"{base}_sharded/manifest.json"] + [
+                f"{base}_sharded/{b['file']}"
+                for v in manifest["fields"].values() for b in v["blocks"]])
+    got, want = {"2x2": ("sh2d_seg2", "mesh2d_seg2"),
+                 "rows": ("shrows_seg2", "rows4_seg2")}[mesh]
+    assert coupled._files(d / got) == coupled._files(d / want)
+    for name in coupled._files(d / want):
+        if name.endswith(".nc"):
+            state = name in ("lastday.nc", "restart.nc")
+            coupled.assert_same_file(d, name, RESTORE_TOL if state
+                                     else SINGLE_TOL, got=got, want=want)
+    res = runs["four"][0]["runs"]
+    assert [r["mesh"] for r in res[3:7]] == [(2, 2), (2, 2), (4, 1), (4, 1)]
+
+
+def test_channel_on_a_1x2_mesh(runs):
+    """The forced channel's Driver on a 1 x 2 mesh runs on row blocks over
+    both ranks (qgcm_tpu warns and falls back to GSPMD there): every file
+    bit for bit the rows mesh's run, and monit.nc and lastday.nc within
+    1e-9 of qgcm_tpu's Driver on a 1 x 2 host mesh."""
+    d = runs["dirs"]["channel"]
+    r = [x["runs"][7] for x in runs["two"]]
+    assert [x["mesh"] for x in r] == [(RANKS, 1)] * RANKS
+    assert not any(x["aborted"] for x in r)
+    assert coupled._files(d / "mesh1x2") == coupled._files(d / "mesh")
+    for name in coupled._files(d / "mesh"):
+        if name.endswith(".nc"):
+            coupled.assert_same_file(d, name, 0.0, got="mesh1x2", want="mesh")
+        else:
+            assert (d / "mesh1x2" / name).read_text() == \
+                (d / "mesh" / name).read_text()
+    for name in ("monit.nc", "lastday.nc"):
+        coupled.assert_same_file(d, name, JAX_TOL, got="mesh1x2",
+                                 want="jax1x2")
+
+
+def test_atmos_only_on_a_2x2_mesh(runs):
+    """The atmosphere alone through Driver on a 2x2 mesh of 4 ranks: its
+    ocean grid (the prescribed SST's) and the atmosphere cut by rows over
+    the four ranks; every file within 1e-11 of its largest magnitude of
+    the port's single-device Driver (the energy tendencies: TENDENCY_TOL),
+    the same file set, no rank aborted."""
+    d = runs["dirs"]["atmos"]
+    res = [x["runs"][7] for x in runs["four"]]
+    assert [x["mesh"] for x in res] == [(4, 1)] * 4
+    assert not any(x["aborted"] for x in res)
+    assert coupled._files(d / "mesh2d") == coupled._files(d / "single")
+    for name in coupled._files(d / "single"):
+        if name.endswith(".nc"):
+            coupled.assert_same_file(d, name, SINGLE_TOL, got="mesh2d",
+                                     want="single", rtols=TENDENCY_TOL)

@@ -241,19 +241,28 @@ def test_2d_runner_collectives_per_substep(spawned, case, mesh):
 
 
 def test_mesh_run_refuses_gspmd_choices():
-    """halo_variant=None, or a spectral_variant other than 'a2a', on a
-    mesh is qgcm_tpu's GSPMD partitioning: refused; so is a bare
-    sharded step. Without a mesh the variants are not read."""
+    """What qgcm_tpu leaves to GSPMD's partitioning on a mesh
+    (halo_variant None, spectral_variant None) the port runs as
+    'overlap' and 'a2a': on a one-rank mesh the same bits as with those
+    variants named; a spectral variant the port does not know raises. A
+    bare sharded step (no halo pair) is the single-device step. Without
+    a mesh the variants are not read."""
     cfg = ranks.small_cfg()
     model, st, f = ranks.seeded_state(cfg)
     mesh = make_mesh(rows_only=True, grid=(cfg.nypo, cfg.nxpo))
+    blocks = shard_tree(st, mesh), shard_tree(f, mesh)
+    want = make_ocean_only_runner(model, mesh=mesh, halo_variant="overlap",
+                                  spectral_variant="a2a")(*blocks, 1)
     for kw in (dict(halo_variant=None, spectral_variant="a2a"),
-               dict(halo_variant="overlap", spectral_variant=None),
-               dict(halo_variant="overlap", spectral_variant="gspmd")):
-        with pytest.raises(ValueError, match="GSPMD"):
-            make_ocean_only_runner(model, mesh=mesh, **kw)
-    with pytest.raises(ValueError, match="GSPMD"):
-        make_ocean_step(model, sharded=True)
+               dict(halo_variant="overlap", spectral_variant=None), {}):
+        got = make_ocean_only_runner(model, mesh=mesh, **kw)(*blocks, 1)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+    with pytest.raises(ValueError, match="unknown spectral_variant"):
+        make_ocean_only_runner(model, mesh=mesh, halo_variant="overlap",
+                               spectral_variant="gspmd")
+    bare, single = (make_ocean_step(model, sharded=s)(st, f)[0]
+                    for s in (True, False))
+    assert all(torch.equal(a, b) for a, b in zip(bare, single))
     out = make_ocean_only_runner(model, halo_variant="deep")(st, f, 1)
     ref = make_ocean_only_runner(model)(st, f, 1)
     assert torch.equal(out.po, ref.po)

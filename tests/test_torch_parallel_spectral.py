@@ -217,9 +217,11 @@ def _fake_mesh(my, mx, rank, grid=None):
 def test_wrap_inversions_and_2d_refusal():
     """wrap_inversions swaps the ocean's solver for its sharded form and
     leaves the rest of the inversion, on a rows mesh and on an x > 1
-    mesh; what stays refused on an x > 1 mesh is a channel's ocean (the
-    duplicated column's wraparound, qgcm_tpu's reason), in the substep
-    and in --mesh, and blocks too thin for the mixed layer."""
+    mesh; what stays refused on an x > 1 mesh is a channel's ocean in
+    the substep given a halo variant (the duplicated column's
+    wraparound, qgcm_tpu's reason), and blocks too thin for the mixed
+    layer; a channel's --mesh 1x2, which is cut by rows over its 2
+    ranks, needs those ranks."""
     from qgcm_torch.model import build_model
     from qgcm_torch.models.ocean import check_mesh_grid
     from qgcm_torch.parallel.mesh import mesh_from_spec
@@ -233,7 +235,7 @@ def test_wrap_inversions_and_2d_refusal():
     grid = (cfg.nypo, cfg.nxpo)
     with pytest.raises(ValueError, match="duplicated east column"):
         check_mesh_grid(cfg, _fake_mesh(1, 2, 0, grid))
-    with pytest.raises(ValueError, match="duplicated east column"):
+    with pytest.raises(ValueError, match="a 1x2 mesh needs 2 ranks"):
         mesh_from_spec("1x2", True, grid)
     box = ranks.small_cfg(cyclic=False)
     with pytest.raises(ValueError, match="too thin"):

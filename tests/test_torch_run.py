@@ -203,10 +203,10 @@ def test_atmos_only_run(tmp_path):
 def test_cadence_rounding(tmp_path):
     """Fortran NINT rounds half away from zero; a cadence that is not a
     whole number of coupling cycles warns with its rounded value, and an
-    exact one stays silent; an odd midpoint interval is refused; the
-    option the port does not have (ckpt_format) is refused, and
-    profile_dir (the CLI's --profile) and mesh (None: one device) are
-    taken."""
+    exact one stays silent; an odd midpoint interval is refused; a
+    ckpt_format other than 'netcdf' and 'sharded' (qgcm_tpu's 'orbax', a
+    JAX format) is refused with qgcm_tpu's check, and profile_dir (the
+    CLI's --profile) and mesh (None: one device) are taken."""
     assert [_nint(x) for x in (0.5, 1.5, 2.5, 2.4999)] == [1, 2, 3, 2]
     model = build_model(_coupled_base(torch_config), "cpu")
     kw = dict(trun=0.01 / 365.0, dta=180.0, nstr=3, dxo=20.0e3, odiday=0.0,
@@ -223,8 +223,9 @@ def test_cadence_rounding(tmp_path):
     with pytest.raises(ValueError, match="midpoint"):
         Driver(model, RunParams(**{**kw, "dtavat": 540.0 / DAY}),
                str(tmp_path / "c"), verbose=False, avges_sampling="midpoint")
-    with pytest.raises(TypeError):
-        Driver(model, RunParams(**kw), str(tmp_path / "d"), ckpt_format=None)
+    with pytest.raises(ValueError, match="ckpt_format must be"):
+        Driver(model, RunParams(**kw), str(tmp_path / "d"),
+               ckpt_format="orbax")
     assert Driver(model, RunParams(**kw), str(tmp_path / "e"),
                   profile_dir=None).profile_dir is None
     assert Driver(model, RunParams(**kw), str(tmp_path / "f"),
@@ -234,11 +235,13 @@ def test_cadence_rounding(tmp_path):
 def test_cli_prepare_run_resume(tmp_path, capsys):
     """prepare -> run -> run --resume through qgcm_torch.cli.main on the
     CPU: the second segment continues the clock in outdata_r2, and
-    --resume into the segment it reads from is refused, and so are the
-    option the port does not have (--ckpt-format) and, this case being a
-    channel, a mesh with NX > 1 (qgcm_tpu's reason: the duplicated
-    column's wraparound; multi-rank runs:
-    tests/test_torch_parallel_driver.py)."""
+    --resume into the segment it reads from is refused; a third segment
+    with --ckpt-format sharded writes lastday_sharded/ and restart_sharded/
+    only, and a fourth --resume continues from it. Refused: qgcm_tpu's
+    --ckpt-format orbax (a JAX format, which the port neither reads nor
+    writes) and, this case being a channel, --mesh 1x2 in one process (a
+    channel's NYxNX is cut by rows over its NY*NX ranks; multi-rank
+    runs: tests/test_torch_parallel_driver.py)."""
     case = tmp_path / "case"
     case.mkdir()
     params = (
@@ -284,8 +287,21 @@ def test_cli_prepare_run_resume(tmp_path, capsys):
     with pytest.raises(SystemExit):
         main(["run", str(case), "--quiet", "--resume", "--outdir",
               str(case / "outdata_r2")] + flags)
+    assert main(["run", str(case), "--quiet", "--resume", "--ckpt-format",
+                 "sharded"] + flags) == 0
+    r3 = sorted(p.name for p in (case / "outdata_r3").iterdir())
+    assert "lastday_sharded" in r3 and "restart_sharded" in r3
+    assert "lastday.nc" not in r3 and "restart.nc" not in r3
+    assert main(["run", str(case), "--quiet", "--resume"] + flags) == 0
+    with netcdf_file(str(case / "outdata_r4" / "monit.nc"), "r",
+                     mmap=False) as f:
+        t4 = f.variables["time"][:].copy()
+    np.testing.assert_allclose(t4 / (150.0 / DAY / 365.0),
+                               [39.0, 42.0, 45.0, 48.0], rtol=1e-5)
     with pytest.raises(SystemExit):
         main(["run", str(case), "--ckpt-format", "orbax"] + flags)
-    with pytest.raises(ValueError, match="duplicated east column"):
+    # a channel's NYxNX is cut by rows over its NY*NX ranks: one process
+    # has too few
+    with pytest.raises(ValueError, match="a 1x2 mesh needs 2 ranks"):
         main(["run", str(case), "--mesh", "1x2"] + flags)
     assert "done: 12 steps" in capsys.readouterr().out
