@@ -7,6 +7,7 @@
     python3 chip_smoke.py --gemm CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --channel-spread
     python3 chip_smoke.py --channel-year [sine|matmul|fft ...]
+    python3 chip_smoke.py --production [k247|ens|flagship ...]
 
 Builds the port's CUDA kernels from qgcm_torch/csrc with nvcc, holds the
 vorticity kernel against its plain PyTorch version on the card (model
@@ -72,7 +73,9 @@ run, the golden coupled box in float64 saved on 2x2 and restored on one
 device, 2x2 and rows, the southern-ocean channel at full width through
 `run --mesh 2x2` (cut by rows over the ranks) against `run --mesh rows`,
 bit for bit, and the seconds of a dump and a restore, restart.nc against
-sharded.
+sharded; and last (phase 24) the k247 fork's eddy, examples/k247_eddy_1yr,
+through the CLI for its first ten days in float32 and in float64, held
+to the first ten records of its committed production record.
 Every phase raises on a failure; nothing runs on the CPU. The last line of
 standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel
@@ -86,7 +89,14 @@ float32 y-DST, and prints each run's distance from the float64 run
 beside the witness's bars. With --channel-year it runs the forced
 channel's whole float32 year under the 'auto' y-DST, or under each one
 named, and holds it to its production record's bars (channel_year).
-With --main-path it runs
+With --production it runs qgcm_tpu's production cases named (all three
+without a name), each through the CLI in float32 as its input.params
+header says, and holds each to the bars of its committed record: k247,
+examples/k247_eddy_1yr's whole year (energy conservation, the eddy's
+track); ens, examples/k247_eddy_ens (8 members for 30 days, the spread);
+flagship, examples/double_gyre_coupled_5yr's first 30 days from
+radiative balance (the constraints' closure, the CFL numbers). With
+--main-path it runs
 only phase 4, once for each checkout named
 (a directory holding chip_smoke.py and qgcm_torch, such as a parent
 commit unpacked under build/), each in a process of its own and in the
@@ -5628,6 +5638,433 @@ def phase_checkpoints(card, states):
     return totals, paths
 
 
+# ----------------------------------------------------------------------
+# Phase 24 and --production: qgcm_tpu's committed production records
+# through the CLI (docs/production_run.md, tests/test_production_run.py)
+# ----------------------------------------------------------------------
+
+# k247_eddy_1yr: the unforced inviscid eddy on the cyclic 2 x 961^2
+# k247_default, float32, one monit record a day, an ocpo.nc snapshot
+# every 73 days; 200 substeps a day (dto = 3 x 144 s), one full-field
+# launch each
+K247_CASE = "examples/k247_eddy_1yr"
+K247_PREPARE = ["--eddy-amp", "0.15", "--forcing", "zero"]
+K247_SUBSTEPS_A_DAY = 200
+K247_RECORDS = 365
+# phase 24: the year's first days, against the record's first records
+K247_DAYS = 10
+# the record's bars (tests/test_production_run.py:126-173): layer 1's
+# te1 = KE1 + PE spread over te1[0] (record 0.0041), KE1's and PE's end
+# over start, the track's westward speed (m/s), the exact zeros, emfroc
+# and cnqgoc's bars; layer 2 (h2 = 3.2e20 m) is rounding noise, left out
+K247_TE_SPREAD = 0.02
+K247_KE_RATIO = (0.5, 1.1)
+K247_PE_RATIO = (0.9, 1.5)
+K247_SPEED = (0.02, 0.08)
+K247_ZEROS = ("utauoc", "btdgoc", "pkenoc")
+K247_EMFROC = 1e-12
+K247_CFL = 0.2
+# tighter than the record's own bars: the westward speed within 25% of
+# the record's (0.0393 m/s from its sshmax_etc.nc)
+K247_SPEED_RTOL = 0.25
+# the days whose KE1 and PE are printed beside the record's
+K247_DAYS_PRINTED = (73, 146, 219, 292, 365)
+# k247_eddy_ens: 8 members of the viscous eddy for 30 days, a spread
+# record every 2.5 days (its input.params header's command)
+ENS_CASE = "examples/k247_eddy_ens"
+ENS_RECORDS, ENS_MEMBERS, ENS_DAYS = 13, 8, 30
+ENS_ARGS = ["--members", str(ENS_MEMBERS), "--amp", "1e-3", "--days",
+            str(ENS_DAYS), "--sample-days", "2.5", "--seed", "0"]
+# torch's generator makes other members than jax.random's, so the bars
+# are on the spread (outdata_ens/ensemble.nc): spread_po at day 0 within
+# 25% of the record's (6.18e-4); its largest value over days 2.5-5 at
+# least 5x day 0's (the record's 11.9x); every record from day 10 on
+# within a factor of 2 of the record's on the same day
+ENS_DAY0_RTOL = 0.25
+ENS_PEAK_DAYS = (2.5, 5.0)
+ENS_PEAK_FACTOR = 5.0
+ENS_LATE_DAY = 10.0
+ENS_LATE_FACTOR = 2.0
+# double_gyre_coupled_5yr cut to its first 30 days from radiative
+# balance: 4800 coupling cycles, 15 monit records (dgnday = 2)
+FLAGSHIP_CASE = "examples/double_gyre_coupled_5yr"
+FLAGSHIP_DAYS = 30
+FLAGSHIP_RECORDS = 15
+# the record's bars (tests/test_production_run.py:74-91)
+FLAGSHIP_CLOSURE = ("emfroc", "emfrat", "ermaso")
+FLAGSHIP_CLOSURE_TOL = 1e-6
+FLAGSHIP_CFL = ("cnqgoc", "cnqgat", "cnmlat")
+FLAGSHIP_CFL_TOL = 0.8
+# the days whose kealoc and kealat are printed beside the record's, with
+# the ratio to it (the prediction in PERF.md: each within a factor of 2)
+FLAGSHIP_DAYS_PRINTED = (2, 10, 30)
+
+
+def repo_file(*parts):
+    """A path in this checkout (a committed record, say)."""
+    from pathlib import Path
+    return Path(__file__).resolve().parent.joinpath(*parts)
+
+
+def nc_vars(path) -> dict:
+    """Every variable of a netCDF file, as float64 NumPy arrays."""
+    return {k: np.asarray(v, np.float64)
+            for k, v in monit_series(path)[0].items()}
+
+
+def finite_bar(series, names=None) -> tuple:
+    """(bar, held): every value of the named series (all) finite."""
+    bad = sorted(n for n in (names or series)
+                 if not np.isfinite(series[n]).all())
+    return f"every value finite (non-finite: {bad or 'none'})", not bad
+
+
+def k247_zero_bars(monit) -> list:
+    """The unforced inviscid run's exact zeros: utauoc, btdgoc and pkenoc
+    exactly 0, |emfroc| below K247_EMFROC; (bar, held) pairs."""
+    rows = [(f"{n} max|.| {np.abs(monit[n]).max():.3e} (exactly 0)",
+             not np.abs(monit[n]).max()) for n in K247_ZEROS]
+    em = float(np.abs(monit["emfroc"]).max())
+    return rows + [(f"emfroc max|.| {em:.3e} (< {K247_EMFROC:g})",
+                    em < K247_EMFROC)]
+
+
+def track_speed(track) -> float:
+    """The eddy's westward speed (m/s) from an sshmax_etc.nc track:
+    hmax_i in nsko = 4 units of dxo = 4 km, over the snapshots' span of
+    73-day intervals (tests/test_production_run.py:160-172)."""
+    hi = np.asarray(track["hmax_i"])
+    if len(hi) < 2:
+        return float("nan")
+    return float((hi[0] - hi[-1]) * 4.0e3 * 4 / (
+        (len(hi) - 1) * 73.0 * 86400.0))
+
+
+def k247_year_bars(energy, monit, track, record_track) -> list:
+    """The record's bars of k247_eddy_1yr on a run's energy series
+    (analysis.QgcmData.energy_series), its monit.nc and its
+    sshmax_etc.nc track, and the westward speed within K247_SPEED_RTOL of
+    the record's track's; (bar, held) pairs."""
+    ke1, pe = energy["keocavg"][:, 0], energy["peocavg"][:, 0]
+    te1 = ke1 + pe
+    spread = float((te1.max() - te1.min()) / te1[0])
+    rke, rpe = float(ke1[-1] / ke1[0]), float(pe[-1] / pe[0])
+    hm, hi, hj = (np.asarray(track[k]) for k in ("hmax", "hmax_i",
+                                                 "hmax_j"))
+    speed, want = track_speed(track), track_speed(record_track)
+    cfl = float(np.max(monit["cnqgoc"]))
+    return [
+        (f"{len(te1)} records (= {K247_RECORDS})", len(te1) == K247_RECORDS),
+        finite_bar(monit),
+        (f"te1 spread {spread:.4e} of te1[0] (< {K247_TE_SPREAD:g})",
+         spread < K247_TE_SPREAD),
+        (f"KE1 end/start {rke:.4f} (in {K247_KE_RATIO})",
+         K247_KE_RATIO[0] < rke < K247_KE_RATIO[1]),
+        (f"PE end/start {rpe:.4f} (in {K247_PE_RATIO})",
+         K247_PE_RATIO[0] < rpe < K247_PE_RATIO[1]),
+        (f"{len(hm)} SSH-max snapshots (= 5)", len(hm) == 5),
+        ("hmax " + " ".join(f"{v:.4f}" for v in hm) + " cm, falling, "
+         "the last above half the first",
+         len(hm) > 1 and bool((np.diff(hm) < 0).all())
+         and hm[-1] > 0.5 * hm[0]),
+        ("hmax_i " + " ".join(f"{v:g}" for v in hi) + ", strictly falling",
+         len(hi) > 1 and bool((np.diff(hi) < 0).all())),
+        ("hmax_j " + " ".join(f"{v:g}" for v in hj) + ", strictly falling",
+         len(hj) > 1 and bool((np.diff(hj) < 0).all())),
+        (f"westward speed {speed:.5f} m/s (in {K247_SPEED})",
+         K247_SPEED[0] < speed < K247_SPEED[1]),
+        (f"westward speed within {K247_SPEED_RTOL:g} of the record's "
+         f"{want:.5f} m/s ({abs(speed / want - 1):.4f})",
+         abs(speed / want - 1) <= K247_SPEED_RTOL),
+        *k247_zero_bars(monit),
+        (f"cnqgoc max {cfl:.4f} (< {K247_CFL:g})", cfl < K247_CFL)]
+
+
+def k247_days_bars(run, record, f64) -> list:
+    """Phase 24's bars on a run's first K247_DAYS monit records: the
+    record count, every value finite, layer 1's kealoc by phase 11's rule
+    (monit_held: within MONITOR_TOL of max|record| or no farther from the
+    float64 run `f64` than WITNESS_FACTOR times the record is), and the
+    exact zeros (k247_zero_bars); (bar, held) pairs. `record` and `f64`
+    are cut to the run's records."""
+    n = len(run["time"])
+    a, b, c = (np.asarray(s["kealoc"][:n, 0], np.float64)
+               for s in (run, record, f64))
+    scale = float(np.abs(b).max())
+    err, e64, r64 = (monit_distance(a, b, scale), monit_distance(a, c, scale),
+                     monit_distance(b, c, scale))
+    return [(f"{n} records (= {K247_DAYS})", n == K247_DAYS),
+            finite_bar(run),
+            (f"kealoc layer 1: {err:.3e} of max|record| from the record "
+             f"(bar {MONITOR_TOL:g}), {e64:.3e} from float64 against the "
+             f"record's {r64:.3e} (bar {WITNESS_FACTOR:g}x)",
+             monit_held("kealoc", a, b, c, scale, r64)),
+            *k247_zero_bars(run)]
+
+
+def ensemble_bars(ens, record) -> list:
+    """The spread bars of k247_eddy_ens on a run's ensemble.nc against
+    the record's (ENS_*); (bar, held) pairs."""
+    sp, rec = np.asarray(ens["spread_po"]), np.asarray(record["spread_po"])
+    days, rdays = ens["tyrs"] * 365.0, record["tyrs"] * 365.0
+    shape = np.shape(ens["po_rms"])
+    rows = [(f"{shape} records x members (= ({ENS_RECORDS}, "
+             f"{ENS_MEMBERS}))", shape == (ENS_RECORDS, ENS_MEMBERS)),
+            finite_bar(ens, ("tyrs", "spread_po", "po_rms"))]
+    if shape != (ENS_RECORDS, ENS_MEMBERS) or not np.allclose(
+            days, rdays, atol=1e-6):
+        return rows + [("the record's days", False)]
+    d0 = float(sp[0] / rec[0] - 1)
+    window = (days >= ENS_PEAK_DAYS[0] - 1e-6) & (
+        days <= ENS_PEAK_DAYS[1] + 1e-6)
+    peak = float(sp[window].max() / sp[0])
+    late = days >= ENS_LATE_DAY - 1e-6
+    ratio = sp[late] / rec[late]
+    return rows + [
+        (f"spread_po day 0 {sp[0]:.4e} against the record's {rec[0]:.4e} "
+         f"({d0:+.4f}; bar {ENS_DAY0_RTOL:g})", abs(d0) <= ENS_DAY0_RTOL),
+        (f"largest spread_po over days {ENS_PEAK_DAYS[0]:g}-"
+         f"{ENS_PEAK_DAYS[1]:g} {peak:.3f}x day 0's (bar "
+         f"{ENS_PEAK_FACTOR:g}x)", peak >= ENS_PEAK_FACTOR),
+        (f"spread_po from day {ENS_LATE_DAY:g} over the record's: "
+         + " ".join(f"{v:.3f}" for v in ratio)
+         + f" (within {ENS_LATE_FACTOR:g}x)",
+         bool(((ratio >= 1 / ENS_LATE_FACTOR)
+               & (ratio <= ENS_LATE_FACTOR)).all()))]
+
+
+def flagship_bars(monit) -> list:
+    """The record's bars of double_gyre_coupled_5yr on a run's monit.nc
+    (its first FLAGSHIP_RECORDS records); (bar, held) pairs."""
+    n = len(monit["time"])
+    rows = [(f"{n} records (= {FLAGSHIP_RECORDS})", n == FLAGSHIP_RECORDS),
+            finite_bar(monit)]
+    for names, tol in ((FLAGSHIP_CLOSURE, FLAGSHIP_CLOSURE_TOL),
+                       (FLAGSHIP_CFL, FLAGSHIP_CFL_TOL)):
+        for name in names:
+            v = float(np.abs(monit[name]).max())
+            rows.append((f"{name} max|.| {v:.4e} (< {tol:g})", v < tol))
+    return rows
+
+
+def held_or_raise(what, rows):
+    """Print each (bar, held) pair; raise if one is missed."""
+    for bar, held in rows:
+        print(f"    {'held' if held else 'MISSED'}: {bar}")
+    missed = [bar for bar, held in rows if not held]
+    if missed:
+        raise AssertionError(f"{what} misses {len(missed)} of its bars: "
+                             + "; ".join(missed))
+
+
+def k247_case(label, src, dtype):
+    """A case of the k247 eddy (src: K247_CASE or ENS_CASE) under
+    build/qgcm_torch/cases/<label>, prepared by its header's command in
+    `dtype`. Returns (the case, its grid flags)."""
+    grid = ["--preset", "k247_default", "--dtype", dtype]
+    case = new_case(label, f"{src}/input.params")
+    run_cli(["prepare", str(case)] + K247_PREPARE + grid)
+    return case, grid
+
+
+def k247_run(label, dtype, trun=None):
+    """k247_eddy_1yr through the CLI in `dtype` (k247_case), run for its
+    trun or `trun` years. Returns (the case, the run's log line, its
+    qgstep launches, the Driver's seconds stepping and in cadence
+    events)."""
+    from qgcm_torch.ops.qgstep import reset_launches, qgstep
+    case, grid = k247_case(label, K247_CASE, dtype)
+    reset_launches()
+    log, (steps_s, events_s) = run_cli(
+        ["run", str(case), "--quiet"] + grid
+        + ([] if trun is None else ["--trun", repr(trun)]))
+    return (case, log.strip().splitlines()[-1], qgstep.launches, steps_s,
+            events_s)
+
+
+def phase_k247_days(card) -> dict:
+    """Phase 24: k247_eddy_1yr's first K247_DAYS days through the CLI in
+    float32, and again in float64 as the witness, held to the record's
+    first records (k247_days_bars). Returns the path's entry."""
+    substeps = K247_DAYS * K247_SUBSTEPS_A_DAY
+    trun = K247_DAYS / 365.0
+    case, line, launches, steps_s, events_s = k247_run("k247_eddy_days",
+                                                       "float32", trun)
+    ms = steps_s * 1e3 / substeps
+    print(f"  float32: {line}")
+    print(f"  qgstep launches on this path: {launches} in {substeps} "
+          f"substeps; Driver {ms:.4f} ms/substep (host clock), "
+          f"{events_s:.4f} s in cadence events [{card}]")
+    if launches != substeps:
+        raise AssertionError(f"qgstep launched {launches} times in "
+                             f"{substeps} substeps of the Driver")
+    case64, line64, _, steps64, _ = k247_run("k247_eddy_days_f64",
+                                             "float64", trun)
+    print(f"  float64: {line64}; {steps64 * 1e3 / substeps:.4f} ms/substep "
+          f"(host clock)")
+    run = nc_vars(case / "outdata" / "monit.nc")
+    f64 = nc_vars(case64 / "outdata" / "monit.nc")
+    record = nc_vars(repo_file(K247_CASE, "outdata", "monit.nc"))
+    for label, s in (("card f32", run), ("record", record),
+                     ("card f64", f64)):
+        print(f"    kealoc[:, 0] {label:8s} " + " ".join(
+            f"{v:.6f}" for v in s["kealoc"][:K247_DAYS, 0]))
+    held_or_raise("k247_eddy_1yr's first days",
+                  k247_days_bars(run, record, f64))
+    return dict(path="driver:k247_eddy_1yr first 10 days", launches=launches,
+                substeps=substeps, ms_per_substep=ms, events_s=events_s)
+
+
+def production_k247(card) -> None:
+    """--production k247: examples/k247_eddy_1yr's whole year through the
+    CLI (its header's prepare and run, then analyze, which writes
+    sshmax_etc.nc from the ocpo.nc snapshots), float32, held to the
+    record's bars (k247_year_bars); prints KE1 and PE at
+    K247_DAYS_PRINTED and the track beside the record's."""
+    from qgcm_torch.analysis import QgcmData
+    substeps = K247_RECORDS * K247_SUBSTEPS_A_DAY
+    case, line, launches, steps_s, events_s = k247_run("k247_eddy_1yr",
+                                                       "float32")
+    out = case / "outdata"
+    print(f"  k247_eddy_1yr: {line}")
+    print(f"  qgstep launches: {launches} in {substeps} substeps (cyclic "
+          f"full-field); Driver {steps_s * 1e3 / substeps:.4f} ms/substep "
+          f"(host clock), {steps_s:.4f} s stepping, {events_s:.4f} s in "
+          f"cadence events [{card}]")
+    if launches != substeps:
+        raise AssertionError(f"qgstep launched {launches} times in "
+                             f"{substeps} substeps of the Driver")
+    run_cli(["analyze", str(out)])
+    energy, monit = QgcmData(str(out)).energy_series(), nc_vars(
+        out / "monit.nc")
+    ref_dir = repo_file(K247_CASE, "outdata")
+    ref = QgcmData(str(ref_dir)).energy_series()
+    track = nc_vars(out / "sshmax_etc.nc")
+    record_track = nc_vars(ref_dir / "sshmax_etc.nc")
+    n = min(len(energy["time"]), len(ref["time"]))
+    for day in (d for d in K247_DAYS_PRINTED if d <= n):
+        i = day - 1
+        a = (energy["keocavg"][i, 0], energy["peocavg"][i, 0])
+        b = (ref["keocavg"][i, 0], ref["peocavg"][i, 0])
+        print(f"    day {day}: KE1 {a[0]:.4f} (record {b[0]:.4f}, "
+              f"{a[0] / b[0] - 1:+.4e}), PE {a[1]:.4f} (record {b[1]:.4f}, "
+              f"{a[1] / b[1] - 1:+.4e})")
+    print("    track (hmax_i, hmax_j): "
+          + " ".join(f"({i:g}, {j:g})" for i, j in zip(
+              track["hmax_i"], track["hmax_j"]))
+          + "; record " + " ".join(f"({i:g}, {j:g})" for i, j in zip(
+              record_track["hmax_i"], record_track["hmax_j"])))
+    held_or_raise("k247_eddy_1yr",
+                  k247_year_bars(energy, monit, track, record_track))
+
+
+def production_ens(card) -> None:
+    """--production ens: examples/k247_eddy_ens through the CLI (its
+    header's prepare and ensemble), float32, 8 members in one member-mode
+    launch a substep, held to the record's spread (ensemble_bars); prints
+    po_rms's spread across members at each record beside the record's."""
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    case, grid = k247_case("k247_eddy_ens", ENS_CASE, "float32")
+    reset_launches()
+    t0 = time.perf_counter()
+    log, _ = run_cli(["ensemble", str(case), "--quiet"] + ENS_ARGS + grid)
+    wall = time.perf_counter() - t0
+    substeps = ENS_DAYS * K247_SUBSTEPS_A_DAY
+    print(f"  k247_eddy_ens: {log.strip().splitlines()[-1]}")
+    print(f"  qgstep launches: {qgstep.launches} for {qgstep.members} "
+          f"member-substeps ({substeps} substeps of {ENS_MEMBERS} members); "
+          f"the command {wall:.4f} s (host clock; the model's build, the "
+          f"members' perturbation and the {ENS_RECORDS} records included), "
+          f"{wall * 1e3 / substeps:.4f} ms a substep of all members "
+          f"[{card}]")
+    if (qgstep.launches, qgstep.members) != (substeps,
+                                             substeps * ENS_MEMBERS):
+        raise AssertionError("the ensemble missed its member-mode launches")
+    ens = nc_vars(case / "outdata_ens" / "ensemble.nc")
+    record = nc_vars(repo_file(ENS_CASE, "outdata_ens", "ensemble.nc"))
+
+    def member_spread(po_rms):
+        return (po_rms.max(1) - po_rms.min(1)) / po_rms.mean(1)
+    # member 0 is the unperturbed control: a trajectory of the prepared
+    # state alone, whose po_rms an eddy that keeps its energy keeps
+    print("    day, spread_po (record), the control's po_rms (record), "
+          "po_rms max-min over mean (record):")
+    for i, day in enumerate(ens["tyrs"] * 365.0):
+        if i < len(record["tyrs"]):
+            print(f"      {day:5.1f}  {ens['spread_po'][i]:.4e} "
+                  f"({record['spread_po'][i]:.4e})  "
+                  f"{ens['po_rms'][i, 0]:.5f} ({record['po_rms'][i, 0]:.5f})"
+                  f"  {member_spread(ens['po_rms'])[i]:.4e} "
+                  f"({member_spread(record['po_rms'])[i]:.4e})")
+    held_or_raise("k247_eddy_ens", ensemble_bars(ens, record))
+
+
+def production_flagship(card) -> None:
+    """--production flagship: examples/double_gyre_coupled_5yr's first
+    FLAGSHIP_DAYS days from radiative balance through the CLI (its
+    input.params with trun cut), float32, held to the record's bars
+    (flagship_bars); prints kealoc and kealat at FLAGSHIP_DAYS_PRINTED
+    beside the record's."""
+    from qgcm_torch.ops.qgstep import qgstep, reset_launches
+    grid = ["--preset", "double_gyre_coupled", "--dtype", "float32"]
+    case = new_case("double_gyre_coupled_5yr",
+                    f"{FLAGSHIP_CASE}/input.params",
+                    trun=FLAGSHIP_DAYS / 365.0)
+    cycles = FLAGSHIP_DAYS * 86400 // 540
+    reset_launches()
+    log, (steps_s, events_s) = run_cli(["run", str(case), "--quiet"] + grid)
+    print(f"  double_gyre_coupled_5yr, {FLAGSHIP_DAYS} days: "
+          f"{log.strip().splitlines()[-1]}")
+    print(f"  qgstep launches: {qgstep.launches} in {cycles} coupling "
+          f"cycles; Driver {steps_s * 1e3 / cycles:.4f} ms/cycle (host "
+          f"clock), {steps_s:.4f} s stepping, {events_s:.4f} s in cadence "
+          f"events [{card}]")
+    if qgstep.launches != cycles:
+        raise AssertionError(f"qgstep launched {qgstep.launches} times in "
+                             f"{cycles} cycles")
+    monit = nc_vars(case / "outdata" / "monit.nc")
+    record = nc_vars(repo_file(FLAGSHIP_CASE, "outdata", "monit.nc"))
+    days = np.rint(record["time"] * 365.0)
+    for day in FLAGSHIP_DAYS_PRINTED:
+        i = int(np.flatnonzero(days == day)[0])
+        if i >= len(monit["time"]):
+            continue
+        for name in ("kealoc", "kealat"):
+            a, b = monit[name][i], record[name][i]
+            print(f"    day {day} {name}: " + " ".join(
+                f"{v:.4g}" for v in a) + "; record " + " ".join(
+                f"{v:.4g}" for v in b) + "; over the record " + " ".join(
+                f"{x / y:.3f}" for x, y in zip(a, b)))
+    held_or_raise(f"double_gyre_coupled_5yr's first {FLAGSHIP_DAYS} days",
+                  flagship_bars(monit))
+
+
+PRODUCTION = {"k247": production_k247, "ens": production_ens,
+              "flagship": production_flagship}
+
+
+def production(modes) -> int:
+    """--production MODE [...]: each of qgcm_tpu's production cases named
+    (PRODUCTION) in turn on the card, each with its seconds and its
+    verdict; a mode that misses a bar does not stop the next. Returns 1
+    if one missed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    verdict = {}
+    for mode in modes:
+        try:
+            with phase(f"--production {mode} [{card}]"):
+                PRODUCTION[mode](card)
+            verdict[mode] = True
+        except AssertionError as e:
+            print(f"  --production {mode} FAILED: {e}")
+            verdict[mode] = False
+    print(card)
+    print(json.dumps({"production": verdict}))
+    return 0 if all(verdict.values()) else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port is not run on "
@@ -5749,6 +6186,9 @@ def main() -> int:
     for mode in totals:
         totals[mode] += totals23[mode]
     mesh_paths += mesh_paths23
+    with phase(f"[24] the Driver through the CLI: k247_eddy_1yr's first "
+               f"{K247_DAYS} days against its committed record"):
+        paths.append(phase_k247_days(card))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernel["paths"] = [dict(path="double_gyre_ocean_only",
@@ -5806,6 +6246,13 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--channel-spread"]:
         sys.exit(compare_channel_spread() if torch.cuda.is_available()
                  else 1)
+    if sys.argv[1:2] == ["--production"]:
+        # python3 chip_smoke.py --production [k247|ens|flagship ...]: each
+        # of qgcm_tpu's production cases named, or all three
+        modes = sys.argv[2:] or list(PRODUCTION)
+        if not set(modes) <= set(PRODUCTION):
+            sys.exit(f"--production takes {', '.join(PRODUCTION)}")
+        sys.exit(production(modes) if torch.cuda.is_available() else 1)
     if sys.argv[1:2] == ["--channel-year"]:
         # python3 chip_smoke.py --channel-year [sine|matmul|fft ...]: the
         # tree's 'auto', or each y-DST named in turn

@@ -142,6 +142,15 @@ def finalize_cov(acc: CovAccum):
     return mean.numpy(), ssp.numpy(), n
 
 
+def unpack_cov(packed: np.ndarray, nv: int) -> np.ndarray:
+    """Packed lower triangle -> dense symmetric matrix (for analysis)."""
+    out = np.zeros((nv, nv), np.float64)
+    i, j = np.tril_indices(nv)
+    out[i, j] = packed
+    out[j, i] = packed
+    return out
+
+
 def write_covar(path: str, entries: dict):
     """entries: suffix -> CovAccum (suffixes 'po','to','pa','ta').
     Writes cov<sfx>, avg<sfx>, swt<sfx> in the reference covar.nc

@@ -230,15 +230,16 @@ def load_checkpoint(path: str, model, mesh=None):
     fields; with `mesh` (a collective of its ranks) this rank's blocks:
     the ocean's on ocean_mesh(mesh, cfg), the atmosphere's on
     atmos_mesh(mesh, cfg), as shard_tree lays them out. The checkpoint
-    may come from any mesh. A manifest made for another grid or dtype
-    raises before any read."""
+    may come from any mesh and any dtype: each field is cast to the
+    model's dtype as it is read, and q and the constraint values are
+    derived in the model's dtype, as qgcm_tpu's Orbax restore does through
+    init_ocean_state and init_atmos_state. A manifest made for another
+    grid raises before any read."""
     manifest = read_manifest(path)
     cfg = model.cfg
-    want = (_grid(cfg), _dtype_name(model.dtype))
-    got = (manifest["grid"], manifest["dtype"])
-    if got != want:
-        raise ValueError(f"{path} was written for the grid {got[0]} in "
-                         f"{got[1]}; the model's is {want[0]} in {want[1]}")
+    if manifest["grid"] != _grid(cfg):
+        raise ValueError(f"{path} was written for the grid "
+                         f"{manifest['grid']}; the model's is {_grid(cfg)}")
     read = _Reader(path, manifest)
     tyrs = float(manifest["tyrs"])
     if mesh is None:

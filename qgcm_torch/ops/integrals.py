@@ -1,8 +1,8 @@
 """Area integrals with C-grid edge weights (port of
 qgcm_tpu/ops/integrals.py).
 
-xintp is the p-grid trapezoidal sum with 1/2 edge and 1/4 corner
-weights (reference src/intsubs.f); multiply by dx*dy for the physical
+xintt is the plain T-grid sum and xintp the p-grid trapezoidal sum
+with 1/2 edge and 1/4 corner weights (reference src/intsubs.f); multiply by dx*dy for the physical
 area integral, as the reference's call sites do. line_sum is its
 one-dimensional form along a boundary row. xintp_block is one block's
 share of xintp in a decomposed run (parallel/mesh.py): the edges' half
@@ -47,6 +47,12 @@ def xintp(field: torch.Tensor, dtype=None) -> torch.Tensor:
     corners = 0.25 * (field[..., 0, 0] + field[..., 0, -1]
                       + field[..., -1, 0] + field[..., -1, -1])
     return inner + edges + corners.to(dtype or field.dtype)
+
+
+def xintt(field: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Plain T-grid sum over the last two axes, accumulated in `dtype`
+    (default: the field's)."""
+    return field.sum(dim=(-2, -1), dtype=dtype)
 
 
 def edge_weights(g0: int, n: int, size: int, device) -> torch.Tensor:

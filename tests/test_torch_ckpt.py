@@ -1,7 +1,8 @@
 """The port's sharded checkpoints (qgcm_torch/io/sharded_ckpt.py, the
 counterpart of qgcm_tpu's Orbax checkpoints) on one device, in float64 on
 the CPU: a round trip bit for bit, a restore against qgcm_tpu's
-save_checkpoint/load_checkpoint of the same state, the Driver's
+save_checkpoint/load_checkpoint of the same state, in its own dtype and
+restored into a model of the other dtype, the Driver's
 ckpt_format="sharded" run and resume against qgcm_tpu's
 ckpt_format="orbax" on its 4-device CPU mesh, and the directories a
 restore refuses. The cases that need ranks (restores into 2x2 and rows
@@ -29,6 +30,14 @@ from test_torch_cases import numpy_of, one_torch_thread, quick_jit
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 RESTORE_TOL = 1e-13     # a restore against qgcm_tpu's of the same state
+# a restore into a model of the other dtype against qgcm_tpu's: the
+# stored fields cast bit for bit; q, derived point by point, within a few
+# roundoffs of the model's dtype of max|q| (a float32 ulp is 1.2e-7 of
+# it); the constraint integrals, sums over the 33^2 grid in the model's
+# dtype taken in another order, within sqrt(1089) x 100 ulps or so (they
+# read 1.4e-6 apart in float32)
+CAST_TOL = {"float32": 1e-6, "float64": 1e-12}
+SUM_TOL = {"float32": 1e-5, "float64": 1e-12}
 JAX_TOL = 1e-9          # a Driver run against qgcm_tpu's
 DAY = 86400.0
 
@@ -86,6 +95,50 @@ def test_restore_matches_qgcm_tpu_orbax(tmp_path):
     errs = {**_max_rel(numpy_of(po), numpy_of(jo)),
             **_max_rel(numpy_of(pa), numpy_of(ja))}
     assert max(errs.values()) <= RESTORE_TOL, errs
+
+
+@pytest.mark.parametrize("saved,restored", [("float64", "float32"),
+                                            ("float32", "float64")])
+def test_restore_across_dtypes_matches_qgcm_tpu_orbax(tmp_path, saved,
+                                                      restored):
+    """A checkpoint of one dtype restored into a model of the other,
+    through the port's checkpoint and through qgcm_tpu's Orbax one (whose
+    init_ocean_state and init_atmos_state cast the stored fields): every
+    field comes back in the model's dtype, the stored ones (po, pom, sst,
+    pa, ...) bit for bit qgcm_tpu's, q within CAST_TOL[restored] and the
+    constraint integrals within SUM_TOL[restored] of their largest
+    magnitude, and tyrs the same."""
+    from qgcm_tpu.io.orbax_ckpt import load_checkpoint as jax_load
+    from qgcm_tpu.io.orbax_ckpt import save_checkpoint as jax_save
+    from qgcm_tpu.model import build_model as jax_build_model
+    from qgcm_tpu.state import AtmosState, OceanState
+    model64, oc, at = ranks.seeded_coupled("box")
+    source = build_model(ranks.coupled_cfg(torch_config, "box", saved), "cpu")
+    target = build_model(ranks.coupled_cfg(torch_config, "box", restored),
+                         "cpu")
+    jmodel = jax_build_model(ranks.coupled_cfg(jax_config, "box", restored))
+    oc, at = (type(s)(*(t.to(source.dtype) for t in s)) for s in (oc, at))
+    jax_save(str(tmp_path / "jax"), OceanState(**numpy_of(oc)),
+             AtmosState(**numpy_of(at)), 0.75)
+    save_checkpoint(str(tmp_path / "port"), oc, at, 0.75, source)
+    assert json.loads((tmp_path / "port" / MANIFEST).read_text())[
+        "dtype"] == saved
+    jo, ja, jt = jax_load(str(tmp_path / "jax"), jmodel)
+    po, pa, pt = load_checkpoint(str(tmp_path / "port"), target)
+    assert pt == jt == 0.75
+    got = {**numpy_of(po), **numpy_of(pa)}
+    want = {**numpy_of(jo), **numpy_of(ja)}
+    assert {str(v.dtype) for v in got.values()} == {restored}
+    stored = ("po", "pom", "sst", "sstm", "pa", "pam", "ast", "astm",
+              "hmixa", "hmixam")
+    for k in stored:
+        assert np.array_equal(got[k], want[k]), k
+    errs = _max_rel({k: got[k].astype(np.float64) for k in want},
+                    {k: v.astype(np.float64) for k, v in want.items()})
+    q = ("qo", "qom", "qa", "qam")
+    assert max(errs[k] for k in q) <= CAST_TOL[restored], errs
+    assert max(v for k, v in errs.items()
+               if k not in q + stored) <= SUM_TOL[restored], errs
 
 
 def test_driver_sharded_resume_matches_qgcm_tpu_orbax(tmp_path):
@@ -147,8 +200,9 @@ def test_driver_sharded_resume_matches_qgcm_tpu_orbax(tmp_path):
 
 def test_refuses_incomplete_or_foreign_checkpoints(tmp_path):
     """A directory without its manifest (a writer that did not finish) is
-    refused, and so is a manifest written for another grid or another
-    dtype, before any block is read (the blocks are removed first)."""
+    refused, and so is a manifest written for another grid, before any
+    block is read (the blocks are removed first). Another dtype is no
+    refusal: test_restore_across_dtypes_matches_qgcm_tpu_orbax."""
     model, oc, at = ranks.seeded_coupled("box")
     path = tmp_path / "ck"
     save_checkpoint(str(path), oc, at, 0.0, model)
@@ -159,7 +213,8 @@ def test_refuses_incomplete_or_foreign_checkpoints(tmp_path):
     for npy in path.glob("*.npy"):
         npy.unlink()
     for change in ({"grid": {**manifest["grid"], "nxpo": 7}},
-                   {"dtype": "float32"}):
+                   {"grid": {**manifest["grid"], "nxpo": 7},
+                    "dtype": "float32"}):
         (path / MANIFEST).write_text(json.dumps({**manifest, **change}))
         with pytest.raises(ValueError, match="was written for the grid"):
             load_checkpoint(str(path), model)

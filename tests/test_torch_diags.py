@@ -193,6 +193,23 @@ def test_covariance_row_blocks(monkeypatch):
     assert np.array_equal(got.numpy(), d.numpy()[i] * d.numpy()[j])
 
 
+def test_unpack_cov_matches_jax():
+    """A finalized packed SSP of seeded samples unpacked to its dense
+    symmetric matrix, against qgcm_tpu's unpack_cov of the same array;
+    the dense matrix is the samples' corrected sum of products."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, 23))
+    acc = t_cov.zero_cov(23)
+    for row in x:
+        acc = t_cov.accumulate_cov(acc, torch.tensor(row[None, :]), 1)
+    _, packed, _ = t_cov.finalize_cov(acc)
+    got = t_cov.unpack_cov(packed, 23)
+    assert np.array_equal(got, j_cov.unpack_cov(packed, 23))
+    assert np.array_equal(got, got.T)
+    d = x - x.mean(axis=0)
+    np.testing.assert_allclose(got, d.T @ d, rtol=0, atol=1e-12)
+
+
 def test_area_averages_match_jax(tmp_path):
     c = get_case("coupled")
     limits = tmp_path / "areas.limits"

@@ -105,6 +105,19 @@ def test_xintp():
                                (f * w).sum(axis=(-2, -1)), rtol=1e-13)
 
 
+def test_xintt():
+    """The plain T-grid sum against qgcm_tpu's, on seeded fields with a
+    leading layer axis, and its export from the ops package as
+    qgcm_tpu's ops/__init__.py exports it."""
+    import qgcm_torch.ops
+    f = np.random.default_rng(11).standard_normal((3, NY - 1, NX - 1))
+    want = J_int.xintt(jnp.asarray(f))
+    got = qgcm_torch.ops.xintt(torch.from_numpy(f))
+    assert got.shape == want.shape == (3,)
+    assert rel_err(got, want) <= TOL
+    assert qgcm_torch.ops.xintt is T_int.xintt
+
+
 def test_qcomp_inversion_round_trip():
     """After port substeps, qcomp(po) reproduces the interior of qo:
     the box inversion is exact up to float64 roundoff (the bar of
