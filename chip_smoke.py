@@ -5,6 +5,7 @@
     python3 chip_smoke.py --main-path CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --windows CHECKOUT [CHECKOUT ...]
     python3 chip_smoke.py --gemm CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --dst
     python3 chip_smoke.py --channel-spread
     python3 chip_smoke.py --channel-year [sine|matmul|fft ...]
     python3 chip_smoke.py --production [k247|ens|flagship ...]
@@ -65,7 +66,11 @@ products for 3x961^2 and 3x4801^2 against float64 and torch.matmul (its
 machine code wgmma, its constant's planes the CPU's bit for bit), box
 solves at both sizes under the FFT DST and the GEMM DST at each
 solver_precision, and the main path's box (250 substeps) and its
-8-member ensemble (50) under each; and sharded checkpoints (phase 23):
+8-member ensemble (50) under each; then the FFT DST's kernels
+(csrc/dst.cu) alone against their bounds, and box solves and the
+8-member ensemble by them and by the torch chain, bit for bit, and the
+host's cost of a call by each; and
+sharded checkpoints (phase 23):
 `run --mesh 2x2 --ckpt-format sharded` under torchrun from phase 10's
 restart, resumed from its lastday_sharded/ in one process and, the CLI
 in spawned ranks, on 2x2 and on rows, against a single-device straight
@@ -106,7 +111,12 @@ runner's bands; and the full-field and member launches at 961^2) of
 each checkout, side by side; with --gemm, phase 22(a), the 3xTF32
 kernel at the GEMM DST's products against float64 and torch.matmul,
 (b)'s solves and (c)'s box under the float32 FFT and 'high' DSTs, and
-the host's cost of a contract call (gemm_checkout).
+the host's cost of a contract call (gemm_checkout). With --dst it runs
+phase 22(e)-(h), the FFT DST's kernels (csrc/dst.cu) each alone against
+its bound, box solves and the 8-member double gyre by the kernels and by
+the torch chain they replace, bit for bit, the host's cost of a call by
+each, and then phase [24] by both. Each phase's end line gives the DST
+kernel launches it made in its own process.
 
 Needs one CUDA device. Imports neither JAX nor qgcm_tpu.
 """
@@ -173,11 +183,15 @@ SWEEP_HEIGHTS = (16, 24, 32, 48, 64, 96)
 
 @contextlib.contextmanager
 def phase(title):
-    """Print a phase's title, then its seconds when it ends."""
+    """Print a phase's title, then its seconds and the FFT DST's kernel
+    launches (csrc/dst.cu) it made in this process when it ends (ranks
+    it spawned count their own)."""
+    from qgcm_torch.ops.dst import dst
     print(title)
-    t0 = time.perf_counter()
+    t0, n0 = time.perf_counter(), dst.launches
     yield
-    print(f"    ({time.perf_counter() - t0:.1f} s)")
+    print(f"    ({time.perf_counter() - t0:.1f} s; {dst.launches - n0} dst "
+          f"launches in this process)")
 
 
 def card_line() -> str:
@@ -4820,11 +4834,14 @@ def _dst_run(variant, device):
 
 # kernel groups of a [22] profile, by name: cuFFT's, the 3xTF32 kernel's,
 # float64 GEMMs (a float32 run's 'highest' DST), float32 GEMMs (the
-# layer <-> mode einsums), and the copies (the FFT DST's odd extension,
-# the packed DST's concatenations)
+# layer <-> mode einsums), the FFT DST's kernels (csrc/dst.cu) and the
+# copies (the torch chain's odd extension, the packed DST's
+# concatenations)
 DST_GROUPS = (("cuFFT", ("fft",)), ("gemm3xtf32", ("gemm3xtf32",)),
               ("f64 GEMMs", ("f64", "dgemm", "d884")),
               ("f32 GEMMs", ("sgemm", "gemmSN", "gemv", "gemmk1")),
+              ("dst.cu", ("extend_rows", "extend_tile", "extract_rows",
+                          "extract_pad")),
               ("cat/flip copies", ("CatArrayBatchedCopy", "flip")))
 
 
@@ -5250,6 +5267,347 @@ def phase_dst(card, device) -> dict:
                            launches=launches)]
     entry["solves"], entry["runs"] = solves, paths
     return entry
+
+
+# ----------------------------------------------------------------------
+# Phase 22(e)-(h): the FFT DST's glue as the kernels of csrc/dst.cu
+# ----------------------------------------------------------------------
+
+# (e)'s p-grids: the double gyre's and NAtl's boxes, 3 layers each
+FFT_DST_GRIDS = (961, 4801)
+# (f)'s box solves: (p-grid, members or None, type)
+FFT_DST_SOLVES = ((961, None, "float32"), (961, None, "float64"),
+                  (961, 8, "float32"), (4801, None, "float32"),
+                  (4801, None, "float64"))
+# the norm extract_pad scales by in (e) and (h)
+FFT_DST_NORM = 0.37
+# (h): the ensemble's members and layers on a grid small enough that a
+# call's wall is the host's work, and the calls timed
+FFT_DST_HOST_SHAPE = (8, 3, 31, 31)
+FFT_DST_HOST_CALLS = 400
+
+
+@contextlib.contextmanager
+def chain_dst():
+    """The FFT DST by the torch chain (ops/dst.py's chain and chain2) in
+    place of the kernels' path while it lasts, each call counted in
+    chain_dst.calls: what the port ran before csrc/dst.cu, the yardstick
+    of a whole run in (g) and of --dst's phase [24]."""
+    from qgcm_torch.ops import dst as D
+    kernels = D.kernels
+
+    def by_chain(x, op, norm=None):
+        chain_dst.calls += 1
+        if op == "xy":
+            return D.chain2(x, norm)
+        return D.chain(x, -1 if op == "x" else -2)
+    chain_dst.calls = 0
+    D.kernels = by_chain
+    try:
+        yield
+    finally:
+        D.kernels = kernels
+
+
+def same_bits(a, b) -> bool:
+    """The same shape, strides and bits of two CUDA tensors."""
+    if a.shape != b.shape or a.stride() != b.stride():
+        return False
+    kind = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.contiguous().view(kind), b.contiguous().view(kind))
+
+
+def fft_dst_kernels(card) -> list:
+    """(e): each kernel of csrc/dst.cu alone on the box's interior at
+    3x961^2 and 3x4801^2 p-points, float32 and float64: ms a launch, hot
+    and cold (kernel_ms, graph replays), against its bytes bound (its
+    input read once and its output written once at HBM_BYTES_PER_S; a
+    spectrum's bytes are cuFFT's interleaved output, whose real parts
+    share the imaginary parts' sectors), beside the torch chain's ops
+    that it replaces (graph_ms), each output held to the chain's bit for
+    bit."""
+    from qgcm_torch.ops import dst as D
+    rows = []
+    for n in FFT_DST_GRIDS:
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator(device="cuda").manual_seed(n)
+            x = torch.randn((3, n, n), generator=g, dtype=dtype,
+                            device="cuda")[..., 1:-1, 1:-1]
+            m, es = n - 2, x.element_size()
+            v = D._spectrum(D._extend(x))
+            zero = x.new_zeros((3, m, 1))
+
+            def ext(a):
+                return torch.cat([zero, a, zero, -a.flip(-1)], dim=-1)
+            field, ext_b = 3 * m * m * es, 3 * m * (2 * m + 2) * es
+            spec_b = 3 * m * (m + 2) * 2 * es
+            cases = (
+                ("extend rows (x, interior)", lambda: D._extend(x),
+                 lambda: ext(x), field, ext_b),
+                ("extend tile (y, row-major)", lambda: D._extend(x.mT),
+                 lambda: ext(x.mT), field, ext_b),
+                ("turn", lambda: D._extend(v.mT, negate=True),
+                 lambda: ext((-v).mT), spec_b, ext_b),
+                ("extract", lambda: D._extract(v), lambda: -v, spec_b,
+                 field),
+                ("extract_pad", lambda: D._extract_pad(v, FFT_DST_NORM),
+                 lambda: torch.nn.functional.pad(
+                     (-v).mT * FFT_DST_NORM, (1, 1, 1, 1)),
+                 spec_b, 3 * (m + 2) ** 2 * es))
+            reps = 100 if n == 961 else 10
+            for label, fn, plain, b_in, b_out in cases:
+                got, want = fn(), plain()
+                if not same_bits(got, want):
+                    raise AssertionError(f"dst {label} at 3x{n}^2 {dtype} "
+                                         f"differs from the chain's ops")
+                del got, want
+                hot, cold = kernel_ms(fn, reps)
+                chain_ms = graph_ms(plain, reps) / reps
+                bound = (b_in + b_out) / HBM_BYTES_PER_S * 1e3
+                print(f"  3x{n}^2 {str(dtype)[6:]} {label}: {hot:.4f} ms "
+                      f"hot, {cold:.4f} cold, bound {bound:.4f} ms "
+                      f"(bytes, {(b_in + b_out) / 1e6:.1f} MB), share "
+                      f"{bound / hot:.3f}; the chain's ops {chain_ms:.4f} "
+                      f"ms; bit for bit [{card}]")
+                rows.append(dict(grid=n, dtype=str(dtype)[6:], kernel=label,
+                                 hot_ms=hot, cold_ms=cold, bound_ms=bound,
+                                 share=bound / hot, chain_ms=chain_ms))
+            del x, v, zero
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fft_dst_solves(card) -> list:
+    """(f): the box solve's forward + inverse (BoxHelmholtz under 'fft',
+    what portbench's solve_ms times) at FFT_DST_SOLVES, by the torch
+    chain (chain2's forward and inverse) and by the kernels, in turns:
+    ms a solve by CUDA events, the device busy by a profile, the
+    kernels' launches a solve and the two results bit for bit."""
+    from qgcm_torch.config import natl_1km
+    from qgcm_torch.modes import eigenmodes
+    from qgcm_torch.ops import dst as D
+    from qgcm_torch.solver.helmholtz import make_box_helmholtz
+    cfg = natl_1km()
+    rdm2 = eigenmodes(cfg.ocean.gpoc, cfg.ocean.hoc, cfg.fnot).rdm2
+    out = []
+    for n, members, dtype in FFT_DST_SOLVES:
+        dt = getattr(torch, dtype)
+        helm = make_box_helmholtz(n, n, 1e3, 1e3, rdm2, dtype=dt,
+                                  device="cuda")
+        shape = (3, n, n) if members is None else (members, 3, n, n)
+        g = torch.Generator(device="cuda").manual_seed(n + 1)
+        x = torch.randn(shape, generator=g, dtype=dt, device="cuda")
+        reps = 20 if n == 4801 else 50
+
+        def solve():
+            return helm.inverse(helm.forward(x))
+
+        def chain_solve():
+            return D.chain2(D.chain2(x[..., 1:-1, 1:-1]), helm.norm)
+        got = {}
+        for label in ("chain", "kernels", "kernels", "chain"):
+            fn = chain_solve if label == "chain" else solve
+            n0 = D.dst.launches
+            res = fn()
+            torch.cuda.synchronize()
+            launches = D.dst.launches - n0
+            ms = cuda_ms(fn, reps)
+            busy = trace_units(lambda: [fn() for _ in range(5)],
+                               5)["busy_ms"]
+            if label in got and not same_bits(res, got[label]["res"]):
+                raise AssertionError(f"{label} solves differ at {shape}")
+            got.setdefault(label, dict(res=res, ms=[], busy=[],
+                                       launches=launches))
+            got[label]["ms"].append(ms)
+            got[label]["busy"].append(busy)
+        if not same_bits(got["kernels"]["res"], got["chain"]["res"]):
+            raise AssertionError(f"the kernels' solve at {shape} {dtype} is "
+                                 f"not the chain's bit for bit")
+        if (got["kernels"]["launches"], got["chain"]["launches"]) != (6, 0):
+            raise AssertionError(f"a solve took {got['kernels']['launches']}"
+                                 f" dst launches, not 6 (the chain's "
+                                 f"{got['chain']['launches']}, not 0)")
+        row = dict(shape=shape, dtype=dtype)
+        for label in ("chain", "kernels"):
+            row[f"{label}_ms"] = got[label]["ms"]
+            row[f"{label}_busy_ms"] = got[label]["busy"]
+        print(f"  solve {'x'.join(map(str, shape))} {dtype}: chain "
+              + " / ".join(f"{v:.4f}" for v in row["chain_ms"])
+              + " ms (busy " + " / ".join(
+                  f"{v:.4f}" for v in row["chain_busy_ms"])
+              + "), kernels " + " / ".join(
+                  f"{v:.4f}" for v in row["kernels_ms"])
+              + " ms (busy " + " / ".join(
+                  f"{v:.4f}" for v in row["kernels_busy_ms"])
+              + f"), CUDA events, forward + inverse; 6 dst launches a solve, "
+              f"bit for bit the chain [{card}]")
+        out.append(row)
+        del helm, x, got, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def fft_dst_ensemble(card, device) -> dict:
+    """(g): ENSEMBLE_MEMBERS members of double_gyre_ocean_only (float32,
+    961^2x3, the FFT DST) through the ensemble runner (torch.func.vmap,
+    the DST's vmap rule: one launch for all members) for ENSEMBLE_STEPS
+    substeps from the same perturbed start, by the chain and by the
+    kernels: ms a member-substep (CUDA events; host clock), the device
+    busy and idle of a profile, dst's launches, and the two final states
+    bit for bit."""
+    from qgcm_torch.models.ensemble import (make_ensemble_runner,
+                                            perturbed_ocean_members)
+    from qgcm_torch.ops import dst as D
+    variant = DST_VARIANTS[0]
+    model, st, f, _ = _dst_run(variant, device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    members = perturbed_ocean_members(model, st, gen, ENSEMBLE_MEMBERS,
+                                      amp=ENSEMBLE_AMP)
+    run_e = make_ensemble_runner(model)
+    m, steps = ENSEMBLE_MEMBERS, ENSEMBLE_STEPS
+    rows, finals = {}, {}
+    for label in ("chain", "kernels", "kernels", "chain"):
+        with chain_dst() if label == "chain" else contextlib.nullcontext():
+            run_e(members, f, 2, DST_WARMUP)
+            torch.cuda.synchronize()
+            n0, c0 = D.dst.launches, getattr(chain_dst, "calls", 0)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            ev0.record()
+            out = run_e(members, f, steps, DST_WARMUP)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - h0) * 1e3 / steps
+            dev_ms = ev0.elapsed_time(ev1) / steps
+            counts = (D.dst.launches - n0,
+                      getattr(chain_dst, "calls", 0) - c0)
+            prof = trace_units(lambda: run_e(members, f, DST_PROFILE_STEPS,
+                                             DST_WARMUP), DST_PROFILE_STEPS)
+        if label in finals and not all(same_bits(a, b) for a, b in
+                                       zip(out, finals[label])):
+            raise AssertionError(f"ensemble {label}: two runs differ")
+        finals[label] = out
+        # a chain call a transform (forward and inverse a substep), or
+        # three launches
+        want = (0, 2 * steps) if label == "chain" else (6 * steps, 0)
+        if counts != want:
+            raise AssertionError(f"ensemble {label}: (dst launches, chain "
+                                 f"calls) {counts}, expected {want}")
+        print(f"  ensemble {m} members, {steps} substeps, {label}: "
+              f"{dev_ms / m:.4f} ms/member-substep (CUDA events; "
+              f"{dev_ms:.4f} a substep, {host_ms:.4f} host); profiled busy "
+              f"{prof['busy_ms']:.4f} ms/substep, idle share "
+              f"{prof['idle']:.4f}; dst launches {counts[0]}, chain calls "
+              f"{counts[1]} [{card}]")
+        rows.setdefault(label, []).append(dict(
+            member_substep_ms=dev_ms / m, host_ms=host_ms,
+            busy_ms=prof["busy_ms"], idle=prof["idle"]))
+    if not all(same_bits(a, b) for a, b in zip(finals["kernels"],
+                                               finals["chain"])):
+        raise AssertionError("the ensemble's final states under the kernels "
+                             "are not the chain's bit for bit")
+    print(f"  the {m} members' final states (po, qo, ...): bit for bit "
+          f"under the kernels and the chain")
+    return rows
+
+
+def fft_dst_host(card) -> dict:
+    """(h): the host's cost of a box solve's two dst2 calls (forward, then
+    inverse with norm) at FFT_DST_HOST_SHAPE, plain and under
+    torch.func.vmap over the members as the ensemble makes them: us a
+    pair on the host clock over FFT_DST_HOST_CALLS pairs, synchronized
+    at the end, by the chain (chain2) and by the kernels (dst2), in
+    turns."""
+    from qgcm_torch.ops import dst as D
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(FFT_DST_HOST_SHAPE, generator=g, device="cuda")
+
+    def pair(f):
+        return lambda a: f(f(a), FFT_DST_NORM)
+    fns = {("plain", "chain"): pair(D.chain2),
+           ("plain", "kernels"): pair(D.dst2),
+           ("vmap", "chain"): torch.func.vmap(pair(D.chain2)),
+           ("vmap", "kernels"): torch.func.vmap(pair(D.dst2))}
+    out = {}
+    for mode in ("plain", "vmap"):
+        for label in ("chain", "kernels", "kernels", "chain"):
+            fn = fns[mode, label]
+            for _ in range(20):
+                fn(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FFT_DST_HOST_CALLS):
+                fn(x)
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) * 1e6 / FFT_DST_HOST_CALLS
+            out.setdefault(f"{mode}_{label}_us", []).append(us)
+        print(f"  host cost of a solve's two dst2 calls, {mode}, "
+              f"{'x'.join(map(str, FFT_DST_HOST_SHAPE))}: chain "
+              + " / ".join(f"{v:.1f}" for v in out[f"{mode}_chain_us"])
+              + " us, kernels " + " / ".join(
+                  f"{v:.1f}" for v in out[f"{mode}_kernels_us"])
+              + f" us (host clock, {FFT_DST_HOST_CALLS} pairs) [{card}]")
+    return out
+
+
+def phase_fft_dst(card, device) -> dict:
+    """Phase 22(e)-(h), the FFT DST's kernels: (e) each alone against its
+    bound, (f) box solves by the chain and by the kernels, (g) the
+    8-member double gyre by both, (h) the host's cost of a call by both.
+    Returns the kernels line's dst entry."""
+    from qgcm_torch.ops.dst import build_kernel
+    lib = build_kernel()
+    print(f"  dst kernels: {lib.path.name}, built in {lib.build_s:.2f} s")
+    for line in lib.log.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"      {line.strip()}")
+    rows = fft_dst_kernels(card)
+    solves = fft_dst_solves(card)
+    ensemble = fft_dst_ensemble(card, device)
+    host = fft_dst_host(card)
+    return dict(kernel="dst (csrc/dst.cu)", kernels=rows, solves=solves,
+                ensemble=ensemble, host=host)
+
+
+def k247_by_dst(card) -> list:
+    """Phase [24] by the kernels, then by the chain (chain_dst): each held
+    to its record's bars, with its float32 and float64 ms a substep and
+    the DST's launches and chain calls (float32 k247 takes the 'sine'
+    y-DST, float64 the FFT DST)."""
+    from qgcm_torch.ops import dst as D
+    rows = []
+    for label in ("kernels", "chain"):
+        n0 = D.dst.launches
+        with chain_dst() if label == "chain" else contextlib.nullcontext():
+            entry = phase_k247_days(card)
+        calls = chain_dst.calls if label == "chain" else 0
+        entry.update(dst=label, dst_launches=D.dst.launches - n0,
+                     dst_chain_calls=calls)
+        print(f"  [24] by the {label}: float32 {entry['ms_per_substep']:.4f}"
+              f" ms/substep, float64 {entry['ms_per_substep_f64']:.4f} (host "
+              f"clock); dst launches {D.dst.launches - n0}, chain calls "
+              f"{calls}; held to the record [{card}]")
+        rows.append(entry)
+    return rows
+
+
+def fft_dst_only() -> int:
+    """--dst: phase 22(e)-(h) and phase [24] by the kernels and by the
+    chain."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[1] card: {card}")
+    print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}")
+    with phase("[22](e)-(h) the FFT DST's kernels against the chain"):
+        entry = phase_fft_dst(card, torch.device("cuda"))
+    with phase(f"[24] k247_eddy_1yr's first {K247_DAYS} days by the "
+               f"kernels and by the chain"):
+        entry["k247"] = k247_by_dst(card)
+    print(card_line())
+    print(json.dumps({"dst": entry}))
+    return 0
 
 
 def grad_ratio(a, b, scale=None) -> float:
@@ -5900,8 +6258,8 @@ def phase_k247_days(card) -> dict:
                              f"{substeps} substeps of the Driver")
     case64, line64, _, steps64, _ = k247_run("k247_eddy_days_f64",
                                              "float64", trun)
-    print(f"  float64: {line64}; {steps64 * 1e3 / substeps:.4f} ms/substep "
-          f"(host clock)")
+    ms64 = steps64 * 1e3 / substeps
+    print(f"  float64: {line64}; {ms64:.4f} ms/substep (host clock)")
     run = nc_vars(case / "outdata" / "monit.nc")
     f64 = nc_vars(case64 / "outdata" / "monit.nc")
     record = nc_vars(repo_file(K247_CASE, "outdata", "monit.nc"))
@@ -5912,7 +6270,8 @@ def phase_k247_days(card) -> dict:
     held_or_raise("k247_eddy_1yr's first days",
                   k247_days_bars(run, record, f64))
     return dict(path="driver:k247_eddy_1yr first 10 days", launches=launches,
-                substeps=substeps, ms_per_substep=ms, events_s=events_s)
+                substeps=substeps, ms_per_substep=ms, events_s=events_s,
+                ms_per_substep_f64=ms64)
 
 
 def production_k247(card) -> None:
@@ -6180,6 +6539,8 @@ def main() -> int:
     with phase("[22] the GEMM DST: solver_transform='matmul' at each "
                "solver_precision against the FFT DST"):
         gemm_entry = phase_dst(card, device)
+    with phase("[22](e)-(h) the FFT DST's kernels against the torch chain"):
+        dst_entry = phase_fft_dst(card, device)
     with phase(f"[23] sharded checkpoints, and a channel on a 2x2 mesh: "
                f"{mesh_backend()[1]}"):
         totals23, mesh_paths23 = phase_checkpoints(card, states)
@@ -6205,7 +6566,7 @@ def main() -> int:
             for p in mesh_paths if p["launches"][mode]]
     print(card_line())
     print(json.dumps({"kernels": [kernel, members, modes["rows"],
-                                  modes["x_ext"], gemm_entry]}))
+                                  modes["x_ext"], gemm_entry, dst_entry]}))
     print(json.dumps({"ok": True, "device": device_info()}))
     return 0
 
@@ -6243,6 +6604,8 @@ def device_info() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dst"]:
+        sys.exit(fft_dst_only() if torch.cuda.is_available() else 1)
     if sys.argv[1:] == ["--channel-spread"]:
         sys.exit(compare_channel_spread() if torch.cuda.is_available()
                  else 1)

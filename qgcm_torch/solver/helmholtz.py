@@ -24,6 +24,13 @@ at the float32 SGEMM's rate, and a float32 GEMM's accumulation over
 chip_smoke.py phase 22), and the hand-written 3xTF32 kernel of
 ops/gemm.py at 'high'; a float64 run's products are torch.matmul's at
 either.
+On the card the FFT DST's glue is hand-written (csrc/dst.cu, through
+ops/dst.py): one kernel writes the odd extension that cuFFT's r2c reads,
+straight from the caller's view, and another reads the spectrum's -imag
+back. The box's 2-D transform turns the x-DST's spectrum into the
+y-DST's extension in one pass, and its inverse writes the scaled
+solution into the zero-walled p-grid. Every value is the torch chain's
+bit for bit; CPU tensors take that chain.
 qgcm_tpu's block (tree) interface of the packed form is not ported: it
 computes the same values and exists to spare XLA misaligned
 concatenations on the TPU.
@@ -38,6 +45,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import gemm
+from ..ops.dst import dst, dst2
 
 
 # Interior rows from which a float32 channel takes its y-DST as a GEMM
@@ -237,14 +245,13 @@ def dst1(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
     X_k = 2 * sum_{j=1..N} x_j sin(pi j k / (N+1)),  k = 1..N
     (FFTPACK `dsint` convention, so dst1(dst1(x)) == 2*(N+1)*x), from the
-    real FFT of the odd extension [0, x, 0, -reverse(x)].
+    real FFT of the odd extension [0, x, 0, -reverse(x)]: ops/dst.py::dst.
+    A CUDA tensor (float32 or float64) has the extension and the
+    spectrum's -imag made by the hand-written kernels of csrc/dst.cu
+    around cuFFT's r2c, bit for bit the torch chain (ops/dst.py::chain)
+    that CPU tensors take.
     """
-    x = x.movedim(dim, -1)
-    n = x.shape[-1]
-    zero = x.new_zeros(x.shape[:-1] + (1,))
-    z = torch.cat([zero, x, zero, -x.flip(-1)], dim=-1)
-    X = -torch.fft.rfft(z, dim=-1).imag[..., 1:n + 1]
-    return X.movedim(-1, dim)
+    return dst(x, dim)
 
 
 def dst1_np(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -304,11 +311,19 @@ class BoxHelmholtz:
 
     def forward(self, rhs: torch.Tensor) -> torch.Tensor:
         """Interior 2-D DST of a p-grid field (packed order under
-        'matmul')."""
+        'matmul'); under 'fft' ops/dst.py::dst2, which on the card reads
+        the interior in place and turns the x-DST's spectrum into the
+        y-DST's extension in one pass."""
+        if self.tx is None:
+            return dst2(rhs[..., 1:-1, 1:-1])
         return self.ydst(self.xdst(rhs[..., 1:-1, 1:-1]))
 
     def inverse(self, spec: torch.Tensor) -> torch.Tensor:
-        """Inverse 2-D DST, scaled by norm, with zero boundaries."""
+        """Inverse 2-D DST, scaled by norm, with zero boundaries (under
+        'fft' dst2 with norm: on the card its last pass writes the scaled
+        solution into the zero-walled p-grid)."""
+        if self.tx is None:
+            return dst2(spec, self.norm)
         sol = self.iydst(self.ixdst(spec)) * self.norm
         return torch.nn.functional.pad(sol, (1, 1, 1, 1))
 
