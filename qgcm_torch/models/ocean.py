@@ -23,6 +23,7 @@ from ..config import ModelConfig, ml_f64_enabled
 from ..grids import Grids
 from ..model import Model
 from ..ops.integrals import edge_weights, line_sum, xintp, xintp_block
+from ..ops.modes import modes
 from ..ops.qgstep import qgstep
 from ..ops.stencils import del2_bc, _col_mask, _eshift, _wshift
 from ..ops.vorticity import qcomp, ocqbdy, ocqbdy_block
@@ -378,8 +379,7 @@ def _channel_pressure(inv, sol, cm2l, cs_new, cn_new, dx, dy, sums=None,
                         c1[:, None] * inv.pch1 + c2[:, None] * inv.pch2])
     if rows is not None:
         homcor = rows(homcor)
-    p = torch.einsum("km,myx->kyx", cm2l,
-                     sol[..., :-1] + homcor.to(sol.dtype)[:, :, None])
+    p = modes(cm2l, sol[..., :-1] + homcor.to(sol.dtype)[:, :, None])
     return (torch.cat([p, p[..., :1]], dim=-1),
             (inv.cm2l @ aipmod).to(sol.dtype))
 
@@ -423,7 +423,7 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
     # Modal vorticity RHS (8.13): wrk_m = f0 * sum_k cl2m[m,k] (q_k - by)
     ql = qo_new - (cfg.beta * model.yporel)[None, :, None]
     ql[nlo - 1] -= model.ddyn
-    wrk = cfg.fnot * torch.einsum("mk,kyx->myx", model.cl2m, ql)
+    wrk = cfg.fnot * modes(model.cl2m, ql)
 
     if cfg.cyclic_ocean:
         # momentum constraints, leapfrogged (ocisubs.F:169-206)
@@ -471,7 +471,7 @@ def _ocinvq(model: Model, state: OceanState, qo_new: torch.Tensor, xon1,
     gyx = helm.gy[None, :, None] * helm.gx[None, None, :]
     spec = (fwd + coef[:, None, None] * gyx) / denom
     pm = helm.inverse(spec) + torch.cat([zero1, hclco])[:, None, None]
-    po_new = torch.einsum("km,myx->kyx", model.cm2l, pm)
+    po_new = modes(model.cm2l, pm)
     if rows is not None:
         po_new = torch.where(rows.p_true, po_new, 0.0)
     zero = torch.zeros_like(dpioc_new)
